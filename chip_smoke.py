@@ -327,15 +327,18 @@ def phase_serve(card: str) -> dict:
                 res = served.recommend(sessions, k=K)  # ends in a device->host copy
                 lat[b].append(time.perf_counter() - t0)
                 _check_result(res, b)
-        peak = torch.cuda.max_memory_allocated()
-        profiles = {b: profile_requests(served, rng, b) for b in (1, 64)}
         counts = _build.launch_counts()
-        # each profiled batch size runs PROFILED staged and PROFILED whole requests
-        n_req = REQUESTS * len(B_SERVE) + 2 * PROFILED * len(profiles)
-        log(f"[serve] launches during {n_req} requests: {counts}")
+        peak = torch.cuda.max_memory_allocated()
+        # one embedding gather and one attention call per layer per request
+        n_req = REQUESTS * len(B_SERVE)
+        expected = {"gather": n_req, "attention": n_req * cfg.num_layers}
+        log(f"[serve] launches during {n_req} requests: {counts} (expected {expected})")
         for name in ("gather", "attention"):
             if counts[name] == 0:
                 raise AssertionError(f"the {name} kernel was not launched by the serving requests")
+        if counts != expected:
+            raise AssertionError(f"kernel launches {counts} != {expected}")
+        profiles = {b: profile_requests(served, rng, b) for b in (1, 64)}
         stats = {}
         for b in B_SERVE:
             ms = np.array(lat[b]) * 1e3
