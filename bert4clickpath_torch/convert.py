@@ -1,4 +1,5 @@
-"""Move weights from the JAX package's flax params to the port's state_dict.
+"""Move weights between the JAX package's flax params and the port's
+state_dict, both ways.
 
 The port's modules carry the flax tree's names, so the mapping is by path:
 ``encoder/layer_0/mha/wqkv/kernel`` becomes ``encoder.layer_0.mha.wqkv.weight``.
@@ -10,8 +11,11 @@ Leaf names change as flax and torch name them:
   keeps its name);
 * ``bias`` and ``tied_out_bias`` keep theirs.
 
-The input is the nested dict of numpy arrays that ``jax.device_get(params)``
-returns; nothing here imports jax.
+The flax side is the nested dict of numpy arrays that
+``jax.device_get(params)`` returns; nothing here imports jax.
+:func:`flax_from_state_dict` is the inverse, for any tree shaped like the
+params (gradients, Adam moments), so tests can hold the port's training
+state to the JAX package's.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from bert4clickpath_torch.config import ModelConfig
+from bert4clickpath_torch.models.encoder import Dense, LayerNorm
 from bert4clickpath_torch.models.model import ClickstreamModel
 
 
@@ -73,3 +78,37 @@ def state_dict_from_flax(config: ModelConfig, params: Any) -> dict[str, torch.Te
     if missing:
         raise KeyError(f"port parameters left unfilled by the flax params: {missing}")
     return out
+
+
+def _flax_leaf(module, leaf: str) -> tuple[str, bool]:
+    """The flax leaf name of a port parameter, and whether to transpose."""
+    if leaf == "weight":
+        if isinstance(module, Dense):
+            return "kernel", True
+        if isinstance(module, LayerNorm):
+            return "scale", False
+        if isinstance(module, torch.nn.Embedding):
+            return "embedding", False
+        raise KeyError(f"no flax counterpart for a weight of {type(module).__name__}")
+    return leaf, False
+
+
+def flax_from_state_dict(config: ModelConfig, tensors: dict[str, torch.Tensor]) -> dict:
+    """The port's state_dict (or any dict keyed like it: grads, Adam
+    moments) -> ``{"params": nested dict of float32 numpy arrays}`` in the
+    flax layout; bf16 leaves are widened to f32 exactly. Raises on a key
+    the port's model does not have."""
+    modules = dict(ClickstreamModel(config, device="meta").named_modules())
+    out: dict = {}
+    for key, t in tensors.items():
+        *mods, leaf = key.split(".")
+        module = modules.get(".".join(mods))
+        if module is None:
+            raise KeyError(f"{key!r} is not a parameter of the port's model")
+        name, transpose = _flax_leaf(module, leaf)
+        arr = t.detach().float().cpu().numpy()
+        node = out
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[name] = np.ascontiguousarray(arr.T if transpose else arr)
+    return {"params": out}

@@ -3,8 +3,13 @@
 Counterpart of ``bert4clickpath_tpu/models/encoder.py``: post-LN (or pre-LN
 plus a final LayerNorm) residual blocks, ReLU feed-forward, padding-masked
 bidirectional attention, LayerNorm eps 1e-6, dropout on the encoder input,
-the attention output and the FFN output (stock ``nn.Dropout``, inert in
-``eval()``).
+the attention output and the FFN output.
+
+Dropout is live only when the caller passes a ``torch.Generator`` (the
+train step does; serving and eval pass none): each of the three sites
+draws its keep mask from that generator, never from the global RNG, as
+flax's ``nn.Dropout`` draws from the step's ``dropout`` key. The RNG
+streams cannot match JAX's bits, so parity runs use dropout 0.
 
 Attention always goes through :func:`bert4clickpath_torch.ops.kernels.
 attention.mha` (the CUDA kernel on the card, its plain version on the CPU);
@@ -26,6 +31,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from bert4clickpath_torch.ops.kernels.attention import mha
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - rate, scale kept
+    values by 1 / (1 - rate) in x's dtype; identity without a generator or
+    at rate 0."""
+    if generator is None or rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class Dense(nn.Module):
@@ -102,16 +118,18 @@ class EncoderLayer(nn.Module):
         self.ln2 = LayerNorm(d_model, dtype, device=device)
         self.ffn1 = Dense(d_model, ffn_dim, dtype, device=device)
         self.ffn2 = Dense(ffn_dim, d_model, dtype, device=device)
-        self.drop_attn = nn.Dropout(dropout_rate)
-        self.drop_ffn = nn.Dropout(dropout_rate)
+        self.dropout_rate = dropout_rate
 
-    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, bias: torch.Tensor, generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        drop = lambda t: dropout(t, self.dropout_rate, generator)  # noqa: E731
         if self.norm_style == "pre":
-            x = x + self.drop_attn(self.mha(self.ln1(x), bias))
-            return x + self.drop_ffn(self.ffn2(F.relu(self.ffn1(self.ln2(x)))))
+            x = x + drop(self.mha(self.ln1(x), bias))
+            return x + drop(self.ffn2(F.relu(self.ffn1(self.ln2(x)))))
         # post-LN residual (reference transformer.py:202-213)
-        x = self.ln1(x + self.drop_attn(self.mha(x, bias)))
-        return self.ln2(x + self.drop_ffn(self.ffn2(F.relu(self.ffn1(x)))))
+        x = self.ln1(x + drop(self.mha(x, bias)))
+        return self.ln2(x + drop(self.ffn2(F.relu(self.ffn1(x)))))
 
 
 class Encoder(nn.Module):
@@ -122,7 +140,7 @@ class Encoder(nn.Module):
     ):
         super().__init__()
         self.num_layers = num_layers
-        self.drop_input = nn.Dropout(dropout_rate)
+        self.dropout_rate = dropout_rate
         for i in range(num_layers):
             self.add_module(
                 f"layer_{i}",
@@ -137,10 +155,12 @@ class Encoder(nn.Module):
             LayerNorm(d_model, dtype, device=device) if norm_style == "pre" else None
         )
 
-    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-        x = self.drop_input(x)
+    def forward(
+        self, x: torch.Tensor, bias: torch.Tensor, generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        x = dropout(x, self.dropout_rate, generator)
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, bias)
+            x = getattr(self, f"layer_{i}")(x, bias, generator)
         if self.ln_final is not None:
             x = self.ln_final(x)
         return x

@@ -9,13 +9,16 @@ gather of positions (``routing='mask'``) or a static slice
 :func:`bert4clickpath_torch.convert.state_dict_from_flax` maps one onto
 the other by name.
 
-What is ported is the serving forward: ``encode``, ``gather_head_inputs``,
-``head_trunk_outputs`` and the catalog (``head_catalog``). A single-feature
-model without an input projection embeds through the fused gather kernel
-(one rounding of table*sqrt(d)+pos, as the JAX kernel path does); other
-models follow the JAX xla path (per-feature embed, concat, x sqrt(width)
-before ``input_proj``, then + pos). The full (B, P, V) logits path and the
-binary/multilabel heads come with the training slice.
+Ported: ``encode``, ``gather_head_inputs``, ``head_trunk_outputs``, the
+catalog (``head_catalog``) and ``forward``, the (B, P, V) logits of the
+tied-softmax and softmax heads (the dense training and eval path). A
+single-feature model without an input projection embeds through the fused
+gather kernel (one rounding of table*sqrt(d)+pos, as the JAX kernel path
+does); other models follow the JAX xla path (per-feature embed, concat,
+x sqrt(width) before ``input_proj``, then + pos). Every method takes an
+optional ``torch.Generator``: with one, the encoder's dropout is live
+(training); without, the forward is deterministic. The binary and
+multilabel heads are not ported yet.
 """
 
 from __future__ import annotations
@@ -100,8 +103,11 @@ class ClickstreamModel(nn.Module):
                 )
                 self.tied_out_bias = nn.Parameter(torch.empty(v, device=device))
 
-    def encode(self, features: dict[str, torch.Tensor]) -> torch.Tensor:
-        """dict of (B, L) int32 -> (B, L, d_model) contextual embeddings."""
+    def encode(
+        self, features: dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """dict of (B, L) int32 -> (B, L, d_model) contextual embeddings;
+        dropout live iff a generator is given."""
         cfg = self.config
         names = list(cfg.features)
         first = features[names[0]]
@@ -133,7 +139,7 @@ class ClickstreamModel(nn.Module):
             # cumulative-SEP markers: [CLS][SEP] s1 [SEP] s2 -> 0 1.. 2..
             seg = segment_ids(first, SEP_ID).clamp(0, cfg.max_segments - 1)
             embedded = embedded + self.segment_embed(seg).to(self.dtype)
-        return self.encoder(embedded, bias)
+        return self.encoder(embedded, bias, generator)
 
     def apply_input_proj(self, x: torch.Tensor) -> torch.Tensor:
         """Factorized-input up-projection (identity unless ``encoder_dim`` is
@@ -171,28 +177,50 @@ class ClickstreamModel(nn.Module):
 
     def gather_head_inputs(
         self, features: dict[str, torch.Tensor], head_positions: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """Encode, gather the routed positions, and (for tied heads) apply the
         pre-projection transform: everything except the catalog projection.
-        (B, P, d_head) f32."""
-        h = self.encode(features)
+        (B, P, d_head) f32, the fused CE's input."""
+        h = self.encode(features, generator)
         return self.apply_tied_transform(self._route(h, head_positions)).float()
 
     def head_trunk_outputs(
         self, features: dict[str, torch.Tensor], head_positions: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """Encode, gather, and run the softmax head's MLP trunk: every layer
         except the final ``Dense(V)`` catalog projection. (B, P, d_trunk) f32."""
         if self.config.head.kind != "softmax":
             raise ValueError("head_trunk_outputs requires head kind 'softmax'")
-        h = self.encode(features)
+        h = self.encode(features, generator)
         return self.head.trunk(self._route(h, head_positions)).float()
 
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the (B, P, V) logits path is not ported yet; serving uses "
-            "gather_head_inputs / head_trunk_outputs and the chunked catalog scan"
-        )
+    def forward(
+        self, features: dict[str, torch.Tensor], head_positions: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """(B, P, V) head logits. For the tied head, f32 logits of the
+        transformed inputs against the item table's label rows (bf16
+        operands under bf16 compute, f32 sums, as the JAX einsum with
+        ``preferred_element_type=f32``) plus ``tied_out_bias``; for the
+        softmax head, its MLP and final ``Dense(V)``."""
+        h = self.encode(features, generator)
+        gathered = self._route(h, head_positions)
+        if self.config.head.kind == "tied_softmax":
+            return self._tied_logits(gathered)
+        return self.head(gathered)
+
+    def _tied_logits(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        x = self.apply_tied_transform(x)
+        table = getattr(self, f"embed_{cfg.item_feature}").weight
+        v = cfg.head.output_size or (table.shape[0] - NUM_RESERVED_TOKENS - 1)
+        weights = table[NUM_RESERVED_TOKENS : NUM_RESERVED_TOKENS + v]
+        logits = x.to(self.dtype).float() @ weights.to(self.dtype).float().T
+        if cfg.head.tied_bias:
+            logits = logits + self.tied_out_bias
+        return logits
 
 
 def tied_bias_model_space(bias: torch.Tensor, rows: int) -> torch.Tensor:

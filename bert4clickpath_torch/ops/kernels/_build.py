@@ -44,6 +44,18 @@ SIGNATURES = {
     # q/k/v batch and row strides (elements), scale, device, stream
     "b4cp_mha_fwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _LL, _LL, _LL, _LL, _LL, _LL, _F, _I, _P]),
+    # q, k, v, bias, dout, dq, dk, dv, is_bf16, B, L, D, H,
+    # q/k/v batch and row strides (elements), scale, device, stream
+    "b4cp_mha_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _LL, _LL, _LL, _LL, _LL, _LL, _F, _I, _P]),
+    # x, w, bias|NULL, m_part, l_part, m, l, is_bf16, N, V, D, row_offset,
+    # num_valid, splits, tiles_per_split, device, stream
+    "b4cp_ce_fwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _P]),
+    # x, w, bias|NULL, labels_model, logz, dnll, dx32, dw, db|NULL, is_bf16,
+    # N, V, D, row_offset, num_valid, device, stream
+    "b4cp_ce_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _I, _I, _P]),
     "b4cp_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -52,7 +64,7 @@ build_seconds = None  # wall time of the build in this process (None: not built 
 build_log = ""  # nvcc's output (ptxas register/shared-memory report)
 
 # launch counters, one per kernel (see launch_counts / reset_launch_counts)
-_launches = {"gather": 0, "attention": 0}
+_launches = {"gather": 0, "attention": 0, "attention_bwd": 0, "ce_fwd": 0, "ce_bwd": 0}
 
 
 def sources() -> list[Path]:

@@ -220,6 +220,11 @@ def test_state_dict_from_flax_raises_on_unmapped_and_missing():
 def test_unported_heads_and_logits_path_raise():
     with pytest.raises(ValueError, match="not ported"):
         ClickstreamModel(_port_cfg(_jcfg(head=JHead("binary", (8,)))), device="meta")
-    model = ClickstreamModel(_port_cfg(_jcfg()), device="meta")
-    with pytest.raises(NotImplementedError):
-        model({}, None)
+    # the logits path is ported; with mask routing it refuses missing positions
+    jcfg = _jcfg()
+    feats, _ = _inputs(2)
+    params, _ = _jax_forward(jcfg, feats, np.zeros((2, P), np.int32), None)
+    model = ClickstreamModel(_port_cfg(jcfg), device="cpu")
+    model.load_state_dict(state_dict_from_flax(_port_cfg(jcfg), params))
+    with pytest.raises(ValueError, match="requires head_positions"):
+        model({k: torch.from_numpy(v) for k, v in feats.items()}, None)

@@ -215,10 +215,14 @@ def test_artifacts_load_in_both_packages(tied, tmp_path):
 
 
 def test_port_never_imports_jax():
-    """Importing the serving path (and chip_smoke) pulls in no jax, flax,
-    optax, orbax or JAX-package module."""
+    """Importing the serving and training paths (and chip_smoke) pulls in no
+    jax, flax, optax, orbax or JAX-package module."""
     code = (
         "import sys, bert4clickpath_torch.training.serving, bert4clickpath_torch.convert, chip_smoke\n"
+        "import bert4clickpath_torch.training.train_state, bert4clickpath_torch.ops.fused_ce\n"
+        "import bert4clickpath_torch.data.pipeline, bert4clickpath_torch.data.native\n"
+        "import bert4clickpath_torch.data.generator, bert4clickpath_torch.training.schedules\n"
+        "import bert4clickpath_torch.ops.losses\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'bert4clickpath_tpu'))\n"
         "assert not bad, bad\n"
