@@ -28,50 +28,15 @@
 // rows in turn: lanes over keys for the scores, warp-shuffle max and sum,
 // then lanes over Dh for the PV product. The ragged edge (L=53 is odd) is
 // masked by the loop bounds. Shared memory grows as L * (2*Dh + 1) floats;
-// the wrapper refuses an L beyond what one block can hold (the blockwise
-// kernel that streams K/V is later work). No tensor cores yet: wgmma, TMA
-// and several rows per warp are for the PRs that make this fast.
+// an L beyond what one block can hold goes to the blockwise kernels
+// (attention_blockwise.cu), which stream K/V. No tensor cores yet: wgmma,
+// TMA and several rows per warp are what a fast version would add.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// p rounded to v's dtype before the PV product (attention.py:70)
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -164,8 +129,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 // a sum over query rows, one thread per (key row, column). q, k and v may
 // be strided column slices of one (B, L, 3D) projection, as in the forward;
 // do, dq, dk and dv are contiguous (B, L, D). Shared memory grows as
-// 4 L (Dh + 1) + 2 L (L + 1) floats: the wrapper refuses an L beyond one
-// block (the blockwise dq / dkv kernels are later work).
+// 4 L (Dh + 1) + 2 L (L + 1) floats: an L beyond one block goes to the
+// blockwise dq / dkv kernels (attention_blockwise.cu).
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
     mha_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,

@@ -7,13 +7,21 @@ the attention output and the FFN output.
 
 Dropout is live only when the caller passes a ``torch.Generator`` (the
 train step does; serving and eval pass none): each of the three sites
-draws its keep mask from that generator, never from the global RNG, as
-flax's ``nn.Dropout`` draws from the step's ``dropout`` key. The RNG
-streams cannot match JAX's bits, so parity runs use dropout 0.
+draws from that generator, never from the global RNG, as flax's
+``nn.Dropout`` draws from the step's ``dropout`` key. ``dropout_impl``
+selects the back end, as in the JAX package (:func:`apply_dropout`):
+``"mask"`` draws a keep mask with ``torch.rand`` (the counterpart of
+``"xla"``, the default), ``"fused"`` draws one int32 seed on the device and
+runs the fused dropout kernel, which regenerates the mask in the backward
+(the counterpart of ``"pallas"``). The RNG streams cannot match JAX's bits,
+so parity runs use dropout 0.
 
 Attention always goes through :func:`bert4clickpath_torch.ops.kernels.
-attention.mha` (the CUDA kernel on the card, its plain version on the CPU);
-the JAX package's ``attn_impl`` choices are not carried over.
+attention.mha`, the counterpart of ``attn_impl="pallas"``: the whole-row
+kernels where a head's row fits one block's shared memory, the blockwise
+(K/V-streaming) kernels at any longer L (CUDA kernels on the card, their
+plain versions on the CPU). The JAX package's ``"xla"`` and ``"auto"``
+choices are not carried over.
 
 Parameters are f32 and allocated uninitialised: weights always come from a
 state_dict (``convert.state_dict_from_flax`` or an exported bundle). The
@@ -31,14 +39,28 @@ import torch.nn.functional as F
 from torch import nn
 
 from bert4clickpath_torch.ops.kernels.attention import mha
+from bert4clickpath_torch.ops.kernels.dropout import fused_dropout
+
+DROPOUT_IMPLS = ("mask", "fused")
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """flax ``nn.Dropout``: keep with probability 1 - rate, scale kept
-    values by 1 / (1 - rate) in x's dtype; identity without a generator or
-    at rate 0."""
+def apply_dropout(
+    x: torch.Tensor, rate: float, generator: Optional[torch.Generator], impl: str = "mask",
+) -> torch.Tensor:
+    """Dropout with a selectable back end; identity without a generator or
+    at rate 0. ``"mask"`` is flax ``nn.Dropout``: keep with probability
+    1 - rate, scale kept values by 1 / (1 - rate) in x's dtype. ``"fused"``
+    draws an int32 seed in [0, 2**31 - 1) from the generator, on x's device
+    (no host sync), for :func:`fused_dropout`."""
+    if impl not in DROPOUT_IMPLS:
+        raise ValueError(f"dropout_impl must be one of {DROPOUT_IMPLS}, got {impl!r}")
     if generator is None or rate == 0.0:
         return x
+    if impl == "fused":
+        seed = torch.randint(
+            0, 2**31 - 1, (1,), generator=generator, device=x.device, dtype=torch.int32
+        )
+        return fused_dropout(x, seed, rate)
     keep_prob = 1.0 - rate
     keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
@@ -109,10 +131,11 @@ class EncoderLayer(nn.Module):
     def __init__(
         self, d_model: int, num_heads: int, ffn_dim: int, dropout_rate: float,
         dtype: torch.dtype, qkv_fused: bool = False, norm_style: str = "post",
-        *, device,
+        dropout_impl: str = "mask", *, device,
     ):
         super().__init__()
         self.norm_style = norm_style
+        self.dropout_impl = dropout_impl
         self.mha = MultiHeadAttention(d_model, num_heads, dtype, qkv_fused, device=device)
         self.ln1 = LayerNorm(d_model, dtype, device=device)
         self.ln2 = LayerNorm(d_model, dtype, device=device)
@@ -123,7 +146,7 @@ class EncoderLayer(nn.Module):
     def forward(
         self, x: torch.Tensor, bias: torch.Tensor, generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        drop = lambda t: dropout(t, self.dropout_rate, generator)  # noqa: E731
+        drop = lambda t: apply_dropout(t, self.dropout_rate, generator, self.dropout_impl)  # noqa: E731
         if self.norm_style == "pre":
             x = x + drop(self.mha(self.ln1(x), bias))
             return x + drop(self.ffn2(F.relu(self.ffn1(self.ln2(x)))))
@@ -136,17 +159,20 @@ class Encoder(nn.Module):
     def __init__(
         self, num_layers: int, d_model: int, num_heads: int, ffn_dim: int,
         dropout_rate: float, dtype: torch.dtype, qkv_fused: bool = False,
-        norm_style: str = "post", *, device,
+        norm_style: str = "post", dropout_impl: str = "mask", *, device,
     ):
         super().__init__()
+        if dropout_impl not in DROPOUT_IMPLS:
+            raise ValueError(f"dropout_impl must be one of {DROPOUT_IMPLS}, got {dropout_impl!r}")
         self.num_layers = num_layers
         self.dropout_rate = dropout_rate
+        self.dropout_impl = dropout_impl
         for i in range(num_layers):
             self.add_module(
                 f"layer_{i}",
                 EncoderLayer(
                     d_model, num_heads, ffn_dim, dropout_rate, dtype, qkv_fused,
-                    norm_style, device=device,
+                    norm_style, dropout_impl, device=device,
                 ),
             )
         # pre-LN leaves the residual stream un-normalized; one final LN feeds
@@ -158,7 +184,7 @@ class Encoder(nn.Module):
     def forward(
         self, x: torch.Tensor, bias: torch.Tensor, generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        x = dropout(x, self.dropout_rate, generator)
+        x = apply_dropout(x, self.dropout_rate, generator, self.dropout_impl)
         for i in range(self.num_layers):
             x = getattr(self, f"layer_{i}")(x, bias, generator)
         if self.ln_final is not None:

@@ -17,7 +17,9 @@ gather kernel (one rounding of table*sqrt(d)+pos, as the JAX kernel path
 does); other models follow the JAX xla path (per-feature embed, concat,
 x sqrt(width) before ``input_proj``, then + pos). Every method takes an
 optional ``torch.Generator``: with one, the encoder's dropout is live
-(training); without, the forward is deterministic. The binary and
+(training); without, the forward is deterministic. ``dropout_impl``
+(``"mask"``, the default, or ``"fused"``, the dropout kernel) is the JAX
+model's ``dropout_impl`` (``"xla"`` / ``"pallas"``). The binary and
 multilabel heads are not ported yet.
 """
 
@@ -46,7 +48,7 @@ def _embedding(rows: int, dim: int, device) -> nn.Embedding:
 
 
 class ClickstreamModel(nn.Module):
-    def __init__(self, config: ModelConfig, device):
+    def __init__(self, config: ModelConfig, device, dropout_impl: str = "mask"):
         super().__init__()
         cfg = config
         self.config = cfg
@@ -73,7 +75,8 @@ class ClickstreamModel(nn.Module):
         )
         self.encoder = Encoder(
             cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.ffn_dim,
-            cfg.dropout_rate, dtype, cfg.qkv_fused, cfg.norm_style, device=device,
+            cfg.dropout_rate, dtype, cfg.qkv_fused, cfg.norm_style, dropout_impl,
+            device=device,
         )
         head = cfg.head
         if head.kind == "softmax":

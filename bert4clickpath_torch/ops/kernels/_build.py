@@ -1,10 +1,11 @@
 """Build, load and count the port's CUDA kernels.
 
 The sources in ``bert4clickpath_torch/csrc/*.cu`` expose a plain C
-interface. At first use they are compiled with ``nvcc`` for ``sm_90a`` into
-one shared library under ``build/torch_kernels/`` at the repository root,
-named by a hash of the sources (so a stale build is never loaded), and
-loaded with ``ctypes``. Nothing is built when this module is imported.
+interface. At first use they are compiled with ``nvcc`` for ``sm_90a`` (one
+``nvcc -c`` per source, all started together) and linked into one shared
+library under ``build/torch_kernels/`` at the repository root, named by a
+hash of the sources (so a stale build is never loaded), and loaded with
+``ctypes``. Nothing is built when this module is imported.
 
 Every C entry returns ``cudaGetLastError()`` after its launch; :func:`check`
 raises on a non-zero code. Each wrapper adds one to its launch counter where
@@ -28,7 +29,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
@@ -56,6 +57,21 @@ SIGNATURES = {
     # N, V, D, row_offset, num_valid, device, stream
     "b4cp_ce_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _I, _I, _I, _P]),
+    # q, k, v, bias, out, lse, is_bf16, B, L, D, H,
+    # q/k/v batch and row strides (elements), scale, vec, device, stream
+    "b4cp_bmha_fwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _LL, _LL, _LL, _LL, _LL, _LL, _F, _I, _I, _P]),
+    # q, k, v, bias, lse, dout, delta, dq, is_bf16, B, L, D, H, strides,
+    # scale, vec, device, stream
+    "b4cp_bmha_dq": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _LL, _LL, _LL, _LL, _LL, _LL, _F, _I, _I, _P]),
+    # q, k, v, bias, lse, dout, delta, dk, dv, is_bf16, B, L, D, H, strides,
+    # scale, vec, device, stream
+    "b4cp_bmha_dkv": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _LL, _LL, _LL, _LL, _LL, _LL, _F, _I, _I, _P]),
+    # x, seed (int32 on the device), out, is_bf16, n, threshold, inv_keep,
+    # aligned, device, stream
+    "b4cp_dropout": (_I, [_P, _P, _P, _I, _LL, ctypes.c_uint, _F, _I, _I, _P]),
     "b4cp_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -64,7 +80,10 @@ build_seconds = None  # wall time of the build in this process (None: not built 
 build_log = ""  # nvcc's output (ptxas register/shared-memory report)
 
 # launch counters, one per kernel (see launch_counts / reset_launch_counts)
-_launches = {"gather": 0, "attention": 0, "attention_bwd": 0, "ce_fwd": 0, "ce_bwd": 0}
+_launches = {
+    "gather": 0, "attention": 0, "attention_bwd": 0, "ce_fwd": 0, "ce_bwd": 0,
+    "blockwise_fwd": 0, "blockwise_dq": 0, "blockwise_dkv": 0, "dropout": 0,
+}
 
 
 def sources() -> list[Path]:
@@ -102,14 +121,29 @@ def library() -> ctypes.CDLL:
         t0 = time.perf_counter()
         # build to a private name, then rename: a concurrent process never
         # loads a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+        nvcc = _nvcc()
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+            objects = [os.path.join(work, p.stem + ".o") for p in srcs]
+            procs = [
+                subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                )
+                for src, obj in zip(srcs, objects)
+            ]
+            logs = [proc.communicate()[0] for proc in procs]
+            build_log = "".join(logs)
+            failed = [p.name for p, proc in zip(srcs, procs) if proc.returncode != 0]
+            if failed:
+                raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            link = subprocess.run(
+                [nvcc, "-shared", "-o", tmp, *objects], capture_output=True, text=True,
+            )
+            if link.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError(f"nvcc -shared failed ({link.returncode}):\n{link.stdout}{link.stderr}")
         os.replace(tmp, target)
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(target))

@@ -1,18 +1,45 @@
 """Masked multi-head attention over (B, L, D): forward and backward.
 
-Counterpart of ``bert4clickpath_tpu/ops/pallas/attention.py:fused_mha``:
-heads are column sub-ranges of D, the (B, 1, 1, L) f32 padding bias is
-added after the 1/sqrt(Dh) scale, the softmax runs in f32, the
-probabilities are rounded to v's dtype before the PV product, which
-accumulates in f32, and the result is stored in the input dtype. The
-backward (the JAX kernel's ``_mha_bwd_kernel``) recomputes p in f32, takes
-dv from the unrounded p, rounds ds to k's dtype before dq and dk, and
-stores each gradient in the input dtype.
+Counterpart of ``bert4clickpath_tpu/ops/pallas/attention.py``. Heads are
+column sub-ranges of D, the (B, 1, 1, L) f32 padding bias is added after
+the 1/sqrt(Dh) scale, and the softmax runs in f32. Two kernel families,
+as there:
 
-The CUDA kernels are ``bert4clickpath_torch/csrc/attention.cu``;
-:func:`mha_reference` and :func:`mha_backward_reference` are their plain
-PyTorch versions, with the same roundings in the same order. :func:`mha`
-is differentiable (an autograd Function over the two).
+* **whole-row** (``fused_mha`` there, :func:`fused_mha` here): one block
+  holds a head's whole K and V (the backward also the (L, L) p and ds) in
+  shared memory. The normalised probabilities are rounded to v's dtype
+  before the PV product. The backward (``_mha_bwd_kernel``) recomputes p in
+  f32, takes dv from the unrounded p, rounds ds to k's dtype before dq and
+  dk, and stores each gradient in the input dtype.
+* **blockwise** (``blockwise_mha``): K and V are streamed in 64-row tiles
+  with an online softmax, so any L runs, also one that no tile divides. The
+  forward rounds the *un-normalised* p = exp(s - m_running) to v's dtype
+  before the PV product and divides by l once at the end; it keeps
+  lse = m + log(l) per (row, head) as the residual. The backward (a dq
+  kernel per query tile and a dk/dv kernel per key tile) recomputes
+  p = exp(s - lse) in f32, takes dv from the unrounded p against f32 do,
+  dp = do . v^T in f32, and rounds ds = p (dp - delta) scale to the input
+  dtype before dq and dk. The TPU kernels add every tile pair's partial
+  gradient into an output of the input dtype (one rounding per tile pair in
+  bf16); the port sums in f32 and rounds once. delta = sum_dh(do * out) is
+  plain PyTorch, as it is plain XLA there. lse = m + log(l) in f32 loses
+  log(l) for a fully padded row (m = -1e9), there as here.
+
+:func:`mha` is what the model calls. :func:`attention_family` picks the
+family, the port's counterpart of ``fused_mha_supported`` (a VMEM rule
+there): the whole-row kernels where their shared memory fits one block
+(:func:`mha_smem_bytes`, and :func:`mha_bwd_smem_bytes` when a gradient is
+needed; L <= 417 and L <= 116 at Dh = 64), the blockwise kernels otherwise.
+No sequence length is refused; the blockwise kernels take a head width up
+to 128 (their register tiles are instantiated for 16, 32, 64 and 128).
+
+The CUDA kernels are ``bert4clickpath_torch/csrc/attention.cu`` (whole-row)
+and ``csrc/attention_blockwise.cu`` (tiles and shared-memory use in its
+header); :func:`mha_reference`, :func:`mha_backward_reference`,
+:func:`blockwise_mha_reference`, :func:`blockwise_dq_reference` and
+:func:`blockwise_dkv_reference` are their plain PyTorch versions, with the same roundings in the same
+order. CPU tensors take the plain versions; CUDA tensors launch the kernels
+or raise.
 
 q, k and v may be column slices of one (B, L, 3D) projection: the kernels
 read them through their strides (only the last dimension must be
@@ -43,13 +70,17 @@ def mha_bwd_smem_bytes(seq_len: int, head_dim: int) -> int:
     return 4 * (4 * seq_len * (head_dim + 1) + seq_len + 2 * seq_len * (seq_len + 1))
 
 
+def _split_heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
+    return t.unflatten(-1, (num_heads, t.shape[-1] // num_heads)).float()
+
+
 def mha_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
     num_heads: int,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel, same roundings in the same order."""
     b, l, d = q.shape
-    split = lambda t: t.unflatten(-1, (num_heads, d // num_heads)).float()  # noqa: E731
+    split = lambda t: _split_heads(t, num_heads)  # noqa: E731
     scale = 1.0 / ((d // num_heads) ** 0.5)
     s = torch.einsum("bqhd,bkhd->bhqk", split(q), split(k)) * scale + bias.float()
     p = torch.softmax(s, dim=-1).to(v.dtype).float()
@@ -66,7 +97,7 @@ def mha_backward_reference(
     rounded to k's dtype before dq and dk, each gradient in the input
     dtype)."""
     b, l, d = q.shape
-    split = lambda t: t.unflatten(-1, (num_heads, d // num_heads)).float()  # noqa: E731
+    split = lambda t: _split_heads(t, num_heads)  # noqa: E731
     scale = 1.0 / ((d // num_heads) ** 0.5)
     qf, kf, vf, dof = split(q), split(k), split(v), split(do)
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale + bias.float()
@@ -104,9 +135,9 @@ def _launch_fwd(q, k, v, bias, num_heads):
     smem = mha_smem_bytes(l, d // num_heads)
     if smem > MAX_SHARED_BYTES:
         raise ValueError(
-            f"L={l} needs {smem} bytes of shared memory, more than one block "
-            f"holds ({MAX_SHARED_BYTES}); the blockwise (K/V-streaming) "
-            "attention kernel that covers long sequences is not ported yet"
+            f"the whole-row kernel at L={l} needs {smem} bytes of shared "
+            f"memory, more than one block holds ({MAX_SHARED_BYTES}); call "
+            "mha, which takes blockwise_mha for such a length"
         )
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("q, k, v need a contiguous last dimension")
@@ -131,9 +162,9 @@ def _check_bwd_fits(l, d, num_heads):
     smem = mha_bwd_smem_bytes(l, d // num_heads)
     if smem > MAX_SHARED_BYTES:
         raise ValueError(
-            f"the attention backward at L={l} needs {smem} bytes of shared "
-            f"memory, more than one block holds ({MAX_SHARED_BYTES}); the "
-            "blockwise backward kernels are not ported yet"
+            f"the whole-row backward at L={l} needs {smem} bytes of shared "
+            f"memory, more than one block holds ({MAX_SHARED_BYTES}); call "
+            "mha, which takes blockwise_mha for such a length"
         )
 
 
@@ -188,6 +219,244 @@ class _MHA(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def fused_mha(
+    q: torch.Tensor,  # (B, L, D)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: torch.Tensor,  # (B, 1, 1, L) f32
+    num_heads: int,
+) -> torch.Tensor:
+    """(B, L, D) whole-row masked MHA, differentiable in q, k and v. CPU
+    tensors take the plain versions; CUDA tensors launch the kernels, which
+    need a head's whole row in one block's shared memory (see :func:`mha`)."""
+    _check(q, k, v, bias, num_heads)
+    if q.device.type == "cuda" and _needs_grad(q, k, v):
+        # refuse up front rather than after the forward has run
+        _check_bwd_fits(q.shape[1], q.shape[2], num_heads)
+    return _MHA.apply(q, k, v, bias, num_heads)
+
+
+# -- blockwise (K/V-streaming) family ---------------------------------------
+
+BLOCKWISE_MAX_HEAD_DIM = 128  # csrc/attention_blockwise.cu launch_dh
+
+
+def blockwise_mha_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+    num_heads: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the blockwise forward, dense in f32:
+    (out (B, L, D) in the input dtype, lse (B, L, H) f32). With one key
+    tile the running maximum is the row maximum, so the un-normalised
+    p = exp(s - max) is what rounds to v's dtype; l sums the unrounded p."""
+    b, l, d = q.shape
+    scale = 1.0 / ((d // num_heads) ** 0.5)
+    s = torch.einsum("bqhd,bkhd->bhqk", _split_heads(q, num_heads), _split_heads(k, num_heads))
+    s = s * scale + bias.float()
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    lsum = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), _split_heads(v, num_heads))
+    o = o / lsum.squeeze(-1).transpose(1, 2).unsqueeze(-1)
+    lse = (m + torch.log(lsum)).squeeze(-1).transpose(1, 2).contiguous()
+    return o.reshape(b, l, d).to(q.dtype), lse
+
+
+def attention_delta(do: torch.Tensor, out: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, L, H) f32: sum over a head's columns of do * out, the row term of
+    the softmax backward (plain XLA in the JAX package, plain PyTorch here)."""
+    return (_split_heads(do, num_heads) * _split_heads(out, num_heads)).sum(-1)
+
+
+def _recompute_p_ds(q, k, v, bias, lse, do, delta, num_heads):
+    """(p f32, ds rounded to the input dtype, q, k, do split by head in
+    f32), what both backward kernels recompute from lse and delta."""
+    scale = 1.0 / ((q.shape[-1] // num_heads) ** 0.5)
+    qf, kf, vf, dof = (_split_heads(t, num_heads) for t in (q, k, v, do))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale + bias.float()
+    p = torch.exp(s - lse.transpose(1, 2).unsqueeze(-1))
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = (p * (dp - delta.transpose(1, 2).unsqueeze(-1)) * scale).to(k.dtype).float()
+    return p, ds, qf, kf, dof
+
+
+def blockwise_dq_reference(q, k, v, bias, lse, do, delta, num_heads) -> torch.Tensor:
+    """Plain PyTorch version of the dq kernel: dq = ds . k, summed in f32
+    and rounded once to the input dtype."""
+    _, ds, _, kf, _ = _recompute_p_ds(q, k, v, bias, lse, do, delta, num_heads)
+    return torch.einsum("bhqk,bkhd->bqhd", ds, kf).reshape(q.shape).to(q.dtype)
+
+
+def blockwise_dkv_reference(q, k, v, bias, lse, do, delta, num_heads) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the dk/dv kernel: dk = ds^T . q and
+    dv = p^T . do (the unrounded p against f32 do), each summed in f32 and
+    rounded once to the input dtype."""
+    p, ds, qf, _, dof = _recompute_p_ds(q, k, v, bias, lse, do, delta, num_heads)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    return dk.reshape(q.shape).to(q.dtype), dv.reshape(q.shape).to(q.dtype)
+
+
+def blockwise_mha_backward_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, delta: torch.Tensor, num_heads: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the blockwise backward: (dq, dk, dv) from
+    the forward's lse and delta = :func:`attention_delta`."""
+    args = (q, k, v, bias, lse, do, delta, num_heads)
+    return (blockwise_dq_reference(*args), *blockwise_dkv_reference(*args))
+
+
+def _blockwise_args(q, k, v, bias, num_heads, *others):
+    """What every blockwise C entry takes after its pointers, and whether
+    4-element loads are allowed (head width, strides and base addresses)."""
+    b, l, d = q.shape
+    dh = d // num_heads
+    if dh > BLOCKWISE_MAX_HEAD_DIM:
+        raise ValueError(
+            f"the blockwise kernels take a head width up to {BLOCKWISE_MAX_HEAD_DIM}, got {dh}"
+        )
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("q, k, v need a contiguous last dimension")
+    width = 4 * q.element_size()
+    vec = dh % 4 == 0 and d % 4 == 0 and all(
+        t.stride(0) % 4 == 0 and t.stride(1) % 4 == 0 and t.data_ptr() % width == 0
+        for t in (q, k, v)
+    ) and all(t.data_ptr() % width == 0 for t in others)
+    return (
+        int(q.dtype == torch.bfloat16), b, l, d, num_heads,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        1.0 / (dh ** 0.5), int(vec), q.device.index,
+    )
+
+
+def _launch_blockwise_fwd(q, k, v, bias, num_heads):
+    b, l, d = q.shape
+    bias = bias.contiguous()
+    out = torch.empty((b, l, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, l, num_heads), dtype=torch.float32, device=q.device)
+    args = _blockwise_args(q, k, v, bias, num_heads, out)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        code = lib.b4cp_bmha_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), *args, torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(code, "blockwise mha")
+    _build.count("blockwise_fwd")
+    return out, lse
+
+
+def _launch_blockwise_bwd(entry, counter, n_out, q, k, v, bias, lse, do, delta, num_heads):
+    """One backward kernel (``entry``) into ``n_out`` fresh (B, L, D) tensors."""
+    bias, lse, delta = bias.contiguous(), lse.contiguous(), delta.contiguous()
+    do = do.to(q.dtype).contiguous()
+    outs = [torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(n_out)]
+    args = _blockwise_args(q, k, v, bias, num_heads, do, *outs)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        code = getattr(lib, entry)(
+            *(t.data_ptr() for t in (q, k, v, bias, lse, do, delta, *outs)),
+            *args, torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(code, entry)
+    _build.count(counter)
+    return outs
+
+
+def _check_bwd(q, k, v, bias, lse, do, delta, num_heads):
+    _check(q, k, v, bias, num_heads)
+    b, l, _ = q.shape
+    if do.shape != q.shape or do.device != q.device:
+        raise ValueError(f"do must be {tuple(q.shape)} on {q.device}, got {tuple(do.shape)} on {do.device}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if tuple(t.shape) != (b, l, num_heads) or t.dtype != torch.float32 or t.device != q.device:
+            raise ValueError(
+                f"{name} must be ({b}, {l}, {num_heads}) float32 on {q.device}, "
+                f"got {tuple(t.shape)} {t.dtype} on {t.device}"
+            )
+
+
+def blockwise_mha_dq(q, k, v, bias, lse, do, delta, num_heads) -> torch.Tensor:
+    """dq from the forward's lse and delta = :func:`attention_delta`. CPU
+    tensors take the plain version; CUDA tensors launch the dq kernel."""
+    _check_bwd(q, k, v, bias, lse, do, delta, num_heads)
+    if q.device.type == "cpu":
+        return blockwise_dq_reference(q, k, v, bias, lse, do, delta, num_heads)
+    return _launch_blockwise_bwd("b4cp_bmha_dq", "blockwise_dq", 1, q, k, v, bias, lse, do, delta, num_heads)[0]
+
+
+def blockwise_mha_dkv(q, k, v, bias, lse, do, delta, num_heads) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv), as :func:`blockwise_mha_dq`: the dk/dv kernel on the card."""
+    _check_bwd(q, k, v, bias, lse, do, delta, num_heads)
+    if q.device.type == "cpu":
+        return blockwise_dkv_reference(q, k, v, bias, lse, do, delta, num_heads)
+    dk, dv = _launch_blockwise_bwd("b4cp_bmha_dkv", "blockwise_dkv", 2, q, k, v, bias, lse, do, delta, num_heads)
+    return dk, dv
+
+
+def blockwise_mha_forward(q, k, v, bias, num_heads):
+    """(out, lse) of the blockwise forward, no autograd. CPU tensors take
+    the plain version; CUDA tensors launch the kernel."""
+    _check(q, k, v, bias, num_heads)
+    if q.device.type == "cpu":
+        return blockwise_mha_reference(q, k, v, bias, num_heads)
+    return _launch_blockwise_fwd(q, k, v, bias, num_heads)
+
+
+def blockwise_mha_backward(q, k, v, bias, out, lse, do, num_heads):
+    """(dq, dk, dv) for the output gradient ``do``, from the forward's
+    ``out`` and ``lse``: delta in plain PyTorch, then the dq and the dk/dv
+    kernel (their plain versions on CPU tensors)."""
+    if do.shape != out.shape:
+        raise ValueError(f"do must be {tuple(out.shape)}, got {tuple(do.shape)}")
+    args = (q, k, v, bias, lse, do, attention_delta(do, out, num_heads), num_heads)
+    return (blockwise_mha_dq(*args), *blockwise_mha_dkv(*args))
+
+
+class _BlockwiseMHA(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, num_heads):
+        out, lse = blockwise_mha_forward(q, k, v, bias, num_heads)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.num_heads = num_heads
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        dq, dk, dv = blockwise_mha_backward(q, k, v, bias, out, lse, do, ctx.num_heads)
+        return dq, dk, dv, None, None
+
+
+def blockwise_mha(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+    num_heads: int,
+) -> torch.Tensor:
+    """(B, L, D) blockwise masked MHA at any L, differentiable in q, k and
+    v (the per-(row, head) log-sum-exp is kept for the backward)."""
+    _check(q, k, v, bias, num_heads)
+    return _BlockwiseMHA.apply(q, k, v, bias, num_heads)
+
+
+# -- the dispatch -----------------------------------------------------------
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def attention_family(seq_len: int, head_dim: int, needs_grad: bool) -> str:
+    """``"whole_row"`` where the whole-row kernels' shared memory fits one
+    block (the backward's too when a gradient is needed), else
+    ``"blockwise"``. The same rule on the CPU, so that a path takes the same
+    family's plain versions there as it takes kernels on the card."""
+    fits = mha_smem_bytes(seq_len, head_dim) <= MAX_SHARED_BYTES and (
+        not needs_grad or mha_bwd_smem_bytes(seq_len, head_dim) <= MAX_SHARED_BYTES
+    )
+    return "whole_row" if fits else "blockwise"
+
+
 def mha(
     q: torch.Tensor,  # (B, L, D)
     k: torch.Tensor,
@@ -195,12 +464,9 @@ def mha(
     bias: torch.Tensor,  # (B, 1, 1, L) f32
     num_heads: int,
 ) -> torch.Tensor:
-    """(B, L, D) masked MHA, differentiable in q, k and v. CPU tensors take
-    the plain versions; CUDA tensors launch the kernels."""
+    """(B, L, D) masked MHA at any L, differentiable in q, k and v: the
+    family :func:`attention_family` names. CPU tensors take the plain
+    versions; CUDA tensors launch the kernels."""
     _check(q, k, v, bias, num_heads)
-    if q.device.type == "cuda" and torch.is_grad_enabled() and any(
-        t.requires_grad for t in (q, k, v)
-    ):
-        # refuse up front rather than after the forward has run
-        _check_bwd_fits(q.shape[1], q.shape[2], num_heads)
-    return _MHA.apply(q, k, v, bias, num_heads)
+    family = attention_family(q.shape[1], q.shape[2] // num_heads, _needs_grad(q, k, v))
+    return (fused_mha if family == "whole_row" else blockwise_mha)(q, k, v, bias, num_heads)

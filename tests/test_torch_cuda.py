@@ -14,6 +14,12 @@ the same f32 value once). Fused CE: logz abs 1e-4 (f32 sums over the
 catalog in another order); dx, dW and db within 1e-4 (f32 x) or 2e-2 (bf16
 x) of the reference's largest magnitude (dx sums with atomics, in an order
 that varies run to run; bf16 x rounds A, which may round the other way).
+Blockwise attention: the running maximum the forward rounds p against, and
+the order of the f32 sums, depend on the tile walk, so the bf16 forward is
+held to two bf16 ulps of the reference (rel 2^-6) plus abs 2e-3, the f32 one
+to abs 1e-5; the gradients at the whole-row kernels' tolerances, the fully
+padded row's relative to that row's largest gradient. Fused dropout:
+bit-equal to its plain Philox version.
 """
 
 import os
@@ -27,7 +33,21 @@ import torch
 from bert4clickpath_torch.ops.kernels import _build
 from bert4clickpath_torch.constants import LABEL_PAD
 from bert4clickpath_torch.ops.kernels import fused_ce as ce_kernels
-from bert4clickpath_torch.ops.kernels.attention import mha, mha_backward, mha_backward_reference, mha_reference
+from bert4clickpath_torch.ops.kernels import attention as attn_kernels
+from bert4clickpath_torch.ops.kernels import dropout as dropout_kernels
+from bert4clickpath_torch.ops.kernels.attention import (
+    blockwise_mha,
+    blockwise_mha_backward,
+    blockwise_mha_backward_reference,
+    blockwise_mha_forward,
+    blockwise_mha_reference,
+    fused_mha,
+    mha,
+    mha_backward,
+    mha_backward_reference,
+    mha_reference,
+)
+from bert4clickpath_torch.ops.kernels.dropout import fused_dropout, fused_dropout_reference
 from bert4clickpath_torch.ops.kernels.fused_ce import (
     ce_backward,
     ce_backward_reference,
@@ -70,10 +90,147 @@ def test_mha_kernel_matches_plain(cuda, dtype, shape):
     torch.testing.assert_close(mha(q.contiguous(), k.contiguous(), v.contiguous(), bias, h), got, atol=0, rtol=0)
 
 
-def test_mha_refuses_what_one_block_cannot_hold(cuda):
+def test_mha_takes_what_one_block_cannot_hold(cuda):
+    """The whole-row kernel names the dispatch for an L beyond one block;
+    ``mha`` takes the blockwise kernel there and refuses no length."""
     x = torch.zeros(1, 4096, 64, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="blockwise"):
-        mha(x, x, x, torch.zeros(1, 1, 1, 4096, device=cuda), 1)
+    bias = torch.zeros(1, 1, 1, 4096, device=cuda)
+    with pytest.raises(ValueError, match="blockwise_mha"):
+        fused_mha(x, x, x, bias, 1)
+    _build.reset_launch_counts()
+    out = mha(x, x, x, bias, 1)
+    torch.cuda.synchronize()
+    assert out.shape == x.shape and (out == 0).all()
+    counts = _build.launch_counts()
+    assert counts["blockwise_fwd"] == 1 and counts["attention"] == 0
+
+
+def _blockwise_case(shape, dtype, seed=5):
+    b, l, d, h = shape
+    rng = np.random.default_rng(seed)
+    qkv = torch.from_numpy(rng.standard_normal((b, l, 3 * d), dtype=np.float32)).to("cuda", dtype)
+    q, k, v = qkv[..., :d], qkv[..., d : 2 * d], qkv[..., 2 * d :]
+    bias_np = np.zeros((b, 1, 1, l), np.float32)
+    for i, n in enumerate(rng.integers(1, l + 1, size=b)):  # ragged padding
+        bias_np[i, ..., n:] = -1e9
+    bias_np[0] = -1e9  # a fully padded row
+    if b > 1:
+        bias_np[1, ..., : min(70, l - 1)] = -1e9  # a first key tile that is all padding
+        bias_np[1, ..., l - 1] = 0.0
+    do = torch.from_numpy(rng.standard_normal((b, l, d), dtype=np.float32)).to("cuda", dtype)
+    return q, k, v, torch.from_numpy(bias_np).cuda(), do
+
+
+BLOCKWISE_SHAPES = [
+    (16, 1024, 256, 4),  # the long-session shape
+    (2, 1000, 256, 4),  # no tile divides L
+    (3, 200, 128, 2),
+    (2, 77, 96, 1),  # Dh = 96 in the 128-wide instance
+    (5, 13, 48, 4),  # Dh = 12
+    (2, 130, 24, 4),  # Dh = 6: element-wise tile loads
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", BLOCKWISE_SHAPES)
+def test_blockwise_kernels_match_plain(cuda, dtype, shape):
+    b, l, d, h = shape
+    q, k, v, bias, do = _blockwise_case(shape, dtype)
+    before = _build.launch_counts()
+    out, lse = blockwise_mha_forward(q, k, v, bias, h)
+    want, want_lse = blockwise_mha_reference(q, k, v, bias, h)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (b, l, d) and torch.isfinite(out).all()
+    assert lse.dtype == torch.float32 and lse.shape == (b, l, h)
+    atol, rtol = (2e-3, 2.0**-6) if dtype == torch.bfloat16 else (1e-5, 0.0)
+    torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=rtol)
+    # lse within 1e-5 relative: its fully padded rows sit at -1e9
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    got = blockwise_mha_backward(q, k, v, bias, want, want_lse, do, h)
+    delta = attn_kernels.attention_delta(do, want, h)
+    want_g = blockwise_mha_backward_reference(q, k, v, bias, want_lse, do, delta, h)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    for name in ("blockwise_fwd", "blockwise_dq", "blockwise_dkv"):
+        assert after[name] == before[name] + 1, name
+    atol, rtol = (2e-2, 2e-2) if dtype == torch.bfloat16 else (1e-5, 1e-4)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want_g):
+        assert g.dtype == dtype and g.shape == (b, l, d) and torch.isfinite(g).all(), name
+        # the fully padded row's p is exp(s - lse) at |lse| = 1e9: compared apart
+        torch.testing.assert_close(g[1:].float(), w[1:].float(), atol=atol, rtol=rtol, msg=lambda m: f"{name}: {m}")
+        scale = w[0].float().abs().max().clamp(min=1.0)
+        torch.testing.assert_close(g[0].float() / scale, w[0].float() / scale, atol=atol, rtol=rtol,
+                                   msg=lambda m: f"{name}, the fully padded row: {m}")
+    # contiguous inputs give the same answer as strided slices
+    again, _ = blockwise_mha_forward(q.contiguous(), k.contiguous(), v.contiguous(), bias, h)
+    torch.testing.assert_close(again, out, atol=0, rtol=0)
+
+
+def test_blockwise_autograd_on_card_matches_cpu(cuda):
+    """``blockwise_mha`` under autograd on the card (three kernels) against
+    the CPU plain versions, f32."""
+    rng = np.random.default_rng(6)
+    qkv = torch.from_numpy(rng.standard_normal((2, 150, 96), dtype=np.float32)).to(cuda).requires_grad_()
+    bias = torch.zeros(2, 1, 1, 150, device=cuda)
+    bias[1, ..., 100:] = -1e9
+    _build.reset_launch_counts()
+    blockwise_mha(qkv[..., :32], qkv[..., 32:64], qkv[..., 64:], bias, 2).square().sum().backward()
+    counts = _build.launch_counts()
+    assert (counts["blockwise_fwd"], counts["blockwise_dq"], counts["blockwise_dkv"]) == (1, 1, 1)
+    assert counts["attention"] == 0 and counts["attention_bwd"] == 0
+    ref = qkv.detach().cpu().requires_grad_()
+    blockwise_mha(ref[..., :32], ref[..., 32:64], ref[..., 64:], bias.cpu(), 2).square().sum().backward()
+    torch.testing.assert_close(qkv.grad.cpu(), ref.grad, atol=1e-4, rtol=1e-4)
+
+
+def test_mha_dispatch_on_card(cuda):
+    """``mha`` takes the whole-row kernels at L=53 and the blockwise ones
+    where a gradient is needed at L=141 (forward alone: whole-row)."""
+    def run(l, grad):
+        x = torch.zeros(1, l, 256, device=cuda, dtype=torch.bfloat16, requires_grad=grad)
+        _build.reset_launch_counts()
+        out = mha(x, x, x, torch.zeros(1, 1, 1, l, device=cuda), 4)
+        if grad:
+            out.sum().backward()
+        return {k: n for k, n in _build.launch_counts().items() if n}
+
+    assert run(53, True) == {"attention": 1, "attention_bwd": 1}
+    assert run(141, False) == {"attention": 1}
+    assert run(141, True) == {"blockwise_fwd": 1, "blockwise_dq": 1, "blockwise_dkv": 1}
+    assert run(1024, False) == {"blockwise_fwd": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(16384, 256), (16, 1024, 256), (1000, 7), (3,), (8,), (1, 4099)])
+def test_dropout_kernel_is_bit_equal_to_plain(cuda, dtype, shape):
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(cuda, dtype)
+    seed = torch.tensor([12345], dtype=torch.int32, device=cuda)
+    before = _build.launch_counts()["dropout"]
+    got = fused_dropout(x, seed, 0.1)
+    assert _build.launch_counts()["dropout"] == before + 1
+    want = fused_dropout_reference(x, seed, 0.1)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, want)
+    if x.numel() >= 1000:
+        assert not torch.equal(got, fused_dropout(x, seed + 1, 0.1))
+    if x.numel() > 8:  # a view at an odd offset takes the element-wise path: same bits
+        assert torch.equal(fused_dropout(x.reshape(-1)[1:], seed, 0.1), fused_dropout_reference(x.reshape(-1)[1:], seed, 0.1))
+
+
+def test_dropout_backward_regenerates_the_mask_on_card(cuda):
+    x = torch.randn(64, 1024, 256, device=cuda, dtype=torch.bfloat16).requires_grad_()
+    seed = torch.tensor([7], dtype=torch.int32, device=cuda)
+    _build.reset_launch_counts()
+    y = fused_dropout(x, seed, 0.25)
+    (dx,) = torch.autograd.grad(y, x, torch.ones_like(y))
+    assert _build.launch_counts()["dropout"] == 2
+    nonzero_x = x != 0
+    assert torch.equal((y != 0) & nonzero_x, (dx != 0) & nonzero_x)
+    kept = dx[dx != 0].float()
+    torch.testing.assert_close(kept, torch.full_like(kept, 1 / 0.75), rtol=2.0**-8, atol=0)
+    assert abs((dx != 0).float().mean().item() - 0.75) < 1e-3  # 16.8M draws: 4 sigma = 4.2e-4
 
 
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
@@ -119,8 +276,7 @@ def test_serving_on_card_matches_cpu(cuda, tmp_path):
     from bert4clickpath_torch.training.serving import ServingModel
     from bert4clickpath_torch.vocab import Vocabulary
 
-    sys.path.insert(0, REPO)
-    from chip_smoke import seeded_state_dict
+    from bert4clickpath_torch.data.synthetic import seeded_state_dict
 
     vocab = Vocabulary([f"item_{i}" for i in range(500)])
     cfg = ModelConfig(
@@ -133,10 +289,14 @@ def test_serving_on_card_matches_cpu(cuda, tmp_path):
     sessions = [["item_1", "item_2"], [f"item_{i}" for i in range(30)], []]
     _build.reset_launch_counts()
     got = gpu.recommend(sessions, k=5)
-    assert _build.launch_counts() == {"gather": 1, "attention": 2, "attention_bwd": 0, "ce_fwd": 0, "ce_bwd": 0}
+    assert _nonzero_counts() == {"gather": 1, "attention": 2}
     want = cpu.recommend(sessions, k=5)
     for g, w in zip(got, want):
         np.testing.assert_allclose([s for _, s in g], [s for _, s in w], atol=2e-2, rtol=0)
+
+
+def _nonzero_counts():
+    return {k: n for k, n in _build.launch_counts().items() if n}
 
 
 def _near(got, want, rel):
@@ -164,7 +324,8 @@ def test_mha_backward_kernel_matches_plain(cuda, dtype, shape):
     atol, rtol = (2e-2, 2e-2) if dtype == torch.bfloat16 else (1e-5, 1e-4)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == dtype and g.shape == (b, l, d) and torch.isfinite(g).all(), name
-        torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=rtol, msg=name)
+        torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=rtol,
+                                   msg=lambda m: f"{name}, the fully padded row: {m}")
 
 
 def test_mha_autograd_on_card_takes_both_kernels(cuda):
@@ -261,7 +422,6 @@ def test_fused_ce_op_on_card_matches_dense(cuda):
 def test_cuda_tensors_never_take_a_plain_version(cuda, monkeypatch):
     """A train step of a small model on the card with every plain version
     made to fail: it runs, and every kernel launched."""
-    from bert4clickpath_torch.ops.kernels import attention as attn_kernels
     from bert4clickpath_torch.ops.kernels import gather as gather_kernels
 
     def refuse(*args, **kwargs):
@@ -271,6 +431,9 @@ def test_cuda_tensors_never_take_a_plain_version(cuda, monkeypatch):
         (attn_kernels, "mha_reference"), (attn_kernels, "mha_backward_reference"),
         (ce_kernels, "ce_stats_reference"), (ce_kernels, "ce_backward_reference"),
         (gather_kernels, "gather_scale_pos_reference"),
+        (attn_kernels, "blockwise_mha_reference"), (attn_kernels, "blockwise_dq_reference"),
+        (attn_kernels, "blockwise_dkv_reference"),
+        (dropout_kernels, "fused_dropout_reference"), (dropout_kernels, "dropout_bits"),
     ]:
         monkeypatch.setattr(mod, name, refuse)
     model, state, step, batch = _small_train(cuda, dropout=0.1)
@@ -278,10 +441,22 @@ def test_cuda_tensors_never_take_a_plain_version(cuda, monkeypatch):
     state, loss = step(state, batch, torch.Generator(cuda).manual_seed(0))
     torch.cuda.synchronize()
     assert torch.isfinite(loss)
-    assert _build.launch_counts() == {"gather": 1, "attention": 2, "attention_bwd": 2, "ce_fwd": 1, "ce_bwd": 1}
+    assert _nonzero_counts() == {"gather": 1, "attention": 2, "attention_bwd": 2, "ce_fwd": 1, "ce_bwd": 1}
+    # the long-session families: blockwise attention and the dropout kernel
+    # at its five sites (encoder input, 2 per layer), forward and backward
+    monkeypatch.setattr(attn_kernels, "attention_family", lambda *a: "blockwise")
+    model, state, step, batch = _small_train(cuda, dropout=0.1, dropout_impl="fused")
+    _build.reset_launch_counts()
+    state, loss = step(state, batch, torch.Generator(cuda).manual_seed(0))
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert _nonzero_counts() == {
+        "gather": 1, "blockwise_fwd": 2, "blockwise_dq": 2, "blockwise_dkv": 2,
+        "dropout": 10, "ce_fwd": 1, "ce_bwd": 1,
+    }
 
 
-def _small_train(device, dropout=0.0, dtype="bfloat16"):
+def _small_train(device, dropout=0.0, dtype="bfloat16", dropout_impl="mask"):
     from bert4clickpath_torch.config import FeatureConfig, HeadConfig, ModelConfig, TrainConfig
     from bert4clickpath_torch.data.generator import ClickStreamGenerator
     from bert4clickpath_torch.data.pipeline import ClozeDataset, to_device
@@ -290,8 +465,7 @@ def _small_train(device, dropout=0.0, dtype="bfloat16"):
     from bert4clickpath_torch.training import schedules
     from bert4clickpath_torch.training.train_state import TrainState, make_optimizer, make_train_step
 
-    sys.path.insert(0, REPO)
-    from chip_smoke import seeded_state_dict
+    from bert4clickpath_torch.data.synthetic import seeded_state_dict
 
     gen = ClickStreamGenerator(n_items=300, session_cohesiveness=200, seed=0)
     vocab = gen.item_vocab()
@@ -300,7 +474,7 @@ def _small_train(device, dropout=0.0, dtype="bfloat16"):
         num_heads=4, ffn_dim=128, dropout_rate=dropout, max_len=23,
         head=HeadConfig("tied_softmax", output_size=vocab.label_vocab_size), dtype=dtype, qkv_fused=True,
     )
-    model = ClickstreamModel(cfg, device=device)
+    model = ClickstreamModel(cfg, device=device, dropout_impl=dropout_impl)
     model.load_state_dict(seeded_state_dict(cfg, 0))
     items, _ = gen.generate_sessions(64)
     host = next(ClozeDataset(items, vocab, max_items=20, backend="numpy").train_batches(16, seed=0))

@@ -222,7 +222,8 @@ def test_port_never_imports_jax():
         "import bert4clickpath_torch.training.train_state, bert4clickpath_torch.ops.fused_ce\n"
         "import bert4clickpath_torch.data.pipeline, bert4clickpath_torch.data.native\n"
         "import bert4clickpath_torch.data.generator, bert4clickpath_torch.training.schedules\n"
-        "import bert4clickpath_torch.ops.losses\n"
+        "import bert4clickpath_torch.ops.losses, bert4clickpath_torch.ops.kernels.dropout\n"
+        "import bert4clickpath_torch.data.synthetic, examples.long_context.bench_torch\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'bert4clickpath_tpu'))\n"
         "assert not bad, bad\n"

@@ -238,7 +238,7 @@ def test_logits_forward_matches_jax():
 def test_dropout_draws_from_the_generator():
     """Dropout is live only with a generator; the same seed gives the same
     masks, another seed others; kept values scale by 1 / (1 - rate)."""
-    from bert4clickpath_torch.models.encoder import dropout
+    from bert4clickpath_torch.models.encoder import apply_dropout as dropout
 
     x = torch.ones(200, 50)
     assert dropout(x, 0.1, None) is x
