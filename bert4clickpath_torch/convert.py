@@ -15,7 +15,10 @@ The flax side is the nested dict of numpy arrays that
 ``jax.device_get(params)`` returns; nothing here imports jax.
 :func:`flax_from_state_dict` is the inverse, for any tree shaped like the
 params (gradients, Adam moments), so tests can hold the port's training
-state to the JAX package's.
+state to the JAX package's. :func:`train_state_from_flax` carries a whole
+JAX ``TrainState`` (params, optax Adam's moments and count, ``step``,
+``lr_scale``, the EMA shadow) across, so that a trainer or a resumed run
+starts from the same state in both packages.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 from bert4clickpath_torch.config import ModelConfig
 from bert4clickpath_torch.models.encoder import Dense, LayerNorm
 from bert4clickpath_torch.models.model import ClickstreamModel
+from bert4clickpath_torch.training.train_state import AdamState, TrainState
 
 
 def _flatten(tree: Any, prefix: tuple = ()) -> Iterator[tuple[tuple, Any]]:
@@ -68,7 +72,10 @@ def state_dict_from_flax(config: ModelConfig, params: Any) -> dict[str, torch.Te
         arr = np.asarray(leaf)
         if transpose:
             arr = arr.T
-        t = torch.from_numpy(np.array(arr, copy=True, order="C"))
+        if arr.dtype.name == "bfloat16":  # no numpy dtype of torch's: widen, then narrow exactly
+            t = torch.from_numpy(np.array(arr, dtype=np.float32, order="C")).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(arr, copy=True, order="C"))
         if tuple(t.shape) != expected[key]:
             raise ValueError(
                 f"flax param {'/'.join(path)!r}: shape {tuple(t.shape)} != port {key!r} {expected[key]}"
@@ -112,3 +119,24 @@ def flax_from_state_dict(config: ModelConfig, tensors: dict[str, torch.Tensor]) 
             node = node.setdefault(m, {})
         node[name] = np.ascontiguousarray(arr.T if transpose else arr)
     return {"params": out}
+
+
+def train_state_from_flax(model: ClickstreamModel, state: Any) -> TrainState:
+    """``jax.device_get`` of the JAX package's ``TrainState`` -> the port's,
+    for ``model`` and on its device. The params are loaded into the model
+    (``state.params`` of the result are the model's own parameters); optax
+    Adam's ``mu`` and ``nu`` keep their dtypes (a bf16 first moment stays
+    bf16); ``count``, ``step`` and ``lr_scale`` carry over; the EMA shadow
+    too where the JAX state has one."""
+    cfg = model.config
+    device = next(model.parameters()).device
+    on_device = lambda tree: {k: v.to(device) for k, v in state_dict_from_flax(cfg, tree).items()}  # noqa: E731
+    adam = next(s for s in state.opt_state if hasattr(s, "mu") and hasattr(s, "nu"))
+    model.load_state_dict(state_dict_from_flax(cfg, state.params))
+    return TrainState(
+        step=int(state.step),
+        params=dict(model.named_parameters()),
+        opt_state=AdamState(int(adam.count), on_device(adam.mu), on_device(adam.nu)),
+        lr_scale=torch.tensor(float(state.lr_scale), dtype=torch.float32, device=device),
+        ema_params=None if state.ema_params is None else on_device(state.ema_params),
+    )

@@ -50,158 +50,19 @@
 //   agrees with the plain version to a tolerance, not bit for bit.
 // The TPU tile tiers (vocab tiles up to 1024, _bwd_chunk_rows, the 4 MiB
 // use_fused_backward budget) were VMEM limits and are gone: any N and V
-// work, with the ragged edges masked. wgmma / TMA pipelines are later work.
+// work, with the ragged edges masked. What limits D here: the forward's two
+// whole tiles must fit one block's shared memory (D <= 453), and the merged
+// backward's register tile holds D <= 256; wider rows take the two-pass
+// backward of fused_ce_two_pass.cu. The tile helpers both files share are in
+// fused_ce_tiles.cuh. wgmma / TMA pipelines are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "fused_ce_tiles.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 64;       // rows of x, and rows of the table, per tile
+using namespace ce_tiles;
+
 constexpr int kMaxDChunks = 4;  // dW / dx register tiles cover D <= 64 * 4
-constexpr float kNegBig = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// the JAX kernel's .astype(x.dtype), seen as f32
-template <typename T>
-__device__ __forceinline__ float round_to(float x);
-template <>
-__device__ __forceinline__ float round_to<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// four consecutive elements as f32: one 16-byte (f32) or 8-byte (bf16) load
-__device__ __forceinline__ float4 load4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
-// rows [r0, r0 + kTile) of a (rows, d) matrix into shared memory as f32,
-// each value rounded to T when kRound (the table's `.astype(x.dtype)`),
-// with row stride `stride`; rows past the end are zero. With d % 4 == 0 and
-// aligned rows, each thread keeps kLoadBatch vector loads in flight before
-// storing them: an element-by-element loop leaves one load in flight per
-// thread, and the tile's load then costs more than its products.
-constexpr int kLoadBatch = 8;
-
-template <typename T, bool kRound, typename S>
-__device__ __forceinline__ float cvt(S v) {
-  const float f = to_f(v);
-  return kRound ? round_to<T>(f) : f;
-}
-
-template <typename T, bool kRound, typename S>
-__device__ void load_tile(float* dst, const S* __restrict__ src, int r0,
-                          int rows, int d, int stride) {
-  const bool vec = (d & 3) == 0 &&
-                   (reinterpret_cast<uintptr_t>(src) % (4 * sizeof(S))) == 0;
-  if (!vec) {
-    for (int idx = threadIdx.x; idx < kTile * d; idx += kThreads) {
-      const int r = idx / d;
-      const int c = idx - r * d;
-      const int g = r0 + r;
-      dst[r * stride + c] =
-          g < rows ? cvt<T, kRound>(src[static_cast<long long>(g) * d + c])
-                   : 0.f;
-    }
-    return;
-  }
-  const int d4 = d >> 2;
-  const int total = kTile * d4;
-  for (int base = threadIdx.x; base < total; base += kThreads * kLoadBatch) {
-    float4 v[kLoadBatch];
-#pragma unroll
-    for (int u = 0; u < kLoadBatch; ++u) {
-      const int idx = base + u * kThreads;
-      const int r = idx / d4;
-      const int g = r0 + r;
-      v[u] = (idx < total && g < rows)
-                 ? load4(src + static_cast<long long>(g) * d + 4 * (idx - r * d4))
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-#pragma unroll
-    for (int u = 0; u < kLoadBatch; ++u) {
-      const int idx = base + u * kThreads;
-      if (idx < total) {
-        const int r = idx / d4;
-        float* o = dst + r * stride + 4 * (idx - r * d4);
-        o[0] = cvt<T, kRound>(v[u].x);
-        o[1] = cvt<T, kRound>(v[u].y);
-        o[2] = cvt<T, kRound>(v[u].z);
-        o[3] = cvt<T, kRound>(v[u].w);
-      }
-    }
-  }
-}
-
-// x rows as f32; table rows rounded to x's type
-template <typename T>
-__device__ void load_x_tile(float* dst, const T* __restrict__ src, int r0,
-                            int rows, int d, int stride) {
-  load_tile<T, false>(dst, src, r0, rows, d, stride);
-}
-template <typename T>
-__device__ void load_w_tile(float* dst, const float* __restrict__ w, int r0,
-                            int rows, int d, int stride) {
-  load_tile<T, true>(dst, w, r0, rows, d, stride);
-}
-
-// acc[r][c] = x_tile[ty + 16r] . w_tile[tx + 16c]
-__device__ __forceinline__ void score_tile(const float* xs, const float* ws,
-                                           int d, int stride,
-                                           float acc[4][4]) {
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-  const float* xr = xs + ty * stride;
-  const float* wr = ws + tx * stride;
-  for (int k = 0; k < d; ++k) {
-    float a[4], b[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) a[r] = xr[16 * r * stride + k];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) b[c] = wr[16 * c * stride + k];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
-  }
-}
-
-// reductions over the 16 lanes that share a row (lanes differ in tx)
-__device__ __forceinline__ float half_warp_max(float x) {
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float half_warp_sum(float x) {
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ bool in_window(int col, int row_offset,
-                                          int num_valid) {
-  return col >= row_offset && col < row_offset + num_valid;
-}
 
 // ---------------------------------------------------------------- forward
 
@@ -223,7 +84,7 @@ __global__ void __launch_bounds__(kThreads)
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x % 16;
 
-  load_x_tile<T>(xs, x, row0, n, d, stride);
+  load_x_tile<T>(xs, x, row0, n, d, 0, d, stride);
   float m_run[4], l_run[4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -233,7 +94,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int j = j0; j < j1; ++j) {
     const int col0 = j * kTile;
     __syncthreads();  // the previous tile's readers are done with ws
-    load_w_tile<T>(ws, w, col0, v, d, stride);
+    load_w_tile<T>(ws, w, col0, v, d, 0, d, stride);
     __syncthreads();
     float s[4][4];
     score_tile(xs, ws, d, stride, s);
@@ -321,59 +182,28 @@ __global__ void __launch_bounds__(kThreads)
   float* as = xs + kTile * stride;   // A for (row tile, vocab tile), f32
   const int col0 = blockIdx.x * kTile;
   const int n_rtiles = (n + kTile - 1) / kTile;
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
   // dW / dx register tiles: rows grp + 4r (16 of them), D columns
   // dcol + 64c (up to kMaxDChunks)
   const int grp = threadIdx.x / 64;
   const int dcol = threadIdx.x % 64;
 
-  load_w_tile<T>(ws, w, col0, v, d, stride);
+  load_w_tile<T>(ws, w, col0, v, d, 0, d, stride);
   float acc_dw[16][kMaxDChunks];
 #pragma unroll
   for (int r = 0; r < 16; ++r)
 #pragma unroll
     for (int c = 0; c < kMaxDChunks; ++c) acc_dw[r][c] = 0.f;
   float acc_db = 0.f;
-  const float bias_c[4] = {
-      (bias != nullptr && col0 + tx < v) ? bias[col0 + tx] : 0.f,
-      (bias != nullptr && col0 + tx + 16 < v) ? bias[col0 + tx + 16] : 0.f,
-      (bias != nullptr && col0 + tx + 32 < v) ? bias[col0 + tx + 32] : 0.f,
-      (bias != nullptr && col0 + tx + 48 < v) ? bias[col0 + tx + 48] : 0.f,
-  };
-
   const int start = n_rtiles > 0 ? blockIdx.x % n_rtiles : 0;
   for (int it = 0; it < n_rtiles; ++it) {
     const int row0 = ((start + it) % n_rtiles) * kTile;
     __syncthreads();  // the previous tile's readers are done with xs and as
-    load_x_tile<T>(xs, x, row0, n, d, stride);
+    load_x_tile<T>(xs, x, row0, n, d, 0, d, stride);
     __syncthreads();
     float s[4][4];
     score_tile(xs, ws, d, stride, s);
-    int nonzero = 0;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = row0 + ty + 16 * r;
-      const bool valid_row = row < n;
-      const float lz = valid_row ? logz[row] : 0.f;
-      const float g = valid_row ? dnll[row] : 0.f;
-      const int lb = valid_row ? lab[row] : -1;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = col0 + tx + 16 * c;
-        float a = 0.f;
-        if (valid_row && col < v) {
-          float val = s[r][c];
-          if (bias != nullptr) val = __fadd_rn(val, bias_c[c]);
-          if (!in_window(col, row_offset, num_valid)) val = kNegBig;
-          const float p = expf(val - lz);  // blinded rows: exactly 0
-          const float onehot = col == lb ? 1.f : 0.f;
-          a = g * (p - onehot);
-        }
-        nonzero |= a != 0.f;
-        as[(ty + 16 * r) * astride + tx + 16 * c] = a;
-      }
-    }
+    const int nonzero = adjoint_tile(s, as, astride, bias, lab, logz, dnll,
+                                     row0, col0, n, v, row_offset, num_valid);
     if (!__syncthreads_or(nonzero)) continue;  // A == 0: nothing to add
 
     if (bias != nullptr && threadIdx.x < kTile) {
@@ -437,14 +267,6 @@ size_t bwd_smem(int d) {
   return sizeof(float) * (2 * kTile * (d + 1) + kTile * (kTile + 1));
 }
 
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
 template <typename T>
 cudaError_t launch_fwd(const void* x, const void* w, const void* bias,
                        void* m_part, void* l_part, void* m, void* l, int n,
@@ -497,7 +319,9 @@ extern "C" int b4cp_ce_fwd(const void* x, const void* w, const void* bias,
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   if (n == 0 || v == 0) return static_cast<int>(cudaGetLastError());
-  if (d > kTile * kMaxDChunks) return static_cast<int>(cudaErrorInvalidValue);
+  // the forward holds no per-D register tile: its x and table tiles must
+  // fit one block's shared memory (D <= 453)
+  if (fwd_smem(d) > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       is_bf16 ? launch_fwd<__nv_bfloat16>(x, w, bias, m_part, l_part, m, l, n,

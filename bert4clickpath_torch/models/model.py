@@ -28,6 +28,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -268,3 +269,41 @@ def head_catalog(config: ModelConfig, state_dict, pad_rows: bool = False):
         pad = padded_rows(v) - v
         return F.pad(w, (0, 0, 0, pad)), F.pad(b, (0, pad)), 0, v
     raise ValueError(f"softmax-family head required, got {kind!r}")
+
+
+def init_state_dict(config: ModelConfig, seed: int) -> dict[str, torch.Tensor]:
+    """Fresh weights for a run that starts from scratch, drawn as the JAX
+    package's ``ClickstreamModel.init`` draws them (flax's defaults): Dense
+    weights lecun-normal (a normal truncated at two standard deviations,
+    variance 1 / fan_in), embedding tables N(0, 1 / dim), learned positions
+    N(0, 0.02), biases and ``tied_out_bias`` 0, LayerNorm scale 1. The
+    draws come from a numpy generator, so they are the same on every
+    device; they are not JAX's bits."""
+    rng = np.random.default_rng(seed)
+    skeleton = ClickstreamModel(config, device="meta")
+    modules = dict(skeleton.named_modules())
+    out = {}
+    for key, t in skeleton.state_dict().items():
+        owner, _, leaf = key.rpartition(".")
+        module = modules[owner]
+        shape = tuple(t.shape)
+        if leaf == "bias" or key == "tied_out_bias":
+            arr = np.zeros(shape, np.float32)
+        elif isinstance(module, LayerNorm):
+            arr = np.ones(shape, np.float32)
+        elif isinstance(module, Dense):
+            # jax.nn.initializers.variance_scaling, "truncated_normal": the
+            # std of a unit normal cut at +-2 is 0.8796...
+            std = math.sqrt(1.0 / shape[1]) / 0.87962566103423978
+            z = rng.standard_normal(shape)
+            while (bad := np.abs(z) > 2.0).any():
+                z[bad] = rng.standard_normal(int(bad.sum()))
+            arr = (z * std).astype(np.float32)
+        elif isinstance(module, nn.Embedding):
+            arr = (rng.standard_normal(shape) / math.sqrt(shape[1])).astype(np.float32)
+        elif isinstance(module, LearnedPositions):
+            arr = (rng.standard_normal(shape) * 0.02).astype(np.float32)
+        else:
+            raise KeyError(f"no initialiser for {key!r} of {type(module).__name__}")
+        out[key] = torch.from_numpy(arr)
+    return out

@@ -131,3 +131,20 @@ def chunked_scores(
         ti.reshape(b, p, k),
     )
 
+
+def chunked_eval_stats(
+    x: torch.Tensor,
+    table: torch.Tensor,
+    labels: torch.Tensor,
+    ks: Sequence[int] = (5, 10),
+    row_offset: int = 0,
+    num_valid: Optional[int] = None,
+    chunk: int = 8192,
+    bias: Optional[torch.Tensor] = None,
+) -> dict[str, torch.Tensor]:
+    """loss_sum + recall@k/NDCG@k sums, single device, any catalog size."""
+    kmax = max(ks)
+    logz, label_logit, _, top_rows = chunked_scores(
+        x, table, labels, kmax, row_offset, num_valid, chunk, bias=bias
+    )
+    return ranking_sums_from_topk(logz, label_logit, top_rows - row_offset, labels, ks)

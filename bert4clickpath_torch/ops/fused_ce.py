@@ -5,8 +5,9 @@
 per-row NLL of ``labels`` under ``softmax(x . table^T)`` without the (N, V)
 logits ever being stored: the forward takes the online max / sum-exp of
 each row from ``ops/kernels/fused_ce.py:ce_stats`` and the backward
-recomputes the scores once in ``ce_backward`` (CUDA kernels on the card,
-their plain versions on the CPU). The contract is the JAX package's:
+recomputes the scores in ``ce_backward``: once in the merged kernel for rows
+up to 256 wide, twice in the two-pass pair above that (CUDA kernels on the
+card, their plain versions on the CPU). The contract is the JAX package's:
 
 * ``labels`` are label-space ids (N,); model-space row = label +
   ``row_offset``; table rows outside ``[row_offset, row_offset +

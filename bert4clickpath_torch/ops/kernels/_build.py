@@ -57,6 +57,15 @@ SIGNATURES = {
     # N, V, D, row_offset, num_valid, device, stream
     "b4cp_ce_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _I, _I, _I, _P]),
+    # x, w, bias|NULL, labels_model, logz, dnll, part (splits, N, D) f32, dx,
+    # is_bf16, N, V, D, row_offset, num_valid, splits, tiles_per_split,
+    # device, stream
+    "b4cp_ce_bwd_dx": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _P]),
+    # x, w, bias|NULL, labels_model, logz, dnll, dw, db|NULL, is_bf16,
+    # N, V, D, row_offset, num_valid, device, stream
+    "b4cp_ce_bwd_dw": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _I, _P]),
     # q, k, v, bias, out, lse, is_bf16, B, L, D, H,
     # q/k/v batch and row strides (elements), scale, vec, device, stream
     "b4cp_bmha_fwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -82,6 +91,7 @@ build_log = ""  # nvcc's output (ptxas register/shared-memory report)
 # launch counters, one per kernel (see launch_counts / reset_launch_counts)
 _launches = {
     "gather": 0, "attention": 0, "attention_bwd": 0, "ce_fwd": 0, "ce_bwd": 0,
+    "ce_bwd_dx": 0, "ce_bwd_dw": 0,
     "blockwise_fwd": 0, "blockwise_dq": 0, "blockwise_dkv": 0, "dropout": 0,
 }
 

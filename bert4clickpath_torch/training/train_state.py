@@ -23,11 +23,16 @@ What differs from the JAX package, by design:
   device; it returns the (K,) losses as one tensor without a host sync.
   (PyTorch runs eagerly: there is no program to compile. A CUDA graph of
   the K steps is later work.)
-* No ``axis_name``, ``raw``, ``donate`` or sampled softmax yet.
+* ``make_eval_step`` runs under ``torch.no_grad()`` with dropout off and
+  returns its sums as tensors on the device; with ``steps_per_call`` > 1 it
+  is a Python loop over the stacked batch, like the scan train step.
+* No ``axis_name``, ``raw``, ``donate`` or sampled softmax yet; the binary
+  and multilabel heads' eval waits for those heads.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from dataclasses import dataclass
@@ -36,7 +41,10 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from bert4clickpath_torch.constants import LABEL_PAD
 from bert4clickpath_torch.models.model import head_catalog
+from bert4clickpath_torch.ops import metrics as metrics_lib
+from bert4clickpath_torch.ops.chunked_eval import chunked_eval_stats, pick_chunk
 from bert4clickpath_torch.ops.fused_ce import fused_masked_ce_sums
 from bert4clickpath_torch.ops.losses import (
     masked_binary_cross_entropy,
@@ -259,6 +267,15 @@ def make_train_step(
     return step
 
 
+def _unstack(stacked: dict, i: int) -> dict:
+    """Batch i of a stacked batch (leaves carry a leading (K, ...) axis)."""
+    return {
+        "features": {k: v[i] for k, v in stacked["features"].items()},
+        "head_positions": stacked["head_positions"][i],
+        "labels": stacked["labels"][i],
+    }
+
+
 def make_scan_train_step(model, tx: Adam, schedule: Callable[[int], float], **kwargs) -> Callable:
     """Returns ``(state, stacked_batches, generator=None) -> (state, losses)``:
     K train steps over a batch dict whose leaves carry a leading (K, ...)
@@ -270,13 +287,91 @@ def make_scan_train_step(model, tx: Adam, schedule: Callable[[int], float], **kw
     def multi(state: TrainState, stacked: dict, generator: Optional[torch.Generator] = None):
         losses = []
         for i in range(stacked["labels"].shape[0]):
-            batch = {
-                "features": {k: v[i] for k, v in stacked["features"].items()},
-                "head_positions": stacked["head_positions"][i],
-                "labels": stacked["labels"][i],
-            }
-            state, loss = step(state, batch, generator)
+            state, loss = step(state, _unstack(stacked, i), generator)
             losses.append(loss)
         return state, torch.stack(losses)
 
     return multi
+
+
+@contextlib.contextmanager
+def _standing_in(model, params: Params):
+    """Run the model on ``params`` (keyed like ``named_parameters()``): where
+    they are not the model's own tensors, they replace each parameter's
+    ``.data`` until the block ends. No copy, no graph (callers hold
+    ``torch.no_grad()``)."""
+    own = dict(model.named_parameters())
+    if set(params) != set(own):
+        raise KeyError(f"params do not match the model's: {sorted(set(params) ^ set(own))}")
+    swapped = {k: p.data for k, p in own.items() if params[k] is not p}
+    for k in swapped:
+        own[k].data = params[k].data
+    try:
+        yield
+    finally:
+        for k, data in swapped.items():
+            own[k].data = data
+
+
+def make_eval_step(
+    model,
+    loss_fn: Optional[Callable] = None,
+    ks=(5, 10),
+    chunked_num_valid: Optional[int] = None,
+    steps_per_call: int = 1,
+) -> Callable:
+    """Returns ``(params, batch) -> stats``: a dict of **sums** (``loss_sum``,
+    ``n``, ``recall@k_sum``, ``ndcg@k_sum``) as device tensors, so a pass
+    accumulates exactly across batches and fetches once
+    (``ops.metrics.merge`` / ``finalize``). Runs without dropout and without
+    a graph.
+
+    params: the parameters to evaluate with, keyed like
+    ``model.named_parameters()`` (``eval_params(state)``: the model's own,
+    or the EMA shadow, which stands in for the model's tensors for the
+    length of the call, without a copy).
+
+    chunked_num_valid: for softmax-family heads, evaluate via the chunked
+    full-catalog scan (``ops/chunked_eval.py``) instead of dense (B, P, V)
+    logits; pass the raw label vocabulary size V. The tied head ranks
+    against the item table, the MLP softmax head against its final
+    ``Dense(V)`` rows.
+
+    steps_per_call > 1: the step takes a stacked (K, B, ...) batch, loops
+    over the leading axis and returns the summed stats, identical to K
+    separate calls merged.
+    """
+    head_kind = model.config.head.kind
+    loss_fn = loss_fn or loss_for_head(head_kind)
+    chunked = chunked_num_valid is not None and head_kind in ("tied_softmax", "softmax")
+
+    def one(params: Params, batch: dict) -> dict:
+        feats, positions, labels = batch["features"], batch.get("head_positions"), batch["labels"]
+        if chunked:
+            gather = model.gather_head_inputs if head_kind == "tied_softmax" else model.head_trunk_outputs
+            gathered = gather(feats, positions)
+            table, bias, row_offset, _ = head_catalog(model.config, params)
+            return chunked_eval_stats(
+                gathered, table, labels, ks=ks, row_offset=row_offset, num_valid=chunked_num_valid,
+                # rows bounds the (B*P, chunk) f32 logits tile the scan holds
+                chunk=pick_chunk(table.shape[0], rows=gathered.shape[0] * gathered.shape[1]),
+                bias=bias,
+            )
+        logits = model(feats, positions)
+        n = (labels != LABEL_PAD).float().sum()
+        stats = {"loss_sum": loss_fn(logits, labels) * n, "n": n}
+        if head_kind in ("softmax", "tied_softmax"):
+            rstats = metrics_lib.ranking_stats(logits, labels, ks=ks)
+            rstats.pop("n")
+            stats.update(rstats)
+        return stats
+
+    @torch.no_grad()
+    def step(params: Params, batch: dict) -> dict:
+        with _standing_in(model, params):
+            if steps_per_call <= 1:
+                return one(params, batch)
+            k = batch["labels"].shape[0]
+            return metrics_lib.merge(*(one(params, _unstack(batch, i)) for i in range(k)))
+
+    return step

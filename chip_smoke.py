@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's serving path, its flagship train step and its
-long-session path once on one CUDA card.
+"""Drive the PyTorch port's serving path, its flagship train step, its
+long-session path and a whole training run of the wide model once on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -11,14 +12,17 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build   — builds the port's CUDA kernels from ``bert4clickpath_torch/csrc``
    with nvcc for sm_90a (one compile per source, in parallel) and prints the
    build time and ptxas' report.
-3. kernels — holds each of the nine kernels against its plain PyTorch version
+3. kernels — holds each of the eleven kernels against its plain PyTorch version
    on the card at the shapes its main path gives it, with the tolerance
    stated, and times both (CUDA events; median device time of warm calls):
    the gather and whole-row attention at the flagship's shapes, the fused CE
    at its training shape, the three blockwise attention kernels at
    (16, 1024, 256) and at L=1000 in bf16 and f32, the fused dropout at
-   (16384, 256) (bit-equal to its plain Philox version), and the gather and
-   the fused CE once more at the long-session path's shapes. Beside each kernel
+   (16384, 256) (bit-equal to its plain Philox version), the gather and
+   the fused CE once more at the long-session path's shapes, and the
+   two-pass CE backward (dx and dW kernels) with the forward at N=2,560,
+   V=55,296, D=384 in f32 and bf16, with and without a bias, then at D=256
+   timed beside the merged backward. Beside each kernel
    it computes the least time the card could take for the same work (bytes
    over 3.35 TB/s, operations over the published peak of their type) and,
    as a measurement only, times the one PyTorch call that computes the same
@@ -55,6 +59,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    launches per request and no whole-row one, top-10 log-probs against the
    same bundle on the CPU.
 
+8. wide-train — ``examples/bert4rec/train_torch.py``'s ``main`` in this
+   process: ``--preset tpu --d_model 384 --heads 6 --layers 4 --qkv_fused``
+   (FFN 1,536, bf16 compute, tied softmax over 54,542 simulated items) at
+   B=256, 2 epochs of 40 steps with 8 eval batches each, ``--ckpt_keep 1``.
+   Required: the exact launches (per train step 1 gather, 4 attention, 4
+   attention backward, 1 CE forward, 1 dx pass, 1 dW pass and no merged CE
+   backward; per eval batch 1 gather and 4 attention), a falling train loss,
+   finite eval metrics in [0, 1], ``history.jsonl``, one committed
+   checkpoint and the export; then one step and one eval batch alone, a
+   timed and a profiled window, ``--resume`` for one more epoch (the step
+   count continues), the trained export served by ``ServingModel`` on the
+   card, and one train step and one eval batch at B=32, dropout 0, card vs
+   CPU in f32 and bf16.
+
 The line before the last is the card's name and power limit; the line
 before that is the kernels' JSON summary; the last line is the device JSON.
 Imports nothing of JAX.
@@ -64,6 +82,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -76,7 +96,7 @@ import torch
 SEED = 0
 N_ITEMS = 54_542  # Beauty-sized catalog (bench.py N_ITEMS)
 B_SERVE = (1, 8, 64)
-REQUESTS = 100  # per batch size: p90 has 10 samples beyond it
+REQUESTS = 50  # per batch size: p90 has 5 samples beyond it
 PROFILED = 10  # requests per batch size in the profiled window
 K = 10
 # tolerances (stated): attention bf16 abs 2e-2 (one bf16 ulp of an O(1)
@@ -114,6 +134,15 @@ LONG_TIMED = 20  # timed steps per dropout back end
 LONG_STEPS = 60  # steps in all with the fused back end
 LONG_B_CHECK = 2  # card vs CPU step
 LONG_B_SERVE, LONG_REQUESTS = 8, 5
+# wide training run: examples/bert4rec/train_torch.py --preset tpu --d_model 384
+# --heads 6 --layers 4 --qkv_fused on simulated sessions at Beauty's catalog size
+WIDE_D, WIDE_HEADS, WIDE_LAYERS = 384, 6, 4
+WIDE_STEPS, WIDE_EPOCHS, WIDE_EVAL_BATCHES, WIDE_SESSIONS = 40, 2, 8, 20_000
+WIDE_TIMED = 20  # train steps in the timed window after the run
+DX_TARGETS = (132, 264, 528, 1056, 2112)  # dx grid sizes timed at the wide shapes (1 to 16 waves of blocks)
+# eval sums, card vs CPU, relative to each sum's magnitude: f32 sums in
+# another order; bf16 as the train step's loss tolerance
+EVAL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # blockwise attention against its plain version. Forward (atol, rtol): the
 # running maximum that p rounds against and the order of the f32 sums depend
 # on the tile walk. In bf16, where a few keys carry a row, p's rounding (half
@@ -291,41 +320,87 @@ def gather_kernel_at(rng, v_rows: int, seq: int, d: int, cases) -> dict:
                 **bound(n * 4 + n * d * 4 + seq * d * 4 + n * d * 2, {"f32": 2.0 * n * d}))
 
 
-def phase_kernels(card: str) -> dict:
+def attention_forward_at(rng, b: int, seq: int, d: int, h: int) -> tuple[float, tuple[float, float]]:
+    """The whole-row attention forward against its plain version at
+    (b, seq, d) with h heads, bf16 and f32, qkv as strided column slices of
+    one (b, seq, 3d) tensor, ragged padding and (b > 1) one fully padded
+    row; returns the bf16 case's error and its (kernel, plain) ms."""
     from bert4clickpath_torch.ops.kernels.attention import mha, mha_reference
 
+    out = None
+    with torch.no_grad():
+        for dtype in (torch.bfloat16, torch.float32):
+            qkv, bias = _qkv_bias(b, seq, d, rng, full_pad_row=(b > 1))
+            qkv = qkv.to(dtype)
+            q, k, v = qkv[..., :d], qkv[..., d : 2 * d], qkv[..., 2 * d :]
+            got = mha(q, k, v, bias, h)
+            want = mha_reference(q, k, v, bias, h)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"attention B={b} D={d} {dtype}: non-finite output")
+            err = (got.float() - want.float()).abs().max().item()
+            log(f"[kernels] attention B={b} L={seq} D={d} H={h} {dtype}: "
+                f"max_abs_err {err:.3e} (tol {ATTN_TOL[dtype]:.0e})")
+            if err > ATTN_TOL[dtype]:
+                raise AssertionError(f"attention B={b} D={d} {dtype}: error {err} > {ATTN_TOL[dtype]}")
+            if dtype == torch.bfloat16:
+                times = (
+                    device_time_ms(lambda: mha(q, k, v, bias, h)),
+                    device_time_ms(lambda: mha_reference(q, k, v, bias, h)),
+                )
+                log(f"[kernels] attention B={b} D={d} bf16: kernel {times[0] * 1e3:.1f} us, "
+                    f"plain {times[1] * 1e3:.1f} us (median device time)")
+                out = (err, times)
+    return out
+
+
+def attention_backward_at(rng, b: int, seq: int, d: int, h: int):
+    """The whole-row attention backward against its plain version at
+    (b, seq, d) with h heads, bf16 and f32, ragged padding and one fully
+    padded row; returns the bf16 case's error, its (kernel, plain) ms and
+    the f32 case's (q, k, v, bias, do)."""
+    from bert4clickpath_torch.ops.kernels.attention import mha_backward, mha_backward_reference
+
+    err_bf16, times = None, None
+    for dtype in (torch.bfloat16, torch.float32):
+        qkv, bias = _qkv_bias(b, seq, d, rng, full_pad_row=True)
+        qkv = qkv.to(dtype)
+        q, k, v = qkv[..., :d], qkv[..., d : 2 * d], qkv[..., 2 * d :]
+        do = torch.from_numpy(rng.standard_normal((b, seq, d), dtype=np.float32)).cuda().to(dtype)
+        got = mha_backward(q, k, v, bias, do, h)
+        want = mha_backward_reference(q, k, v, bias, do, h)
+        torch.cuda.synchronize()
+        atol, rtol = ATTN_BWD_TOL[dtype]
+        err = 0.0
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"attention backward {name} D={d} {dtype}: non-finite")
+            diff = (g.float() - w.float()).abs()
+            if bool((diff > atol + rtol * w.float().abs()).any()):
+                raise AssertionError(f"attention backward {name} D={d} {dtype}: max error {diff.max().item()}")
+            err = max(err, diff.max().item())
+        log(f"[kernels] attention backward B={b} L={seq} D={d} H={h} {dtype}: "
+            f"max_abs_err {err:.3e} (tol abs {atol:.0e} + rel {rtol:.0e})")
+        if dtype == torch.bfloat16:
+            err_bf16 = err
+            times = (
+                device_time_ms(lambda: mha_backward(q, k, v, bias, do, h)),
+                device_time_ms(lambda: mha_backward_reference(q, k, v, bias, do, h)),
+            )
+            log(f"[kernels] attention backward B={b} D={d} bf16: kernel {times[0] * 1e3:.1f} us, "
+                f"plain {times[1] * 1e3:.1f} us (median device time)")
+    return err_bf16, times, (q, k, v, bias, do)
+
+
+def phase_kernels(card: str) -> dict:
     rng = np.random.default_rng(SEED)
     seq, d, h = 53, 256, 4
     out = {}
-    with torch.no_grad():
-        # attention: qkv as strided column slices of one (B, L, 3D) tensor
-        errs, times = [], {}
-        for b in (1, 64, B_TRAIN):  # serving batches 1 and 64, the train step's 256
-            for dtype in (torch.bfloat16, torch.float32):
-                qkv, bias = _qkv_bias(b, seq, d, rng, full_pad_row=(b > 1))
-                qkv = qkv.to(dtype)
-                q, k, v = qkv[..., :d], qkv[..., d : 2 * d], qkv[..., 2 * d :]
-                got = mha(q, k, v, bias, h)
-                want = mha_reference(q, k, v, bias, h)
-                torch.cuda.synchronize()
-                if not torch.isfinite(got).all():
-                    raise AssertionError(f"attention B={b} {dtype}: non-finite output")
-                err = (got.float() - want.float()).abs().max().item()
-                log(f"[kernels] attention B={b} L={seq} D={d} H={h} {dtype}: "
-                    f"max_abs_err {err:.3e} (tol {ATTN_TOL[dtype]:.0e})")
-                if err > ATTN_TOL[dtype]:
-                    raise AssertionError(f"attention B={b} {dtype}: error {err} > {ATTN_TOL[dtype]}")
-                if dtype == torch.bfloat16:
-                    errs.append(err)
-                    times[b] = (
-                        device_time_ms(lambda: mha(q, k, v, bias, h)),
-                        device_time_ms(lambda: mha_reference(q, k, v, bias, h)),
-                    )
-                    log(f"[kernels] attention B={b} bf16: kernel {times[b][0] * 1e3:.1f} us, "
-                        f"plain {times[b][1] * 1e3:.1f} us (median device time)")
-        # the summary reports the train step's shape (B=256), its main path
-        out["attention"] = dict(max_abs_err=max(errs), ms=times[B_TRAIN][0], plain_ms=times[B_TRAIN][1],
-                                **attention_bounds(B_TRAIN, seq, d, h, 2)["fwd"])
+    # attention: serving batches 1 and 64, the train step's 256
+    held = {b: attention_forward_at(rng, b, seq, d, h) for b in (1, 64, B_TRAIN)}
+    # the summary reports the train step's shape (B=256), its main path
+    out["attention"] = dict(max_abs_err=max(err for err, _ in held.values()), ms=held[B_TRAIN][1][0],
+                            plain_ms=held[B_TRAIN][1][1], **attention_bounds(B_TRAIN, seq, d, h, 2)["fwd"])
 
     # gather: the padded Beauty-sized table; the last case is the train
     # step's shape (B=256), whose times the summary reports
@@ -343,49 +418,37 @@ def phase_kernels(card: str) -> dict:
 
 
 def training_kernels(rng, card: str) -> dict:
-    """The train step's kernels at the flagship's training shapes."""
-    from bert4clickpath_torch.ops.kernels.attention import mha_backward, mha_backward_reference
-
+    """The train step's kernels at the flagship's training shapes, and the
+    wide model's kernels at its own."""
     out = {}
     seq, d, h, b = 53, 256, 4, B_TRAIN
-    # attention backward: B=256, ragged padding and one fully padded row
-    errs, times = [], None
-    for dtype in (torch.bfloat16, torch.float32):
-        qkv, bias = _qkv_bias(b, seq, d, rng, full_pad_row=True)
-        qkv = qkv.to(dtype)
-        q, k, v = qkv[..., :d], qkv[..., d : 2 * d], qkv[..., 2 * d :]
-        do = torch.from_numpy(rng.standard_normal((b, seq, d), dtype=np.float32)).cuda().to(dtype)
-        got = mha_backward(q, k, v, bias, do, h)
-        want = mha_backward_reference(q, k, v, bias, do, h)
-        torch.cuda.synchronize()
-        atol, rtol = ATTN_BWD_TOL[dtype]
-        err = 0.0
-        for name, g, w in zip(("dq", "dk", "dv"), got, want):
-            if not torch.isfinite(g).all():
-                raise AssertionError(f"attention backward {name} {dtype}: non-finite")
-            diff = (g.float() - w.float()).abs()
-            if bool((diff > atol + rtol * w.float().abs()).any()):
-                raise AssertionError(f"attention backward {name} {dtype}: max error {diff.max().item()}")
-            err = max(err, diff.max().item())
-        log(f"[kernels] attention backward B={b} L={seq} D={d} H={h} {dtype}: "
-            f"max_abs_err {err:.3e} (tol abs {atol:.0e} + rel {rtol:.0e})")
-        if dtype == torch.bfloat16:
-            errs.append(err)
-            times = (
-                device_time_ms(lambda: mha_backward(q, k, v, bias, do, h)),
-                device_time_ms(lambda: mha_backward_reference(q, k, v, bias, do, h)),
-            )
-            log(f"[kernels] attention backward B={b} bf16: kernel {times[0] * 1e3:.1f} us, "
-                f"plain {times[1] * 1e3:.1f} us (median device time)")
+    err, times, (q, k, v, bias, do) = attention_backward_at(rng, b, seq, d, h)
     # the yardstick on the f32 case's inputs, in bf16 (the loop's last q, k, v)
     lib_fwd, lib_bwd = sdpa_times(*(t.to(torch.bfloat16) for t in (q, k, v)), bias, do.to(torch.bfloat16), h)
     log(f"[kernels] F.scaled_dot_product_attention B={b} L={seq} bf16 (a yardstick, not used by the port): "
         f"forward {lib_fwd * 1e3:.1f} us, backward {lib_bwd * 1e3:.1f} us [{card}]")
-    out["attention_bwd"] = dict(max_abs_err=max(errs), ms=times[0], plain_ms=times[1], library_ms=lib_bwd,
+    out["attention_bwd"] = dict(max_abs_err=err, ms=times[0], plain_ms=times[1], library_ms=lib_bwd,
                                 library_fwd_ms=lib_fwd, **attention_bounds(b, seq, d, h, 2)["bwd"])
 
     # fused CE: N = B * P rows, the padded Beauty-sized table, f32 x
     out.update(ce_kernels_at(rng, B_TRAIN * 10, 55_296, N_ITEMS, d))
+    # the wide model's shapes: its gather and whole-row attention (the
+    # summary rows stay on the flagship's), then the two-pass backward and
+    # the forward at its D = 384, the dx grid's vocab split at three targets
+    wide_rows = gather_kernel_at(rng, 55_296, seq, WIDE_D, ((B_TRAIN, torch.bfloat16),))
+    wide_fwd = attention_forward_at(rng, b, seq, WIDE_D, WIDE_HEADS)
+    wide_bwd = attention_backward_at(rng, b, seq, WIDE_D, WIDE_HEADS)
+    log(f"[kernels] wide shapes (B={b} L={seq} D={WIDE_D} H={WIDE_HEADS}, bf16): gather {wide_rows['ms']:.4f} ms "
+        f"(plain {wide_rows['plain_ms']:.4f}), attention {wide_fwd[1][0]:.4f} ms (plain {wide_fwd[1][1]:.4f}), "
+        f"attention backward {wide_bwd[1][0]:.4f} ms (plain {wide_bwd[1][1]:.4f}) [{card}]")
+    wide = ce_two_pass_at(rng, B_TRAIN * 10, 55_296, N_ITEMS, WIDE_D, card, dx_targets=DX_TARGETS)
+    # at the flagship's D = 256 only the timing beside the merged kernel
+    flag = ce_two_pass_at(rng, B_TRAIN * 10, 55_296, N_ITEMS, d, card,
+                          dtypes=(torch.float32,), biases=(False,))["times"][torch.float32]
+    log(f"[kernels] D={d} f32: the two-pass pair takes {flag['dx'] + flag['dw']:.3f} ms against the merged "
+        f"backward's {flag['merged']:.3f} ms ({(flag['dx'] + flag['dw']) / flag['merged']:.2f}x) [{card}]")
+    wide.pop("times")
+    out.update(wide)
     return out
 
 
@@ -464,6 +527,147 @@ def ce_kernels_at(rng, n: int, v_rows: int, nv: int, d: int, off: int = 10) -> d
     out["ce_bwd"] = dict(max_abs_err=bwd_err, ms=t_bwd[0], plain_ms=t_bwd[1], library_ms=None,
                          **bound((2 * n * d + 2 * nv * d + 3 * n) * 4, {"f32": 6.0 * live * nv * d}))
     return out
+
+
+def _held(tag: str, got, want, rel_scale: float, rel_elem: float = 0.0) -> float:
+    """Raise unless |got - want| <= rel_scale * max|want| + rel_elem * |want|
+    everywhere and got is finite; returns the largest absolute error."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    err, scale = diff.max().item(), want.abs().max().item()
+    log(f"[kernels] {tag}: max_abs_err {err:.3e}, largest |value| {scale:.3e} "
+        f"(tol {rel_scale:.0e} of it + {rel_elem:.1e} of each value)")
+    if not torch.isfinite(got).all() or bool((diff > rel_scale * scale + rel_elem * want.abs()).any()):
+        raise AssertionError(f"{tag}: error {err} above the tolerance (largest |value| {scale})")
+    return err
+
+
+def _dx_splits_at(k, target: int, n: int, v_rows: int, d: int) -> int:
+    shipped, k.DX_TARGET_BLOCKS = k.DX_TARGET_BLOCKS, target
+    try:
+        return k.ce_dx_splits(n, v_rows, d)[0]
+    finally:
+        k.DX_TARGET_BLOCKS = shipped
+
+
+def ce_two_pass_at(rng, n: int, v_rows: int, nv: int, d: int, card: str, off: int = 10,
+                   dtypes=(torch.float32, torch.bfloat16), biases=(False, True), dx_targets=()) -> dict:
+    """The two-pass CE backward kernels (and the forward) against their plain
+    versions at n rows of x over a (v_rows, d) f32 table whose valid window
+    is rows off .. off + nv, for x of each of ``dtypes``, without and with
+    a bias as ``biases`` says, a fifth of the labels LABEL_PAD; times and
+    bounds of the f32 case without a bias (the train step's CE input is
+    f32), the bf16 times logged. Where the merged kernel takes d, it is
+    timed beside the pair in turns. ``dx_targets``: the dx pass of the f32
+    case is also held and timed with its grid's vocab split aimed at each
+    of these block counts (the wrapper's constant set for the call and put
+    back).
+
+    Tolerances. f32: sums in another order, 1e-4 of the largest magnitude
+    (as the merged kernel). bf16: A rounds to bf16 before the products and
+    an f32 exp that differs in its last bit can round an entry the other
+    way, 1e-3 of the largest magnitude; dx, itself bf16, may besides round
+    its f32 sum the other way: one bf16 ulp (2^-7 of the value)."""
+    from bert4clickpath_torch.constants import LABEL_PAD
+    from bert4clickpath_torch.ops.fused_ce import _labels_model
+    from bert4clickpath_torch.ops.kernels import fused_ce as k
+
+    x32 = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).cuda()
+    table = torch.from_numpy(rng.standard_normal((v_rows, d), dtype=np.float32) * 0.02).cuda()
+    labels_np = rng.integers(0, nv, size=n).astype(np.int32)
+    labels_np[rng.random(n) < 0.2] = LABEL_PAD
+    labels = torch.from_numpy(labels_np).cuda()
+    lab = _labels_model(labels, off)
+    mask = (labels != LABEL_PAD).float()
+    dnll = mask / mask.sum()
+    live = int(mask.sum().item())
+    blinded = torch.ones(v_rows, dtype=torch.bool, device="cuda")
+    blinded[off : off + nv] = False
+    errs = {"fwd": 0.0, "dx": 0.0, "dw": 0.0}
+    times = {}
+    for dtype in dtypes:
+        x = x32.to(dtype)
+        rel, elem = (CE_GRAD_REL, 0.0) if dtype == torch.float32 else (1e-3, 2.0**-7)
+        for with_bias in biases:
+            bias = torch.from_numpy(rng.standard_normal(v_rows, dtype=np.float32)).cuda() if with_bias else None
+            tag = f"N={n} V={v_rows} D={d} {dtype} bias={with_bias}"
+            wm, wl = k.ce_stats_reference(x, table, bias, off, nv)
+            want_logz = wm + torch.log(wl)
+            if d <= k.MAX_D_FWD:
+                m, l = k.ce_stats(x, table, bias, off, nv)
+                e = (m + torch.log(l) - want_logz).abs().max().item()
+                log(f"[kernels] CE forward {tag}: logz max_abs_err {e:.3e} (tol {CE_LOGZ_TOL:.0e})")
+                if not torch.isfinite(m + torch.log(l)).all() or e > CE_LOGZ_TOL:
+                    raise AssertionError(f"CE forward {tag}: logz error {e} > {CE_LOGZ_TOL}")
+                errs["fwd"] = max(errs["fwd"], e)
+            args = (x, table, bias, lab, want_logz, dnll, off, nv)
+            dx = k.ce_backward_dx(*args)
+            dw, db = k.ce_backward_dw(*args)
+            again = k.ce_backward_dx(*args)
+            want_dx = k.ce_backward_dx_reference(*args)
+            want_dw, want_db = k.ce_backward_dw_reference(*args)
+            torch.cuda.synchronize()
+            e_dx = _held(f"CE dx pass {tag}", dx, want_dx, rel, elem)
+            e_dw = _held(f"CE dW pass {tag} dW", dw, want_dw, rel)
+            if with_bias:
+                e_dw = max(e_dw, _held(f"CE dW pass {tag} db", db, want_db, CE_GRAD_REL))
+            if not torch.equal(dx, again):
+                raise AssertionError(f"CE dx pass {tag}: two runs differ (it sums in a fixed order)")
+            if not bool((dw[blinded] == 0).all()):
+                raise AssertionError(f"CE dW pass {tag}: a blinded table row got a gradient")
+            if dtype == torch.float32:
+                errs["dx"], errs["dw"] = max(errs["dx"], e_dx), max(errs["dw"], e_dw)
+            if with_bias:
+                continue
+            t = {"dx": [], "dw": [], "merged": []}
+            for _ in range(2):  # in turns
+                t["dx"].append(device_time_ms(lambda: k.ce_backward_dx(*args), reps=10))
+                t["dw"].append(device_time_ms(lambda: k.ce_backward_dw(*args), reps=10))
+                if d <= k.MAX_D:
+                    t["merged"].append(device_time_ms(lambda: k.ce_backward_merged(*args), reps=10))
+            t = {name: min(v) for name, v in t.items() if v}
+            t["dx_plain"] = device_time_ms(lambda: k.ce_backward_dx_reference(*args), reps=5)
+            t["dw_plain"] = device_time_ms(lambda: k.ce_backward_dw_reference(*args), reps=5)
+            if d <= k.MAX_D_FWD:
+                t["fwd"] = device_time_ms(lambda: k.ce_stats(x, table, None, off, nv), reps=10)
+                t["fwd_plain"] = device_time_ms(lambda: k.ce_stats_reference(x, table, None, off, nv), reps=5)
+            times[dtype] = t
+            if dtype == torch.float32 and dx_targets:
+                shipped, sweep = k.DX_TARGET_BLOCKS, {}
+                for _ in range(2):  # in turns
+                    for target in dx_targets:
+                        k.DX_TARGET_BLOCKS = target
+                        try:
+                            _held(f"CE dx pass {tag} target {target}", k.ce_backward_dx(*args), want_dx, rel, elem)
+                            ms = device_time_ms(lambda: k.ce_backward_dx(*args), reps=10)
+                        finally:
+                            k.DX_TARGET_BLOCKS = shipped
+                        sweep[target] = min(ms, sweep.get(target, ms))
+                log(f"[kernels] CE dx pass {tag}, vocab split by target blocks (splits, ms): "
+                    + ", ".join(f"{target}: ({_dx_splits_at(k, target, n, v_rows, d)}, {ms:.3f})"
+                                for target, ms in sweep.items())
+                    + f"; shipped {shipped} (best of two windows of median device time) [{card}]")
+            unit = 2.0 * n * v_rows * d / 1e9  # GFLOP of one product over the whole table
+            log(f"[kernels] CE two-pass {tag}: dx {t['dx']:.3f} ms ({2 * unit / t['dx']:.1f} TFLOP/s), "
+                f"dW {t['dw']:.3f} ms ({2 * unit / t['dw']:.1f} TFLOP/s), plain dx {t['dx_plain']:.3f} ms, "
+                f"plain dW {t['dw_plain']:.3f} ms"
+                + (f", forward {t['fwd']:.3f} ms ({unit / t['fwd']:.1f} TFLOP/s), plain forward {t['fwd_plain']:.3f} ms"
+                   if "fwd" in t else "")
+                + (f"; merged backward {t['merged']:.3f} ms against dx + dW {t['dx'] + t['dw']:.3f} ms"
+                   if "merged" in t else "") + f" (best of two windows of median device time) [{card}]")
+    # bounds count what this run's data needs: the nv rows of the window and
+    # the rows whose label is not LABEL_PAD; each pass is two products. No
+    # PyTorch call computes either without the (N, V) logits: library_ms null
+    t = times[torch.float32]
+    common = (n * d + nv * d + 3 * n) * 4
+    ops = {"f32": 4.0 * live * nv * d}
+    return {
+        "ce_bwd_dx": dict(max_abs_err=errs["dx"], ms=t["dx"], plain_ms=t["dx_plain"], library_ms=None,
+                          **bound(common + n * d * 4, ops)),
+        "ce_bwd_dw": dict(max_abs_err=errs["dw"], ms=t["dw"], plain_ms=t["dw_plain"], library_ms=None,
+                          **bound(common + nv * d * 4, ops)),
+        "times": times,
+    }
 
 
 def long_context_kernels(rng, card: str) -> dict:
@@ -581,8 +785,12 @@ def long_context_kernels(rng, card: str) -> dict:
     g = torch.ones_like(xb).requires_grad_()
     y = fused_dropout(g, seed, rate)
     (dg,) = torch.autograd.grad(y, g, torch.ones_like(y))
-    if not torch.equal(y != 0, dg != 0) or not torch.equal(y != 0, fused_dropout(xb, seed, rate) != 0):
+    if not torch.equal(y != 0, dg != 0):
         raise AssertionError("dropout: the backward's mask differs from the forward's")
+    # the mask depends on the seed and the element's place alone, not on x
+    # (an x that is itself 0, one draw in 2^23 of numpy's f32 normal, stays 0)
+    if not torch.equal((y != 0) & (xb != 0), fused_dropout(xb, seed, rate) != 0):
+        raise AssertionError("dropout: the mask differs between two inputs under one seed")
     times = (
         device_time_ms(lambda: fused_dropout(xb, seed, rate)),
         device_time_ms(lambda: fused_dropout_reference(xb, seed, rate), 5),
@@ -698,7 +906,7 @@ def profile_requests(served, rng, b: int) -> dict:
         f"forward {med['forward']:.3f}, scan {med['scan']:.3f}, total {med['total']:.3f}")
 
     batches = [_sessions(rng, b) for _ in range(PROFILED)]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # device events only: the host ones are not read
         t0 = time.perf_counter()
         for sessions in batches:
             served.recommend(sessions, k=K)
@@ -792,7 +1000,7 @@ def _device_profile(fn, steps: int, tag: str, card: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # device events only: the host ones are not read
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1043,7 +1251,7 @@ def phase_long_train(card: str) -> dict:
     per_step = {"gather": 1, "blockwise_fwd": cfg.num_layers, "blockwise_dq": cfg.num_layers,
                 "blockwise_dkv": cfg.num_layers, "dropout": 2 * (1 + 2 * cfg.num_layers), "ce_fwd": 1, "ce_bwd": 1,
                 "attention": 0, "attention_bwd": 0}  # dropout: 9 sites, forward and backward
-    expected = {k: v * LONG_TIMED for k, v in per_step.items()}
+    expected = {**dict.fromkeys(_build.launch_counts(), 0), **{k: v * LONG_TIMED for k, v in per_step.items()}}
 
     def warm_up(impl, state, step, rng):
         t0 = time.perf_counter()
@@ -1163,6 +1371,169 @@ def phase_long_serve(card: str) -> dict:
     return dict(median_ms=statistics.median(lat), peak_bytes=peak, counts=counts)
 
 
+def phase_wide_train(card: str) -> dict:
+    """The training run as a user starts it: ``train_torch.py``'s ``main`` in
+    this process on the wide tied-head model (4 layers, d_model 384, 6 heads),
+    whose CE backward is the two-pass pair."""
+    from bert4clickpath_torch.data.pipeline import to_device
+    from bert4clickpath_torch.data.synthetic import seeded_state_dict
+    from bert4clickpath_torch.models.model import ClickstreamModel
+    from bert4clickpath_torch.ops import metrics as metrics_lib
+    from bert4clickpath_torch.ops.kernels import _build
+    from bert4clickpath_torch.training import checkpoint as ckpt_lib
+    from bert4clickpath_torch.training.serving import ServingModel
+    from bert4clickpath_torch.training.train_state import eval_params, make_eval_step
+    from examples.bert4rec import train_torch
+
+    model_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", f"wide_train_{os.getpid()}")
+    shutil.rmtree(model_dir, ignore_errors=True)
+    argv = ["--preset", "tpu", "--d_model", str(WIDE_D), "--heads", str(WIDE_HEADS), "--layers", str(WIDE_LAYERS),
+            "--qkv_fused", "--simulated", "--n_items", str(N_ITEMS), "--n_sessions", str(WIDE_SESSIONS),
+            "--batch", str(B_TRAIN), "--steps_per_epoch", str(WIDE_STEPS), "--eval_batches", str(WIDE_EVAL_BATCHES),
+            "--eval_batch", str(B_TRAIN), "--ckpt_keep", "1", "--mu_dtype", "bfloat16", "--model_dir", model_dir]
+
+    def history():
+        with open(os.path.join(model_dir, "history.jsonl")) as f:
+            return [json.loads(line) for line in f]
+
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        run = train_torch.main(argv + ["--epochs", str(WIDE_EPOCHS)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        cfg = run.model.config
+        n_train, n_eval = WIDE_EPOCHS * WIDE_STEPS, WIDE_EPOCHS * WIDE_EVAL_BATCHES
+        per_step = {"gather": 1, "attention": cfg.num_layers, "attention_bwd": cfg.num_layers, "ce_fwd": 1,
+                    "ce_bwd_dx": 1, "ce_bwd_dw": 1, "ce_bwd": 0}
+        per_eval = {"gather": 1, "attention": cfg.num_layers}  # no CE kernel: the chunked scan is plain PyTorch
+        expected = {k: per_step.get(k, 0) * n_train + per_eval.get(k, 0) * n_eval for k in counts}
+        log(f"[wide-train] {WIDE_EPOCHS} epochs of {WIDE_STEPS} steps at B={B_TRAIN}, {WIDE_EVAL_BATCHES} eval batches "
+            f"each, in {wall:.2f} s (data generation included); launches {counts} (expected {expected})")
+        if counts != expected:
+            raise AssertionError(f"kernel launches {counts} != {expected}")
+        records = history()
+        if len(records) != WIDE_EPOCHS or any("early_stop" in r for r in records):
+            raise AssertionError(f"history.jsonl: {records}")
+        for r in records:
+            log(f"[wide-train] {r}")
+            if not np.isfinite(r["train_loss"]) or not np.isfinite(r["val_loss"]):
+                raise AssertionError(f"a non-finite loss: {r}")
+            for key in ("val_recall@5", "val_recall@10", "val_ndcg@5", "val_ndcg@10"):
+                if not 0.0 <= r[key] <= 1.0:
+                    raise AssertionError(f"{key} outside [0, 1]: {r}")
+        if not records[-1]["train_loss"] < records[0]["train_loss"]:
+            raise AssertionError(f"the train loss did not fall: {[r['train_loss'] for r in records]}")
+        last = records[-1]
+        log(f"[wide-train] epoch {last['epoch']} as the trainer timed it: {last['epoch_seconds'] / WIDE_STEPS * 1e3:.3f} "
+            f"ms/step (host batches included), eval {last['eval_seconds'] / WIDE_EVAL_BATCHES * 1e3:.3f} ms/batch; "
+            f"peak device memory {peak / 2**20:.1f} MiB [{card}]")
+        ckpts = sorted(os.listdir(os.path.join(model_dir, "ckpts")))
+        export = os.path.join(model_dir, "export")
+        if len(ckpts) != 1 or not os.path.isfile(os.path.join(model_dir, "ckpts", ckpts[0], ckpt_lib.STATE_FILE)):
+            raise AssertionError(f"expected one committed checkpoint, found {ckpts}")
+        if not os.path.isfile(os.path.join(export, ckpt_lib.PARAMS_FILE)):
+            raise AssertionError("no serving export")
+        saved_step = int(ckpts[0].split("_")[1])
+
+        # one step and one eval batch alone: the exact launches of each
+        state, trainer, ds = run.state, run.trainer, run.dataset
+        it = ds.train_batches(B_TRAIN, seed=SEED + 7)
+        rng = torch.Generator("cuda").manual_seed(SEED + 7)
+        batches = [to_device(next(it), "cuda") for _ in range(4)]
+        evals = [to_device(b, "cuda") for b in ds.eval_batches(B_TRAIN, limit_batches=WIDE_EVAL_BATCHES)]
+        _build.reset_launch_counts()
+        state, _ = trainer.train_step(state, batches[0], rng)
+        step_counts = {k: n for k, n in _build.launch_counts().items() if n}
+        _build.reset_launch_counts()
+        trainer.eval_step(eval_params(state), evals[0])
+        eval_counts = {k: n for k, n in _build.launch_counts().items() if n}
+        log(f"[wide-train] launches of one train step {step_counts}, of one eval batch {eval_counts}")
+        if step_counts != {k: n for k, n in per_step.items() if n} or eval_counts != per_eval:
+            raise AssertionError(f"launches per step {step_counts} / per eval batch {eval_counts}")
+
+        # a timed window and a profiled one, batches already on the card
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(WIDE_TIMED):
+            state, loss = trainer.train_step(state, batches[i % len(batches)], rng)
+        loss.item()
+        ms_step = (time.perf_counter() - t0) / WIDE_TIMED * 1e3
+        t0 = time.perf_counter()
+        acc = None
+        for b in evals:
+            stats = trainer.eval_step(eval_params(state), b)
+            acc = stats if acc is None else metrics_lib.merge(acc, stats)
+        metrics_lib.finalize(acc)
+        ms_eval = (time.perf_counter() - t0) / len(evals) * 1e3
+        log(f"[wide-train] {WIDE_TIMED} train steps: {ms_step:.3f} ms/step, {B_TRAIN / ms_step * 1e3:.1f} examples/s; "
+            f"{len(evals)} eval batches of {B_TRAIN}: {ms_eval:.3f} ms/batch [{card}]")
+        holder = {"state": state}
+
+        def profiled():
+            for i in range(10):
+                holder["state"], _ = trainer.train_step(holder["state"], batches[i % len(batches)], rng)
+
+        prof = _device_profile(profiled, 10, "wide-train", card)
+        log(f"[wide-train] device time {prof['device_ms_per_step']:.3f} ms/step (profiled kernels) against {ms_step:.3f} "
+            f"ms/step unprofiled: busy share {prof['device_ms_per_step'] / ms_step:.3f} [{card}]")
+
+        # resume for one more epoch: the step count continues from the saved one
+        del run, state, trainer, holder, batches, evals
+        train_torch.main(argv + ["--epochs", "1", "--resume"])
+        resumed = history()[WIDE_EPOCHS]
+        log(f"[wide-train] resumed from step {saved_step}: {resumed}")
+        if resumed["step"] != saved_step + WIDE_STEPS:
+            raise AssertionError(f"the resumed run's step {resumed['step']} != {saved_step} + {WIDE_STEPS}")
+
+        # training to serving: the trained export answers a request
+        served = ServingModel(export, device="cuda", warmup_batches=(8,), warmup_k=K)
+        _build.reset_launch_counts()
+        res = served.recommend(_sessions(np.random.default_rng(SEED + 8), 8), k=K)
+        _check_result(res, 8)
+        serve_counts = {k: n for k, n in _build.launch_counts().items() if n}
+        log(f"[wide-train] the trained export served a batch-8 request: launches {serve_counts}; first row {res[0][:3]}")
+        if serve_counts != per_eval:
+            raise AssertionError(f"serving launches {serve_counts} != {per_eval}")
+        del served
+    finally:
+        shutil.rmtree(model_dir, ignore_errors=True)
+
+    # one train step and one eval batch at B=32, dropout 0: card vs CPU
+    t0 = time.perf_counter()
+    h0 = next(ds.train_batches(B_CHECK, seed=SEED + 9))
+    num_valid = cfg.head.output_size
+    worst = _card_vs_cpu_step(cfg, lambda device: to_device(h0, device), num_valid, f"[wide-train] B={B_CHECK}")
+    e0 = next(iter(ds.eval_batches(B_CHECK, limit_batches=1)))
+    for dtype, tol in EVAL_TOL.items():
+        cfg0 = dataclasses.replace(cfg, dropout_rate=0.0, dtype=dtype)
+        sd = seeded_state_dict(cfg0, SEED + 2)
+        sums = []
+        for device in ("cuda", "cpu"):
+            m = ClickstreamModel(cfg0, device=device)
+            m.load_state_dict(sd)
+            stats = make_eval_step(m, chunked_num_valid=num_valid)(dict(m.named_parameters()), to_device(e0, device))
+            sums.append({k: float(v) for k, v in stats.items()})
+        gpu, cpu = sums
+        # the hit sums move by one whole hit where rounding reorders a near tie
+        err = {k: abs(gpu[k] - cpu[k]) / max(abs(cpu[k]), 1.0) for k in cpu}
+        log(f"[wide-train] eval batch B={B_CHECK} {dtype}, card vs CPU: {gpu} vs {cpu}; worst relative "
+            f"difference {max(err.values()):.2e} (tol {tol:.0e})")
+        if gpu["n"] != cpu["n"] or err["loss_sum"] > tol:
+            raise AssertionError(f"card and CPU eval sums differ ({dtype}): {gpu} vs {cpu}")
+        for key in (k for k in cpu if "@" in k):
+            if abs(gpu[key] - cpu[key]) > 1.0 + tol * abs(cpu[key]):
+                raise AssertionError(f"card and CPU eval sums differ ({dtype}) at {key}: {gpu[key]} vs {cpu[key]}")
+    log(f"[wide-train] card vs CPU checks in {time.perf_counter() - t0:.2f} s")
+    return dict(counts=counts, step_counts=step_counts, ms_per_step=ms_step, examples_per_s=B_TRAIN / ms_step * 1e3,
+                eval_ms_per_batch=ms_eval, peak_bytes=peak, profile=prof, worst_grad_err=worst,
+                train_loss=[r["train_loss"] for r in records])
+
+
 def main() -> None:
     walls = {}
 
@@ -1180,9 +1551,10 @@ def main() -> None:
     train = timed("train", phase_train, card)
     long_train = timed("long-train", phase_long_train, card)
     timed("long-serve", phase_long_serve, card)
+    wide_train = timed("wide-train", phase_wide_train, card)
     # name, source, TPU kernel, counter (= key in `kernels`), the main path
-    # whose launches are reported: the flagship train step's timed window, or
-    # the long-session train step's
+    # whose launches are reported: the flagship train step's timed window,
+    # the long-session train step's, or one step of the wide training run
     pallas = "bert4clickpath_tpu/ops/pallas/"
     rows = [
         ("fused_gather_scale_pos", "gather.cu", "gather.py:37", "gather", train),
@@ -1190,6 +1562,8 @@ def main() -> None:
         ("fused_mha_bwd", "attention.cu", "attention.py:76", "attention_bwd", train),
         ("fused_ce_fwd", "fused_ce.cu", "fused_ce.py:134", "ce_fwd", train),
         ("fused_ce_bwd", "fused_ce.cu", "fused_ce.py:761", "ce_bwd", train),
+        ("fused_ce_bwd_dx", "fused_ce_two_pass.cu", "fused_ce.py:293", "ce_bwd_dx", wide_train),
+        ("fused_ce_bwd_dw", "fused_ce_two_pass.cu", "fused_ce.py:321", "ce_bwd_dw", wide_train),
         ("blockwise_mha_fwd", "attention_blockwise.cu", "attention.py:198", "blockwise_fwd", long_train),
         ("blockwise_mha_dq", "attention_blockwise.cu", "attention.py:245", "blockwise_dq", long_train),
         ("blockwise_mha_dkv", "attention_blockwise.cu", "attention.py:283", "blockwise_dkv", long_train),

@@ -14,6 +14,9 @@ the same f32 value once). Fused CE: logz abs 1e-4 (f32 sums over the
 catalog in another order); dx, dW and db within 1e-4 (f32 x) or 2e-2 (bf16
 x) of the reference's largest magnitude (dx sums with atomics, in an order
 that varies run to run; bf16 x rounds A, which may round the other way).
+The two-pass CE backward: the same, but its dx sums in a fixed order, so two
+runs give the same bits, and a bf16 dx may besides round its f32 sum the
+other way (one bf16 ulp, 2^-7 of the value).
 Blockwise attention: the running maximum the forward rounds p against, and
 the order of the f32 sums, depend on the tile walk, so the bf16 forward is
 held to two bf16 ulps of the reference (rel 2^-6) plus abs 2e-3, the f32 one
@@ -395,6 +398,76 @@ def test_ce_kernels_match_plain(cuda, n, v, d, dtype, with_bias):
     assert (dw[blinded] == 0).all()
 
 
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize(
+    "n,v,d,dtype",
+    [
+        (2560, 55_296, 384, torch.float32),  # the wide model's CE shape
+        (100, 128, 32, torch.float32),  # N off the 64-row tile, V one tile pair, D below one chunk
+        (77, 1000, 450, torch.bfloat16),  # ragged V, D not a multiple of 4 nor of a chunk, two D splits
+        (64, 2100, 512, torch.float32),  # past the forward's limit: the backward alone
+        (50, 300, 6, torch.float32),  # element-wise tile loads
+        (130, 700, 713, torch.bfloat16),  # the widest row the pair takes
+    ],
+)
+def test_ce_two_pass_kernels_match_plain(cuda, n, v, d, dtype, with_bias):
+    x, table, bias, lab, dnll, off, nv = _ce_case(n, v, d, dtype, with_bias, oov=True)
+    wm, wl = ce_stats_reference(x, table, bias, off, nv)
+    logz = wm + torch.log(wl)
+    if d <= ce_kernels.MAX_D_FWD:  # the forward at wide rows too
+        m, l = ce_stats(x, table, bias, off, nv)
+        torch.testing.assert_close(m + torch.log(l), logz, atol=1e-4, rtol=0)
+    args = (x, table, bias, lab, logz, dnll, off, nv)
+    before = _build.launch_counts()
+    dx, dw, db = ce_kernels.ce_backward_two_pass(*args)
+    again = ce_kernels.ce_backward_dx(*args)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    assert after["ce_bwd_dx"] == before["ce_bwd_dx"] + 2 and after["ce_bwd_dw"] == before["ce_bwd_dw"] + 1
+    assert after["ce_bwd"] == before["ce_bwd"]
+    wdx = ce_kernels.ce_backward_dx_reference(*args)
+    wdw, wdb = ce_kernels.ce_backward_dw_reference(*args)
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
+    assert dx.dtype == dtype and dw.dtype == torch.float32
+    assert torch.equal(dx, again)  # a fixed order of sums
+    if dtype == torch.float32:
+        _near(dx, wdx, rel)
+    else:
+        diff = (dx.float() - wdx.float()).abs()
+        assert bool((diff <= rel * wdx.float().abs().max() + 2.0**-7 * wdx.float().abs()).all())
+    _near(dw, wdw, rel)
+    if with_bias:
+        _near(db, wdb, rel)
+    else:
+        assert db is None and wdb is None
+    blinded = torch.ones(v, dtype=torch.bool, device=cuda)
+    blinded[off : off + nv] = False
+    blinded[lab[1].long()] = False
+    assert (dw[blinded] == 0).all()
+
+
+def test_ce_kernels_name_their_widest_row(cuda):
+    """D = 384 goes through the forward and, by its shape alone, through the
+    two-pass backward; D = 256 through the merged one; each kernel refuses
+    what it cannot hold by naming its limit, and never takes another route."""
+    for d, route in ((384, "two_pass"), (256, "merged")):
+        x, table, bias, lab, dnll, off, nv = _ce_case(70, 500, d, torch.float32, False)
+        m, l = ce_stats(x, table, None, off, nv)
+        _build.reset_launch_counts()
+        ce_backward(x, table, None, lab, m + torch.log(l), dnll, off, nv)
+        want = {"ce_bwd": 1} if route == "merged" else {"ce_bwd_dx": 1, "ce_bwd_dw": 1}
+        assert _nonzero_counts() == want and ce_kernels.ce_backward_route(d) == route
+    x, table, _, lab, dnll, off, nv = _ce_case(70, 500, 454, torch.float32, False)
+    with pytest.raises(ValueError, match="D <= 453"):
+        ce_stats(x, table, None, off, nv)
+    with pytest.raises(ValueError, match="D <= 256"):
+        ce_kernels.ce_backward_merged(x, table, None, lab, dnll, dnll, off, nv)
+    x, table, _, lab, dnll, off, nv = _ce_case(70, 500, 714, torch.float32, False)
+    for fn in (ce_kernels.ce_backward_dx, ce_kernels.ce_backward_dw, ce_backward):
+        with pytest.raises(ValueError, match="D <= 713"):
+            fn(x, table, None, lab, dnll, dnll, off, nv)
+
+
 def test_fused_ce_op_on_card_matches_dense(cuda):
     """The autograd op on the card (both kernels) against the dense f32
     oracle: nll, and grads of x, table and bias; an OOV label gives ~1e30."""
@@ -430,6 +503,7 @@ def test_cuda_tensors_never_take_a_plain_version(cuda, monkeypatch):
     for mod, name in [
         (attn_kernels, "mha_reference"), (attn_kernels, "mha_backward_reference"),
         (ce_kernels, "ce_stats_reference"), (ce_kernels, "ce_backward_reference"),
+        (ce_kernels, "ce_backward_dx_reference"), (ce_kernels, "ce_backward_dw_reference"),
         (gather_kernels, "gather_scale_pos_reference"),
         (attn_kernels, "blockwise_mha_reference"), (attn_kernels, "blockwise_dq_reference"),
         (attn_kernels, "blockwise_dkv_reference"),
@@ -442,6 +516,14 @@ def test_cuda_tensors_never_take_a_plain_version(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert torch.isfinite(loss)
     assert _nonzero_counts() == {"gather": 1, "attention": 2, "attention_bwd": 2, "ce_fwd": 1, "ce_bwd": 1}
+    # a model wider than the merged CE backward holds: the two-pass pair
+    model, state, step, batch = _small_train(cuda, dropout=0.1, d_model=320, heads=5)
+    _build.reset_launch_counts()
+    state, loss = step(state, batch, torch.Generator(cuda).manual_seed(0))
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert _nonzero_counts() == {"gather": 1, "attention": 2, "attention_bwd": 2, "ce_fwd": 1,
+                                 "ce_bwd_dx": 1, "ce_bwd_dw": 1}
     # the long-session families: blockwise attention and the dropout kernel
     # at its five sites (encoder input, 2 per layer), forward and backward
     monkeypatch.setattr(attn_kernels, "attention_family", lambda *a: "blockwise")
@@ -456,7 +538,7 @@ def test_cuda_tensors_never_take_a_plain_version(cuda, monkeypatch):
     }
 
 
-def _small_train(device, dropout=0.0, dtype="bfloat16", dropout_impl="mask"):
+def _small_train(device, dropout=0.0, dtype="bfloat16", dropout_impl="mask", d_model=64, heads=4):
     from bert4clickpath_torch.config import FeatureConfig, HeadConfig, ModelConfig, TrainConfig
     from bert4clickpath_torch.data.generator import ClickStreamGenerator
     from bert4clickpath_torch.data.pipeline import ClozeDataset, to_device
@@ -470,8 +552,8 @@ def _small_train(device, dropout=0.0, dtype="bfloat16", dropout_impl="mask"):
     gen = ClickStreamGenerator(n_items=300, session_cohesiveness=200, seed=0)
     vocab = gen.item_vocab()
     cfg = ModelConfig(
-        features={"items": FeatureConfig(padded_rows(vocab.model_vocab_size), 64)}, num_layers=2,
-        num_heads=4, ffn_dim=128, dropout_rate=dropout, max_len=23,
+        features={"items": FeatureConfig(padded_rows(vocab.model_vocab_size), d_model)}, num_layers=2,
+        num_heads=heads, ffn_dim=2 * d_model, dropout_rate=dropout, max_len=23,
         head=HeadConfig("tied_softmax", output_size=vocab.label_vocab_size), dtype=dtype, qkv_fused=True,
     )
     model = ClickstreamModel(cfg, device=device, dropout_impl=dropout_impl)
@@ -484,7 +566,8 @@ def _small_train(device, dropout=0.0, dtype="bfloat16", dropout_impl="mask"):
     return model, state, step, to_device(host, device)
 
 
-def test_train_step_on_card_matches_cpu(cuda):
+@pytest.mark.parametrize("d_model,heads", [(64, 4), (320, 5)])  # the merged CE backward, the two-pass pair
+def test_train_step_on_card_matches_cpu(cuda, d_model, heads):
     """One step of a small bf16 model, dropout 0, from the same weights and
     batch on the card and on the CPU: loss abs 2e-2; every parameter's
     gradient within 2e-2 relative norm error (bf16 compute on both)."""
@@ -492,7 +575,7 @@ def test_train_step_on_card_matches_cpu(cuda):
 
     results = []
     for device in (cuda, torch.device("cpu")):
-        model, state, _, batch = _small_train(device)
+        model, state, _, batch = _small_train(device, d_model=d_model, heads=heads)
         loss = make_loss_fn(model, fused_ce_num_valid=model.config.head.output_size)(batch)
         grads = torch.autograd.grad(loss, list(state.params.values()))
         results.append((loss.item(), {k: g.cpu() for k, g in zip(state.params, grads)}))

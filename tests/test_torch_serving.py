@@ -215,8 +215,9 @@ def test_artifacts_load_in_both_packages(tied, tmp_path):
 
 
 def test_port_never_imports_jax():
-    """Importing the serving and training paths (and chip_smoke) pulls in no
-    jax, flax, optax, orbax or JAX-package module."""
+    """Importing the serving and training paths, the trainer, the training
+    CLI and chip_smoke pulls in no jax, flax, optax, orbax or JAX-package
+    module."""
     code = (
         "import sys, bert4clickpath_torch.training.serving, bert4clickpath_torch.convert, chip_smoke\n"
         "import bert4clickpath_torch.training.train_state, bert4clickpath_torch.ops.fused_ce\n"
@@ -224,6 +225,10 @@ def test_port_never_imports_jax():
         "import bert4clickpath_torch.data.generator, bert4clickpath_torch.training.schedules\n"
         "import bert4clickpath_torch.ops.losses, bert4clickpath_torch.ops.kernels.dropout\n"
         "import bert4clickpath_torch.data.synthetic, examples.long_context.bench_torch\n"
+        "import bert4clickpath_torch.ops.metrics, bert4clickpath_torch.ops.chunked_eval\n"
+        "import bert4clickpath_torch.training.trainer, bert4clickpath_torch.training.checkpoint\n"
+        "import bert4clickpath_torch.utils.tb, bert4clickpath_torch.data.beauty, bert4clickpath_torch.data.etl\n"
+        "import bert4clickpath_torch.ops.kernels.fused_ce, examples.bert4rec.train_torch\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'bert4clickpath_tpu'))\n"
         "assert not bad, bad\n"
