@@ -11,9 +11,9 @@
 //             input type before the PV product (f32 sums), the sum is divided
 //             by l once at the end; lse = m + log(l) is kept per (row, head)
 //   backward  p = exp(s - lse)                              f32, recomputed
-//             dv_h = p^T . do_h                             unrounded p, f32 do
+//             dv_h = round_to_input(p)^T . do_h             f32 sums
 //             dp = do_h . v_h^T                             f32
-//             ds = round_to_input(p * (dp - delta) * scale)
+//             ds = round_to_input(p * (dp - delta) * scale) from the f32 p
 //             dq_h = ds . k_h,  dk_h = ds^T . q_h           f32 sums
 //             delta = rowsum(do_h * out_h) comes from the wrapper
 //
@@ -25,32 +25,71 @@
 // dimension must be contiguous. do, out, dq, dk, dv are contiguous (B, L, D);
 // lse and delta are (B, L, H) f32. Unlike the TPU kernels, which add each
 // tile pair's partial dq / dk / dv into an output of the input type, the
-// gradients are summed in f32 registers over all tiles and rounded once.
+// gradients are summed in f32 registers over all tiles and rounded once; one
+// block owns its output rows, so there are no atomics and two runs give the
+// same bits. The TPU kernel takes dv from the unrounded f32 p; here p is
+// rounded to the input type first (the identity for f32 inputs), as the
+// forward rounds it before its PV product, so that in bf16 every product of
+// the backward has bf16 operands.
 //
-// What bounds it on the H100: operations. At the long-session shape (B=16,
-// L=1024, D=256, H=4) the forward is 4 B L^2 D = 17.2 GFLOP over ~34 MB of
-// q/k/v/out, dq is three such products and dk/dv four: 60 GFLOP per layer in
-// the backward. The products here are scalar f32 FMA out of shared memory
-// (so f32 inputs keep f32 accuracy); tensor cores (mma.sync / wgmma on the
-// bf16 operands), cp.async / TMA double buffering and warp specialisation are
-// what a fast version would add.
+// What bounds all three on the H100: operations. At the long-session shape
+// (B=16, L=1024, D=256, H=4) one product over all heads is 2 B L^2 D = 8.6
+// GFLOP over ~34 MB of q/k/v/out: the forward is two products, dq three and
+// dk/dv four, 60 GFLOP per layer in the backward.
 //
-// Design (simple first). A block of 256 threads (16 x 16) owns one 64-row
-// tile of one (b, h): a query tile in the forward and dq (grid: q tiles x H x
-// B, 1,024 blocks at the shape above), a key tile in dk/dv, which then sums
-// over all query tiles inside the block, so no atomics are needed. It walks
-// the other sequence axis in 64-row tiles. Tiles are converted to f32 in
-// shared memory with a row stride of Dh' + 4 floats (Dh' = Dh rounded up to
-// 16, 32, 64 or 128 and zero-filled, a template parameter), which makes the
-// 16-byte reads of both products conflict-free. Thread (ty, tx) computes the
-// 4 x 4 scores at rows ty + 16 i and columns tx + 16 j, reduces max and sum
-// over the 16 lanes that share its rows by warp shuffles, writes the
-// probability (or ds) tile to shared memory, and then accumulates its rows'
-// output for the Dh'/16 head columns it owns. Any L is taken: rows and keys
-// past L are zero-filled, masked out of the softmax and never stored.
-// Shared memory at Dh = 64: forward 68 KB, dq 85 KB, dk/dv 103 KB per block
-// (two or three blocks per SM); at Dh = 128: 116, 149 and 167 KB.
+// Two designs live here, chosen by the input type alone.
+//
+// (1) The forward (both types) and the f32 backward: scalar f32 FMA out of
+// shared memory, so that f32 inputs keep f32 accuracy (the exactness route).
+// A block of 256 threads (16 x 16) owns one 64-row tile of one (b, h): a
+// query tile in the forward and dq (grid: q tiles x H x B), a key tile in
+// dk/dv, which then sums over all query tiles inside the block. It walks the
+// other sequence axis in 64-row tiles. Tiles are converted to f32 in shared
+// memory with a row stride of Dh' + 4 floats (Dh' = Dh rounded up to 16, 32,
+// 64 or 128 and zero-filled, a template parameter), which makes the 16-byte
+// reads of both products conflict-free. Thread (ty, tx) computes the 4 x 4
+// scores at rows ty + 16 i and columns tx + 16 j, reduces max and sum over
+// the 16 lanes that share its rows by warp shuffles, writes the probability
+// (or ds) tile to shared memory, and then accumulates its rows' output for
+// the Dh'/16 head columns it owns. Shared memory at Dh = 64: forward 68 KB,
+// dq 85 KB, dk/dv 103 KB per block; at Dh = 128: 116, 149 and 167 KB.
+//
+// (2) The bf16 backward (bmha_dq_mma_kernel, bmha_dkv_mma_kernel): every
+// product on the tensor cores, mma.sync.m16n8k16 (bf16 x bf16, f32 sums)
+// with ldmatrix fragment loads; the building blocks are in attention_mma.cuh.
+// A warp owns 16 rows of one (b, h): query rows in dq (8 warps, 128 rows a
+// block), key rows in dk/dv (4 warps, 64 rows a block), so one block owns
+// its output rows. Its own operands (q and do; k and v) are loaded once into
+// bf16 tiles (row stride Dh' + 8: no bank conflicts) and, for Dh' <= 64,
+// their A fragments then stay in registers. The walked operand (k and v
+// tiles of 64 keys with their bias; q and do tiles of 64 rows with their lse
+// and delta) comes through two stages of shared memory by cp.async: tile
+// j + 1 is in flight while tile j multiplies, with one barrier per tile. dq
+// computes s = q k^T and dp = do v^T; dk/dv computes the transposed tiles
+// s^T = k q^T and dp^T = v do^T, so that p^T and ds^T arrive in the
+// accumulator layout of the key rows the warp owns. exp(s - lse),
+// (dp - delta), the scale and the rounding to bf16 happen on the accumulator
+// fragments, which are repacked in registers as the A operand of the next
+// product (dq += ds k; dv += p^T do, dk += ds^T q, the B operand read down
+// its rows with ldmatrix.trans): p and ds never touch shared memory. A warp
+// takes a walked tile through this chain a few columns at a time (16 in dq,
+// 64 or 32 in dk/dv), which bounds its score registers. Keys past L carry a
+// bias of -inf and query rows past L an lse of +inf, so their p is exactly 0
+// before any product; rows past L are never stored. Where the head width, a
+// stride or a base address does not allow 16-byte copies, plain loads fill
+// the same tiles. At Dh = 64 (ptxas, sm_90a): dq 128 registers, 74 KB of
+// shared memory, two blocks (16 warps) per SM; dk/dv 168 registers, 56 KB,
+// three blocks (12 warps); at Dh = 128: 140 and 105 KB, one block each. The
+// gradients stay in f32 registers over all tiles and are rounded once.
+// mma.sync, not wgmma: its fragment layouts are explicit, which the
+// register-level chaining of p and ds needs to be sure of without a compiler
+// at hand while writing; wgmma (A from registers for the second product of
+// each chain, 128-byte-swizzled B tiles behind descriptors) is what a later
+// version would add for the last factor towards the tensor cores' peak.
 
+#include <type_traits>
+
+#include "attention_mma.cuh"
 #include "common.cuh"
 
 namespace {
@@ -300,12 +339,14 @@ __global__ void __launch_bounds__(kThreads, DHP <= 64 ? 2 : 1)
   store_rows<T, NC>(out, acc, base, q0, seq_len, d, dh, ty, tx);
 }
 
-template <typename T, int DHP>
+// The f32 backward: the scalar design of the forward (see the header).
+
+template <int DHP>
 __global__ void __launch_bounds__(kThreads, DHP <= 64 ? 2 : 1)
-    bmha_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const float* __restrict__ bias,
-                   const float* __restrict__ lse, const T* __restrict__ dout,
-                   const float* __restrict__ delta, T* __restrict__ dq,
+    bmha_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ bias,
+                   const float* __restrict__ lse, const float* __restrict__ dout,
+                   const float* __restrict__ delta, float* __restrict__ dq,
                    int seq_len, int d, int dh, int heads, Strides st,
                    float scale, int vec) {
   extern __shared__ __align__(16) float smem[];
@@ -315,7 +356,7 @@ __global__ void __launch_bounds__(kThreads, DHP <= 64 ? 2 : 1)
   float* dos = qs + kTile * RS;
   float* ks = dos + kTile * RS;
   float* vs = ks + kTile * RS;
-  float* ss = vs + kTile * RS;   // ds, rounded to the input type
+  float* ss = vs + kTile * RS;   // ds
   float* bs = ss + kTile * kSs;
   const int q0 = blockIdx.x * kTile;
   const int h = blockIdx.y;
@@ -323,11 +364,11 @@ __global__ void __launch_bounds__(kThreads, DHP <= 64 ? 2 : 1)
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
   const long long base = static_cast<long long>(b) * seq_len * d + h * dh;
-  const T* kb = k + b * st.k_sb + h * dh;
-  const T* vb = v + b * st.v_sb + h * dh;
+  const float* kb = k + b * st.k_sb + h * dh;
+  const float* vb = v + b * st.v_sb + h * dh;
 
-  load_tile<T, DHP>(qs, q + b * st.q_sb + h * dh, st.q_sl, q0, seq_len, dh, vec);
-  load_tile<T, DHP>(dos, dout + base, d, q0, seq_len, dh, vec);
+  load_tile<float, DHP>(qs, q + b * st.q_sb + h * dh, st.q_sl, q0, seq_len, dh, vec);
+  load_tile<float, DHP>(dos, dout + base, d, q0, seq_len, dh, vec);
   float lse_r[4], delta_r[4], acc[4][NC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -341,8 +382,8 @@ __global__ void __launch_bounds__(kThreads, DHP <= 64 ? 2 : 1)
 
   for (int k0 = 0; k0 < seq_len; k0 += kTile) {
     __syncthreads();
-    load_tile<T, DHP>(ks, kb, st.k_sl, k0, seq_len, dh, vec);
-    load_tile<T, DHP>(vs, vb, st.v_sl, k0, seq_len, dh, vec);
+    load_tile<float, DHP>(ks, kb, st.k_sl, k0, seq_len, dh, vec);
+    load_tile<float, DHP>(vs, vb, st.v_sl, k0, seq_len, dh, vec);
     if (threadIdx.x < kTile) {
       const int key = k0 + threadIdx.x;
       bs[threadIdx.x] = key < seq_len ? bias[static_cast<long long>(b) * seq_len + key] : 0.f;
@@ -369,25 +410,25 @@ __global__ void __launch_bounds__(kThreads, DHP <= 64 ? 2 : 1)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float ds = __fmul_rn(__fmul_rn(s[i][j], __fsub_rn(dp[i][j], delta_r[i])), scale);
-        ss[(ty + 16 * i) * kSs + tx + 16 * j] = round_to<T>(ds);
+        ss[(ty + 16 * i) * kSs + tx + 16 * j] = ds;
       }
     }
     __syncthreads();
     tile_accumulate<DHP>(acc, ss, ks, ty, tx);
   }
-  store_rows<T, NC>(dq, acc, base, q0, seq_len, d, dh, ty, tx);
+  store_rows<float, NC>(dq, acc, base, q0, seq_len, d, dh, ty, tx);
 }
 
 // One block per key tile: it keeps k and v, walks the query tiles, and
 // computes the scores transposed (rows = keys, columns = queries), so the
 // thread's rows are the dk / dv rows it sums.
-template <typename T, int DHP>
+template <int DHP>
 __global__ void __launch_bounds__(kThreads, DHP <= 64 ? 2 : 1)
-    bmha_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const float* __restrict__ bias,
-                    const float* __restrict__ lse, const T* __restrict__ dout,
-                    const float* __restrict__ delta, T* __restrict__ dk,
-                    T* __restrict__ dv, int seq_len, int d, int dh, int heads,
+    bmha_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ bias,
+                    const float* __restrict__ lse, const float* __restrict__ dout,
+                    const float* __restrict__ delta, float* __restrict__ dk,
+                    float* __restrict__ dv, int seq_len, int d, int dh, int heads,
                     Strides st, float scale, int vec) {
   extern __shared__ __align__(16) float smem[];
   constexpr int RS = DHP + kPad;
@@ -396,8 +437,8 @@ __global__ void __launch_bounds__(kThreads, DHP <= 64 ? 2 : 1)
   float* vs = ks + kTile * RS;
   float* qs = vs + kTile * RS;
   float* dos = qs + kTile * RS;
-  float* pt = dos + kTile * RS;     // p^T, f32 (not rounded)
-  float* dst = pt + kTile * kSs;    // ds^T, rounded to the input type
+  float* pt = dos + kTile * RS;     // p^T
+  float* dst = pt + kTile * kSs;    // ds^T
   float* lses = dst + kTile * kSs;  // this query tile's lse
   float* deltas = lses + kTile;     // and delta
   const int k0 = blockIdx.x * kTile;
@@ -406,10 +447,10 @@ __global__ void __launch_bounds__(kThreads, DHP <= 64 ? 2 : 1)
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
   const long long base = static_cast<long long>(b) * seq_len * d + h * dh;
-  const T* qb = q + b * st.q_sb + h * dh;
+  const float* qb = q + b * st.q_sb + h * dh;
 
-  load_tile<T, DHP>(ks, k + b * st.k_sb + h * dh, st.k_sl, k0, seq_len, dh, vec);
-  load_tile<T, DHP>(vs, v + b * st.v_sb + h * dh, st.v_sl, k0, seq_len, dh, vec);
+  load_tile<float, DHP>(ks, k + b * st.k_sb + h * dh, st.k_sl, k0, seq_len, dh, vec);
+  load_tile<float, DHP>(vs, v + b * st.v_sb + h * dh, st.v_sl, k0, seq_len, dh, vec);
   float bias_r[4], acc_k[4][NC], acc_v[4][NC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -424,8 +465,8 @@ __global__ void __launch_bounds__(kThreads, DHP <= 64 ? 2 : 1)
 
   for (int q0 = 0; q0 < seq_len; q0 += kTile) {
     __syncthreads();
-    load_tile<T, DHP>(qs, qb, st.q_sl, q0, seq_len, dh, vec);
-    load_tile<T, DHP>(dos, dout + base, d, q0, seq_len, dh, vec);
+    load_tile<float, DHP>(qs, qb, st.q_sl, q0, seq_len, dh, vec);
+    load_tile<float, DHP>(dos, dout + base, d, q0, seq_len, dh, vec);
     if (threadIdx.x < kTile) {
       const int row = q0 + threadIdx.x;
       const long long at = (static_cast<long long>(b) * seq_len + row) * heads + h;
@@ -456,19 +497,293 @@ __global__ void __launch_bounds__(kThreads, DHP <= 64 ? 2 : 1)
       for (int j = 0; j < 4; ++j) {
         const int qj = tx + 16 * j;
         const float ds = __fmul_rn(__fmul_rn(s[i][j], __fsub_rn(dp[i][j], deltas[qj])), scale);
-        dst[(ty + 16 * i) * kSs + qj] = round_to<T>(ds);
+        dst[(ty + 16 * i) * kSs + qj] = ds;
       }
     }
     __syncthreads();
     tile_accumulate<DHP>(acc_v, pt, dos, ty, tx);
     tile_accumulate<DHP>(acc_k, dst, qs, ty, tx);
   }
-  store_rows<T, NC>(dv, acc_v, base, k0, seq_len, d, dh, ty, tx);
-  store_rows<T, NC>(dk, acc_k, base, k0, seq_len, d, dh, ty, tx);
+  store_rows<float, NC>(dv, acc_v, base, k0, seq_len, d, dh, ty, tx);
+  store_rows<float, NC>(dk, acc_k, base, k0, seq_len, d, dh, ty, tx);
 }
 
-// bytes of dynamic shared memory: `tiles` 64-row operand tiles, `scores`
-// 64 x 64 score tiles, `extra` floats
+// The bf16 backward on the tensor cores (design (2) of the header).
+
+constexpr int kWalk = 64;  // rows of a walked tile: one barrier and one stage each
+
+// The shape of each kernel, found on the card at the long-session shape
+// (examples/long_context/tune_blockwise_bwd.py). Warps: 16 rows of the
+// block's own tile each. Pass: the columns of a walked tile that a warp takes
+// through its chain of products at a time (its two score tiles are 16 x pass
+// f32 in registers). MinBlocks: the blocks per SM that the register
+// allocation leaves room for; ptxas otherwise takes all 255 registers to
+// hoist loads, and the fewer warps in flight cost more than the hoisting
+// gains. kFragmentsResident: the A fragments of the block's own operands
+// stay in registers (else they are read from shared memory at every k-step).
+template <int DHP>
+constexpr bool kFragmentsResident = DHP <= 64;
+template <int DHP>
+constexpr int kDqWarps = 8;
+template <int DHP>
+constexpr int kDqPass = 16;
+template <int DHP>
+constexpr int kDqMinBlocks = DHP <= 64 ? 2 : 1;  // 128 registers; at Dh' = 128 shared memory holds one block
+template <int DHP>
+constexpr int kDkvWarps = 4;
+template <int DHP>
+constexpr int kDkvPass = DHP <= 64 ? 64 : 32;  // dk and dv alone are 128 registers at Dh' = 128
+template <int DHP>
+constexpr int kDkvMinBlocks = DHP <= 64 ? 3 : 1;  // 168 registers
+
+// bytes of dynamic shared memory of the mma kernels: two resident tiles of
+// 16 rows a warp, two stages of two walked tiles, and two stages of
+// `rows_f32` f32 rows of kWalk values
+template <int DHP>
+constexpr size_t mma_smem_bytes(int warps, int rows_f32) {
+  return sizeof(__nv_bfloat16) * (2 * 16 * warps + 4 * kWalk) * (DHP + tc::kSkew) +
+         sizeof(float) * 2 * rows_f32 * kWalk;
+}
+
+// One block per (query tile of 16 rows a warp, h, b): q and do stay, k and v
+// tiles walk.
+template <int DHP, int WARPS, int NP, bool RESIDENT, int MIN_BLOCKS>
+__global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
+    bmha_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
+                       const float* __restrict__ lse, const __nv_bfloat16* __restrict__ dout,
+                       const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
+                       int seq_len, int d, int dh, int heads, Strides st, float scale,
+                       int vec) {
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  constexpr int RS = DHP + tc::kSkew;
+  constexpr int kMmaThreads = WARPS * 32;
+  constexpr int kMmaRows = WARPS * 16;  // rows the block owns
+  constexpr int NT = NP / 8;  // n8 tiles of a pass
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_mma);
+  __nv_bfloat16* dos = qs + kMmaRows * RS;
+  __nv_bfloat16* ks = dos + kMmaRows * RS;  // two stages
+  __nv_bfloat16* vs = ks + 2 * kWalk * RS;  // two stages
+  float* bs = reinterpret_cast<float*>(vs + 2 * kWalk * RS);  // two stages of kWalk
+  const int q0 = blockIdx.x * kMmaRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const long long base = static_cast<long long>(b) * seq_len * d + h * dh;
+  const __nv_bfloat16* kb = k + b * st.k_sb + h * dh;
+  const __nv_bfloat16* vb = v + b * st.v_sb + h * dh;
+  const float* bias_b = bias + static_cast<long long>(b) * seq_len;
+
+  auto fill_walked = [&](int stage, int k0) {
+    tc::fill_tile<kWalk, DHP, kMmaThreads>(ks + stage * kWalk * RS, kb, st.k_sl, k0, seq_len, dh, vec);
+    tc::fill_tile<kWalk, DHP, kMmaThreads>(vs + stage * kWalk * RS, vb, st.v_sl, k0, seq_len, dh, vec);
+    // a key past seq_len: p = exp(-inf) = 0
+    tc::fill_rows_f32<kMmaThreads>(bs + stage * kWalk, bias_b, 1, k0, kWalk, seq_len, -INFINITY);
+    tc::cp_async_commit();
+  };
+
+  tc::fill_tile<kMmaRows, DHP, kMmaThreads>(qs, q + b * st.q_sb + h * dh, st.q_sl, q0, seq_len, dh, vec);
+  tc::fill_tile<kMmaRows, DHP, kMmaThreads>(dos, dout + base, d, q0, seq_len, dh, vec);
+  tc::cp_async_commit();
+  fill_walked(0, 0);
+
+  // the thread's two rows: g and g + 8 of the warp's 16 (a row past seq_len
+  // is computed on zeros and never stored)
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + warp * 16 + g + 8 * i;
+    const long long at = (static_cast<long long>(b) * seq_len + row) * heads + h;
+    lse_r[i] = row < seq_len ? lse[at] : 0.f;
+    delta_r[i] = row < seq_len ? delta[at] : 0.f;
+  }
+  float acc[DHP / 8][4] = {};
+
+  const int rows_first = tc::lane_offset_rows_first<RS>(lane) * 2;
+  const int cols_first = tc::lane_offset_cols_first<RS>(lane) * 2;
+  const uint32_t q_addr = tc::shared_addr(qs + warp * 16 * RS) + rows_first;
+  const uint32_t do_addr = tc::shared_addr(dos + warp * 16 * RS) + rows_first;
+  const uint32_t k_addr = tc::shared_addr(ks);
+  const uint32_t v_addr = tc::shared_addr(vs);
+  constexpr uint32_t kStageBytes = kWalk * RS * 2;
+  constexpr uint32_t kPassBytes = NP * RS * 2;
+
+  uint32_t qf[DHP / 16][4], dof[DHP / 16][4];
+  if constexpr (RESIDENT) {
+    tc::cp_async_wait<1>();  // q and do have arrived
+    __syncthreads();
+    tc::load_a<DHP>(qf, q_addr);
+    tc::load_a<DHP>(dof, do_addr);
+  }
+
+  const int n_tiles = (seq_len + kWalk - 1) / kWalk;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int stage = j & 1;
+    tc::cp_async_wait<0>();
+    __syncthreads();  // tile j is visible; tile j - 1's readers are done
+    if (j + 1 < n_tiles) fill_walked(stage ^ 1, (j + 1) * kWalk);
+
+#pragma unroll
+    for (int c = 0; c < kWalk / NP; ++c) {
+      const uint32_t k_at = k_addr + stage * kStageBytes + c * kPassBytes;
+      const uint32_t v_at = v_addr + stage * kStageBytes + c * kPassBytes;
+      float s[NT][4] = {}, dp[NT][4] = {};
+      if constexpr (RESIDENT) {
+        tc::product_abt<DHP, NT>(s, qf, k_at + cols_first);
+        tc::product_abt<DHP, NT>(dp, dof, v_at + cols_first);
+      } else {
+        tc::product_abt<DHP, NT>(s, q_addr, k_at + cols_first);
+        tc::product_abt<DHP, NT>(dp, do_addr, v_at + cols_first);
+      }
+      // ds on the accumulator fragments, rounded and repacked as A fragments
+      uint32_t dsf[NP / 16][4];
+      const float* bj = bs + stage * kWalk + c * NP + 2 * t;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float2 b2 = *reinterpret_cast<const float2*>(bj + nt * 8);
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float p = __expf(fmaf(s[nt][e], scale, (e & 1) ? b2.y : b2.x) - lse_r[r]);
+          ds[e] = p * (dp[nt][e] - delta_r[r]) * scale;
+        }
+        dsf[nt >> 1][(nt & 1) * 2] = tc::pack_bf16(ds[0], ds[1]);
+        dsf[nt >> 1][(nt & 1) * 2 + 1] = tc::pack_bf16(ds[2], ds[3]);
+      }
+      tc::product_ab<DHP, NP / 16>(acc, dsf, k_at + rows_first);
+    }
+  }
+  tc::store_acc<DHP>(dq + base, acc, q0 + warp * 16, seq_len, d, dh, lane, vec);
+}
+
+// One block per (key tile of 16 rows a warp, h, b): k and v stay, q and do
+// tiles walk with their lse and delta; the scores are computed transposed
+// (rows = keys).
+template <int DHP, int WARPS, int NP, bool RESIDENT, int MIN_BLOCKS>
+__global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
+    bmha_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
+                        const float* __restrict__ lse, const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv, int seq_len, int d, int dh, int heads,
+                        Strides st, float scale, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  constexpr int RS = DHP + tc::kSkew;
+  constexpr int kMmaThreads = WARPS * 32;
+  constexpr int kMmaRows = WARPS * 16;  // rows the block owns
+  constexpr int NT = NP / 8;  // n8 tiles of a pass
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_mma);
+  __nv_bfloat16* vs = ks + kMmaRows * RS;
+  __nv_bfloat16* qs = vs + kMmaRows * RS;   // two stages
+  __nv_bfloat16* dos = qs + 2 * kWalk * RS;  // two stages
+  float* lses = reinterpret_cast<float*>(dos + 2 * kWalk * RS);  // two stages of kWalk
+  float* deltas = lses + 2 * kWalk;                              // two stages of kWalk
+  const int k0 = blockIdx.x * kMmaRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const long long base = static_cast<long long>(b) * seq_len * d + h * dh;
+  const __nv_bfloat16* qb = q + b * st.q_sb + h * dh;
+  const float* lse_b = lse + static_cast<long long>(b) * seq_len * heads + h;
+  const float* delta_b = delta + static_cast<long long>(b) * seq_len * heads + h;
+
+  auto fill_walked = [&](int stage, int q0) {
+    tc::fill_tile<kWalk, DHP, kMmaThreads>(qs + stage * kWalk * RS, qb, st.q_sl, q0, seq_len, dh, vec);
+    tc::fill_tile<kWalk, DHP, kMmaThreads>(dos + stage * kWalk * RS, dout + base, d, q0, seq_len, dh, vec);
+    // a query row past seq_len: lse = +inf gives p = exp(-inf) = 0, so it
+    // adds nothing to dk and dv
+    tc::fill_rows_f32<kMmaThreads>(lses + stage * kWalk, lse_b, heads, q0, kWalk, seq_len, INFINITY);
+    tc::fill_rows_f32<kMmaThreads>(deltas + stage * kWalk, delta_b, heads, q0, kWalk, seq_len, 0.f);
+    tc::cp_async_commit();
+  };
+
+  tc::fill_tile<kMmaRows, DHP, kMmaThreads>(ks, k + b * st.k_sb + h * dh, st.k_sl, k0, seq_len, dh, vec);
+  tc::fill_tile<kMmaRows, DHP, kMmaThreads>(vs, v + b * st.v_sb + h * dh, st.v_sl, k0, seq_len, dh, vec);
+  tc::cp_async_commit();
+  fill_walked(0, 0);
+
+  // the thread's two key rows (a key past seq_len: p = 0, never stored)
+  float bias_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + warp * 16 + g + 8 * i;
+    bias_r[i] = key < seq_len ? bias[static_cast<long long>(b) * seq_len + key] : -INFINITY;
+  }
+  float acc_k[DHP / 8][4] = {}, acc_v[DHP / 8][4] = {};
+
+  const int rows_first = tc::lane_offset_rows_first<RS>(lane) * 2;
+  const int cols_first = tc::lane_offset_cols_first<RS>(lane) * 2;
+  const uint32_t k_addr = tc::shared_addr(ks + warp * 16 * RS) + rows_first;
+  const uint32_t v_addr = tc::shared_addr(vs + warp * 16 * RS) + rows_first;
+  const uint32_t q_addr = tc::shared_addr(qs);
+  const uint32_t do_addr = tc::shared_addr(dos);
+  constexpr uint32_t kStageBytes = kWalk * RS * 2;
+  constexpr uint32_t kPassBytes = NP * RS * 2;
+
+  uint32_t kf[DHP / 16][4], vf[DHP / 16][4];
+  if constexpr (RESIDENT) {
+    tc::cp_async_wait<1>();  // k and v have arrived
+    __syncthreads();
+    tc::load_a<DHP>(kf, k_addr);
+    tc::load_a<DHP>(vf, v_addr);
+  }
+
+  const int n_tiles = (seq_len + kWalk - 1) / kWalk;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int stage = j & 1;
+    tc::cp_async_wait<0>();
+    __syncthreads();  // tile j is visible; tile j - 1's readers are done
+    if (j + 1 < n_tiles) fill_walked(stage ^ 1, (j + 1) * kWalk);
+
+#pragma unroll
+    for (int c = 0; c < kWalk / NP; ++c) {
+      const uint32_t q_at = q_addr + stage * kStageBytes + c * kPassBytes;
+      const uint32_t do_at = do_addr + stage * kStageBytes + c * kPassBytes;
+      float sT[NT][4] = {}, dpT[NT][4] = {};  // s^T and dp^T: rows = keys
+      if constexpr (RESIDENT) {
+        tc::product_abt<DHP, NT>(sT, kf, q_at + cols_first);
+        tc::product_abt<DHP, NT>(dpT, vf, do_at + cols_first);
+      } else {
+        tc::product_abt<DHP, NT>(sT, k_addr, q_at + cols_first);
+        tc::product_abt<DHP, NT>(dpT, v_addr, do_at + cols_first);
+      }
+      // p^T and ds^T on the accumulator fragments, rounded and repacked
+      uint32_t pf[NP / 16][4], dsf[NP / 16][4];
+      const float* lj = lses + stage * kWalk + c * NP + 2 * t;
+      const float* dj = deltas + stage * kWalk + c * NP + 2 * t;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lj + nt * 8);
+        const float2 d2 = *reinterpret_cast<const float2*>(dj + nt * 8);
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          p[e] = __expf(fmaf(sT[nt][e], scale, bias_r[r]) - ((e & 1) ? l2.y : l2.x));
+          ds[e] = p[e] * (dpT[nt][e] - ((e & 1) ? d2.y : d2.x)) * scale;
+        }
+        pf[nt >> 1][(nt & 1) * 2] = tc::pack_bf16(p[0], p[1]);
+        pf[nt >> 1][(nt & 1) * 2 + 1] = tc::pack_bf16(p[2], p[3]);
+        dsf[nt >> 1][(nt & 1) * 2] = tc::pack_bf16(ds[0], ds[1]);
+        dsf[nt >> 1][(nt & 1) * 2 + 1] = tc::pack_bf16(ds[2], ds[3]);
+      }
+      tc::product_ab<DHP, NP / 16>(acc_v, pf, do_at + rows_first);
+      tc::product_ab<DHP, NP / 16>(acc_k, dsf, q_at + rows_first);
+    }
+  }
+  tc::store_acc<DHP>(dv + base, acc_v, k0 + warp * 16, seq_len, d, dh, lane, vec);
+  tc::store_acc<DHP>(dk + base, acc_k, k0 + warp * 16, seq_len, d, dh, lane, vec);
+}
+
+// bytes of dynamic shared memory of the scalar kernels: `tiles` 64-row
+// operand tiles, `scores` 64 x 64 score tiles, `extra` floats
 template <int DHP>
 constexpr size_t smem_bytes(int tiles, int scores, int extra) {
   return sizeof(float) * (static_cast<size_t>(tiles) * kTile * (DHP + kPad) +
@@ -493,6 +808,8 @@ struct Args {
 
 enum Which { kFwd, kDq, kDkv };
 
+// The forward in either type, and the backward by type: scalar f32 kernels
+// for float, the tensor-core kernels for bf16.
 template <typename T, int DHP>
 cudaError_t launch_one(Which which, const Args& a) {
   const int dh = a.d / a.heads;
@@ -511,19 +828,41 @@ cudaError_t launch_one(Which which, const Args& a) {
     bmha_fwd_kernel<T, DHP><<<grid, kThreads, smem, a.stream>>>(
         q, k, v, bias, static_cast<T*>(a.out), static_cast<float*>(a.lse_out),
         a.seq_len, a.d, dh, a.heads, a.st, a.scale, a.vec);
-  } else if (which == kDq) {
-    constexpr size_t smem = smem_bytes<DHP>(4, 1, kTile);
-    if ((err = allow_smem(bmha_dq_kernel<T, DHP>, smem)) != cudaSuccess) return err;
-    bmha_dq_kernel<T, DHP><<<grid, kThreads, smem, a.stream>>>(
-        q, k, v, bias, lse, dout, delta, static_cast<T*>(a.dq), a.seq_len, a.d,
-        dh, a.heads, a.st, a.scale, a.vec);
+  } else if constexpr (std::is_same<T, float>::value) {
+    if (which == kDq) {
+      constexpr size_t smem = smem_bytes<DHP>(4, 1, kTile);
+      if ((err = allow_smem(bmha_dq_f32_kernel<DHP>, smem)) != cudaSuccess) return err;
+      bmha_dq_f32_kernel<DHP><<<grid, kThreads, smem, a.stream>>>(
+          q, k, v, bias, lse, dout, delta, static_cast<float*>(a.dq), a.seq_len, a.d,
+          dh, a.heads, a.st, a.scale, a.vec);
+    } else {
+      constexpr size_t smem = smem_bytes<DHP>(4, 2, 2 * kTile);
+      if ((err = allow_smem(bmha_dkv_f32_kernel<DHP>, smem)) != cudaSuccess) return err;
+      bmha_dkv_f32_kernel<DHP><<<grid, kThreads, smem, a.stream>>>(
+          q, k, v, bias, lse, dout, delta, static_cast<float*>(a.dk),
+          static_cast<float*>(a.dv), a.seq_len, a.d, dh, a.heads, a.st, a.scale,
+          a.vec);
+    }
   } else {
-    constexpr size_t smem = smem_bytes<DHP>(4, 2, 2 * kTile);
-    if ((err = allow_smem(bmha_dkv_kernel<T, DHP>, smem)) != cudaSuccess) return err;
-    bmha_dkv_kernel<T, DHP><<<grid, kThreads, smem, a.stream>>>(
-        q, k, v, bias, lse, dout, delta, static_cast<T*>(a.dk),
-        static_cast<T*>(a.dv), a.seq_len, a.d, dh, a.heads, a.st, a.scale,
-        a.vec);
+    if (which == kDq) {
+      constexpr int warps = kDqWarps<DHP>;
+      auto kernel = bmha_dq_mma_kernel<DHP, warps, kDqPass<DHP>, kFragmentsResident<DHP>, kDqMinBlocks<DHP>>;
+      constexpr size_t smem = mma_smem_bytes<DHP>(warps, 1);
+      if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+      const dim3 tiles((a.seq_len + 16 * warps - 1) / (16 * warps), a.heads, a.batch);
+      kernel<<<tiles, warps * 32, smem, a.stream>>>(
+          q, k, v, bias, lse, dout, delta, static_cast<T*>(a.dq), a.seq_len, a.d, dh,
+          a.heads, a.st, a.scale, a.vec);
+    } else {
+      constexpr int warps = kDkvWarps<DHP>;
+      auto kernel = bmha_dkv_mma_kernel<DHP, warps, kDkvPass<DHP>, kFragmentsResident<DHP>, kDkvMinBlocks<DHP>>;
+      constexpr size_t smem = mma_smem_bytes<DHP>(warps, 2);
+      if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+      const dim3 tiles((a.seq_len + 16 * warps - 1) / (16 * warps), a.heads, a.batch);
+      kernel<<<tiles, warps * 32, smem, a.stream>>>(
+          q, k, v, bias, lse, dout, delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+          a.seq_len, a.d, dh, a.heads, a.st, a.scale, a.vec);
+    }
   }
   return cudaGetLastError();
 }
@@ -578,7 +917,9 @@ extern "C" int b4cp_bmha_fwd(const void* q, const void* k, const void* v,
   return run(kFwd, is_bf16, device, a);
 }
 
-// lse, delta: (B, L, H) f32; dout and dq: contiguous (B, L, D)
+// lse, delta: (B, L, H) f32; dout and dq: contiguous (B, L, D). vec: f32
+// as above; bf16: 8-element (16-byte) copies and paired stores are allowed
+// (see tc::fill_tile)
 extern "C" int b4cp_bmha_dq(const void* q, const void* k, const void* v,
                             const void* bias, const void* lse,
                             const void* dout, const void* delta, void* dq,

@@ -17,13 +17,22 @@ as there:
   before the PV product and divides by l once at the end; it keeps
   lse = m + log(l) per (row, head) as the residual. The backward (a dq
   kernel per query tile and a dk/dv kernel per key tile) recomputes
-  p = exp(s - lse) in f32, takes dv from the unrounded p against f32 do,
-  dp = do . v^T in f32, and rounds ds = p (dp - delta) scale to the input
-  dtype before dq and dk. The TPU kernels add every tile pair's partial
-  gradient into an output of the input dtype (one rounding per tile pair in
-  bf16); the port sums in f32 and rounds once. delta = sum_dh(do * out) is
-  plain PyTorch, as it is plain XLA there. lse = m + log(l) in f32 loses
-  log(l) for a fully padded row (m = -1e9), there as here.
+  p = exp(s - lse) in f32, takes dp = do . v^T in f32, rounds
+  ds = p (dp - delta) scale (from the f32 p) to the input dtype before dq
+  and dk, and rounds p to the input dtype before dv = p^T . do. That last
+  rounding is the port's: the TPU kernel takes dv from the unrounded p. It
+  is the identity in f32 and makes every product of the bf16 backward a
+  bf16 x bf16 product with f32 sums, which is what the tensor cores take
+  (measured on the card: see PERF.md, "the dv decision"). The TPU kernels
+  add every tile pair's partial gradient into an output of the input dtype
+  (one rounding per tile pair in bf16); the port sums in f32 and rounds
+  once. delta = sum_dh(do * out) is plain PyTorch, as it is plain XLA
+  there. lse = m + log(l) in f32 loses log(l) for a fully padded row
+  (m = -1e9), there as here. On the card the input dtype alone picks the
+  backward's kernels: f32 inputs take scalar f32 FMA kernels (the exactness
+  route), bf16 inputs take kernels whose products all run on the tensor
+  cores (``mma.sync`` on bf16 tiles, asynchronous double-buffered copies);
+  the forward is one scalar design for both dtypes.
 
 :func:`mha` is what the model calls. :func:`attention_family` picks the
 family, the port's counterpart of ``fused_mha_supported`` (a VMEM rule
@@ -31,7 +40,7 @@ there): the whole-row kernels where their shared memory fits one block
 (:func:`mha_smem_bytes`, and :func:`mha_bwd_smem_bytes` when a gradient is
 needed; L <= 417 and L <= 116 at Dh = 64), the blockwise kernels otherwise.
 No sequence length is refused; the blockwise kernels take a head width up
-to 128 (their register tiles are instantiated for 16, 32, 64 and 128).
+to 128 (their tiles are instantiated for 16, 32, 64 and 128).
 
 The CUDA kernels are ``bert4clickpath_torch/csrc/attention.cu`` (whole-row)
 and ``csrc/attention_blockwise.cu`` (tiles and shared-memory use in its
@@ -269,8 +278,9 @@ def attention_delta(do: torch.Tensor, out: torch.Tensor, num_heads: int) -> torc
 
 
 def _recompute_p_ds(q, k, v, bias, lse, do, delta, num_heads):
-    """(p f32, ds rounded to the input dtype, q, k, do split by head in
-    f32), what both backward kernels recompute from lse and delta."""
+    """(p f32, ds rounded to the input dtype from that f32 p, q, k, do split
+    by head in f32), what both backward kernels recompute from lse and
+    delta."""
     scale = 1.0 / ((q.shape[-1] // num_heads) ** 0.5)
     qf, kf, vf, dof = (_split_heads(t, num_heads) for t in (q, k, v, do))
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale + bias.float()
@@ -289,11 +299,12 @@ def blockwise_dq_reference(q, k, v, bias, lse, do, delta, num_heads) -> torch.Te
 
 def blockwise_dkv_reference(q, k, v, bias, lse, do, delta, num_heads) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the dk/dv kernel: dk = ds^T . q and
-    dv = p^T . do (the unrounded p against f32 do), each summed in f32 and
-    rounded once to the input dtype."""
+    dv = p^T . do with p rounded to the input dtype first (as the forward
+    rounds it before its PV product; the identity for f32 inputs), each
+    summed in f32 and rounded once to the input dtype."""
     p, ds, qf, _, dof = _recompute_p_ds(q, k, v, bias, lse, do, delta, num_heads)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), dof)
     return dk.reshape(q.shape).to(q.dtype), dv.reshape(q.shape).to(q.dtype)
 
 
@@ -307,9 +318,12 @@ def blockwise_mha_backward_reference(
     return (blockwise_dq_reference(*args), *blockwise_dkv_reference(*args))
 
 
-def _blockwise_args(q, k, v, bias, num_heads, *others):
+def _blockwise_args(q, k, v, bias, num_heads, *others, chunk: int = 4):
     """What every blockwise C entry takes after its pointers, and whether
-    4-element loads are allowed (head width, strides and base addresses)."""
+    ``chunk``-element vector accesses are allowed (head width, strides and
+    base addresses): 4-element loads in the scalar kernels, 8-element
+    (16-byte) asynchronous copies in the bf16 backward, whose tiles are
+    filled by plain loads otherwise."""
     b, l, d = q.shape
     dh = d // num_heads
     if dh > BLOCKWISE_MAX_HEAD_DIM:
@@ -318,9 +332,9 @@ def _blockwise_args(q, k, v, bias, num_heads, *others):
         )
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("q, k, v need a contiguous last dimension")
-    width = 4 * q.element_size()
-    vec = dh % 4 == 0 and d % 4 == 0 and all(
-        t.stride(0) % 4 == 0 and t.stride(1) % 4 == 0 and t.data_ptr() % width == 0
+    width = chunk * q.element_size()
+    vec = dh % chunk == 0 and d % chunk == 0 and all(
+        t.stride(0) % chunk == 0 and t.stride(1) % chunk == 0 and t.data_ptr() % width == 0
         for t in (q, k, v)
     ) and all(t.data_ptr() % width == 0 for t in others)
     return (
@@ -352,7 +366,8 @@ def _launch_blockwise_bwd(entry, counter, n_out, q, k, v, bias, lse, do, delta, 
     bias, lse, delta = bias.contiguous(), lse.contiguous(), delta.contiguous()
     do = do.to(q.dtype).contiguous()
     outs = [torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(n_out)]
-    args = _blockwise_args(q, k, v, bias, num_heads, do, *outs)
+    chunk = 8 if q.dtype == torch.bfloat16 else 4
+    args = _blockwise_args(q, k, v, bias, num_heads, do, *outs, chunk=chunk)
     lib = _build.library()
     with torch.cuda.device(q.device):
         code = getattr(lib, entry)(

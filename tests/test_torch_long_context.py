@@ -146,6 +146,104 @@ def test_blockwise_backward_reference_matches_whole_row():
         torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
 
 
+def _backward_case(dtype, l=48, seed=4):
+    """(q, k, v, bias, out, lse, do, delta) for the backward's plain
+    versions: out and lse from the port's plain forward, 2 heads of 16."""
+    q, k, v, bias = _torch(_qkv_bias(2, l, 32, "ragged"))
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    do = torch.from_numpy(np.random.default_rng(seed).normal(size=(2, l, 32)).astype(np.float32)).to(dtype)
+    out, lse = attn.blockwise_mha_forward(q, k, v, bias, 2)
+    return q, k, v, bias, out, lse, do, attn.attention_delta(do, out, 2)
+
+
+def test_blockwise_dkv_reference_rounds_p_where_the_kernel_does():
+    """In bf16 dv = round_bf16(p)^T . do with f32 sums, rounded once: what
+    the tensor-core kernel computes (its p operand is bf16). dk and dq take
+    ds from the unrounded f32 p, as before. Bit for bit against the formula
+    written out, and not the formula with the unrounded p."""
+    q, k, v, bias, _, lse, do, delta = _backward_case(torch.bfloat16)
+    dk, dv = attn.blockwise_dkv_reference(q, k, v, bias, lse, do, delta, 2)
+    p, ds, qf, kf, dof = attn._recompute_p_ds(q, k, v, bias, lse, do, delta, 2)
+    assert p.dtype == torch.float32 and not torch.equal(p, p.bfloat16().float())
+    rounded = torch.einsum("bhqk,bqhd->bkhd", p.bfloat16().float(), dof).reshape(q.shape).bfloat16()
+    unrounded = torch.einsum("bhqk,bqhd->bkhd", p, dof).reshape(q.shape).bfloat16()
+    assert torch.equal(dv, rounded) and not torch.equal(dv, unrounded)
+    assert torch.equal(dk, torch.einsum("bhqk,bqhd->bkhd", ds, qf).reshape(q.shape).bfloat16())
+    scale = 1.0 / 16**0.5
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, attn._split_heads(v, 2))
+    want_ds = (p * (dp - delta.transpose(1, 2).unsqueeze(-1)) * scale).bfloat16().float()
+    assert torch.equal(ds, want_ds)  # ds from the f32 p, rounded once
+    dq = attn.blockwise_dq_reference(q, k, v, bias, lse, do, delta, 2)
+    assert torch.equal(dq, torch.einsum("bhqk,bkhd->bqhd", ds, kf).reshape(q.shape).bfloat16())
+
+
+def test_blockwise_f32_backward_is_unchanged_by_the_p_rounding():
+    """Rounding p to the input dtype is the identity in f32: dq, dk and dv
+    are bit-identical to the formulas with the unrounded p, as before the
+    rounding was introduced (seeded input, L=37: no tile divides it)."""
+    q, k, v, bias, _, lse, do, delta = _backward_case(torch.float32, l=37)
+    dq, dk, dv = attn.blockwise_mha_backward_reference(q, k, v, bias, lse, do, delta, 2)
+    p, ds, qf, kf, dof = attn._recompute_p_ds(q, k, v, bias, lse, do, delta, 2)
+    assert torch.equal(dv, torch.einsum("bhqk,bqhd->bkhd", p, dof).reshape(q.shape))
+    assert torch.equal(dk, torch.einsum("bhqk,bqhd->bkhd", ds, qf).reshape(q.shape))
+    assert torch.equal(dq, torch.einsum("bhqk,bkhd->bqhd", ds, kf).reshape(q.shape))
+    # and the values this input gave before the change (bit-identical where
+    # they were pinned; 1e-5 relative leaves room for another BLAS's sum order)
+    got = [float(dq.double().sum()), float(dv.double().sum()), float(dv[1, 5, 7]), float(dk[0, 30, 20])]
+    np.testing.assert_allclose(got, F32_BACKWARD_PINNED, rtol=1e-5, atol=0)
+
+
+# sum(dq), sum(dv), dv[1, 5, 7], dk[0, 30, 20] of _backward_case(float32, l=37)
+F32_BACKWARD_PINNED = [6.442384021444013, 2.2224247853537236, -0.8357424736022949, -0.027618777006864548]
+
+
+def test_bf16_dv_from_the_rounded_p_is_within_the_chosen_bound():
+    """The dv decision: p rounded once to bf16 is kept as long as its dv
+    error (rms against a dense f64 dv) stays below 1.5x the error that
+    rounding the exact dv to the bf16 output causes anyway; two independent
+    roundings of like size give sqrt(2). Element by element, the rounded p
+    moves the f32 sum by at most 2^-9 sum_q p |do| (half a bf16 ulp of each
+    p), plus 2e-6 of that sum for the f32 products' own rounding."""
+    q, k, v, bias, _, lse, do, delta = _backward_case(torch.bfloat16)
+    p, _, _, _, dof = attn._recompute_p_ds(q, k, v, bias, lse, do, delta, 2)
+    exact = torch.einsum("bhqk,bqhd->bkhd", p.double(), dof.double())
+    sum_a = torch.einsum("bhqk,bqhd->bkhd", p.bfloat16().float(), dof)
+    sum_f32 = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    envelope = torch.einsum("bhqk,bqhd->bkhd", p, dof.abs())
+    assert bool(((sum_a - sum_f32).abs() <= (2.0**-9 + 2e-6) * envelope).all())
+    rms = lambda t: float((t.bfloat16().double() - exact).square().mean().sqrt())  # noqa: E731
+    output_only, a = rms(exact), rms(sum_a)
+    assert output_only < a < 1.5 * output_only, (a, output_only)
+    _, dv = attn.blockwise_dkv_reference(q, k, v, bias, lse, do, delta, 2)
+    assert torch.equal(dv, sum_a.reshape(q.shape).bfloat16())
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 5e-4), ("bfloat16", 2e-2)], ids=["f32", "bf16"])
+def test_blockwise_backward_matches_jax_kernels_on_the_same_residuals(multiblock, dtype, tol):
+    """The plain dq and dk/dv versions against the JAX dq and dk/dv kernels
+    (interpret mode, 3 x 3 tiles of 16) given the same out, lse and do. f32:
+    atol/rtol 5e-4, the JAX test's own. bf16: abs 2e-2, kept as it was: the
+    JAX kernel takes dv from the f32 p where the port rounds p to bf16 first
+    (2^-9 relative per term, far inside), and it rounds every tile pair's
+    partial gradient to bf16 as it adds it, which is what the 2e-2 covers."""
+    q, k, v, bias = _qkv_bias(2, 48, 32, "ragged")
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in (q, k, v))
+    do = np.random.default_rng(4).normal(size=(2, 48, 32)).astype(np.float32)
+    jout, jlse = jattn._bmha_fwd(jq, jk, jv, jnp.asarray(bias), 2)
+    want = jattn._bmha_bwd(2, (jq, jk, jv, jnp.asarray(bias), jout, jlse), (jnp.asarray(do, jdt), None))[:3]
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(tdt) for a in (q, k, v, do))
+    out = torch.from_numpy(np.array(jout, np.float32)).to(tdt)
+    lse = torch.from_numpy(np.asarray(jlse)[..., :2].copy())
+    got = attn.blockwise_mha_backward(tq, tk, tv, torch.from_numpy(bias), out, lse, tdo, 2)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == tdt
+        np.testing.assert_allclose(
+            g.float().numpy(), np.asarray(w, np.float32), rtol=tol if dtype == "float32" else 0,
+            atol=tol, err_msg=name,
+        )
+
+
 @pytest.mark.parametrize(
     "l,needs_grad,family",
     [
