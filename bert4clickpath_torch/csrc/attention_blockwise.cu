@@ -37,9 +37,10 @@
 // GFLOP over ~34 MB of q/k/v/out: the forward is two products, dq three and
 // dk/dv four, 60 GFLOP per layer in the backward.
 //
-// Two designs live here, chosen by the input type alone.
+// Two designs live here, chosen by the input type alone: f32 inputs take
+// (1), bf16 inputs (2) and (3).
 //
-// (1) The forward (both types) and the f32 backward: scalar f32 FMA out of
+// (1) The f32 kernels: scalar f32 FMA out of
 // shared memory, so that f32 inputs keep f32 accuracy (the exactness route).
 // A block of 256 threads (16 x 16) owns one 64-row tile of one (b, h): a
 // query tile in the forward and dq (grid: q tiles x H x B), a key tile in
@@ -86,6 +87,30 @@
 // at hand while writing; wgmma (A from registers for the second product of
 // each chain, 128-byte-swizzled B tiles behind descriptors) is what a later
 // version would add for the last factor towards the tensor cores' peak.
+//
+// (3) The bf16 forward (bmha_fwd_mma_kernel), on the same building blocks. A
+// warp owns 16 query rows of one (b, h) (8 warps, 128 rows a block: 512
+// blocks at the long-session shape); its q fragments are loaded once and, for
+// Dh' <= 64, stay in registers. K and V tiles of 64 keys come with their bias
+// through two stages of cp.async copies, tile j + 1 in flight while tile j
+// multiplies, one barrier per tile; a warp takes a tile through the online
+// softmax 32 keys at a time. s = q k^T lands in the accumulator
+// layout; the row maximum and the rescale factor alpha = exp(m_prev - m_new)
+// are taken over the four lanes that share a row by shuffles, alpha rescales
+// the 16 x Dh' f32 output accumulators of both rows a lane holds (g and
+// g + 8, each with its own m), and the un-normalised p = exp(s - m_new) is
+// summed unrounded into l and rounded to bf16 straight into the A fragments
+// of p . v (V read down its rows with ldmatrix.trans): p never touches
+// shared memory. l is kept as each lane's share and summed over the four
+// lanes once, at the end; out is divided by l and rounded once; lse = m +
+// log l. Keys past L carry a bias of -inf, so p is exactly 0 there; query
+// rows past L are computed on zeros and never stored; the finite -1e9
+// padding bias keeps its meaning (a first tile that is all padding is
+// rescaled away by alpha = 0). exp is the fast one (ex2.approx): p moves by
+// ~1e-6 relative, which the tolerance of lse (1e-5 relative) holds. Where
+// the head width, a stride or a base address does not allow 16-byte copies,
+// plain loads fill the same tiles. At Dh = 64 (ptxas, sm_90a): 128
+// registers, no spill, 55 KB of shared memory, two blocks (16 warps) per SM.
 
 #include <type_traits>
 
@@ -101,12 +126,6 @@ constexpr int kSs = kTile + kPad;   // row stride of a 64 x 64 score tile
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 // rows [row0, row0 + 64) x columns [0, dh) of src (row stride in elements)
@@ -252,30 +271,32 @@ struct Strides {
   long long q_sb, q_sl, k_sb, k_sl, v_sb, v_sl;
 };
 
-template <typename T, int DHP>
+// The f32 kernels: the scalar design (1) of the header.
+
+template <int DHP>
 __global__ void __launch_bounds__(kThreads, DHP <= 64 ? 2 : 1)
-    bmha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const float* __restrict__ bias,
-                    T* __restrict__ out, float* __restrict__ lse, int seq_len,
-                    int d, int dh, int heads, Strides st, float scale,
-                    int vec) {
+    bmha_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ bias,
+                        float* __restrict__ out, float* __restrict__ lse, int seq_len,
+                        int d, int dh, int heads, Strides st, float scale,
+                        int vec) {
   extern __shared__ __align__(16) float smem[];
   constexpr int RS = DHP + kPad;
   constexpr int NC = DHP / 16;
   float* qs = smem;
   float* ks = qs + kTile * RS;
   float* vs = ks + kTile * RS;
-  float* ss = vs + kTile * RS;   // p, rounded to the input type
+  float* ss = vs + kTile * RS;   // p
   float* bs = ss + kTile * kSs;  // this key tile's bias
   const int q0 = blockIdx.x * kTile;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
-  const T* kb = k + b * st.k_sb + h * dh;
-  const T* vb = v + b * st.v_sb + h * dh;
+  const float* kb = k + b * st.k_sb + h * dh;
+  const float* vb = v + b * st.v_sb + h * dh;
 
-  load_tile<T, DHP>(qs, q + b * st.q_sb + h * dh, st.q_sl, q0, seq_len, dh, vec);
+  load_tile<float, DHP>(qs, q + b * st.q_sb + h * dh, st.q_sl, q0, seq_len, dh, vec);
   float m_run[4], l_run[4], acc[4][NC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -287,8 +308,8 @@ __global__ void __launch_bounds__(kThreads, DHP <= 64 ? 2 : 1)
 
   for (int k0 = 0; k0 < seq_len; k0 += kTile) {
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, DHP>(ks, kb, st.k_sl, k0, seq_len, dh, vec);
-    load_tile<T, DHP>(vs, vb, st.v_sl, k0, seq_len, dh, vec);
+    load_tile<float, DHP>(ks, kb, st.k_sl, k0, seq_len, dh, vec);
+    load_tile<float, DHP>(vs, vb, st.v_sl, k0, seq_len, dh, vec);
     if (threadIdx.x < kTile) {
       const int key = k0 + threadIdx.x;
       bs[threadIdx.x] = key < seq_len ? bias[static_cast<long long>(b) * seq_len + key] : 0.f;
@@ -315,7 +336,7 @@ __global__ void __launch_bounds__(kThreads, DHP <= 64 ? 2 : 1)
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m_new);  // exp(-inf) = 0 past seq_len
         sum += p;
-        ss[(ty + 16 * i) * kSs + tx + 16 * j] = round_to<T>(p);
+        ss[(ty + 16 * i) * kSs + tx + 16 * j] = p;
       }
       l_run[i] = l_run[i] * alpha + row_sum(sum);
       m_run[i] = m_new;
@@ -336,10 +357,8 @@ __global__ void __launch_bounds__(kThreads, DHP <= 64 ? 2 : 1)
       lse[(static_cast<long long>(b) * seq_len + row) * heads + h] = m_run[i] + logf(l_run[i]);
     }
   }
-  store_rows<T, NC>(out, acc, base, q0, seq_len, d, dh, ty, tx);
+  store_rows<float, NC>(out, acc, base, q0, seq_len, d, dh, ty, tx);
 }
-
-// The f32 backward: the scalar design of the forward (see the header).
 
 template <int DHP>
 __global__ void __launch_bounds__(kThreads, DHP <= 64 ? 2 : 1)
@@ -782,6 +801,186 @@ __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
   tc::store_acc<DHP>(dk + base, acc_k, k0 + warp * 16, seq_len, d, dh, lane, vec);
 }
 
+// The bf16 forward on the tensor cores (design (3) of the header).
+
+constexpr int kFwdWalk = 64;  // keys of a walked tile: one barrier and one stage each
+
+// The shape of the forward, found on the card at the long-session shape
+// (examples/long_context/tune_blockwise_bwd.py --kernel fwd). Warps: 16 query
+// rows each. Pass: the keys of a walked tile that go through one step of the
+// online softmax (its scores are 16 x pass f32 in registers). Stages: walked
+// tiles in shared memory, all but one of them in flight. MinBlocks as above.
+template <int DHP>
+constexpr int kFwdWarps = 8;
+template <int DHP>
+constexpr int kFwdPass = 32;  // 128 registers without a spill; 64 spills 72 bytes there
+template <int DHP>
+constexpr int kFwdStages = 2;
+template <int DHP>
+constexpr int kFwdMinBlocks = DHP <= 64 ? 2 : 1;  // 128 registers; 16 warps per SM
+
+// bytes of dynamic shared memory: the block's q tile, `stages` stages of a
+// k and a v tile, and of the tile's bias row
+template <int DHP>
+constexpr size_t fwd_mma_smem_bytes(int warps, int stages) {
+  return sizeof(__nv_bfloat16) * (16 * warps + 2 * stages * kFwdWalk) * (DHP + tc::kSkew) +
+         sizeof(float) * stages * kFwdWalk;
+}
+
+// One block per (query tile of 16 rows a warp, h, b): q stays, k and v tiles
+// walk with their bias.
+template <int DHP, int WARPS, int NP, int STAGES, bool RESIDENT, int MIN_BLOCKS>
+__global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
+    bmha_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
+                        __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int seq_len,
+                        int d, int dh, int heads, Strides st, float scale, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  static_assert(STAGES >= 2 && kFwdWalk % NP == 0 && NP % 16 == 0, "stages and pass");
+  constexpr int RS = DHP + tc::kSkew;
+  constexpr int kMmaThreads = WARPS * 32;
+  constexpr int kMmaRows = WARPS * 16;  // rows the block owns
+  constexpr int NT = NP / 8;  // n8 tiles of a pass
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_mma);
+  __nv_bfloat16* ks = qs + kMmaRows * RS;          // STAGES stages
+  __nv_bfloat16* vs = ks + STAGES * kFwdWalk * RS;  // STAGES stages
+  float* bs = reinterpret_cast<float*>(vs + STAGES * kFwdWalk * RS);  // STAGES stages of kFwdWalk
+  const int q0 = blockIdx.x * kMmaRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const long long base = static_cast<long long>(b) * seq_len * d + h * dh;
+  const __nv_bfloat16* kb = k + b * st.k_sb + h * dh;
+  const __nv_bfloat16* vb = v + b * st.v_sb + h * dh;
+  const float* bias_b = bias + static_cast<long long>(b) * seq_len;
+  const int n_tiles = (seq_len + kFwdWalk - 1) / kFwdWalk;
+
+  // tile `tile` into its stage, as one group of copies (an empty group past
+  // the last tile, so that the count of groups in flight stays the same)
+  auto fill_walked = [&](int tile) {
+    if (tile < n_tiles) {
+      const int stage = tile % STAGES;
+      const int k0 = tile * kFwdWalk;
+      tc::fill_tile<kFwdWalk, DHP, kMmaThreads>(ks + stage * kFwdWalk * RS, kb, st.k_sl, k0, seq_len, dh, vec);
+      tc::fill_tile<kFwdWalk, DHP, kMmaThreads>(vs + stage * kFwdWalk * RS, vb, st.v_sl, k0, seq_len, dh, vec);
+      // a key past seq_len: p = exp(-inf) = 0
+      tc::fill_rows_f32<kMmaThreads>(bs + stage * kFwdWalk, bias_b, 1, k0, kFwdWalk, seq_len, -INFINITY);
+    }
+    tc::cp_async_commit();
+  };
+
+  tc::fill_tile<kMmaRows, DHP, kMmaThreads>(qs, q + b * st.q_sb + h * dh, st.q_sl, q0, seq_len, dh, vec);
+  tc::cp_async_commit();
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) fill_walked(i);
+
+  const int rows_first = tc::lane_offset_rows_first<RS>(lane) * 2;
+  const int cols_first = tc::lane_offset_cols_first<RS>(lane) * 2;
+  const uint32_t q_addr = tc::shared_addr(qs + warp * 16 * RS) + rows_first;
+  const uint32_t k_addr = tc::shared_addr(ks);
+  const uint32_t v_addr = tc::shared_addr(vs);
+  constexpr uint32_t kStageBytes = kFwdWalk * RS * 2;
+  constexpr uint32_t kPassBytes = NP * RS * 2;
+
+  uint32_t qf[DHP / 16][4];
+  if constexpr (RESIDENT) {
+    tc::cp_async_wait<STAGES - 1>();  // q has arrived
+    __syncthreads();
+    tc::load_a<DHP>(qf, q_addr);
+  }
+
+  // the thread's two rows, g and g + 8 of the warp's 16 (a row past seq_len
+  // is computed on zeros and never stored). l_run is the lane's share of the
+  // row sum (its columns 2t, 2t + 1 of every n8 tile), summed over the four
+  // lanes of the row at the end: alpha is the same in all four.
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};
+  float acc[DHP / 8][4] = {};
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int stage = j % STAGES;
+    tc::cp_async_wait<STAGES - 2>();
+    __syncthreads();  // tile j is visible; tile j - 1's readers are done
+    fill_walked(j + STAGES - 1);
+
+#pragma unroll
+    for (int c = 0; c < kFwdWalk / NP; ++c) {
+      if (j * kFwdWalk + c * NP >= seq_len) break;  // a pass with no key (NP < kFwdWalk)
+      const uint32_t k_at = k_addr + stage * kStageBytes + c * kPassBytes;
+      const uint32_t v_at = v_addr + stage * kStageBytes + c * kPassBytes;
+      float s[NT][4] = {};
+      if constexpr (RESIDENT) {
+        tc::product_abt<DHP, NT>(s, qf, k_at + cols_first);
+      } else {
+        tc::product_abt<DHP, NT>(s, q_addr, k_at + cols_first);
+      }
+      // s * scale + bias, and the pass's row maxima. The pass holds a key
+      // below seq_len with a finite bias, or m_run is finite already: m_new
+      // is finite, and -inf - (-inf) is never formed.
+      const float* bj = bs + stage * kFwdWalk + c * NP + 2 * t;
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float2 b2 = *reinterpret_cast<const float2*>(bj + nt * 8);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[nt][e] = fmaf(s[nt][e], scale, (e & 1) ? b2.y : b2.x);
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+        }
+      }
+      float m_new[2], alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        m_new[r] = fmaxf(m_run[r], tc::quad_max(mx[r]));
+        alpha[r] = __expf(m_run[r] - m_new[r]);  // exp(-inf) = 0 on the first pass
+      }
+      // the un-normalised p: summed unrounded into l, rounded to bf16 into
+      // the A fragments of p . v
+      uint32_t pf[NP / 16][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[e] = __expf(s[nt][e] - m_new[e >> 1]);
+          sum[e >> 1] += p[e];
+        }
+        pf[nt >> 1][(nt & 1) * 2] = tc::pack_bf16(p[0], p[1]);
+        pf[nt >> 1][(nt & 1) * 2 + 1] = tc::pack_bf16(p[2], p[3]);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l_run[r] = l_run[r] * alpha[r] + sum[r];
+        m_run[r] = m_new[r];
+      }
+#pragma unroll
+      for (int nt = 0; nt < DHP / 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nt][e] *= alpha[e >> 1];
+      }
+      tc::product_ab<DHP, NP / 16>(acc, pf, v_at + rows_first);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float l = tc::quad_sum(l_run[r]);
+#pragma unroll
+    for (int nt = 0; nt < DHP / 8; ++nt) {
+      acc[nt][2 * r] /= l;
+      acc[nt][2 * r + 1] /= l;
+    }
+    const int row = q0 + warp * 16 + g + 8 * r;
+    if (t == 0 && row < seq_len) {
+      lse[(static_cast<long long>(b) * seq_len + row) * heads + h] = m_run[r] + logf(l);
+    }
+  }
+  tc::store_acc<DHP>(out + base, acc, q0 + warp * 16, seq_len, d, dh, lane, vec);
+}
+
 // bytes of dynamic shared memory of the scalar kernels: `tiles` 64-row
 // operand tiles, `scores` 64 x 64 score tiles, `extra` floats
 template <int DHP>
@@ -808,8 +1007,8 @@ struct Args {
 
 enum Which { kFwd, kDq, kDkv };
 
-// The forward in either type, and the backward by type: scalar f32 kernels
-// for float, the tensor-core kernels for bf16.
+// The input type alone picks the kernels: the scalar f32 ones for float, the
+// tensor-core ones for bf16.
 template <typename T, int DHP>
 cudaError_t launch_one(Which which, const Args& a) {
   const int dh = a.d / a.heads;
@@ -822,14 +1021,14 @@ cudaError_t launch_one(Which which, const Args& a) {
   const float* delta = static_cast<const float*>(a.delta);
   const T* dout = static_cast<const T*>(a.dout);
   cudaError_t err;
-  if (which == kFwd) {
-    constexpr size_t smem = smem_bytes<DHP>(3, 1, kTile);
-    if ((err = allow_smem(bmha_fwd_kernel<T, DHP>, smem)) != cudaSuccess) return err;
-    bmha_fwd_kernel<T, DHP><<<grid, kThreads, smem, a.stream>>>(
-        q, k, v, bias, static_cast<T*>(a.out), static_cast<float*>(a.lse_out),
-        a.seq_len, a.d, dh, a.heads, a.st, a.scale, a.vec);
-  } else if constexpr (std::is_same<T, float>::value) {
-    if (which == kDq) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (which == kFwd) {
+      constexpr size_t smem = smem_bytes<DHP>(3, 1, kTile);
+      if ((err = allow_smem(bmha_fwd_f32_kernel<DHP>, smem)) != cudaSuccess) return err;
+      bmha_fwd_f32_kernel<DHP><<<grid, kThreads, smem, a.stream>>>(
+          q, k, v, bias, static_cast<T*>(a.out), static_cast<float*>(a.lse_out),
+          a.seq_len, a.d, dh, a.heads, a.st, a.scale, a.vec);
+    } else if (which == kDq) {
       constexpr size_t smem = smem_bytes<DHP>(4, 1, kTile);
       if ((err = allow_smem(bmha_dq_f32_kernel<DHP>, smem)) != cudaSuccess) return err;
       bmha_dq_f32_kernel<DHP><<<grid, kThreads, smem, a.stream>>>(
@@ -844,7 +1043,17 @@ cudaError_t launch_one(Which which, const Args& a) {
           a.vec);
     }
   } else {
-    if (which == kDq) {
+    if (which == kFwd) {
+      constexpr int warps = kFwdWarps<DHP>;
+      constexpr int stages = kFwdStages<DHP>;
+      auto kernel = bmha_fwd_mma_kernel<DHP, warps, kFwdPass<DHP>, stages, kFragmentsResident<DHP>, kFwdMinBlocks<DHP>>;
+      constexpr size_t smem = fwd_mma_smem_bytes<DHP>(warps, stages);
+      if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+      const dim3 tiles((a.seq_len + 16 * warps - 1) / (16 * warps), a.heads, a.batch);
+      kernel<<<tiles, warps * 32, smem, a.stream>>>(
+          q, k, v, bias, static_cast<T*>(a.out), static_cast<float*>(a.lse_out), a.seq_len,
+          a.d, dh, a.heads, a.st, a.scale, a.vec);
+    } else if (which == kDq) {
       constexpr int warps = kDqWarps<DHP>;
       auto kernel = bmha_dq_mma_kernel<DHP, warps, kDqPass<DHP>, kFragmentsResident<DHP>, kDqMinBlocks<DHP>>;
       constexpr size_t smem = mma_smem_bytes<DHP>(warps, 1);
@@ -903,7 +1112,8 @@ Args common_args(const void* q, const void* k, const void* v, const void* bias,
 
 // q, k, v: (B, L, D) through their batch and row strides (elements); bias
 // (B, 1, 1, L) f32; out (B, L, D) and lse (B, L, H) f32 are written.
-// vec: 4-element loads are allowed (see load_tile)
+// vec: f32: 4-element loads are allowed (see load_tile); bf16: 8-element
+// (16-byte) copies and paired stores (see tc::fill_tile)
 extern "C" int b4cp_bmha_fwd(const void* q, const void* k, const void* v,
                              const void* bias, void* out, void* lse,
                              int is_bf16, int batch, int seq_len, int d,
@@ -917,9 +1127,8 @@ extern "C" int b4cp_bmha_fwd(const void* q, const void* k, const void* v,
   return run(kFwd, is_bf16, device, a);
 }
 
-// lse, delta: (B, L, H) f32; dout and dq: contiguous (B, L, D). vec: f32
-// as above; bf16: 8-element (16-byte) copies and paired stores are allowed
-// (see tc::fill_tile)
+// lse, delta: (B, L, H) f32; dout and dq: contiguous (B, L, D). vec: as
+// above
 extern "C" int b4cp_bmha_dq(const void* q, const void* k, const void* v,
                             const void* bias, const void* lse,
                             const void* dout, const void* delta, void* dq,

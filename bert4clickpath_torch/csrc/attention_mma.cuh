@@ -143,6 +143,26 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// two f32 as two bf16 terms each, hi = round(x) and lo = round(x - hi)
+// (~16 bits of x kept), packed like pack_bf16: a product that takes hi and
+// lo in turn into the same f32 sums sees x all but unrounded
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
+// max / sum over the four lanes (t = 0..3) that share an accumulator row
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
 // The A fragments of a warp's 16 x DHP rows of a tile, one per k-step.
 // a_addr: shared address of the rows' first element + the lane's
 // rows-first offset (bytes).

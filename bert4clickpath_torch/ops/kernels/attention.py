@@ -10,7 +10,11 @@ as there:
   shared memory. The normalised probabilities are rounded to v's dtype
   before the PV product. The backward (``_mha_bwd_kernel``) recomputes p in
   f32, takes dv from the unrounded p, rounds ds to k's dtype before dq and
-  dk, and stores each gradient in the input dtype.
+  dk, and stores each gradient in the input dtype. On the card bf16 inputs
+  (head width up to 128) take a backward kernel whose products all run on
+  the tensor cores (bf16 tiles of q, k, v and do, no (L, L) tile; p enters
+  the dv product as two bf16 terms, hi + lo, which keeps the unrounded p:
+  PERF.md, "the whole-row dv decision"); f32 inputs keep the scalar kernel.
 * **blockwise** (``blockwise_mha``): K and V are streamed in 64-row tiles
   with an online softmax, so any L runs, also one that no tile divides. The
   forward rounds the *un-normalised* p = exp(s - m_running) to v's dtype
@@ -29,10 +33,10 @@ as there:
   once. delta = sum_dh(do * out) is plain PyTorch, as it is plain XLA
   there. lse = m + log(l) in f32 loses log(l) for a fully padded row
   (m = -1e9), there as here. On the card the input dtype alone picks the
-  backward's kernels: f32 inputs take scalar f32 FMA kernels (the exactness
-  route), bf16 inputs take kernels whose products all run on the tensor
-  cores (``mma.sync`` on bf16 tiles, asynchronous double-buffered copies);
-  the forward is one scalar design for both dtypes.
+  kernels, the forward's too: f32 inputs take scalar f32 FMA kernels (the
+  exactness route), bf16 inputs take kernels whose products all run on the
+  tensor cores (``mma.sync`` on bf16 tiles, asynchronous double-buffered
+  copies).
 
 :func:`mha` is what the model calls. :func:`attention_family` picks the
 family, the port's counterpart of ``fused_mha_supported`` (a VMEM rule
@@ -74,8 +78,10 @@ def mha_smem_bytes(seq_len: int, head_dim: int) -> int:
 
 
 def mha_bwd_smem_bytes(seq_len: int, head_dim: int) -> int:
-    """Shared memory the backward kernel needs: q, k, v and do (padded
-    rows), the bias row, and the (L, L) p and ds, all f32."""
+    """Shared memory the scalar backward kernel needs: q, k, v and do (padded
+    rows), the bias row, and the (L, L) p and ds, all f32. The bf16
+    tensor-core kernel needs less at every shape this admits (bf16 tiles, no
+    (L, L) tile); the dispatch holds both dtypes to this one rule."""
     return 4 * (4 * seq_len * (head_dim + 1) + seq_len + 2 * seq_len * (seq_len + 1))
 
 
@@ -318,12 +324,17 @@ def blockwise_mha_backward_reference(
     return (blockwise_dq_reference(*args), *blockwise_dkv_reference(*args))
 
 
-def _blockwise_args(q, k, v, bias, num_heads, *others, chunk: int = 4):
+def _vector_chunk(dtype: torch.dtype) -> int:
+    """Elements per vector access of the blockwise kernels: 4-element loads
+    in the scalar f32 kernels, 8-element (16-byte) asynchronous copies in the
+    bf16 tensor-core kernels."""
+    return 8 if dtype == torch.bfloat16 else 4
+
+
+def _blockwise_args(q, k, v, bias, num_heads, *others, chunk: int):
     """What every blockwise C entry takes after its pointers, and whether
     ``chunk``-element vector accesses are allowed (head width, strides and
-    base addresses): 4-element loads in the scalar kernels, 8-element
-    (16-byte) asynchronous copies in the bf16 backward, whose tiles are
-    filled by plain loads otherwise."""
+    base addresses); the kernels fill their tiles by plain loads otherwise."""
     b, l, d = q.shape
     dh = d // num_heads
     if dh > BLOCKWISE_MAX_HEAD_DIM:
@@ -349,7 +360,7 @@ def _launch_blockwise_fwd(q, k, v, bias, num_heads):
     bias = bias.contiguous()
     out = torch.empty((b, l, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, l, num_heads), dtype=torch.float32, device=q.device)
-    args = _blockwise_args(q, k, v, bias, num_heads, out)
+    args = _blockwise_args(q, k, v, bias, num_heads, out, chunk=_vector_chunk(q.dtype))
     lib = _build.library()
     with torch.cuda.device(q.device):
         code = lib.b4cp_bmha_fwd(
@@ -366,8 +377,7 @@ def _launch_blockwise_bwd(entry, counter, n_out, q, k, v, bias, lse, do, delta, 
     bias, lse, delta = bias.contiguous(), lse.contiguous(), delta.contiguous()
     do = do.to(q.dtype).contiguous()
     outs = [torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(n_out)]
-    chunk = 8 if q.dtype == torch.bfloat16 else 4
-    args = _blockwise_args(q, k, v, bias, num_heads, do, *outs, chunk=chunk)
+    args = _blockwise_args(q, k, v, bias, num_heads, do, *outs, chunk=_vector_chunk(q.dtype))
     lib = _build.library()
     with torch.cuda.device(q.device):
         code = getattr(lib, entry)(

@@ -267,6 +267,18 @@ def make_train_step(
     return step
 
 
+def dropout_generator(device, seed: int, step: int = 0) -> torch.Generator:
+    """The generator a run's dropout draws from, seeded from (seed, step).
+
+    A fresh run (step 0) is seeded with ``seed`` itself. A run resumed at
+    step N gets another stream, so its steps do not repeat the masks that
+    steps 0, 1, ... of the first run drew, and two resumes from the same
+    checkpoint draw the same masks. Counterpart of the JAX step folding
+    ``state.step`` into its dropout key; the streams themselves differ."""
+    mixed = (int(seed) + int(step) * 0x9E3779B97F4A7C15) % (1 << 63)
+    return torch.Generator(device).manual_seed(mixed)
+
+
 def _unstack(stacked: dict, i: int) -> dict:
     """Batch i of a stacked batch (leaves carry a leading (K, ...) axis)."""
     return {

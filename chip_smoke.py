@@ -15,12 +15,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. kernels — holds each of the eleven kernels against its plain PyTorch version
    on the card at the shapes its main path gives it, with the tolerance
    stated, and times both (CUDA events; median device time of warm calls):
-   the gather and whole-row attention at the flagship's shapes, the fused CE
+   the gather and whole-row attention at the flagship's shapes (the bf16
+   backward on the tensor cores, two runs bit-equal, its dv from p kept as
+   two bf16 terms measured against p rounded once and against a dense f64
+   dv; the f32 backward the scalar kernel), the fused CE
    at its training shape, the three blockwise attention kernels at
-   (16, 1024, 256) and at L=1000 in bf16 (the backward on the tensor cores,
-   two runs bit-equal, its dv from p rounded to bf16 measured against p
-   kept as two bf16 terms and against a dense f64 dv) and f32 (the scalar
-   backward), the fused dropout at
+   (16, 1024, 256) and at L=1000 in bf16 (all three on the tensor cores,
+   two runs bit-equal, the dk/dv kernel's dv from p rounded to bf16 measured
+   against p kept as two bf16 terms and against a dense f64 dv) and f32 (the
+   scalar kernels), the fused dropout at
    (16384, 256) (bit-equal to its plain Philox version), the gather and
    the fused CE once more at the long-session path's shapes, and the
    two-pass CE backward (dx and dW kernels) with the forward at N=2,560,
@@ -109,8 +112,10 @@ K = 10
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 SERVE_TOL = 2e-2
 # attention backward (atol, rtol): bf16 one or two ulps of an O(1) gradient
-# (p, dp and ds summed in another order, so ds may round the other way);
-# f32 sums in another order
+# (the tensor-core kernel sums p, dp and ds in the mma's order with the fast
+# exp, so a ds or a gradient may round the other way; the share of this
+# tolerance that each gradient uses is logged); f32 (the scalar kernel)
+# sums in another order
 ATTN_BWD_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-5, 1e-4)}
 # fused CE (f32 x): logz abs 1e-4 (sums over 55k rows in another order);
 # dx, dW, db within 1e-4 of the reference's largest magnitude (dx sums with
@@ -148,7 +153,8 @@ DX_TARGETS = (132, 264, 528, 1056, 2112)  # dx grid sizes timed at the wide shap
 EVAL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # blockwise attention against its plain version. Forward (atol, rtol): the
 # running maximum that p rounds against and the order of the f32 sums depend
-# on the tile walk. In bf16, where a few keys carry a row, p's rounding (half
+# on the tile walk (in bf16 the tensor-core kernel's, 32 keys at a time, with
+# the fast exp). In bf16, where a few keys carry a row, p's rounding (half
 # an ulp on each side) moves the unrounded output by up to an ulp and the
 # output's own rounding by another: two bf16 ulps of the reference (2^-6 of
 # it) plus 2e-3 for values near 0; f32 abs 1e-5.
@@ -222,22 +228,26 @@ def attention_bounds(b, l, d, h, itemsize) -> dict:
 
 def dv_rounding_errors(q, k, v, bias, lse, do, h, dv_kernel, batch_rows) -> dict:
     """What rounding p to bf16 before dv = p^T . do costs, against a dense
-    f64 dv from the same bf16 inputs and lse, over ``batch_rows`` (not a
-    fully padded one: its p = 1 exists only where f32 absorbs s into the
-    -1e9 bias), one batch row at a time:
+    f64 dv from the same bf16 inputs and lse (None: the whole-row softmax in
+    f64), over ``batch_rows``, slices of the batch taken one at a time (not
+    a fully padded row: its p = 1 exists only where f32 absorbs s into the
+    -1e9 bias):
     (rms, max) absolute error of ``output`` (the exact dv rounded to the bf16
     output: what no bf16 kernel can avoid), ``a`` (p rounded once to bf16,
     f32 sums, rounded to bf16), ``b`` (p split into two bf16 terms hi + lo,
     ~16 bits kept, likewise), ``f32_p`` (the unrounded f32 p, as the TPU
-    kernel takes it) and ``kernel`` (the dk/dv kernel's dv)."""
+    kernel takes it) and ``kernel`` (the kernel's dv)."""
     d = q.shape[-1]
     scale = 1.0 / ((d // h) ** 0.5)
     split = lambda t, dt: t.unflatten(-1, (h, d // h)).to(dt)  # noqa: E731
     sums = {}
     for i in batch_rows:
-        q64, k64, do64 = (split(t[i : i + 1], torch.float64) for t in (q, k, do))
-        s64 = torch.einsum("bqhd,bkhd->bhqk", q64, k64) * scale + bias[i : i + 1].double()
-        p64 = torch.exp(s64 - lse[i : i + 1].double().transpose(1, 2).unsqueeze(-1))
+        q64, k64, do64 = (split(t[i], torch.float64) for t in (q, k, do))
+        s64 = torch.einsum("bqhd,bkhd->bhqk", q64, k64) * scale + bias[i].double()
+        if lse is None:
+            p64 = torch.softmax(s64, dim=-1)
+        else:
+            p64 = torch.exp(s64 - lse[i].double().transpose(1, 2).unsqueeze(-1))
         exact = torch.einsum("bhqk,bqhd->bkhd", p64, do64)
         p32, do32 = p64.float(), do64.float()
         hi = p32.bfloat16().float()
@@ -245,7 +255,7 @@ def dv_rounding_errors(q, k, v, bias, lse, do, h, dv_kernel, batch_rows) -> dict
         sum_f32 = lambda p: torch.einsum("bhqk,bqhd->bkhd", p, do32)  # noqa: E731
         got = {"output": exact.bfloat16().double(), "a": sum_f32(hi).bfloat16().double(),
                "b": (sum_f32(hi) + sum_f32(lo)).bfloat16().double(), "f32_p": sum_f32(p32).bfloat16().double(),
-               "kernel": split(dv_kernel[i : i + 1], torch.float64)}
+               "kernel": split(dv_kernel[i], torch.float64)}
         for name, val in got.items():
             err = (val - exact).abs()
             sq, mx, n = sums.get(name, (0.0, 0.0, 0))
@@ -403,10 +413,13 @@ def attention_forward_at(rng, b: int, seq: int, d: int, h: int) -> tuple[float, 
     return out
 
 
-def attention_backward_at(rng, b: int, seq: int, d: int, h: int):
+def attention_backward_at(rng, b: int, seq: int, d: int, h: int, card: str):
     """The whole-row attention backward against its plain version at
-    (b, seq, d) with h heads, bf16 and f32, ragged padding and one fully
-    padded row; returns the bf16 case's error, its (kernel, plain) ms and
+    (b, seq, d) with h heads, bf16 (the tensor-core kernel) and f32 (the
+    scalar one), q/k/v as strided slices of one (b, seq, 3d) tensor, ragged
+    padding and one fully padded row, two runs bit-equal; in bf16 also the
+    kernel's dv (p as two bf16 terms) against a dense f64 dv beside p
+    rounded once; returns the bf16 case's error, its (kernel, plain) ms and
     the f32 case's (q, k, v, bias, do)."""
     from bert4clickpath_torch.ops.kernels.attention import mha_backward, mha_backward_reference
 
@@ -418,20 +431,35 @@ def attention_backward_at(rng, b: int, seq: int, d: int, h: int):
         do = torch.from_numpy(rng.standard_normal((b, seq, d), dtype=np.float32)).cuda().to(dtype)
         got = mha_backward(q, k, v, bias, do, h)
         want = mha_backward_reference(q, k, v, bias, do, h)
+        again = mha_backward(q, k, v, bias, do, h)
         torch.cuda.synchronize()
         atol, rtol = ATTN_BWD_TOL[dtype]
-        err = 0.0
-        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        tag = f"attention backward B={b} L={seq} D={d} H={h} {dtype}"
+        err, used = 0.0, {}
+        for name, g, w, g2 in zip(("dq", "dk", "dv"), got, want, again):
             if not torch.isfinite(g).all():
-                raise AssertionError(f"attention backward {name} D={d} {dtype}: non-finite")
+                raise AssertionError(f"{tag}: non-finite {name}")
+            if not torch.equal(g, g2):
+                raise AssertionError(f"{tag}: two runs of {name} differ")
             diff = (g.float() - w.float()).abs()
-            if bool((diff > atol + rtol * w.float().abs()).any()):
-                raise AssertionError(f"attention backward {name} D={d} {dtype}: max error {diff.max().item()}")
+            used[name] = (diff / (atol + rtol * w.float().abs())).max().item()
+            if used[name] > 1.0:
+                raise AssertionError(f"{tag}: {name} max error {diff.max().item()}, {used[name]} of the tolerance")
             err = max(err, diff.max().item())
-        log(f"[kernels] attention backward B={b} L={seq} D={d} H={h} {dtype}: "
-            f"max_abs_err {err:.3e} (tol abs {atol:.0e} + rel {rtol:.0e})")
+        log(f"[kernels] {tag}: max_abs_err {err:.3e}, dq / dk / dv at {used['dq']:.3f} / {used['dk']:.3f} / "
+            f"{used['dv']:.3f} of the tolerance (abs {atol:.0e} + rel {rtol:.0e}); two runs bit-equal")
         if dtype == torch.bfloat16:
             err_bf16 = err
+            # the dv decision: p as hi + lo bf16 (b, shipped) against p rounded once (a)
+            dv_errs = dv_rounding_errors(q, k, v, bias, None, do, h, got[2], [slice(1, b)])
+            out_rms = dv_errs["output"][0]
+            log(f"[kernels] {tag}: dv = p^T . do against a dense f64 dv, (rms, max) abs error: "
+                + ", ".join(f"{n} ({e[0]:.4e}, {e[1]:.3e})" for n, e in dv_errs.items())
+                + f"; a / output rms {dv_errs['a'][0] / out_rms:.4f}, b / output {dv_errs['b'][0] / out_rms:.4f}, "
+                f"kernel / output {dv_errs['kernel'][0] / out_rms:.4f} (the kernel takes b: held to 1.05) [{card}]")
+            if dv_errs["kernel"][0] > 1.05 * out_rms:
+                raise AssertionError(f"{tag}: the kernel's dv is {dv_errs['kernel'][0] / out_rms} times the output "
+                                     "rounding's error")
             times = (
                 device_time_ms(lambda: mha_backward(q, k, v, bias, do, h)),
                 device_time_ms(lambda: mha_backward_reference(q, k, v, bias, do, h)),
@@ -471,7 +499,7 @@ def training_kernels(rng, card: str) -> dict:
     wide model's kernels at its own."""
     out = {}
     seq, d, h, b = 53, 256, 4, B_TRAIN
-    err, times, (q, k, v, bias, do) = attention_backward_at(rng, b, seq, d, h)
+    err, times, (q, k, v, bias, do) = attention_backward_at(rng, b, seq, d, h, card)
     # the yardstick on the f32 case's inputs, in bf16 (the loop's last q, k, v)
     lib_fwd, lib_bwd = sdpa_times(*(t.to(torch.bfloat16) for t in (q, k, v)), bias, do.to(torch.bfloat16), h)
     log(f"[kernels] F.scaled_dot_product_attention B={b} L={seq} bf16 (a yardstick, not used by the port): "
@@ -486,7 +514,7 @@ def training_kernels(rng, card: str) -> dict:
     # the forward at its D = 384, the dx grid's vocab split at three targets
     wide_rows = gather_kernel_at(rng, 55_296, seq, WIDE_D, ((B_TRAIN, torch.bfloat16),))
     wide_fwd = attention_forward_at(rng, b, seq, WIDE_D, WIDE_HEADS)
-    wide_bwd = attention_backward_at(rng, b, seq, WIDE_D, WIDE_HEADS)
+    wide_bwd = attention_backward_at(rng, b, seq, WIDE_D, WIDE_HEADS, card)
     log(f"[kernels] wide shapes (B={b} L={seq} D={WIDE_D} H={WIDE_HEADS}, bf16): gather {wide_rows['ms']:.4f} ms "
         f"(plain {wide_rows['plain_ms']:.4f}), attention {wide_fwd[1][0]:.4f} ms (plain {wide_fwd[1][1]:.4f}), "
         f"attention backward {wide_bwd[1][0]:.4f} ms (plain {wide_bwd[1][1]:.4f}) [{card}]")
@@ -754,6 +782,7 @@ def long_context_kernels(rng, card: str) -> dict:
                 q, k, v = qkv[..., :d], qkv[..., d : 2 * d], qkv[..., 2 * d :]
                 do = torch.from_numpy(rng.standard_normal((b, seq, d), dtype=np.float32)).cuda().to(dtype)
                 got, lse = blockwise_mha_forward(q, k, v, bias, h)
+                got2, lse2 = blockwise_mha_forward(q, k, v, bias, h)
                 want, want_lse = blockwise_mha_reference(q, k, v, bias, h)
                 # both backward versions take the plain forward's out and lse
                 args = (q, k, v, bias, want_lse, do, attention_delta(do, want, h), h)
@@ -763,13 +792,16 @@ def long_context_kernels(rng, card: str) -> dict:
                 tag = f"blockwise attention B={b} L={seq} D={d} H={h} {dtype}"
                 if not torch.isfinite(got).all() or not torch.isfinite(lse).all():
                     raise AssertionError(f"{tag}: non-finite forward output")
+                if not torch.equal(got, got2) or not torch.equal(lse, lse2):
+                    raise AssertionError(f"{tag}: two runs of the forward differ")
                 diff = (got.float() - want.float()).abs()
                 err = diff.max().item()
                 atol, rtol = BLOCKWISE_TOL[dtype]
                 used = (diff / (atol + rtol * want.float().abs())).max().item()
                 lse_err = ((lse - want_lse).abs() / want_lse.abs().clamp(min=1.0)).max().item()
                 log(f"[kernels] {tag}: forward max_abs_err {err:.3e}, {used:.3f} of the tolerance "
-                    f"(abs {atol:.0e} + rel {rtol:.1e}); lse max relative error {lse_err:.3e} (tol 1e-5)")
+                    f"(abs {atol:.0e} + rel {rtol:.1e}); lse max relative error {lse_err:.3e} (tol 1e-5); "
+                    "two runs bit-equal")
                 if used > 1.0 or lse_err > 1e-5:
                     raise AssertionError(f"{tag}: forward error {err} ({used} of the tolerance), lse {lse_err}")
                 tol = BLOCKWISE_BWD_TOL[dtype]
@@ -796,7 +828,8 @@ def long_context_kernels(rng, card: str) -> dict:
                     errs = dict(fwd=err, dq=worst["dq"], dkv=max(worst["dk"], worst["dv"]))
                     kept = (q, k, v, bias, do, args)
                     # the dv decision: p rounded once to bf16 (a, shipped) against hi + lo (b)
-                    dv_errs = dv_rounding_errors(q, k, v, bias, want_lse, do, h, grads[2], range(1, b))
+                    dv_errs = dv_rounding_errors(q, k, v, bias, want_lse, do, h, grads[2],
+                                                 [slice(i, i + 1) for i in range(1, b)])
                     log("[kernels] dv = p^T . do at this shape against a dense f64 dv, (rms, max) abs error: "
                         + ", ".join(f"{n} ({e[0]:.4e}, {e[1]:.3e})" for n, e in dv_errs.items())
                         + f"; a / output rms {dv_errs['a'][0] / dv_errs['output'][0]:.4f}, "

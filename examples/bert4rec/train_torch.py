@@ -48,6 +48,7 @@ from bert4clickpath_torch.training import checkpoint as ckpt_lib
 from bert4clickpath_torch.training import schedules
 from bert4clickpath_torch.training.train_state import (
     TrainState,
+    dropout_generator,
     make_eval_step,
     make_optimizer,
     make_scan_train_step,
@@ -322,7 +323,8 @@ def main(argv=None):
         state,
         ds.train_batches(args.batch, seed=args.seed + 1),
         lambda: ds.eval_batches(eval_bs, limit_batches=eval_limit),
-        torch.Generator(device).manual_seed(args.seed + 2),
+        # a resumed run folds its restored step in: fresh masks, not step 0's
+        dropout_generator(device, args.seed + 2, int(state.step)),
     )
     print("done", flush=True)
     # for a caller that drives the run in its own process

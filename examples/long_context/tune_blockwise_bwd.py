@@ -1,18 +1,28 @@
-"""Time the bf16 blockwise attention backward kernels under other tile
-constants than the ones ``csrc/attention_blockwise.cu`` ships with.
+"""Time the bf16 tensor-core attention kernels under other tile constants
+than the ones ``csrc/attention_blockwise.cu`` and ``csrc/attention.cu`` ship
+with.
 
-    python3 examples/long_context/tune_blockwise_bwd.py \\
-        --variant shipped: --variant wide:kDqWarps=8,kDqPass=32,kDqMinBlocks=2
+    python3 examples/long_context/tune_blockwise_bwd.py --kernel fwd \\
+        --variant shipped: --variant wide:kFwdWarps=8,kFwdMinBlocks=2
+    python3 examples/long_context/tune_blockwise_bwd.py --kernel mha_bwd \\
+        --variant shipped: --variant one_term:kMhaDvSplit=false
 
-Each ``--variant name:CONST=value,...`` is a copy of the source with the
-named ``constexpr`` constants (``kWalk``, ``kFragmentsResident``;
-``kDqWarps``, ``kDqPass``, ``kDqMinBlocks`` and the same three for
-``kDkv``) set to the given expressions. All copies are compiled together (one nvcc each) into ``build/tune/``, loaded
-beside the port's own library, held against the plain version at
-(B, L, D) = (16, 1024, 256), 4 heads, bf16, and timed in turns over
-``--rounds`` rounds (CUDA events, median device time). Prints ptxas'
-registers per kernel, the times, and the card's name and power limit. A
-measuring tool: nothing of the port calls it, and it needs a CUDA card.
+``--kernel`` (repeatable; default ``dq`` and ``dkv``) names what is timed:
+the blockwise forward (``fwd``), dq, dk/dv, or the whole-row backward
+(``mha_bwd``). Each ``--variant name:CONST=value,...`` is a copy of the
+sources with the named ``constexpr`` constants set to the given expressions:
+``kWalk``, ``kFragmentsResident``; ``kDqWarps``, ``kDqPass``,
+``kDqMinBlocks`` and the same three for ``kDkv``; ``kFwdWalk``,
+``kFwdWarps``, ``kFwdPass``, ``kFwdStages``, ``kFwdMinBlocks``;
+``kMhaWarps``, ``kMhaPassQ``, ``kMhaPassK``, ``kMhaMinBlocks``,
+``kMhaFragmentsResident``, ``kMhaDvSplit``. All copies are compiled together
+(one nvcc each) into ``build/tune/``, loaded beside the port's own library,
+held against the plain version at the kernel's main-path shape, bf16
+((B, L, D, H) = (16, 1024, 256, 4) for the blockwise kernels, (256, 53, 256,
+4) for the whole-row backward; ``--shape`` sets another for all), and timed
+in turns over ``--rounds`` rounds (CUDA events, median device time). Prints
+ptxas' registers per kernel, the times, and the card's name and power limit.
+A measuring tool: nothing of the port calls it, and it needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -36,25 +46,37 @@ sys.path.insert(0, REPO)
 from bert4clickpath_torch.ops.kernels import _build  # noqa: E402
 from bert4clickpath_torch.ops.kernels import attention as attn  # noqa: E402
 
-ENTRIES = ("b4cp_bmha_fwd", "b4cp_bmha_dq", "b4cp_bmha_dkv")
+# kernel -> (source that holds it and its constants, C entry, main-path shape)
+KERNELS = {
+    "fwd": ("attention_blockwise.cu", "b4cp_bmha_fwd", "16,1024,256,4"),
+    "dq": ("attention_blockwise.cu", "b4cp_bmha_dq", "16,1024,256,4"),
+    "dkv": ("attention_blockwise.cu", "b4cp_bmha_dkv", "16,1024,256,4"),
+    "mha_bwd": ("attention.cu", "b4cp_mha_bwd", "256,53,256,4"),
+}
+TUNED = ("attention_blockwise.cu", "attention.cu")
 
 
-def build_variants(variants: dict[str, dict[str, str]]) -> dict[str, ctypes.CDLL]:
+def build_variants(variants: dict[str, dict[str, str]], sources: list[str], entries: list[str]) -> dict:
+    """One library per variant from ``sources`` with its constants replaced."""
     out_dir = os.path.join(REPO, "build", "tune")
     shutil.rmtree(out_dir, ignore_errors=True)
     procs = {}
     for name, consts in variants.items():
         src_dir = os.path.join(out_dir, name)
         shutil.copytree(_build.CSRC, src_dir)
-        path = os.path.join(src_dir, "attention_blockwise.cu")
-        text = open(path).read()
+        texts = {src: open(os.path.join(src_dir, src)).read() for src in TUNED}
         for const, value in consts.items():
-            text, n = re.subn(rf"(constexpr (?:int|bool) {const} = )[^;]*;", rf"\g<1>{value};", text)
-            if n != 1:
+            found = 0
+            for src in TUNED:
+                texts[src], n = re.subn(rf"(constexpr (?:int|bool) {const} = )[^;]*;", rf"\g<1>{value};", texts[src])
+                found += n
+            if found != 1:
                 raise SystemExit(f"{name}: no constexpr constant {const}")
-        open(path, "w").write(text)
+        for src, text in texts.items():
+            open(os.path.join(src_dir, src), "w").write(text)
         procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", os.path.join(src_dir, "lib.so"), path],
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", os.path.join(src_dir, "lib.so"),
+             *(os.path.join(src_dir, src) for src in sources)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
     libs = {}
@@ -65,25 +87,25 @@ def build_variants(variants: dict[str, dict[str, str]]) -> dict[str, ctypes.CDLL
         entry = ""
         for line in log.splitlines():
             if "Compiling entry" in line:
-                entry = re.search(r"bmha_\w+?_kernelILi\d+E|bmha_\w+?_kernelI\w+?Li\d+E", line)
+                entry = re.search(r"mha_\w+?_kernelILi\d+E|mha_\w+?_kernelI\w+?Li\d+E", line)
                 entry = entry.group(0) if entry else ""
             elif "_mma_kernelILi64E" in entry and ("registers" in line or "spill" in line):
                 print(f"[{name}] {entry}: {line.strip()}", flush=True)
         lib = ctypes.CDLL(os.path.join(out_dir, name, "lib.so"))
-        for fn in ENTRIES:
+        for fn in entries:
             getattr(lib, fn).restype, getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
         libs[name] = lib
     return libs
 
 
 class _Swapped:
-    """The port's library with the blockwise entries of one variant."""
+    """The port's library with the timed entries of one variant."""
 
-    def __init__(self, real, variant):
-        self._real, self._variant = real, variant
+    def __init__(self, real, variant, entries):
+        self._real, self._variant, self._entries = real, variant, entries
 
     def __getattr__(self, name):
-        return getattr(self._variant if name in ENTRIES else self._real, name)
+        return getattr(self._variant if name in self._entries else self._real, name)
 
 
 def device_ms(fn, reps: int) -> float:
@@ -102,15 +124,53 @@ def device_ms(fn, reps: int) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def cases(kernels: list[str], shape: str | None) -> dict:
+    """kernel -> (call, plain results, shape): the wrapper's call on seeded
+    bf16 inputs (q, k, v slices of one projection, ragged padding) and what
+    its plain version gives for them."""
+    out = {}
+    made = {}
+    for kernel in kernels:
+        b, l, d, h = (int(x) for x in (shape or KERNELS[kernel][2]).split(","))
+        if (b, l, d, h) not in made:
+            rng = np.random.default_rng(0)
+            qkv = torch.from_numpy(rng.standard_normal((b, l, 3 * d), dtype=np.float32)).cuda().bfloat16()
+            q, k, v = qkv[..., :d], qkv[..., d : 2 * d], qkv[..., 2 * d :]
+            bias = torch.zeros(b, 1, 1, l, device="cuda")
+            for i, n in enumerate(rng.integers(1, l + 1, size=b)):
+                bias[i, ..., n:] = -1e9
+            do = torch.from_numpy(rng.standard_normal((b, l, d), dtype=np.float32)).cuda().bfloat16()
+            made[b, l, d, h] = (q, k, v, bias, do)
+        q, k, v, bias, do = made[b, l, d, h]
+        if kernel == "mha_bwd":
+            args = (q, k, v, bias, do, h)
+            out[kernel] = (lambda args=args: attn.mha_backward(*args), attn.mha_backward_reference(*args), [b, l, d, h])
+            continue
+        want_out, lse = attn.blockwise_mha_reference(q, k, v, bias, h)
+        args = (q, k, v, bias, lse, do, attn.attention_delta(do, want_out, h), h)
+        if kernel == "fwd":
+            out[kernel] = (lambda q=q, k=k, v=v, bias=bias, h=h: attn.blockwise_mha_forward(q, k, v, bias, h),
+                           (want_out, lse), [b, l, d, h])
+        elif kernel == "dq":
+            out[kernel] = (lambda args=args: (attn.blockwise_mha_dq(*args),), (attn.blockwise_dq_reference(*args),),
+                           [b, l, d, h])
+        else:
+            out[kernel] = (lambda args=args: attn.blockwise_mha_dkv(*args), attn.blockwise_dkv_reference(*args),
+                           [b, l, d, h])
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variant", action="append", required=True, help="name:CONST=value,...")
+    ap.add_argument("--kernel", action="append", choices=sorted(KERNELS), help="default: dq and dkv")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--shape", default="16,1024,256,4", help="B,L,D,H")
+    ap.add_argument("--shape", default=None, help="B,L,D,H for every timed kernel (default: its main-path shape)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
+    kernels = args.kernel or ["dq", "dkv"]
     variants = {}
     for spec in args.variant:
         name, _, consts = spec.partition(":")
@@ -118,37 +178,29 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     real = _build.library()
-    libs = build_variants(variants)
+    entries = [KERNELS[kernel][1] for kernel in kernels]
+    libs = build_variants(variants, sorted({KERNELS[kernel][0] for kernel in kernels}), entries)
 
-    b, l, d, h = (int(x) for x in args.shape.split(","))
-    rng = np.random.default_rng(0)
-    qkv = torch.from_numpy(rng.standard_normal((b, l, 3 * d), dtype=np.float32)).cuda().bfloat16()
-    q, k, v = qkv[..., :d], qkv[..., d : 2 * d], qkv[..., 2 * d :]
-    bias = torch.zeros(b, 1, 1, l, device="cuda")
-    for i, n in enumerate(rng.integers(1, l + 1, size=b)):
-        bias[i, ..., n:] = -1e9
-    do = torch.from_numpy(rng.standard_normal((b, l, d), dtype=np.float32)).cuda().bfloat16()
     with torch.no_grad():
-        out, lse = attn.blockwise_mha_reference(q, k, v, bias, h)
-        call = (q, k, v, bias, lse, do, attn.attention_delta(do, out, h), h)
-        want = (attn.blockwise_dq_reference(*call), *attn.blockwise_dkv_reference(*call))
-        times = {name: {"dq": [], "dkv": []} for name in libs}
-        errs = {}
+        todo = cases(kernels, args.shape)
+        times = {name: {kernel: [] for kernel in kernels} for name in libs}
+        errs = {name: {} for name in libs}
         for rnd in range(args.rounds):
             for name, lib in libs.items():
-                _build._lib = _Swapped(real, lib)
-                if rnd == 0:
-                    got = (attn.blockwise_mha_dq(*call), *attn.blockwise_mha_dkv(*call))
-                    torch.cuda.synchronize()
-                    errs[name] = [float((g.float() - w.float()).abs().max() / w.float().abs().max())
-                                  for g, w in zip(got, want)]
-                times[name]["dq"].append(device_ms(lambda: attn.blockwise_mha_dq(*call), args.reps))
-                times[name]["dkv"].append(device_ms(lambda: attn.blockwise_mha_dkv(*call), args.reps))
+                _build._lib = _Swapped(real, lib, entries)
+                for kernel, (call, want, _) in todo.items():
+                    if rnd == 0:
+                        got = call()
+                        torch.cuda.synchronize()
+                        # each result's largest error over its plain version's largest magnitude
+                        errs[name][kernel] = [float((g.float() - w.float()).abs().max() / w.float().abs().max())
+                                              for g, w in zip(got, want)]
+                    times[name][kernel].append(device_ms(call, args.reps))
         _build._lib = real
     for name in libs:
-        print(json.dumps({"variant": name, "consts": variants[name], "shape": [b, l, d, h],
-                          "dq_ms": times[name]["dq"], "dkv_ms": times[name]["dkv"],
-                          "max_err_over_max_dq_dk_dv": errs[name], "card": card}), flush=True)
+        print(json.dumps({"variant": name, "consts": variants[name],
+                          "shapes": {kernel: todo[kernel][2] for kernel in kernels},
+                          "ms": times[name], "max_err_over_max": errs[name], "card": card}), flush=True)
 
 
 if __name__ == "__main__":

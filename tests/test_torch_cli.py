@@ -4,8 +4,10 @@ loads the export; the flags the port cannot honour yet exit with their
 message; and the subprocess never imports jax or the JAX package.
 """
 
+import importlib.util
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -79,6 +81,41 @@ def test_train_cli_trains_resumes_and_exports(tmp_path, preset, extra):
     served = ServingModel(str(run / "export"), device="cpu")
     res = served.recommend([["item_1", "item_2", "item_3"], ["item_7"]], k=5)
     assert len(res) == 2 and all(len(r) == 5 and r[0][0].startswith("item_") for r in res)
+
+
+def test_resumed_run_draws_fresh_dropout_masks(tmp_path):
+    """``--resume`` at step N seeds the dropout generator from (seed, N): the
+    first resumed step's mask differs from step 0's, and two resumes from the
+    same checkpoint draw the same masks (and so log the same train loss)."""
+    from bert4clickpath_torch.models.encoder import apply_dropout
+
+    spec = importlib.util.spec_from_file_location("train_torch_in_process", SCRIPT)
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    seen = []
+
+    class Recording(cli.Trainer):
+        def fit(self, state, batches, eval_fn, generator):
+            first = torch.Generator("cpu").manual_seed(generator.initial_seed())
+            mask = apply_dropout(torch.ones(4, 64), 0.1, first, "mask") != 0
+            seen.append((int(state.step), generator.initial_seed(), mask))
+            return super().fit(state, batches, eval_fn, generator)
+
+    cli.Trainer = Recording
+    flags = ["--preset", "tpu", "--d_model", "32", "--layers", "1", "--heads", "2", "--qkv_fused", "--seed", "5",
+             "--epochs", "1", "--ckpt_keep", "1"]
+    a, b = tmp_path / "a", tmp_path / "b"
+    cli.main([*BASE, *flags, "--model_dir", str(a)])
+    shutil.copytree(a, b)
+    for run in (a, b):
+        cli.main([*BASE, *flags, "--model_dir", str(run), "--resume"])
+    (step0, seed0, mask0), (step_a, seed_a, mask_a), (step_b, seed_b, mask_b) = seen
+    assert step0 == 0 and seed0 == 5 + 2  # a fresh run keeps its seed
+    assert step_a == step_b == _history(a)[0]["step"] > 0
+    assert seed_a == seed_b != seed0
+    assert torch.equal(mask_a, mask_b) and not torch.equal(mask_a, mask0)
+    assert not mask0.all() and not mask_a.all()  # dropout is on
+    assert _history(a)[1]["train_loss"] == _history(b)[1]["train_loss"]
 
 
 def test_init_ckpt_warm_starts_the_encoder(tmp_path):

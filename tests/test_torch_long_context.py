@@ -146,6 +146,61 @@ def test_blockwise_backward_reference_matches_whole_row():
         torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
 
 
+def _tiled_forward(q, k, v, bias, heads, tile=64):
+    """The bf16 tensor-core forward's walk written out: key tiles of ``tile``
+    with a running maximum m and sum l per query row; in each tile the
+    un-normalised p = exp(s - m_new) is summed unrounded into l and rounded to
+    bf16 for p . v, the accumulated output and l are rescaled by
+    alpha = exp(m_prev - m_new), and the output is divided by l once."""
+    b, l, d = q.shape
+    qf, kf, vf = (attn._split_heads(t, heads) for t in (q, k, v))
+    scale = 1.0 / (d // heads) ** 0.5
+    m = torch.full((b, heads, l, 1), -float("inf"))
+    lsum = torch.zeros(b, heads, l, 1)
+    acc = torch.zeros(b, heads, l, d // heads)
+    for k0 in range(0, l, tile):
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, k0 : k0 + tile]) * scale + bias[..., k0 : k0 + tile]
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha, p = torch.exp(m - m_new), torch.exp(s - m_new)
+        lsum = lsum * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), vf[:, k0 : k0 + tile])
+        m = m_new
+    out = (acc / lsum).transpose(1, 2).reshape(b, l, d).to(q.dtype)
+    return out, (m + torch.log(lsum)).squeeze(-1).transpose(1, 2)
+
+
+@pytest.mark.parametrize("l", [37, 65, 130, 200])
+def test_blockwise_forward_sums_l_unrounded_and_multiplies_the_rounded_p(l):
+    """What the bf16 forward kernel relies on: l sums the unrounded f32 p
+    while p . v takes p rounded to bf16 (bit for bit against the formula
+    written out, and not against either other choice), and a walk over
+    64-key tiles with a running maximum stays inside the kernel's tolerance
+    of the plain version (abs 2e-3 + two bf16 ulps; lse relative 1e-5), a
+    first tile that is all padding included."""
+    q, k, v, bias = _torch(_qkv_bias(2, l, 32, "ragged"))
+    if l > 70:
+        bias[1, ..., :70] = -1e9  # a first key tile that is all padding ...
+        bias[1, ..., l - 1] = 0.0  # ... then a real key
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    out, lse = attn.blockwise_mha_reference(q, k, v, bias, 2)
+    qf, kf, vf = (attn._split_heads(t, 2) for t in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * (1.0 / 16**0.5) + bias
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    assert not torch.equal(p, p.bfloat16().float())
+
+    def formula(p_product, p_sum):
+        o = torch.einsum("bhqk,bkhd->bqhd", p_product, vf) / p_sum.sum(-1).transpose(1, 2).unsqueeze(-1)
+        return o.reshape(q.shape).bfloat16()
+
+    rounded = p.bfloat16().float()
+    assert torch.equal(out, formula(rounded, p))
+    assert not torch.equal(out, formula(rounded, rounded)) and not torch.equal(out, formula(p, p))
+    tiled, tiled_lse = _tiled_forward(q, k, v, bias, 2)
+    diff = (tiled.float() - out.float()).abs()
+    assert bool((diff <= 2e-3 + 2.0**-6 * out.float().abs()).all()), float(diff.max())
+    torch.testing.assert_close(tiled_lse, lse, atol=1e-4, rtol=1e-5)
+
+
 def _backward_case(dtype, l=48, seed=4):
     """(q, k, v, bias, out, lse, do, delta) for the backward's plain
     versions: out and lse from the port's plain forward, 2 heads of 16."""

@@ -403,6 +403,38 @@ def test_mha_backward_matches_jax_vjp(dtype):
         np.testing.assert_allclose(g_.float().numpy(), w, atol=atol, rtol=0, err_msg=name)
 
 
+@pytest.mark.parametrize("l", [13, 53, 116])
+def test_mha_backward_dv_from_f32_p_equals_two_bf16_terms(l):
+    """What the bf16 whole-row backward kernel relies on: its plain version
+    takes dv from the unrounded f32 p (bit for bit against the formula), and
+    p as two bf16 terms, hi = round(p) and lo = round(p - hi), each
+    multiplied into the same f32 sums, gives that dv to 2^-16 of
+    sum_q p |do| (lo's own rounding is 2^-18 of p), where p rounded once is
+    off by up to 2^-9 of it; after the bf16 output rounding the two-term dv
+    is as close to a dense f64 dv as the f32-p dv is."""
+    from bert4clickpath_torch.ops.kernels.attention import _split_heads, mha_backward_reference
+
+    rng = np.random.default_rng(9)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(B, l, D)).astype(np.float32)).bfloat16() for _ in range(4))
+    bias = torch.from_numpy(_bias(rng, B, l))
+    _, _, dv = mha_backward_reference(q, k, v, bias, do, H)
+    qf, kf, dof = (_split_heads(t, H) for t in (q, k, do))
+    p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * (1.0 / (D // H) ** 0.5) + bias, dim=-1)
+    sums = lambda t: torch.einsum("bhqk,bqhd->bkhd", t, dof)  # noqa: E731
+    from_f32 = sums(p)
+    assert torch.equal(dv, from_f32.reshape(q.shape).bfloat16())
+    hi = p.bfloat16().float()
+    lo = (p - hi).bfloat16().float()
+    two_terms = sums(hi) + sums(lo)
+    envelope = torch.einsum("bhqk,bqhd->bkhd", p, dof.abs())
+    slop = 4e-6 * envelope  # the f32 products' and sums' own rounding, in another order
+    assert bool(((two_terms - from_f32).abs() <= 2.0**-16 * envelope + slop).all())
+    assert bool(((sums(hi) - from_f32).abs() > 2.0**-16 * envelope + slop).any())  # one term is not enough
+    exact = torch.einsum("bhqk,bqhd->bkhd", p.double(), dof.double())
+    rms = lambda t: float((t.bfloat16().double() - exact).square().mean().sqrt())  # noqa: E731
+    assert rms(two_terms) <= 1.001 * rms(from_f32) < rms(sums(hi))
+
+
 def test_mha_backward_through_qkv_slices():
     """Gradients through q, k, v as column slices of one (B, L, 3D) tensor
     land in the right columns (f32, atol 1e-6 against separate tensors)."""
