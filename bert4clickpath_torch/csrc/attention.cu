@@ -18,19 +18,26 @@
 // What bounds it on the H100: latency. At the serving shape (L=53, D=256,
 // H=4) one (b, h) pair is ~0.7 MFLOP over ~40 KB; the whole call at B=64 is
 // ~46 MFLOP and ~5 MB, far below both the tensor-core and the memory roofs,
-// and at B=1 there are only H=4 blocks on 132 SMs. What the time is made of
-// is the launch, one pass of K/V into shared memory, and the dependent
-// chain of each row's score / max / sum / PV steps.
+// and at B=1 a grid of one block per (b, h) has only H=4 blocks on 132 SMs.
+// What the time is made of is the launch, one pass of K/V into shared
+// memory, and the dependent chain of each row's score / max / sum / PV
+// steps: the tensor-core kernel shortens the chain (16 rows a warp, the
+// products on mma.sync).
 //
-// Design (simple first): one block per (b, h), 8 warps. K_h and V_h are
+// Two kernels, picked in the C entry by the input type and the shape: bf16
+// heads up to 128 wide take mha_fwd_mma_kernel (further down), whose
+// products run on the tensor cores; f32 inputs (the exactness route) and
+// wider bf16 heads take the scalar kernel here.
+//
+// The scalar kernel: one block per (b, h), 8 warps. K_h and V_h are
 // converted to f32 once into shared memory (K with a padded row stride, so
 // lanes reading different keys hit different banks). Each warp takes query
 // rows in turn: lanes over keys for the scores, warp-shuffle max and sum,
 // then lanes over Dh for the PV product. The ragged edge (L=53 is odd) is
 // masked by the loop bounds. Shared memory grows as L * (2*Dh + 1) floats;
 // an L beyond what one block can hold goes to the blockwise kernels
-// (attention_blockwise.cu), which stream K/V. No tensor cores yet: wgmma,
-// TMA and several rows per warp are what a fast version would add.
+// (attention_blockwise.cu), which stream K/V (attention_family in
+// ops/kernels/attention.py applies this kernel's rule to both dtypes).
 
 #include <type_traits>
 
@@ -621,6 +628,208 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// The bf16 forward on the tensor cores (mha_fwd_mma_kernel): what bf16
+// inputs with a head width up to 128 take, where its tiles fit one block;
+// f32 inputs (the exactness route), and bf16 heads wider than 128, keep the
+// scalar kernel above. It computes the same function: s = (q k^T) scale +
+// bias in f32 (the scale before the bias, one rounding each), the f32
+// softmax, p normalised and rounded to bf16 before o = p v, o summed in f32
+// and rounded once. What bounds it is bytes and latency (5 MB and 0.0083 ms
+// at (256, 53, 256); its 0.7 GFLOP are under 0.001 ms of tensor-core time).
+//
+// It is phase 1 of the whole-row backward without dp, followed by o = p v. A
+// block of kMhaFwdWarps warps takes 16 query rows a warp (grid: query-row
+// blocks x heads x batch rows), copies its q rows and the head's whole K and V
+// (L rounded up to 64 rows, zero past L) into bf16 tiles by 16-byte cp.async
+// copies (plain loads where the head width, a stride or an address does not
+// allow them), with the bias row (-inf past L). A warp computes s on the
+// accumulator fragments in passes of 64 keys, the row maximum m and sum l
+// over the passes (reduced across the four lanes of a row by shuffles), then
+// p = exp(s - m) / l rounded to bf16 straight into the A fragments of p v
+// (ldmatrix.trans on V). With one pass (L <= 64, the main paths' L = 53) s
+// stays in registers between the statistics and p; a longer row recomputes
+// it pass by pass. A fully padded row (-1e9 at every key) gives a uniform
+// softmax, as in the scalar kernel; keys past L give p = 0. Each output row
+// is written by one warp: two runs give the same bits.
+// warps of a block, 16 query rows each: 4 (one block per (b, h) at L <=
+// 64) against 1 and 2 (several blocks per head) at (1 | 8 | 64 | 256, 53,
+// 256), 4 heads, and (256, 53, 384), 6: the same 0.013 ms at batch 1 and 8
+// (the launch), 4% faster at 256 (examples/long_context/tune_blockwise_bwd.py
+// --kernel mha_fwd; PERF.md)
+constexpr int kMhaFwdWarps = 4;
+constexpr int kMhaFwdPass = 64;  // keys of a pass
+
+constexpr size_t mha_fwd_mma_smem_bytes(int seq_len, int dhp, int warps) {
+  const size_t rows = static_cast<size_t>((seq_len + kMhaFwdPass - 1) / kMhaFwdPass) * kMhaFwdPass;
+  return sizeof(__nv_bfloat16) * (16 * warps + 2 * rows) * (dhp + tc::kSkew) + sizeof(float) * rows;
+}
+
+template <int DHP, int WARPS, int NP, bool RESIDENT>
+__global__ void __launch_bounds__(WARPS * 32)
+    mha_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
+                       __nv_bfloat16* __restrict__ out, int seq_len, int d, int dh, long long q_sb,
+                       long long q_sl, long long k_sb, long long k_sl, long long v_sb,
+                       long long v_sl, float scale, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_fwd[];
+  static_assert(NP % 16 == 0, "a pass is whole k16 steps");
+  constexpr int RS = DHP + tc::kSkew;
+  constexpr int kThreadsF = WARPS * 32;
+  constexpr int QROWS = 16 * WARPS;
+  constexpr int NT = NP / 8;  // n8 tiles of a pass
+  const int rows = (seq_len + NP - 1) / NP * NP;
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_fwd);
+  __nv_bfloat16* ks = qs + QROWS * RS;
+  __nv_bfloat16* vs = ks + rows * RS;
+  float* bs = reinterpret_cast<float*>(vs + rows * RS);  // the bias row, -inf past seq_len
+  const int q0 = blockIdx.x * QROWS;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int t = lane & 3;
+
+  tc::fill_tile<QROWS, DHP, kThreadsF>(qs, q + b * q_sb + h * dh, q_sl, q0, seq_len, dh, vec);
+  for (int r0 = 0; r0 < rows; r0 += NP) {
+    tc::fill_tile<NP, DHP, kThreadsF>(ks + r0 * RS, k + b * k_sb + h * dh, k_sl, r0, seq_len, dh, vec);
+    tc::fill_tile<NP, DHP, kThreadsF>(vs + r0 * RS, v + b * v_sb + h * dh, v_sl, r0, seq_len, dh, vec);
+  }
+  tc::fill_rows_f32<kThreadsF>(bs, bias + static_cast<long long>(b) * seq_len, 1, 0, rows, seq_len, -INFINITY);
+  tc::cp_async_commit();
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  if (q0 + warp * 16 >= seq_len) return;  // the warp's rows are all past seq_len
+
+  const int rows_first = tc::lane_offset_rows_first<RS>(lane) * 2;
+  const int cols_first = tc::lane_offset_cols_first<RS>(lane) * 2;
+  const uint32_t q_at = tc::shared_addr(qs) + warp * (16 * RS * 2) + rows_first;
+  const uint32_t k_addr = tc::shared_addr(ks);
+  const uint32_t v_addr = tc::shared_addr(vs);
+  uint32_t qf[DHP / 16][4];
+  if constexpr (RESIDENT) tc::load_a<DHP>(qf, q_at);
+  float s[NT][4];
+  // s = (q k^T) * scale + bias for the keys of pass c
+  auto scores = [&](int c) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+    }
+    const uint32_t k_at = k_addr + c * (NP * RS * 2) + cols_first;
+    if constexpr (RESIDENT) {
+      tc::product_abt<DHP, NT>(s, qf, k_at);
+    } else {
+      tc::product_abt<DHP, NT>(s, q_at, k_at);
+    }
+    const float* bj = bs + c * NP + 2 * t;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float2 b2 = *reinterpret_cast<const float2*>(bj + nt * 8);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = __fadd_rn(__fmul_rn(s[nt][e], scale), (e & 1) ? b2.y : b2.x);
+    }
+  };
+
+  // every pass holds a key below seq_len, whose bias is finite: m_new is
+  // finite, and -inf - (-inf) is never formed
+  const int n_pass = (seq_len + NP - 1) / NP;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};  // the lane's share of sum exp(s - m)
+  for (int c = 0; c < n_pass; ++c) {
+    scores(c);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+    }
+    float m_new[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) m_new[r] = fmaxf(m_run[r], tc::quad_max(mx[r]));
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sum[e >> 1] += expf(s[nt][e] - m_new[e >> 1]);  // 0 past seq_len
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_run[r] = l_run[r] * expf(m_run[r] - m_new[r]) + sum[r];  // 0 * 0 on the first pass
+      m_run[r] = m_new[r];
+    }
+  }
+  float l[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = tc::quad_sum(l_run[r]);
+
+  float acc[DHP / 8][4] = {};
+  for (int c = 0; c < n_pass; ++c) {
+    if (n_pass > 1) scores(c);  // one pass: s is still in registers
+    uint32_t pf[NP / 16][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[e] = expf(s[nt][e] - m_run[e >> 1]) / l[e >> 1];
+      pf[nt >> 1][(nt & 1) * 2] = tc::pack_bf16(p[0], p[1]);
+      pf[nt >> 1][(nt & 1) * 2 + 1] = tc::pack_bf16(p[2], p[3]);
+    }
+    tc::product_ab<DHP, NP / 16>(acc, pf, v_addr + c * (NP * RS * 2) + rows_first);
+  }
+  tc::store_acc<DHP>(out + static_cast<long long>(b) * seq_len * d + h * dh, acc, q0 + warp * 16,
+                     seq_len, d, dh, lane, vec);
+}
+
+template <int DHP>
+cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v, const void* bias, void* out,
+                           int batch, int seq_len, int d, int heads, long long q_sb,
+                           long long q_sl, long long k_sb, long long k_sl, long long v_sb,
+                           long long v_sl, float scale, int vec, cudaStream_t stream) {
+  constexpr int warps = kMhaFwdWarps;
+  auto kernel = mha_fwd_mma_kernel<DHP, warps, kMhaFwdPass, kMhaFragmentsResident<DHP>>;
+  const size_t smem = mha_fwd_mma_smem_bytes(seq_len, DHP, warps);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  using B = __nv_bfloat16;
+  const dim3 grid((seq_len + 16 * warps - 1) / (16 * warps), heads, batch);
+  kernel<<<grid, warps * 32, smem, stream>>>(
+      static_cast<const B*>(q), static_cast<const B*>(k), static_cast<const B*>(v),
+      static_cast<const float*>(bias), static_cast<B*>(out), seq_len, d, d / heads, q_sb, q_sl,
+      k_sb, k_sl, v_sb, v_sl, scale, vec);
+  return cudaGetLastError();
+}
+
+// the tile instance that holds the head
+cudaError_t launch_fwd_bf16(const void* q, const void* k, const void* v, const void* bias,
+                            void* out, int batch, int seq_len, int d, int heads, long long q_sb,
+                            long long q_sl, long long k_sb, long long k_sl, long long v_sb,
+                            long long v_sl, float scale, cudaStream_t stream) {
+  const int dh = d / heads;
+  // 16-byte copies and paired stores: the head width, every stride and every
+  // base address allow them
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const bool vec = dh % 8 == 0 && d % 8 == 0 && q_sb % 8 == 0 && q_sl % 8 == 0 && k_sb % 8 == 0 &&
+                   k_sl % 8 == 0 && v_sb % 8 == 0 && v_sl % 8 == 0 && aligned(q) && aligned(k) &&
+                   aligned(v) && aligned(out);
+  const auto run = [&](auto dhp) {
+    return launch_fwd_mma<decltype(dhp)::value>(q, k, v, bias, out, batch, seq_len, d, heads, q_sb,
+                                                q_sl, k_sb, k_sl, v_sb, v_sl, scale, vec, stream);
+  };
+  if (dh <= 16) return run(std::integral_constant<int, 16>{});
+  if (dh <= 32) return run(std::integral_constant<int, 32>{});
+  if (dh <= 64) return run(std::integral_constant<int, 64>{});
+  return run(std::integral_constant<int, 128>{});
+}
+
+// the tensor-core forward's route, by the shape alone: a bf16 head up to
+// the widest tile instance, whose tiles fit one block
+bool fwd_takes_mma(int seq_len, int dh) {
+  const int dhp = dh <= 16 ? 16 : dh <= 32 ? 32 : dh <= 64 ? 64 : 128;
+  return dh <= kMhaMaxHeadDim && mha_fwd_mma_smem_bytes(seq_len, dhp, kMhaFwdWarps) <= 227 * 1024;
+}
+
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* bias, void* out, int batch, int seq_len,
@@ -659,12 +868,19 @@ extern "C" int b4cp_mha_fwd(const void* q, const void* k, const void* v,
   if (set != cudaSuccess) return static_cast<int>(set);
   if (batch == 0 || seq_len == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(q, k, v, bias, out, batch, seq_len, d,
-                                      heads, q_sb, q_sl, k_sb, k_sl, v_sb,
-                                      v_sl, scale, s)
-              : launch<float>(q, k, v, bias, out, batch, seq_len, d, heads,
-                              q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, scale, s);
+  // the input type and the shape pick the kernel (bf16 heads wider than the
+  // widest tile instance stay with the scalar one)
+  cudaError_t err;
+  if (!is_bf16) {
+    err = launch<float>(q, k, v, bias, out, batch, seq_len, d, heads, q_sb, q_sl, k_sb, k_sl, v_sb,
+                        v_sl, scale, s);
+  } else if (fwd_takes_mma(seq_len, d / heads)) {
+    err = launch_fwd_bf16(q, k, v, bias, out, batch, seq_len, d, heads, q_sb, q_sl, k_sb, k_sl,
+                          v_sb, v_sl, scale, s);
+  } else {
+    err = launch<__nv_bfloat16>(q, k, v, bias, out, batch, seq_len, d, heads, q_sb, q_sl, k_sb,
+                                k_sl, v_sb, v_sl, scale, s);
+  }
   return static_cast<int>(err);
 }
 

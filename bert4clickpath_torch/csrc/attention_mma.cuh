@@ -1,7 +1,8 @@
-// Building blocks of the attention kernels that run their products on the
-// tensor cores: bf16 tiles in shared memory filled by asynchronous 16-byte
-// copies, fragments read with ldmatrix, and mma.sync.m16n8k16 (bf16 x bf16,
-// f32 sums) products of a warp's 16 rows against a tile.
+// Building blocks of the kernels that run their products on the tensor
+// cores (attention, and the CE dx pass): bf16 tiles in shared memory filled
+// by asynchronous 16-byte copies, fragments read with ldmatrix, and
+// mma.sync.m16n8k16 (bf16 x bf16, f32 sums) products of a warp's 16 rows
+// against a tile; mma.sync.m16n8k8 with tf32 fragments beside them.
 //
 // A tile is ROWS x DHP bf16, row-major, with a row stride of DHP + kSkew
 // elements: the 16 bytes of skew put the eight 16-byte rows of every 8 x 8
@@ -135,6 +136,34 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d (16 x 8, f32) += a (16 x 8 tf32) . b (8 x 8 tf32), mma.m16n8k8: the
+// fragments hold f32 elements, a0 (g, t) a1 (g+8, t) a2 (g, t+4) a3
+// (g+8, t+4), b0 (k t, n g) b1 (k t+4, n g). In bytes that is the layout of
+// the bf16 k16 fragments (16 bytes of a row per 8 x 8 b16 matrix), so the
+// same ldmatrix offsets read them from an f32 tile without .trans.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// an f32 (as its bits) rounded to the nearest tf32, ties away from zero
+__device__ __forceinline__ uint32_t to_tf32(uint32_t bits) {
+  uint32_t out;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(out) : "f"(__uint_as_float(bits)));
+  return out;
+}
+
+// an f32 as two tf32 terms, hi = round(x) and lo = round(x - hi) (~21 bits
+// of x kept)
+__device__ __forceinline__ void split_tf32(uint32_t bits, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(bits);
+  lo = to_tf32(__float_as_uint(__uint_as_float(bits) - __uint_as_float(hi)));
 }
 
 // two f32 rounded to bf16, the first in the low half

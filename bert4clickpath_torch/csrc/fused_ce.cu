@@ -31,8 +31,10 @@
 // Design (simple first, f32 FMA from shared memory, no tensor cores):
 // * Both kernels work on 64 x 64 tiles of s with 256 threads, each thread
 //   owning a 4 x 4 register tile (rows ty + 16r, columns tx + 16c). The x
-//   tile and the W tile sit whole in shared memory as f32, rows padded to
-//   D + 1 floats so lanes reading different rows hit different banks.
+//   tile and the W tile sit in shared memory as f32, rows padded by one
+//   float so lanes reading different rows hit different banks: the forward
+//   streams both through 64 x 128 chunk buffers, so any D runs; the merged
+//   backward keeps both whole (D <= 256).
 // * Forward: one block owns a 64-row tile of x and a split of 32 vocab
 //   tiles (2,048 table rows), keeping the online max / sum-exp per row in
 //   registers (half-warp shuffles over the tile's 64 columns). One block
@@ -50,10 +52,9 @@
 //   agrees with the plain version to a tolerance, not bit for bit.
 // The TPU tile tiers (vocab tiles up to 1024, _bwd_chunk_rows, the 4 MiB
 // use_fused_backward budget) were VMEM limits and are gone: any N and V
-// work, with the ragged edges masked. What limits D here: the forward's two
-// whole tiles must fit one block's shared memory (D <= 453), and the merged
+// work, with the ragged edges masked. What limits D here: the merged
 // backward's register tile holds D <= 256; wider rows take the two-pass
-// backward of fused_ce_two_pass.cu. The tile helpers both files share are in
+// backward of fused_ce_two_pass.cu, which, like the forward, takes any D. The tile helpers both files share are in
 // fused_ce_tiles.cuh. wgmma / TMA pipelines are later work.
 
 #include "fused_ce_tiles.cuh"
@@ -63,9 +64,16 @@ namespace {
 using namespace ce_tiles;
 
 constexpr int kMaxDChunks = 4;  // dW / dx register tiles cover D <= 64 * 4
+constexpr int kFwdChunk = 128;  // columns of x and of the table per chunk of the forward
 
 // ---------------------------------------------------------------- forward
 
+// x and the table pass through 64 x kFwdChunk chunk buffers, x's chunks
+// loaded again for every vocab tile (from L2), which takes any D. Whole
+// 64 x (D + 1) tiles of both (the first version) held D <= 453 and were
+// slower: 4.25 / 6.26 ms against 3.63 / 5.39 at D = 256 / 384, N = 2,560,
+// V = 55,296 on an H100, as 66 KB of shared memory let three blocks share
+// an SM (PERF.md, "the forward's route").
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     ce_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
@@ -73,7 +81,7 @@ __global__ void __launch_bounds__(kThreads)
                   float* __restrict__ l_part, int n, int v, int d,
                   int row_offset, int num_valid, int tiles_per_split) {
   extern __shared__ float smem[];
-  const int stride = d + 1;
+  constexpr int stride = kFwdChunk + 1;
   float* xs = smem;
   float* ws = xs + kTile * stride;
   const int row0 = blockIdx.x * kTile;
@@ -84,7 +92,6 @@ __global__ void __launch_bounds__(kThreads)
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x % 16;
 
-  load_x_tile<T>(xs, x, row0, n, d, 0, d, stride);
   float m_run[4], l_run[4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -93,11 +100,15 @@ __global__ void __launch_bounds__(kThreads)
   }
   for (int j = j0; j < j1; ++j) {
     const int col0 = j * kTile;
-    __syncthreads();  // the previous tile's readers are done with ws
-    load_w_tile<T>(ws, w, col0, v, d, 0, d, stride);
-    __syncthreads();
     float s[4][4];
-    score_tile(xs, ws, d, stride, s);
+    zero_tile(s);
+    for (int kc = 0; kc < d; kc += kFwdChunk) {
+      __syncthreads();  // the previous chunk's readers are done
+      load_x_tile<T>(xs, x, row0, n, d, kc, kFwdChunk, stride);
+      load_w_tile<T>(ws, w, col0, v, d, kc, kFwdChunk, stride);
+      __syncthreads();
+      score_add(xs + ty * stride, stride, ws + tx * stride, stride, min(kFwdChunk, d - kc), s);
+    }
     const bool interior = col0 >= row_offset && col0 + kTile <= v &&
                           col0 + kTile <= row_offset + num_valid;
 #pragma unroll
@@ -262,7 +273,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-size_t fwd_smem(int d) { return sizeof(float) * 2 * kTile * (d + 1); }
+constexpr size_t kFwdSmem = sizeof(float) * 2 * kTile * (kFwdChunk + 1);
 size_t bwd_smem(int d) {
   return sizeof(float) * (2 * kTile * (d + 1) + kTile * (kTile + 1));
 }
@@ -272,11 +283,10 @@ cudaError_t launch_fwd(const void* x, const void* w, const void* bias,
                        void* m_part, void* l_part, void* m, void* l, int n,
                        int v, int d, int row_offset, int num_valid,
                        int splits, int tiles_per_split, cudaStream_t stream) {
-  const size_t smem = fwd_smem(d);
-  cudaError_t err = allow_smem(ce_fwd_kernel<T>, smem);
+  cudaError_t err = allow_smem(ce_fwd_kernel<T>, kFwdSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + kTile - 1) / kTile, splits);
-  ce_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+  ce_fwd_kernel<T><<<grid, kThreads, kFwdSmem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<float*>(m_part),
       static_cast<float*>(l_part), n, v, d, row_offset, num_valid,
@@ -319,17 +329,12 @@ extern "C" int b4cp_ce_fwd(const void* x, const void* w, const void* bias,
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   if (n == 0 || v == 0) return static_cast<int>(cudaGetLastError());
-  // the forward holds no per-D register tile: its x and table tiles must
-  // fit one block's shared memory (D <= 453)
-  if (fwd_smem(d) > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? launch_fwd<__nv_bfloat16>(x, w, bias, m_part, l_part, m, l, n,
-                                          v, d, row_offset, num_valid, splits,
-                                          tiles_per_split, s)
-              : launch_fwd<float>(x, w, bias, m_part, l_part, m, l, n, v, d,
-                                  row_offset, num_valid, splits,
-                                  tiles_per_split, s);
+      is_bf16 ? launch_fwd<__nv_bfloat16>(x, w, bias, m_part, l_part, m, l, n, v, d, row_offset,
+                                          num_valid, splits, tiles_per_split, s)
+              : launch_fwd<float>(x, w, bias, m_part, l_part, m, l, n, v, d, row_offset,
+                                  num_valid, splits, tiles_per_split, s);
   return static_cast<int>(err);
 }
 

@@ -21,32 +21,33 @@
 // What bounds them on the H100: arithmetic. Each kernel is two products of
 // 2*N*V*D operations (the recompute and its own), against a table and
 // activations of tens of MB: at N = 2,560, V = 55,296, D = 384 that is 217
-// GFLOP per kernel, 3.2 ms in f32 FMA at 67 TFLOP/s.
+// GFLOP per kernel, 3.2 ms in f32 FMA at 67 TFLOP/s, 0.66 ms as three bf16
+// products on the tensor cores (989 TFLOP/s).
 //
-// Design (simple first, f32 FMA from shared memory, no tensor cores), on the
-// 64 x 64 tiles of fused_ce_tiles.cuh:
-// * The operand a block keeps for its whole life sits whole in shared
-//   memory: the block's 64 rows of x in the dx kernel, its 64 table rows in
-//   the dW kernel. The other operand streams through a 64 x 128 chunk
-//   buffer: once over all of D for the scores (the 4 x 4 register tiles sum
-//   across the chunks), then once more over the block's output columns, 64
-//   at a time, for the kernel's own product. So no tile needs D registers or
-//   2 x 64 x D floats of shared memory, and D is limited only by the one
-//   whole tile: 64 * (D + 1) + 64 * 129 + 64 * 65 floats <= 227 KB, D <= 713.
-// * A block owns up to kOutCols = 384 columns of its output, 16 rows x 6
-//   columns per thread in registers, summed over the block's whole loop and
-//   written once: no atomics, a fixed order, the same bits every run. Wider
-//   rows split D over blockIdx.z (each such block recomputes the scores).
-// * dx: a block per 64-row tile of x walks vocab tiles. Row tiles alone (40
-//   at N = 2,560) would not fill 132 SMs, so the vocabulary is split across
-//   blockIdx.y into f32 partials (splits, N, D) that a small second kernel
-//   sums in split order and rounds to x's type, as the forward's combine
-//   kernel does for (m, l).
-// * dW: a block per 64-row vocab tile loops over all row tiles; db comes
-//   from the blocks of the first D split only.
+// The dx kernel runs its products on the tensor cores (ce_bwd_dx_mma_kernel
+// below, with its own design notes): f32 x as hi + lo tf32 terms in three
+// m16n8k8 products (kDxNumerics), the numerics measured in PERF.md, "the dx
+// numerics decision"; bf16 x in one bf16 product.
+//
+// The dW kernel is f32 FMA on the 64 x 64 tiles of fused_ce_tiles.cuh:
+// * A block's 64 table rows sit whole in shared memory where they fit
+//   (64 * (D + 1) + 64 * 129 + 64 * 65 floats <= 227 KB, D <= 713). x
+//   streams through a 64 x 128 chunk buffer: once over all of D for the
+//   scores (the 4 x 4 register tiles sum across the chunks), then once more
+//   over the block's output columns, 64 at a time, for A^T x. Wider rows
+//   stream the table rows too, chunk by chunk beside x's, for the scores;
+//   A^T x needs only the A tile and x's chunks. So no D is refused.
+// * A block owns up to kOutCols = 384 columns of dW, 16 rows x 6 columns per
+//   thread in registers, summed over all row tiles and written once: no
+//   atomics, a fixed order, the same bits every run. Wider rows split D over
+//   blockIdx.y (each such block recomputes the scores); db comes from the
+//   blocks of the first D split only.
 // * A tile whose A is all zero (blinded, no label in it) skips its product.
-// Any N and V work, with the ragged edges masked.
+// Any N, V and D work, with the ragged edges masked.
 
+#include <type_traits>
+
+#include "attention_mma.cuh"
 #include "fused_ce_tiles.cuh"
 
 namespace {
@@ -59,90 +60,16 @@ constexpr int kOutCols = kTile * kOutChunks;
 constexpr int kCStride = kChunk + 1;
 constexpr int kAStride = kTile + 1;
 
-size_t two_pass_smem(int d) {
-  return sizeof(float) * (kTile * (d + 1) + kTile * kCStride + kTile * kAStride);
+// the dW kernel's table rows: one whole (64, D + 1) tile where it fits
+// (whole), else a second chunk buffer, beside x's chunk buffer and the A tile
+size_t dw_smem(int d, bool whole) {
+  return sizeof(float) * (kTile * (whole ? d + 1 : kCStride) + kTile * kCStride + kTile * kAStride);
 }
+constexpr bool kDwWhole = true;  // false: stream the table rows at every D
+// the dW kernel's route, by D alone: the whole tile up to D = 713
+bool dw_whole(int d) { return kDwWhole && dw_smem(d, true) <= kMaxSmem; }
 
 // ---------------------------------------------------------------------- dx
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    ce_bwd_dx_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                     const float* __restrict__ bias,
-                     const int32_t* __restrict__ lab,
-                     const float* __restrict__ logz,
-                     const float* __restrict__ dnll, float* __restrict__ part,
-                     int n, int v, int d, int row_offset, int num_valid,
-                     int tiles_per_split) {
-  extern __shared__ float smem[];
-  const int stride = d + 1;
-  float* xs = smem;                    // this block's rows of x, kTile x d
-  float* cs = xs + kTile * stride;     // the streamed chunk of the table
-  float* as = cs + kTile * kCStride;   // A for (row tile, vocab tile), f32
-  const int row0 = blockIdx.x * kTile;
-  const int split = blockIdx.y;
-  const int d_lo = blockIdx.z * kOutCols;
-  const int d_hi = min(d, d_lo + kOutCols);
-  const int n_vtiles = (v + kTile - 1) / kTile;
-  const int j0 = split * tiles_per_split;
-  const int j1 = min(n_vtiles, j0 + tiles_per_split);
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-  // dx register tile: rows grp + 4r (16 of them), columns d_lo + dcol + 64c
-  const int grp = threadIdx.x / 64;
-  const int dcol = threadIdx.x % 64;
-
-  load_x_tile<T>(xs, x, row0, n, d, 0, d, stride);
-  float acc[16][kOutChunks];
-#pragma unroll
-  for (int r = 0; r < 16; ++r)
-#pragma unroll
-    for (int c = 0; c < kOutChunks; ++c) acc[r][c] = 0.f;
-
-  for (int j = j0; j < j1; ++j) {
-    const int col0 = j * kTile;
-    float s[4][4];
-    zero_tile(s);
-    for (int kc = 0; kc < d; kc += kChunk) {
-      __syncthreads();  // the readers of cs (and of as) are done
-      load_w_tile<T>(cs, w, col0, v, d, kc, kChunk, kCStride);
-      __syncthreads();
-      score_add(xs + ty * stride + kc, stride, cs + tx * kCStride, kCStride,
-                min(kChunk, d - kc), s);
-    }
-    const int nonzero = adjoint_tile(s, as, kAStride, bias, lab, logz, dnll,
-                                     row0, col0, n, v, row_offset, num_valid);
-    if (!__syncthreads_or(nonzero)) continue;  // A == 0: nothing to add
-
-    // dx[grp + 4r, dc0 + dcol] += sum_vv A[grp + 4r, vv] * W[vv, dc0 + dcol]
-#pragma unroll
-    for (int c = 0; c < kOutChunks; ++c) {
-      const int dc0 = d_lo + kTile * c;
-      if (dc0 >= d_hi) break;  // the same for every thread of the block
-      __syncthreads();         // the readers of cs are done
-      load_w_tile<T>(cs, w, col0, v, d, dc0, kTile, kCStride);
-      __syncthreads();
-      for (int vv = 0; vv < kTile; ++vv) {
-        const float wv = cs[vv * kCStride + dcol];
-#pragma unroll
-        for (int r = 0; r < 16; ++r)
-          acc[r][c] = fmaf(round_to<T>(as[(grp + 4 * r) * kAStride + vv]), wv,
-                           acc[r][c]);
-      }
-    }
-  }
-  float* out = part + static_cast<long long>(split) * n * d;
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    const int row = row0 + grp + 4 * r;
-    if (row >= n) continue;
-#pragma unroll
-    for (int c = 0; c < kOutChunks; ++c) {
-      const int dc = d_lo + kTile * c + dcol;
-      if (dc < d_hi) out[static_cast<long long>(row) * d + dc] = acc[r][c];
-    }
-  }
-}
 
 // dx = round_to_x(sum over the splits, in split order)
 template <typename T>
@@ -157,9 +84,485 @@ __global__ void ce_bwd_dx_combine_kernel(const float* __restrict__ part,
   dx[i] = from_f<T>(sum);
 }
 
+// ------------------------------------------------------- dx, tensor cores
+//
+// The dx pass is an attention forward with q = x, k = v = W and a softmax
+// whose normaliser logz is known: per vocab tile, s = x W^T (+ b), A =
+// dnll (exp(s - logz) - onehot), dx += A W. Both products run on the
+// tensor cores with f32 sums:
+//
+//   kDxTf32x3   f32 x: x, W and A each as hi + lo tf32, three mma.m16n8k8
+//               products (hi hi, hi lo, lo hi): kDxNumerics;
+//   kDxBf16     bf16 x: W rounded to bf16 as the JAX kernel's
+//               w.astype(x.dtype), A rounded once, one m16n8k16 product.
+//
+// kDxTf32 (one tf32 product) and kDxBf16x3 (hi + lo bf16, three products)
+// are the other values of kDxNumerics that the numerics decision measured
+// (PERF.md): tune_blockwise_bwd.py --kernel ce_dx --variant
+// tf32:kDxNumerics=kDxTf32 builds one. Only kDxNumerics and kDxBf16 are
+// compiled.
+//
+// A block of 8 warps owns 64 rows of x and walks its split of the vocabulary
+// in tiles of 64 table rows. The rows of x stay in
+// shared memory for the block's life (bf16 terms, or raw f32 that tf32
+// fragments round or split as they are read) where they fit (D <= 512 in
+// bf16 x3, 384 in tf32 x3); wider rows load x's chunk beside each of the
+// table's. The table streams in chunks of 64 rows x 64 columns through
+// kDxStages cp.async stages of raw f32 (two chunks in flight behind the one
+// in use), a chunk converted once into the numerics' terms (hi and lo
+// planes) and read by every warp with ldmatrix (tf32's second product
+// element by element): D/64 chunks for the score product, then the block's
+// output columns again, 64 at a time, for A W. A warp takes 16 rows x 32
+// vocab columns of s; A goes through shared memory (rounded or split once
+// there), and a warp sums 16 rows x 32 columns of every 64-column output
+// chunk: 96 f32 accumulators for the block's 384 columns. Wider rows split D
+// over blockIdx.z (each such block recomputes the scores). A tile whose A is
+// all zero skips its second product. Every kDxFlush k-steps the products go
+// into fresh registers and join the running f32 sums with adds that round to
+// nearest (kstep_sum). The vocabulary is split into f32 partials summed in
+// split order by ce_bwd_dx_combine_kernel: no atomics, two runs give the
+// same bits.
+//
+// What bounds it: the mma.sync issue rate. tf32 x3 is 318 M m16n8k8
+// instructions at N = 2,560, V = 55,296, D = 384, ~600 k per SM sub-
+// partition; at the ~16 clocks each that mma.sync sustains on this card
+// (the bf16 dq and dk/dv kernels of attention_blockwise.cu reach ~240 of
+// the 989 TFLOP/s) that alone is ~5.3 ms of its 7.45. The constants
+// (kDxStages, kDxFlush, kDxColWarps) were timed with
+// examples/long_context/tune_blockwise_bwd.py --kernel ce_dx, as was reading
+// the table raw and splitting it fragment by fragment instead of converting
+// it once (slower, removed); none moved it by more than 5% (PERF.md). wgmma
+// is the way past this rate.
+
+enum DxNumerics : int { kDxTf32 = 0, kDxTf32x3 = 1, kDxBf16x3 = 2, kDxBf16 = 3 };
+// f32 x: the fastest numerics that holds every f32 tolerance (PERF.md)
+constexpr int kDxNumerics = kDxTf32x3;
+
+// warps side by side over a chunk's 64 columns (of s, and of each dx
+// chunk); four row groups of 16 rows each
+constexpr int kDxColWarps = 2;
+constexpr int kDxWarps = 4 * kDxColWarps;
+constexpr int kDxThreads = kDxWarps * 32;
+constexpr int kDxNT = 64 / kDxColWarps / 8;  // n8 tiles of a warp's columns
+constexpr int kDxRows = 64;   // rows of x a block owns
+constexpr int kDxVocab = 64;  // table rows per vocab tile
+constexpr int kDxChunk = 64;  // columns of a streamed chunk
+constexpr int kDxOutChunks = kOutCols / kDxChunk;
+constexpr int kDxStages = 3;  // cp.async stages of the table: two chunks in flight
+constexpr int kDxFlush = 4;   // k-steps whose products share fresh sums (kstep_sum), at most a chunk's
+constexpr int kDxStageRow = (kDxChunk + 4) * 4;  // bytes of a row of a raw f32 stage
+constexpr int kDxStage = kDxVocab * kDxStageRow;
+
+template <int MODE>
+struct DxMode {
+  static constexpr bool kBf16 = MODE == kDxBf16x3 || MODE == kDxBf16;  // bf16 planes, m16n8k16
+  static constexpr bool kSplit = MODE == kDxBf16x3 || MODE == kDxTf32x3;
+  static constexpr int kPlanes = kSplit ? 2 : 1;  // hi (and lo) terms of W and A
+  // x: bf16 terms, or raw f32 that each fragment rounds or splits as it is
+  // read (it is reused over 4 n8 tiles and every term, so that is cheap, and
+  // one f32 plane is what lets x stay resident at D = 384 in tf32 x3)
+  static constexpr int kXPlanes = kBf16 ? kPlanes : 1;
+  static constexpr int kElem = kBf16 ? 2 : 4;  // bytes of an operand element
+  static constexpr int kSkew = 16 / kElem;     // 16 bytes of row padding: no ldmatrix bank conflict
+  static constexpr int kChunkRow = (kDxChunk + kSkew) * kElem;  // bytes of a chunk plane's row
+  static constexpr int kChunkPlane = kDxRows * kChunkRow;
+  // the table's chunk for the second product: tf32 fragments of W read
+  // down its rows come element by element (ldmatrix cannot transpose 32-bit
+  // elements), conflict-free at a row of 72 floats; bf16 reads it with
+  // ldmatrix.trans at the plane's own row
+  static constexpr int kOutRow = kBf16 ? kChunkRow : (kDxChunk + 8) * 4;
+  static constexpr int kWPlane = kDxVocab * (kOutRow > kChunkRow ? kOutRow : kChunkRow);
+  static constexpr int kKsteps = kDxChunk * kElem / 32;  // of a 64-wide chunk: 4 (bf16) or 8 (tf32)
+  static constexpr int kFlush = kDxFlush < kKsteps ? kDxFlush : kKsteps;
+  using X = typename std::conditional<MODE == kDxBf16, __nv_bfloat16, float>::type;
+};
+
+// byte offsets of the dynamic shared memory: the raw f32 stages of the
+// table, its converted chunk, x's planes (resident, or one chunk), A's
+// planes
+template <int MODE>
+struct DxSmem {
+  using M = DxMode<MODE>;
+  int x_row, x_plane;
+  int w_at, x_at, a_at;
+  size_t total;
+  __host__ __device__ DxSmem(int d, bool resident) {
+    const int dpad = (d + kDxChunk - 1) / kDxChunk * kDxChunk;
+    x_row = resident ? (dpad + M::kSkew) * M::kElem : M::kChunkRow;
+    x_plane = kDxRows * x_row;
+    w_at = kDxStages * kDxStage;
+    x_at = w_at + M::kPlanes * M::kWPlane;
+    a_at = x_at + M::kXPlanes * x_plane;
+    total = static_cast<size_t>(a_at) + M::kPlanes * M::kChunkPlane;
+  }
+};
+
+// two neighbouring values, as the numerics' terms, into the planes at row
+// (byte pointer), column col
+template <int MODE>
+__device__ __forceinline__ void put_pair(unsigned char* row, int plane_bytes, int col, float a,
+                                         float b) {
+  if constexpr (MODE == kDxBf16x3) {
+    uint32_t hi, lo;
+    tc::split_bf16(a, b, hi, lo);
+    *reinterpret_cast<uint32_t*>(row + col * 2) = hi;
+    *reinterpret_cast<uint32_t*>(row + plane_bytes + col * 2) = lo;
+  } else if constexpr (MODE == kDxBf16) {
+    *reinterpret_cast<uint32_t*>(row + col * 2) = tc::pack_bf16(a, b);
+  } else if constexpr (MODE == kDxTf32x3) {
+    uint32_t hi[2], lo[2];
+    tc::split_tf32(__float_as_uint(a), hi[0], lo[0]);
+    tc::split_tf32(__float_as_uint(b), hi[1], lo[1]);
+    *reinterpret_cast<uint2*>(row + col * 4) = make_uint2(hi[0], hi[1]);
+    *reinterpret_cast<uint2*>(row + plane_bytes + col * 4) = make_uint2(lo[0], lo[1]);
+  } else {
+    *reinterpret_cast<uint2*>(row + col * 4) =
+        make_uint2(tc::to_tf32(__float_as_uint(a)), tc::to_tf32(__float_as_uint(b)));
+  }
+}
+// one value of x into its planes
+template <int MODE>
+__device__ __forceinline__ void put_one(unsigned char* row, int plane_bytes, int col, float a) {
+  if constexpr (DxMode<MODE>::kBf16) {
+    const __nv_bfloat16 hi = __float2bfloat16_rn(a);
+    reinterpret_cast<__nv_bfloat16*>(row)[col] = hi;
+    if constexpr (MODE == kDxBf16x3)
+      reinterpret_cast<__nv_bfloat16*>(row + plane_bytes)[col] = __float2bfloat16_rn(a - __bfloat162float(hi));
+  } else {
+    reinterpret_cast<float*>(row)[col] = a;  // raw f32: see kXPlanes
+  }
+}
+
+template <int MODE>
+__device__ __forceinline__ void dx_mma(float (&acc)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  if constexpr (DxMode<MODE>::kBf16) {
+    tc::mma_bf16(acc, a, b0, b1);
+  } else {
+    tc::mma_tf32(acc, a, b0, b1);
+  }
+}
+
+// acc += ks with f32 adds that round to nearest. The tensor cores add a
+// product into their accumulator without rounding it to nearest: a k-step
+// chained onto a running sum many times its size loses the bits below the
+// sum's last place, and over a row of D / 8 k-steps (tf32) that bias grew
+// to 1.8e-4 of the largest |dx| at logits of ~13 (PERF.md, "the dx numerics
+// decision"). So each k-step's products go into fresh registers, whose size
+// is one k-step's, and join the running sums here.
+__device__ __forceinline__ void kstep_sum(float (&acc)[kDxNT][4], const float (&ks)[kDxNT][4]) {
+#pragma unroll
+  for (int nt = 0; nt < kDxNT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = __fadd_rn(acc[nt][e], ks[nt][e]);
+}
+
+// s (16 x 8 kDxNT) += x (16 rows x 64 columns of the chunk) . W^T (the
+// warp's 8 kDxNT table rows x the same 64 columns). xa, wa: shared addresses of the warp's first row
+// plus the lane's rows-first (x) and cols-first (W) ldmatrix offsets.
+template <int MODE>
+__device__ __forceinline__ void dx_scores(float (&s)[kDxNT][4], uint32_t xa, int x_row, int x_plane,
+                                          uint32_t wa, int w_row, int w_plane) {
+  using M = DxMode<MODE>;
+  constexpr int NP = kDxNT / 2;
+  static_assert(M::kKsteps % M::kFlush == 0, "a flush period divides the k-steps of a chunk");
+  float ks[kDxNT][4];
+#pragma unroll
+  for (int kb = 0; kb < M::kKsteps; ++kb) {
+    uint32_t a[2][4], b[2][NP][4];
+    tc::ldmatrix_x4(a[0], xa + kb * 32);
+    if constexpr (M::kXPlanes == 2) {
+      tc::ldmatrix_x4(a[1], xa + x_plane + kb * 32);
+    } else if constexpr (!M::kBf16) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (M::kSplit) {
+          tc::split_tf32(a[0][i], a[0][i], a[1][i]);
+        } else {
+          a[0][i] = tc::to_tf32(a[0][i]);
+        }
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < M::kPlanes; ++p) {
+#pragma unroll
+      for (int np = 0; np < NP; ++np) tc::ldmatrix_x4(b[p][np], wa + p * w_plane + np * 16 * w_row + kb * 32);
+    }
+    // the k-step's terms (the small ones first, then hi . hi) into fresh
+    // sums, added to s with round-to-nearest adds every kDxFlush k-steps:
+    // see kstep_sum
+    if (kb % M::kFlush == 0) {
+#pragma unroll
+      for (int nt = 0; nt < kDxNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ks[nt][e] = 0.f;
+    }
+    if constexpr (M::kSplit) {
+#pragma unroll
+      for (int np = 0; np < NP; ++np) {
+        dx_mma<MODE>(ks[2 * np], a[1], b[0][np][0], b[0][np][1]);
+        dx_mma<MODE>(ks[2 * np + 1], a[1], b[0][np][2], b[0][np][3]);
+      }
+#pragma unroll
+      for (int np = 0; np < NP; ++np) {
+        dx_mma<MODE>(ks[2 * np], a[0], b[1][np][0], b[1][np][1]);
+        dx_mma<MODE>(ks[2 * np + 1], a[0], b[1][np][2], b[1][np][3]);
+      }
+    }
+#pragma unroll
+    for (int np = 0; np < NP; ++np) {
+      dx_mma<MODE>(ks[2 * np], a[0], b[0][np][0], b[0][np][1]);
+      dx_mma<MODE>(ks[2 * np + 1], a[0], b[0][np][2], b[0][np][3]);
+    }
+    if ((kb + 1) % M::kFlush == 0) kstep_sum(s, ks);
+  }
+}
+
+// acc (16 x 8 kDxNT) += A (16 rows x 64 vocab) . W (64 vocab x the warp's
+// 8 kDxNT columns of the chunk). aa: the warp's first row of A plus the lane's
+// rows-first offset; wt: the converted chunk's shared address (its rows
+// kOutRow bytes apart), wp: the same as a generic pointer; col: the warp's
+// first column in it.
+template <int MODE>
+__device__ __forceinline__ void dx_product(float (&acc)[kDxNT][4], uint32_t aa, uint32_t wt,
+                                           const unsigned char* wp, int col, int lane) {
+  using M = DxMode<MODE>;
+  constexpr int w_row = M::kOutRow;
+  constexpr int NP = kDxNT / 2;
+  float ks[kDxNT][4];
+  const int rf_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int rf_col = (lane >> 4) * 16;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int kb = 0; kb < M::kKsteps; ++kb) {
+    uint32_t a[2][4], b[2][kDxNT][2];  // b: [term][n8 tile][b0, b1]
+#pragma unroll
+    for (int p = 0; p < M::kPlanes; ++p) {
+      tc::ldmatrix_x4(a[p], aa + p * M::kChunkPlane + kb * 32);
+      if constexpr (M::kBf16) {
+#pragma unroll
+        for (int np = 0; np < NP; ++np) {
+          uint32_t r[4];
+          tc::ldmatrix_x4_trans(
+              r, wt + p * M::kWPlane + (kb * 16 + rf_row) * w_row + (col + np * 16) * 2 + rf_col);
+          b[p][2 * np][0] = r[0];
+          b[p][2 * np][1] = r[1];
+          b[p][2 * np + 1][0] = r[2];
+          b[p][2 * np + 1][1] = r[3];
+        }
+      } else {
+        // B (k t, n g) and (k t + 4, n g) of each n8 tile, element by element
+        const uint32_t* plane = reinterpret_cast<const uint32_t*>(wp + p * M::kWPlane);
+#pragma unroll
+        for (int nt = 0; nt < kDxNT; ++nt) {
+          const int c = col + nt * 8 + g;
+          b[p][nt][0] = plane[(kb * 8 + t) * (w_row / 4) + c];
+          b[p][nt][1] = plane[(kb * 8 + t + 4) * (w_row / 4) + c];
+        }
+      }
+    }
+    if (kb % M::kFlush == 0) {
+#pragma unroll
+      for (int nt = 0; nt < kDxNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ks[nt][e] = 0.f;
+    }
+    if constexpr (M::kSplit) {
+#pragma unroll
+      for (int nt = 0; nt < kDxNT; ++nt) dx_mma<MODE>(ks[nt], a[1], b[0][nt][0], b[0][nt][1]);
+#pragma unroll
+      for (int nt = 0; nt < kDxNT; ++nt) dx_mma<MODE>(ks[nt], a[0], b[1][nt][0], b[1][nt][1]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < kDxNT; ++nt) dx_mma<MODE>(ks[nt], a[0], b[0][nt][0], b[0][nt][1]);
+    if ((kb + 1) % M::kFlush == 0) kstep_sum(acc, ks);
+  }
+}
+
+template <int MODE, bool XRES>
+__global__ void __launch_bounds__(kDxThreads, 1)
+    ce_bwd_dx_mma_kernel(const typename DxMode<MODE>::X* __restrict__ x,
+                         const float* __restrict__ w, const float* __restrict__ bias,
+                         const int32_t* __restrict__ lab, const float* __restrict__ logz,
+                         const float* __restrict__ dnll, float* __restrict__ part, int n, int v,
+                         int d, int row_offset, int num_valid, int tiles_per_split, int w_vec) {
+  using M = DxMode<MODE>;
+  extern __shared__ __align__(16) unsigned char smem_dx[];
+  const DxSmem<MODE> L(d, XRES);
+  const int row0 = blockIdx.x * kDxRows;
+  const int split = blockIdx.y;
+  const int d_lo = blockIdx.z * kOutCols;
+  const int d_hi = min(d, d_lo + kOutCols);
+  const int n_vtiles = (v + kDxVocab - 1) / kDxVocab;
+  const int j0 = split * tiles_per_split;
+  const int j1 = min(n_vtiles, j0 + tiles_per_split);
+  const int nk = (d + kDxChunk - 1) / kDxChunk;            // chunks of the score product
+  const int no = (d_hi - d_lo + kDxChunk - 1) / kDxChunk;  // and of the block's output columns
+  const int steps = nk + no;                               // table chunks per vocab tile
+  const int total = max(0, j1 - j0) * steps;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int rg = (warp & 3) * 16;   // the warp's 16 rows of x and of dx
+  const int cg = (warp >> 2) * (8 * kDxNT);  // its first vocab column of s, and of each dx chunk
+  const int rf_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int rf_col = (lane >> 4) * 16;
+  const int cf_row = (lane & 7) + (lane >> 4) * 8;
+  const int cf_col = ((lane >> 3) & 1) * 16;
+  const uint32_t base = tc::shared_addr(smem_dx);
+  const uint32_t w_addr = base + L.w_at;  // the table's converted chunk
+
+  // columns [c0, c0 + ncols) of the block's rows of x into its planes
+  auto load_x = [&](int c0, int ncols) {
+    for (int idx = threadIdx.x; idx < kDxRows * ncols; idx += kDxThreads) {
+      const int r = idx / ncols;
+      const int c = idx - r * ncols;
+      const bool ok = row0 + r < n && c0 + c < d;
+      const float val = ok ? to_f(x[static_cast<long long>(row0 + r) * d + c0 + c]) : 0.f;
+      put_one<MODE>(smem_dx + L.x_at + r * L.x_row, L.x_plane, c, val);
+    }
+  };
+  // the table chunk of step `step` (vocab tile, then its columns) into its stage
+  auto issue = [&](int step) {
+    const int tile = step / steps;
+    const int r = step - tile * steps;
+    const int col = r < nk ? r * kDxChunk : d_lo + (r - nk) * kDxChunk;
+    const int vrow0 = (j0 + tile) * kDxVocab;
+    float* dst = reinterpret_cast<float*>(smem_dx + (step % kDxStages) * kDxStage);
+    if (w_vec) {
+      for (int idx = threadIdx.x; idx < kDxVocab * kDxChunk / 4; idx += kDxThreads) {
+        const int rr = idx / (kDxChunk / 4);
+        const int c = (idx % (kDxChunk / 4)) * 4;
+        const bool ok = vrow0 + rr < v && col + c < d;
+        const float* src = ok ? w + static_cast<long long>(vrow0 + rr) * d + col + c : w;
+        tc::cp_async_16(dst + rr * (kDxChunk + 4) + c, src, ok);
+      }
+    } else {
+      for (int idx = threadIdx.x; idx < kDxVocab * kDxChunk; idx += kDxThreads) {
+        const int rr = idx / kDxChunk;
+        const int c = idx % kDxChunk;
+        const bool ok = vrow0 + rr < v && col + c < d;
+        dst[rr * (kDxChunk + 4) + c] = ok ? w[static_cast<long long>(vrow0 + rr) * d + col + c] : 0.f;
+      }
+    }
+  };
+
+  if (XRES) load_x(0, (d + kDxChunk - 1) / kDxChunk * kDxChunk);
+  int q = 0;
+  for (int step = 0; step < kDxStages - 1; ++step) {  // one commit group per step, empty past the end
+    if (step < total) issue(step);
+    tc::cp_async_commit();
+  }
+  // Step q: wait for its table chunk, convert it once into the numerics'
+  // planes (at the row of the product it feeds: w_row) and, without a
+  // resident x, load x's chunk x_col (-1: none); start the copy of step
+  // q + kDxStages - 1 into the stage step q - 1 used. The first barrier
+  // also ends every read of the previous step's stage and planes.
+  auto advance = [&](int x_col, int w_row) {
+    tc::cp_async_wait<kDxStages - 2>();
+    __syncthreads();
+    const float* src = reinterpret_cast<const float*>(smem_dx + (q % kDxStages) * kDxStage);
+    for (int idx = threadIdx.x; idx < kDxVocab * kDxChunk / 2; idx += kDxThreads) {
+      const int rr = idx / (kDxChunk / 2);
+      const int c = (idx % (kDxChunk / 2)) * 2;
+      const float2 val = *reinterpret_cast<const float2*>(src + rr * (kDxChunk + 4) + c);
+      put_pair<MODE>(smem_dx + L.w_at + rr * w_row, M::kWPlane, c, val.x, val.y);
+    }
+    if (!XRES && x_col >= 0) load_x(x_col, kDxChunk);
+    if (q + kDxStages - 1 < total) issue(q + kDxStages - 1);
+    tc::cp_async_commit();
+    __syncthreads();
+    ++q;
+  };
+
+  float acc[kDxOutChunks][kDxNT][4];
+#pragma unroll
+  for (int o = 0; o < kDxOutChunks; ++o)
+#pragma unroll
+    for (int nt = 0; nt < kDxNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[o][nt][e] = 0.f;
+
+  const uint32_t a_at = base + L.a_at + (rg + rf_row) * M::kChunkRow + rf_col;
+  for (int j = j0; j < j1; ++j) {
+    float s[kDxNT][4];
+#pragma unroll
+    for (int nt = 0; nt < kDxNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+    for (int c = 0; c < nk; ++c) {
+      advance(c * kDxChunk, M::kChunkRow);
+      const uint32_t xa = base + L.x_at + (XRES ? c * kDxChunk * M::kElem : 0) + (rg + rf_row) * L.x_row + rf_col;
+      const uint32_t wa = w_addr + (cg + cf_row) * M::kChunkRow + cf_col;
+      dx_scores<MODE>(s, xa, L.x_row, L.x_plane, wa, M::kChunkRow, M::kWPlane);
+    }
+
+    // A = dnll (exp(s (+ b) - logz) - onehot), blinded outside the window;
+    // 0 past n and v
+    const int vrow0 = j * kDxVocab;
+    int nonzero = 0;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = rg + g + 8 * half;
+      const int row = row0 + r;
+      const bool valid_row = row < n;
+      const float lz = valid_row ? logz[row] : 0.f;
+      const float gr = valid_row ? dnll[row] : 0.f;
+      const int lb = valid_row ? lab[row] : -1;
+#pragma unroll
+      for (int nt = 0; nt < kDxNT; ++nt) {
+        const int cl = cg + nt * 8 + 2 * t;
+        float a[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = vrow0 + cl + e;
+          a[e] = 0.f;
+          if (valid_row && col < v) {
+            float val = s[nt][2 * half + e];
+            if (bias != nullptr) val = __fadd_rn(val, bias[col]);
+            if (!in_window(col, row_offset, num_valid)) val = kNegBig;
+            a[e] = gr * (expf(val - lz) - (col == lb ? 1.f : 0.f));  // blinded: exactly 0
+          }
+          nonzero |= a[e] != 0.f;
+        }
+        put_pair<MODE>(smem_dx + L.a_at + r * M::kChunkRow, M::kChunkPlane, cl, a[0], a[1]);
+      }
+    }
+    nonzero = __syncthreads_or(nonzero);
+
+#pragma unroll
+    for (int o = 0; o < kDxOutChunks; ++o) {
+      if (o < no) {  // the same for every thread of the block
+        advance(-1, M::kOutRow);
+        if (nonzero) dx_product<MODE>(acc[o], a_at, w_addr, smem_dx + L.w_at, cg, lane);
+      }
+    }
+  }
+  tc::cp_async_wait<0>();
+
+  float* out = part + static_cast<long long>(split) * n * d;
+#pragma unroll
+  for (int o = 0; o < kDxOutChunks; ++o) {
+#pragma unroll
+    for (int nt = 0; nt < kDxNT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + rg + g + 8 * (e >> 1);
+        const int col = d_lo + o * kDxChunk + cg + nt * 8 + 2 * t + (e & 1);
+        if (o < no && row < n && col < d_hi) out[static_cast<long long>(row) * d + col] = acc[o][nt][e];
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------- dW
 
-template <typename T>
+// WHOLE: the block's 64 table rows sit whole in shared memory (D <= 713);
+// otherwise the score product streams them beside x's chunks, and the
+// second product, A^T x, needs only the A tile and x's chunks.
+template <typename T, bool WHOLE>
 __global__ void __launch_bounds__(kThreads)
     ce_bwd_dw_kernel(const T* __restrict__ x, const float* __restrict__ w,
                      const float* __restrict__ bias,
@@ -169,8 +572,8 @@ __global__ void __launch_bounds__(kThreads)
                      float* __restrict__ db, int n, int v, int d,
                      int row_offset, int num_valid) {
   extern __shared__ float smem[];
-  const int stride = d + 1;
-  float* ws = smem;                    // this block's table rows, kTile x d
+  const int stride = WHOLE ? d + 1 : kCStride;
+  float* ws = smem;                    // this block's table rows, or a chunk of them
   float* cs = ws + kTile * stride;     // the streamed chunk of x
   float* as = cs + kTile * kCStride;   // A for (row tile, vocab tile), f32
   const int col0 = blockIdx.x * kTile;
@@ -184,7 +587,7 @@ __global__ void __launch_bounds__(kThreads)
   const int dcol = threadIdx.x % 64;
   const bool sums_db = db != nullptr && blockIdx.y == 0 && threadIdx.x < kTile;
 
-  load_w_tile<T>(ws, w, col0, v, d, 0, d, stride);
+  if (WHOLE) load_w_tile<T>(ws, w, col0, v, d, 0, d, stride);
   float acc[16][kOutChunks];
 #pragma unroll
   for (int r = 0; r < 16; ++r)
@@ -199,8 +602,9 @@ __global__ void __launch_bounds__(kThreads)
     for (int kc = 0; kc < d; kc += kChunk) {
       __syncthreads();  // the readers of cs (and of as) are done
       load_x_tile<T>(cs, x, row0, n, d, kc, kChunk, kCStride);
+      if (!WHOLE) load_w_tile<T>(ws, w, col0, v, d, kc, kChunk, stride);
       __syncthreads();
-      score_add(cs + ty * kCStride, kCStride, ws + tx * stride + kc, stride,
+      score_add(cs + ty * kCStride, kCStride, ws + tx * stride + (WHOLE ? kc : 0), stride,
                 min(kChunk, d - kc), s);
     }
     const int nonzero = adjoint_tile(s, as, kAStride, bias, lab, logz, dnll,
@@ -243,47 +647,72 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------- launchers
 
 template <typename T>
-cudaError_t launch_dx(const void* x, const void* w, const void* bias,
-                      const void* lab, const void* logz, const void* dnll,
-                      void* part, void* dx, int n, int v, int d,
-                      int row_offset, int num_valid, int splits,
-                      int tiles_per_split, cudaStream_t stream) {
-  const size_t smem = two_pass_smem(d);
-  cudaError_t err = allow_smem(ce_bwd_dx_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((n + kTile - 1) / kTile, splits,
-                  (d + kOutCols - 1) / kOutCols);
-  ce_bwd_dx_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(bias), static_cast<const int32_t*>(lab),
-      static_cast<const float*>(logz), static_cast<const float*>(dnll),
-      static_cast<float*>(part), n, v, d, row_offset, num_valid,
-      tiles_per_split);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+cudaError_t launch_combine(const void* part, void* dx, int n, int d, int splits,
+                           cudaStream_t stream) {
   const long long total = static_cast<long long>(n) * d;
-  ce_bwd_dx_combine_kernel<T>
-      <<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
-          static_cast<const float*>(part), static_cast<T*>(dx), total, splits);
+  ce_bwd_dx_combine_kernel<T><<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<T*>(dx), total, splits);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <int MODE, bool XRES>
+cudaError_t launch_dx_mma(const void* x, const void* w, const void* bias, const void* lab,
+                          const void* logz, const void* dnll, void* part, int n, int v, int d,
+                          int row_offset, int num_valid, int splits, int tiles_per_split,
+                          cudaStream_t stream) {
+  using X = typename DxMode<MODE>::X;
+  auto kernel = ce_bwd_dx_mma_kernel<MODE, XRES>;
+  const size_t smem = DxSmem<MODE>(d, XRES).total;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int w_vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const dim3 grid((n + kDxRows - 1) / kDxRows, splits, (d + kOutCols - 1) / kOutCols);
+  kernel<<<grid, kDxThreads, smem, stream>>>(
+      static_cast<const X*>(x), static_cast<const float*>(w), static_cast<const float*>(bias),
+      static_cast<const int32_t*>(lab), static_cast<const float*>(logz),
+      static_cast<const float*>(dnll), static_cast<float*>(part), n, v, d, row_offset, num_valid,
+      tiles_per_split, w_vec);
+  return cudaGetLastError();
+}
+
+// x resident where its planes fit one block with the rest
+template <int MODE>
+cudaError_t launch_dx_tc(const void* x, const void* w, const void* bias, const void* lab,
+                         const void* logz, const void* dnll, void* part, int n, int v, int d,
+                         int row_offset, int num_valid, int splits, int tiles_per_split,
+                         cudaStream_t stream) {
+  const bool resident = DxSmem<MODE>(d, true).total <= kMaxSmem;
+  return resident ? launch_dx_mma<MODE, true>(x, w, bias, lab, logz, dnll, part, n, v, d, row_offset,
+                                              num_valid, splits, tiles_per_split, stream)
+                  : launch_dx_mma<MODE, false>(x, w, bias, lab, logz, dnll, part, n, v, d, row_offset,
+                                               num_valid, splits, tiles_per_split, stream);
+}
+
+template <typename T, bool WHOLE>
 cudaError_t launch_dw(const void* x, const void* w, const void* bias,
                       const void* lab, const void* logz, const void* dnll,
                       void* dw, void* db, int n, int v, int d, int row_offset,
                       int num_valid, cudaStream_t stream) {
-  const size_t smem = two_pass_smem(d);
-  const cudaError_t err = allow_smem(ce_bwd_dw_kernel<T>, smem);
+  const size_t smem = dw_smem(d, WHOLE);
+  const cudaError_t err = allow_smem(ce_bwd_dw_kernel<T, WHOLE>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((v + kTile - 1) / kTile, (d + kOutCols - 1) / kOutCols);
-  ce_bwd_dw_kernel<T><<<grid, kThreads, smem, stream>>>(
+  ce_bwd_dw_kernel<T, WHOLE><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<const int32_t*>(lab),
       static_cast<const float*>(logz), static_cast<const float*>(dnll),
       static_cast<float*>(dw), static_cast<float*>(db), n, v, d, row_offset,
       num_valid);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dw_route(const void* x, const void* w, const void* bias, const void* lab,
+                            const void* logz, const void* dnll, void* dw, void* db, int n, int v,
+                            int d, int row_offset, int num_valid, cudaStream_t stream) {
+  return dw_whole(d)
+             ? launch_dw<T, true>(x, w, bias, lab, logz, dnll, dw, db, n, v, d, row_offset, num_valid, stream)
+             : launch_dw<T, false>(x, w, bias, lab, logz, dnll, dw, db, n, v, d, row_offset, num_valid, stream);
 }
 
 }  // namespace
@@ -300,17 +729,17 @@ extern "C" int b4cp_ce_bwd_dx(const void* x, const void* w, const void* bias,
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   if (n == 0 || d == 0) return static_cast<int>(cudaGetLastError());
-  if (two_pass_smem(d) > kMaxSmem || splits < 1 ||
-      static_cast<long long>(splits) * tiles_per_split < (v + kTile - 1) / kTile)
+  if (splits < 1 || static_cast<long long>(splits) * tiles_per_split < (v + kTile - 1) / kTile)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch_dx<__nv_bfloat16>(x, w, bias, lab, logz, dnll, part, dx,
-                                         n, v, d, row_offset, num_valid,
-                                         splits, tiles_per_split, s)
-              : launch_dx<float>(x, w, bias, lab, logz, dnll, part, dx, n, v,
-                                 d, row_offset, num_valid, splits,
-                                 tiles_per_split, s);
+  const auto args = [&](auto launch) {
+    return launch(x, w, bias, lab, logz, dnll, part, n, v, d, row_offset, num_valid, splits,
+                  tiles_per_split, s);
+  };
+  cudaError_t err = is_bf16 ? args(launch_dx_tc<kDxBf16>) : args(launch_dx_tc<kDxNumerics>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = is_bf16 ? launch_combine<__nv_bfloat16>(part, dx, n, d, splits, s)
+                : launch_combine<float>(part, dx, n, d, splits, s);
   return static_cast<int>(err);
 }
 
@@ -324,12 +753,11 @@ extern "C" int b4cp_ce_bwd_dw(const void* x, const void* w, const void* bias,
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   if (v == 0 || d == 0) return static_cast<int>(cudaGetLastError());
-  if (two_pass_smem(d) > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? launch_dw<__nv_bfloat16>(x, w, bias, lab, logz, dnll, dw, db,
-                                         n, v, d, row_offset, num_valid, s)
-              : launch_dw<float>(x, w, bias, lab, logz, dnll, dw, db, n, v, d,
-                                 row_offset, num_valid, s);
+      is_bf16 ? launch_dw_route<__nv_bfloat16>(x, w, bias, lab, logz, dnll, dw, db, n, v, d,
+                                               row_offset, num_valid, s)
+              : launch_dw_route<float>(x, w, bias, lab, logz, dnll, dw, db, n, v, d, row_offset,
+                                       num_valid, s);
   return static_cast<int>(err);
 }

@@ -11,10 +11,11 @@ as there:
   before the PV product. The backward (``_mha_bwd_kernel``) recomputes p in
   f32, takes dv from the unrounded p, rounds ds to k's dtype before dq and
   dk, and stores each gradient in the input dtype. On the card bf16 inputs
-  (head width up to 128) take a backward kernel whose products all run on
-  the tensor cores (bf16 tiles of q, k, v and do, no (L, L) tile; p enters
-  the dv product as two bf16 terms, hi + lo, which keeps the unrounded p:
-  PERF.md, "the whole-row dv decision"); f32 inputs keep the scalar kernel.
+  (head width up to 128) take a forward and a backward kernel whose
+  products all run on the tensor cores (bf16 tiles of q, k, v and do, no
+  (L, L) tile; in the backward p enters the dv product as two bf16 terms,
+  hi + lo, which keeps the unrounded p: PERF.md, "the whole-row dv
+  decision"); f32 inputs keep the scalar kernels.
 * **blockwise** (``blockwise_mha``): K and V are streamed in 64-row tiles
   with an online softmax, so any L runs, also one that no tile divides. The
   forward rounds the *un-normalised* p = exp(s - m_running) to v's dtype
@@ -72,8 +73,11 @@ MAX_SHARED_BYTES = 232_448
 
 
 def mha_smem_bytes(seq_len: int, head_dim: int) -> int:
-    """Shared memory the forward kernel needs: K (padded rows), V, the bias
-    row, and one q row + one score row per warp, all f32."""
+    """Shared memory the scalar forward kernel needs: K (padded rows), V,
+    the bias row, and one q row + one score row per warp, all f32. The
+    dispatch holds both dtypes to this rule; the bf16 tensor-core kernel's
+    bf16 tiles need less wherever their head fits a tile instance (its C
+    entry keeps the scalar kernel where they would not)."""
     return 4 * (seq_len * (2 * head_dim + 2) + _WARPS * (head_dim + seq_len))
 
 

@@ -19,11 +19,17 @@ Counterparts of the Pallas kernels of
   :func:`ce_backward_route`.
 
 All compute in x's dtype as the JAX kernels do (``w.astype(x.dtype)``, and
-A rounded to it before the products): f32 FMA for f32 x, exact bf16
-products with f32 sums for bf16 x. dx sums in f32 over the whole
-vocabulary and rounds to x's dtype once; the JAX dx kernel rounds its bf16
-output once per vocab tile, so bf16 dx agrees with it to a few bf16 ulps
-(f32 is unaffected). The CUDA kernels are
+A rounded to it before the products): for f32 x the forward, the merged
+backward and the dW pass in f32 FMA, and the dx pass on the tensor cores
+with each f32 operand as two tf32 terms, hi + lo, in three products with
+f32 sums (``kDxNumerics`` in ``fused_ce_two_pass.cu``: measured against a
+dense f64 oracle beside f32 FMA, one TF32 product and three bf16 ones,
+PERF.md "the dx numerics decision"; within the f32 tolerances of the plain
+version); for bf16 x exact bf16
+products with f32 sums (the dx pass on the tensor cores). dx sums in f32
+over the whole vocabulary and rounds to x's dtype once; the JAX dx kernel
+rounds its bf16 output once per vocab tile, so bf16 dx agrees with it to a
+few bf16 ulps (f32 is unaffected). The CUDA kernels are
 ``bert4clickpath_torch/csrc/fused_ce.cu`` and ``fused_ce_two_pass.cu``;
 the ``*_reference`` functions are their plain PyTorch versions (dense
 (N, V) f32 logits). CPU tensors take the plain versions, CUDA tensors
@@ -33,11 +39,11 @@ Which backward runs is a function of the shape alone, like
 ``ops.kernels.attention.attention_family``: the merged kernel keeps a
 (64, D) dW tile in registers, so it takes D <= ``MAX_D`` (256); wider rows
 take the two-pass pair, whose blocks own 384 output columns at a time and
-stream the other operand through shared memory (D <= ``MAX_D_TWO_PASS``,
-713, the one whole 64-row tile that must fit a block's shared memory). The
-forward keeps two whole 64-row tiles in shared memory: D <=
-``MAX_D_FWD`` (453). No flag or environment variable changes the route, and
-a launch that fails raises.
+stream the other operand through shared memory. No kernel refuses a row
+width: where a block's own operand (x's rows, or the table's) does not fit
+its shared memory whole, the kernels stream it in chunks too, a route each
+C entry takes by D alone. No flag or environment variable changes a route,
+and a launch that fails raises.
 
 ``labels_model`` is the row id of each label in the table (-1 for a padded
 row, whose one-hot never fires): ``ops/fused_ce.py`` builds it.
@@ -54,17 +60,12 @@ from bert4clickpath_torch.ops.kernels import _build
 NEG_BIG = -1e30
 TILE = 64  # csrc/fused_ce_tiles.cuh kTile: rows of x and of the table per tile
 TILES_PER_SPLIT = 32  # forward: vocab tiles one block walks (2,048 rows)
-SMEM_FLOATS = 232448 // 4  # the most shared memory one block can have (227 KB)
 MAX_D = 256  # the merged backward holds a (64, D) dW tile in registers
-MAX_D_FWD = SMEM_FLOATS // (2 * TILE) - 1  # two (64, D + 1) tiles: 453
-# csrc/fused_ce_two_pass.cu: one (64, D + 1) tile, a (64, 129) chunk buffer
-# and the (64, 65) A tile: 713
-MAX_D_TWO_PASS = (SMEM_FLOATS - TILE * 129 - TILE * 65) // TILE - 1
 TWO_PASS_OUT_COLS = 384  # kOutCols: output columns one two-pass block owns
 # dx grid: one block is resident per SM (its shared memory), so the grid runs
 # in waves of 132 and the last, partly empty wave costs less the shorter a
-# block's vocab walk is. Timed at N=2,560, V=55,296, D=384 on an H100 (700 W):
-# 132 / 264 / 528 / 1,056 blocks aimed at take 21.9 / 18.2 / 15.5 / 14.6 ms
+# block's vocab walk is. Timed at N=2,560, V=55,296, D=384 on an H100 (700 W)
+# by chip_smoke.py's DX_TARGETS sweep (PERF.md)
 DX_TARGET_BLOCKS = 1056
 _X_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -135,7 +136,7 @@ def ce_backward_reference(
     return dx, dw, db
 
 
-def _check(x, table, bias, what: str, max_d: int):
+def _check(x, table, bias, max_d: Optional[int] = None):
     if x.dim() != 2 or table.dim() != 2 or x.shape[1] != table.shape[1]:
         raise ValueError(f"x (N, D) and table (V, D) needed, got {tuple(x.shape)} {tuple(table.shape)}")
     if x.dtype not in _X_DTYPES:
@@ -150,8 +151,8 @@ def _check(x, table, bias, what: str, max_d: int):
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
     d = x.shape[1]
-    if x.device.type == "cuda" and d > max_d:
-        raise ValueError(f"D={d}: {what} takes D <= {max_d}")
+    if x.device.type == "cuda" and max_d is not None and d > max_d:
+        raise ValueError(f"D={d}: the merged CE backward holds a (64, D) tile in registers and takes D <= {max_d}")
 
 
 def _check_rows(x, labels_model, logz, dnll):
@@ -179,8 +180,7 @@ def ce_stats(
     num_valid: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(m, l), each (N,) f32: logz = m + log(l)."""
-    _check(x, table, bias, "the CE forward holds two (64, D) tiles in one block's shared memory and",
-           MAX_D_FWD)
+    _check(x, table, bias)
     if x.device.type == "cpu":
         return ce_stats_reference(x, table, bias, row_offset, num_valid)
     n, d = x.shape
@@ -218,7 +218,7 @@ def ce_backward_merged(
     """(dx in x's dtype, dW (V, D) f32, db (V,) f32 or None) from the
     single-recompute kernel; on the card dx sums with atomics, so it
     repeats to rounding, not bit for bit."""
-    _check(x, table, bias, "the merged CE backward holds a (64, D) tile in registers and", MAX_D)
+    _check(x, table, bias, MAX_D)
     _check_rows(x, labels_model, logz, dnll)
     if x.device.type == "cpu":
         return ce_backward_reference(x, table, bias, labels_model, logz, dnll, row_offset, num_valid)
@@ -246,9 +246,6 @@ def ce_backward_merged(
     return dx32.to(x.dtype), dw, db
 
 
-_TWO_PASS_WHAT = "the two-pass CE backward holds one (64, D) tile in one block's shared memory and"
-
-
 def ce_dx_splits(n: int, v: int, d: int) -> tuple[int, int]:
     """(splits, vocab tiles per split) of the dx grid: the vocabulary is
     split until row tiles x D splits x vocab splits reaches
@@ -272,7 +269,7 @@ def ce_backward_dx(
 ) -> torch.Tensor:
     """dx (N, D) in x's dtype: the first pass of the two-pass backward.
     Summed in a fixed order (no atomics): the same bits every run."""
-    _check(x, table, bias, _TWO_PASS_WHAT, MAX_D_TWO_PASS)
+    _check(x, table, bias)
     _check_rows(x, labels_model, logz, dnll)
     if x.device.type == "cpu":
         return ce_backward_dx_reference(x, table, bias, labels_model, logz, dnll, row_offset, num_valid)
@@ -312,7 +309,7 @@ def ce_backward_dw(
 ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(dW (V, D) f32, db (V,) f32 or None): the second pass of the
     two-pass backward."""
-    _check(x, table, bias, _TWO_PASS_WHAT, MAX_D_TWO_PASS)
+    _check(x, table, bias)
     _check_rows(x, labels_model, logz, dnll)
     if x.device.type == "cpu":
         return ce_backward_dw_reference(x, table, bias, labels_model, logz, dnll, row_offset, num_valid)

@@ -7,8 +7,10 @@ CUDA card.
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device  — requires a CUDA card; prints its name and power limit
-   (nvidia-smi) and the TF32 flags (left off: the catalog scan and the CE
-   are f32).
+   (nvidia-smi) and PyTorch's TF32 flags (left off: the catalog scan is f32,
+   and so are the plain versions the kernels are held to; the CE dx kernel
+   runs its own products on the tensor cores, each f32 operand split into
+   two tf32 terms inside the kernel, three products with f32 sums).
 2. build   — builds the port's CUDA kernels from ``bert4clickpath_torch/csrc``
    with nvcc for sm_90a (one compile per source, in parallel) and prints the
    build time and ptxas' report.
@@ -16,7 +18,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    on the card at the shapes its main path gives it, with the tolerance
    stated, and times both (CUDA events; median device time of warm calls):
    the gather and whole-row attention at the flagship's shapes (the bf16
-   backward on the tensor cores, two runs bit-equal, its dv from p kept as
+   forward on the tensor cores at batch 1, 8, 64 and 256, two runs
+   bit-equal; the bf16 backward on the tensor cores, two runs bit-equal, its dv from p kept as
    two bf16 terms measured against p rounded once and against a dense f64
    dv; the f32 backward the scalar kernel), the fused CE
    at its training shape, the three blockwise attention kernels at
@@ -28,7 +31,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    the fused CE once more at the long-session path's shapes, and the
    two-pass CE backward (dx and dW kernels) with the forward at N=2,560,
    V=55,296, D=384 in f32 and bf16, with and without a bias, then at D=256
-   timed beside the merged backward. Beside each kernel
+   timed beside the merged backward; the dx pass's numerics table (the
+   shipped three TF32 products, and copies of its source built with one
+   TF32 product and with three bf16 ones, beside the plain version's f32
+   FMA, each against a dense f64 oracle at D=384 and 256, and on the card
+   tests' wider logits, with its time); the CE forward, dx and dW kernels and the ``fused_softmax_ce``
+   op with gradients at D=1,024, a width no kernel refuses. Beside each kernel
    it computes the least time the card could take for the same work (bytes
    over 3.35 TB/s, operations over the published peak of their type) and,
    as a measurement only, times the one PyTorch call that computes the same
@@ -175,7 +183,11 @@ BLOCKWISE_BWD_TOL = {torch.bfloat16: dict(share=2e-3, floor=1e-2, rtol=2.0**-6),
                      torch.float32: dict(atol=1e-5, rtol=1e-4)}
 # published peaks of one H100 SXM (dense): device memory bytes/s, bf16 tensor
 # FLOP/s, f32 FLOP/s outside the tensor cores (also used for integer work)
-PEAK = {"bytes": 3.35e12, "bf16": 989e12, "f32": 67e12}
+PEAK = {"bytes": 3.35e12, "bf16": 989e12, "tf32": 495e12, "f32": 67e12}
+# the dx pass's numerics (csrc/fused_ce_two_pass.cu kDxNumerics, tf32 x3):
+# the operand type its products run at and how many products each of its
+# two takes
+DX_RATING = ("tf32", 3)
 
 
 def log(*parts):
@@ -381,9 +393,10 @@ def gather_kernel_at(rng, v_rows: int, seq: int, d: int, cases) -> dict:
 
 def attention_forward_at(rng, b: int, seq: int, d: int, h: int) -> tuple[float, tuple[float, float]]:
     """The whole-row attention forward against its plain version at
-    (b, seq, d) with h heads, bf16 and f32, qkv as strided column slices of
-    one (b, seq, 3d) tensor, ragged padding and (b > 1) one fully padded
-    row; returns the bf16 case's error and its (kernel, plain) ms."""
+    (b, seq, d) with h heads, bf16 (the tensor-core kernel) and f32 (the
+    scalar one), qkv as strided column slices of one (b, seq, 3d) tensor,
+    ragged padding and (b > 1) one fully padded row, two runs bit-equal;
+    returns the bf16 case's error and its (kernel, plain) ms."""
     from bert4clickpath_torch.ops.kernels.attention import mha, mha_reference
 
     out = None
@@ -393,13 +406,17 @@ def attention_forward_at(rng, b: int, seq: int, d: int, h: int) -> tuple[float, 
             qkv = qkv.to(dtype)
             q, k, v = qkv[..., :d], qkv[..., d : 2 * d], qkv[..., 2 * d :]
             got = mha(q, k, v, bias, h)
+            again = mha(q, k, v, bias, h)
             want = mha_reference(q, k, v, bias, h)
             torch.cuda.synchronize()
             if not torch.isfinite(got).all():
                 raise AssertionError(f"attention B={b} D={d} {dtype}: non-finite output")
+            if not torch.equal(got, again):
+                raise AssertionError(f"attention B={b} D={d} {dtype}: two runs differ")
             err = (got.float() - want.float()).abs().max().item()
             log(f"[kernels] attention B={b} L={seq} D={d} H={h} {dtype}: "
-                f"max_abs_err {err:.3e} (tol {ATTN_TOL[dtype]:.0e})")
+                f"max_abs_err {err:.3e} ({err / ATTN_TOL[dtype]:.3f} of the tol {ATTN_TOL[dtype]:.0e}); "
+                "two runs bit-equal")
             if err > ATTN_TOL[dtype]:
                 raise AssertionError(f"attention B={b} D={d} {dtype}: error {err} > {ATTN_TOL[dtype]}")
             if dtype == torch.bfloat16:
@@ -474,7 +491,7 @@ def phase_kernels(card: str) -> dict:
     seq, d, h = 53, 256, 4
     out = {}
     # attention: serving batches 1 and 64, the train step's 256
-    held = {b: attention_forward_at(rng, b, seq, d, h) for b in (1, 64, B_TRAIN)}
+    held = {b: attention_forward_at(rng, b, seq, d, h) for b in (*B_SERVE, B_TRAIN)}
     # the summary reports the train step's shape (B=256), its main path
     out["attention"] = dict(max_abs_err=max(err for err, _ in held.values()), ms=held[B_TRAIN][1][0],
                             plain_ms=held[B_TRAIN][1][1], **attention_bounds(B_TRAIN, seq, d, h, 2)["fwd"])
@@ -526,7 +543,149 @@ def training_kernels(rng, card: str) -> dict:
         f"backward's {flag['merged']:.3f} ms ({(flag['dx'] + flag['dw']) / flag['merged']:.2f}x) [{card}]")
     wide.pop("times")
     out.update(wide)
+    dx_numerics_table(rng, card)
+    ce_wide_row_at(rng, card)
     return out
+
+
+def _ce_inputs(rng, n: int, v_rows: int, nv: int, d: int, w_scale: float, off: int = 10):
+    """f32 x (n, d), a (v_rows, d) table of N(0, 1) * w_scale whose window is
+    rows off .. off + nv, labels with a fifth LABEL_PAD, dnll the masked
+    mean's, and logz from the plain forward: the dx pass's arguments."""
+    from bert4clickpath_torch.constants import LABEL_PAD
+    from bert4clickpath_torch.ops.fused_ce import _labels_model
+    from bert4clickpath_torch.ops.kernels import fused_ce as k
+
+    x = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).cuda()
+    table = torch.from_numpy(rng.standard_normal((v_rows, d), dtype=np.float32) * w_scale).cuda()
+    labels_np = rng.integers(0, nv, size=n).astype(np.int32)
+    labels_np[rng.random(n) < 0.2] = LABEL_PAD
+    labels = torch.from_numpy(labels_np).cuda()
+    mask = (labels != LABEL_PAD).float()
+    m, l = k.ce_stats_reference(x, table, None, off, nv)
+    return (x, table, None, _labels_model(labels, off), m + torch.log(l), mask / mask.sum(), off, nv)
+
+
+def _dx_f64(x, table, bias, lab, logz, dnll, off, nv) -> torch.Tensor:
+    """dx of the same inputs in f64 (logz and dnll as given), 256 rows at a
+    time: the oracle of the numerics decision."""
+    w64 = table.double()
+    rows = torch.arange(table.shape[0], device=x.device)
+    inside = (rows >= off) & (rows < off + nv)
+    out = []
+    for r0 in range(0, x.shape[0], 256):
+        s = x[r0 : r0 + 256].double() @ w64.T
+        if bias is not None:
+            s = s + bias.double()
+        s = torch.where(inside, s, torch.full_like(s, -1e30))
+        p = torch.exp(s - logz[r0 : r0 + 256].double()[:, None])
+        onehot = (rows[None, :] == lab[r0 : r0 + 256].long()[:, None]).double()
+        out.append((dnll[r0 : r0 + 256].double()[:, None] * (p - onehot)) @ w64)
+    return torch.cat(out)
+
+
+def _tune_module():
+    """examples/long_context/tune_blockwise_bwd.py, which builds copies of
+    the kernel sources with constants replaced and swaps their entries in."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "long_context",
+                        "tune_blockwise_bwd.py")
+    spec = importlib.util.spec_from_file_location("tune_blockwise_bwd", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def dx_numerics_table(rng, card: str) -> dict:
+    """The dx numerics decision: the shipped dx pass (tf32 x3) and the
+    candidates measured beside it, each a copy of ``fused_ce_two_pass.cu``
+    built with another ``kDxNumerics`` (one TF32 product; hi + lo bf16 in
+    three products), against a dense f64 oracle of the same f32 inputs: rms
+    error, largest error over the largest |dx|, and the largest error
+    against the plain version over its largest |dx| (what CE_GRAD_REL = 1e-4
+    holds), with the plain version's own (cuBLAS f32 FMA) f64 errors beside.
+    At the main path's inputs (N=2,560, V=55,296, table N(0, 0.02^2): logits
+    of a few tenths) at D=384 and 256, timed in turns; and at the card
+    tests' wider logits (table N(0, 0.5^2): logits of ~10 at D=384, ~13 at
+    D=713, ~16 at D=1,024), errors only. Raises if the shipped numerics
+    misses 1e-4 anywhere."""
+    from bert4clickpath_torch.ops.kernels import _build
+    from bert4clickpath_torch.ops.kernels import fused_ce as k
+
+    tune = _tune_module()
+    entry = ["b4cp_ce_bwd_dx"]
+    t0 = time.perf_counter()
+    real = _build.library()
+    built = tune.build_variants({"tf32": {"kDxNumerics": "kDxTf32"}, "bf16x3": {"kDxNumerics": "kDxBf16x3"}},
+                                ["fused_ce_two_pass.cu"], entry)
+    log(f"[kernels] dx numerics candidates built in {time.perf_counter() - t0:.1f} s")
+    libs = {"tf32x3": real, **{name: tune._Swapped(real, lib, entry) for name, lib in built.items()}}
+    cases = [("main", 384, 0.02, B_TRAIN * 10, 55_296, N_ITEMS), ("main", 256, 0.02, B_TRAIN * 10, 55_296, N_ITEMS),
+             ("wide logits", 384, 0.5, B_TRAIN * 10, 55_296, N_ITEMS), ("wide logits", 713, 0.5, 130, 700, 683),
+             ("wide logits", 1024, 0.5, 130, 700, 683)]
+    table_rows = {}
+    try:
+        for kind, d, w_scale, n, v_rows, nv in cases:
+            args = _ce_inputs(rng, n, v_rows, nv, d, w_scale)
+            oracle = _dx_f64(*args)
+            scale = oracle.abs().max().item()
+            plain = k.ce_backward_dx_reference(*args)
+            results = {"plain": plain}
+            for name, lib in libs.items():
+                _build._lib = lib
+                results[name] = k.ce_backward_dx(*args)
+            times = {}
+            if kind == "main":
+                for _ in range(2):  # in turns
+                    for name, lib in libs.items():
+                        _build._lib = lib
+                        ms = device_time_ms(lambda: k.ce_backward_dx(*args), reps=10)
+                        times[name] = min(ms, times.get(name, ms))
+            _build._lib = real
+            for name, got in results.items():
+                err = got.double() - oracle
+                row = dict(rms=err.square().mean().sqrt().item(), max_rel=err.abs().max().item() / scale,
+                           vs_plain=(got - plain).abs().max().item() / plain.abs().max().item(), ms=times.get(name))
+                table_rows[kind, d, name] = row
+                log(f"[kernels] dx numerics {kind} N={n} V={v_rows} D={d} {name}: rms error {row['rms']:.4e}, "
+                    f"max error / max|dx| {row['max_rel']:.3e} (f64 oracle), against the plain version "
+                    f"{row['vs_plain']:.3e} (held to {CE_GRAD_REL:.0e})"
+                    + (f", {row['ms']:.4f} ms" if row["ms"] is not None else "") + f" [{card}]")
+    finally:
+        _build._lib = real
+    missed = {key: row["vs_plain"] for key, row in table_rows.items() if key[2] == "tf32x3" and row["vs_plain"] > CE_GRAD_REL}
+    log(f"[kernels] dx numerics shipped: tf32x3; it misses {CE_GRAD_REL:.0e} at {missed or 'no case'}")
+    if missed:
+        raise AssertionError(f"the shipped dx numerics tf32x3 misses the f32 tolerance: {missed}")
+    return table_rows
+
+
+def ce_wide_row_at(rng, card: str, d: int = 1024) -> None:
+    """The CE kernels at a row width past every whole tile they once held:
+    forward, dx and dW against their plain versions (``ce_two_pass_at`` at
+    N=2,560, V=55,296, f32 and bf16, with and without a bias), then the
+    ``fused_softmax_ce`` op with gradients against the dense f32 oracle."""
+    from bert4clickpath_torch.constants import LABEL_PAD
+    from bert4clickpath_torch.ops.fused_ce import dense_softmax_ce, fused_softmax_ce
+
+    ce_two_pass_at(rng, B_TRAIN * 10, 55_296, N_ITEMS, d, card)
+    n, v_rows, off, nv = B_TRAIN * 10, 55_296, 10, N_ITEMS
+    x = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).cuda().requires_grad_()
+    table = torch.from_numpy(rng.standard_normal((v_rows, d), dtype=np.float32) * 0.02).cuda().requires_grad_()
+    labels_np = rng.integers(0, nv, size=n).astype(np.int32)
+    labels_np[rng.random(n) < 0.2] = LABEL_PAD
+    labels = torch.from_numpy(labels_np).cuda()
+    nll = fused_softmax_ce(x, table, labels, off, nv)
+    got = torch.autograd.grad(nll.sum(), (x, table))
+    want = dense_softmax_ce(x, table, labels, off, nv)
+    want_g = torch.autograd.grad(want.sum(), (x, table))
+    err = (nll - want).abs().max().item()
+    log(f"[kernels] fused_softmax_ce N={n} V={v_rows} D={d} f32: nll max_abs_err {err:.3e} (tol {CE_LOGZ_TOL:.0e})")
+    if not torch.isfinite(nll).all() or err > CE_LOGZ_TOL:
+        raise AssertionError(f"fused_softmax_ce at D={d}: nll error {err}")
+    for name, g, w in zip(("dx", "dtable"), got, want_g):
+        _held(f"fused_softmax_ce D={d} {name}", g, w, CE_GRAD_REL)
 
 
 def ce_kernels_at(rng, n: int, v_rows: int, nv: int, d: int, off: int = 10) -> dict:
@@ -670,13 +829,12 @@ def ce_two_pass_at(rng, n: int, v_rows: int, nv: int, d: int, card: str, off: in
             tag = f"N={n} V={v_rows} D={d} {dtype} bias={with_bias}"
             wm, wl = k.ce_stats_reference(x, table, bias, off, nv)
             want_logz = wm + torch.log(wl)
-            if d <= k.MAX_D_FWD:
-                m, l = k.ce_stats(x, table, bias, off, nv)
-                e = (m + torch.log(l) - want_logz).abs().max().item()
-                log(f"[kernels] CE forward {tag}: logz max_abs_err {e:.3e} (tol {CE_LOGZ_TOL:.0e})")
-                if not torch.isfinite(m + torch.log(l)).all() or e > CE_LOGZ_TOL:
-                    raise AssertionError(f"CE forward {tag}: logz error {e} > {CE_LOGZ_TOL}")
-                errs["fwd"] = max(errs["fwd"], e)
+            m, l = k.ce_stats(x, table, bias, off, nv)
+            e = (m + torch.log(l) - want_logz).abs().max().item()
+            log(f"[kernels] CE forward {tag}: logz max_abs_err {e:.3e} (tol {CE_LOGZ_TOL:.0e})")
+            if not torch.isfinite(m + torch.log(l)).all() or e > CE_LOGZ_TOL:
+                raise AssertionError(f"CE forward {tag}: logz error {e} > {CE_LOGZ_TOL}")
+            errs["fwd"] = max(errs["fwd"], e)
             args = (x, table, bias, lab, want_logz, dnll, off, nv)
             dx = k.ce_backward_dx(*args)
             dw, db = k.ce_backward_dw(*args)
@@ -705,9 +863,8 @@ def ce_two_pass_at(rng, n: int, v_rows: int, nv: int, d: int, card: str, off: in
             t = {name: min(v) for name, v in t.items() if v}
             t["dx_plain"] = device_time_ms(lambda: k.ce_backward_dx_reference(*args), reps=5)
             t["dw_plain"] = device_time_ms(lambda: k.ce_backward_dw_reference(*args), reps=5)
-            if d <= k.MAX_D_FWD:
-                t["fwd"] = device_time_ms(lambda: k.ce_stats(x, table, None, off, nv), reps=10)
-                t["fwd_plain"] = device_time_ms(lambda: k.ce_stats_reference(x, table, None, off, nv), reps=5)
+            t["fwd"] = device_time_ms(lambda: k.ce_stats(x, table, None, off, nv), reps=10)
+            t["fwd_plain"] = device_time_ms(lambda: k.ce_stats_reference(x, table, None, off, nv), reps=5)
             times[dtype] = t
             if dtype == torch.float32 and dx_targets:
                 shipped, sweep = k.DX_TARGET_BLOCKS, {}
@@ -728,19 +885,24 @@ def ce_two_pass_at(rng, n: int, v_rows: int, nv: int, d: int, card: str, off: in
             log(f"[kernels] CE two-pass {tag}: dx {t['dx']:.3f} ms ({2 * unit / t['dx']:.1f} TFLOP/s), "
                 f"dW {t['dw']:.3f} ms ({2 * unit / t['dw']:.1f} TFLOP/s), plain dx {t['dx_plain']:.3f} ms, "
                 f"plain dW {t['dw_plain']:.3f} ms"
-                + (f", forward {t['fwd']:.3f} ms ({unit / t['fwd']:.1f} TFLOP/s), plain forward {t['fwd_plain']:.3f} ms"
-                   if "fwd" in t else "")
+                + f", forward {t['fwd']:.3f} ms ({unit / t['fwd']:.1f} TFLOP/s), plain forward {t['fwd_plain']:.3f} ms"
                 + (f"; merged backward {t['merged']:.3f} ms against dx + dW {t['dx'] + t['dw']:.3f} ms"
                    if "merged" in t else "") + f" (best of two windows of median device time) [{card}]")
     # bounds count what this run's data needs: the nv rows of the window and
-    # the rows whose label is not LABEL_PAD; each pass is two products. No
-    # PyTorch call computes either without the (N, V) logits: library_ms null
+    # the rows whose label is not LABEL_PAD; each pass is two products. The
+    # dx pass is rated at its numerics' operand type, three products each
+    # for a split (its f32 rating logged beside). No PyTorch call computes
+    # either without the (N, V) logits: library_ms null
     t = times[torch.float32]
     common = (n * d + nv * d + 3 * n) * 4
     ops = {"f32": 4.0 * live * nv * d}
+    kind, terms = DX_RATING
+    dx_bound = bound(common + n * d * 4, {kind: terms * 4.0 * live * nv * d})
+    log(f"[kernels] CE dx pass N={n} V={v_rows} D={d} f32: {t['dx']:.4f} ms; bound {dx_bound['bound_ms']:.4f} ms "
+        f"at tf32 x3 ({terms} {kind} products each; share {dx_bound['bound_ms'] / t['dx']:.3f}), "
+        f"{bound(common + n * d * 4, ops)['bound_ms']:.4f} ms rated at f32 [{card}]")
     return {
-        "ce_bwd_dx": dict(max_abs_err=errs["dx"], ms=t["dx"], plain_ms=t["dx_plain"], library_ms=None,
-                          **bound(common + n * d * 4, ops)),
+        "ce_bwd_dx": dict(max_abs_err=errs["dx"], ms=t["dx"], plain_ms=t["dx_plain"], library_ms=None, **dx_bound),
         "ce_bwd_dw": dict(max_abs_err=errs["dw"], ms=t["dw"], plain_ms=t["dw_plain"], library_ms=None,
                           **bound(common + nv * d * 4, ops)),
         "times": times,

@@ -1,26 +1,41 @@
-"""Time the bf16 tensor-core attention kernels under other tile constants
-than the ones ``csrc/attention_blockwise.cu`` and ``csrc/attention.cu`` ship
-with.
+"""Time the bf16 tensor-core attention kernels (and the CE kernels) under
+other tile constants than the ones ``csrc/attention_blockwise.cu``,
+``csrc/attention.cu``, ``csrc/fused_ce.cu`` and ``csrc/fused_ce_two_pass.cu``
+ship with.
 
     python3 examples/long_context/tune_blockwise_bwd.py --kernel fwd \\
         --variant shipped: --variant wide:kFwdWarps=8,kFwdMinBlocks=2
     python3 examples/long_context/tune_blockwise_bwd.py --kernel mha_bwd \\
         --variant shipped: --variant one_term:kMhaDvSplit=false
+    python3 examples/long_context/tune_blockwise_bwd.py --kernel mha_fwd \\
+        --shape 1,53,256,4 --shape 256,53,256,4 --variant shipped: --variant one:kMhaFwdWarps=1
+    python3 examples/long_context/tune_blockwise_bwd.py --kernel ce_fwd \\
+        --shape 2560,55296,384 --variant shipped: --variant c64:kFwdChunk=64
+    python3 examples/long_context/tune_blockwise_bwd.py --kernel ce_dw \\
+        --shape 2560,55296,256 --variant shipped: --variant stream:kDwWhole=false
 
 ``--kernel`` (repeatable; default ``dq`` and ``dkv``) names what is timed:
-the blockwise forward (``fwd``), dq, dk/dv, or the whole-row backward
-(``mha_bwd``). Each ``--variant name:CONST=value,...`` is a copy of the
-sources with the named ``constexpr`` constants set to the given expressions:
+the blockwise forward (``fwd``), dq, dk/dv, the whole-row forward
+(``mha_fwd``) or backward (``mha_bwd``), or the fused CE forward
+(``ce_fwd``), dx pass (``ce_dx``, in the numerics ``kDxNumerics`` names)
+or dW pass (``ce_dw``), f32 x. Each ``--variant name:CONST=value,...`` is a
+copy of the sources with the named ``constexpr`` constants set to the
+given expressions:
 ``kWalk``, ``kFragmentsResident``; ``kDqWarps``, ``kDqPass``,
 ``kDqMinBlocks`` and the same three for ``kDkv``; ``kFwdWalk``,
 ``kFwdWarps``, ``kFwdPass``, ``kFwdStages``, ``kFwdMinBlocks``;
 ``kMhaWarps``, ``kMhaPassQ``, ``kMhaPassK``, ``kMhaMinBlocks``,
-``kMhaFragmentsResident``, ``kMhaDvSplit``. All copies are compiled together
-(one nvcc each) into ``build/tune/``, loaded beside the port's own library,
-held against the plain version at the kernel's main-path shape, bf16
-((B, L, D, H) = (16, 1024, 256, 4) for the blockwise kernels, (256, 53, 256,
-4) for the whole-row backward; ``--shape`` sets another for all), and timed
-in turns over ``--rounds`` rounds (CUDA events, median device time). Prints
+``kMhaFragmentsResident``, ``kMhaDvSplit``; ``kMhaFwdWarps``,
+``kMhaFwdPass``; ``kFwdChunk``; ``kDxNumerics`` (``kDxTf32``,
+``kDxTf32x3``, ``kDxBf16x3``), ``kDxStages``, ``kDxFlush``, ``kDxColWarps``;
+``kDwWhole``. All copies are compiled
+together (one nvcc each) into ``build/tune/``, loaded beside the port's own
+library, held against the plain version at the kernel's main-path shape,
+bf16 ((B, L, D, H) = (16, 1024, 256, 4) for the blockwise kernels, (256, 53,
+256, 4) for the whole-row ones; (N, V, D) = (2560, 55296, 384) f32 for the
+CE kernels, a catalog window of 54,542 rows, a fifth of the labels padding; ``--shape``, repeatable, sets
+others for all), and timed in turns over ``--rounds`` rounds (CUDA events,
+median device time). Prints
 ptxas' registers per kernel, the times, and the card's name and power limit.
 A measuring tool: nothing of the port calls it, and it needs a CUDA card.
 """
@@ -51,9 +66,13 @@ KERNELS = {
     "fwd": ("attention_blockwise.cu", "b4cp_bmha_fwd", "16,1024,256,4"),
     "dq": ("attention_blockwise.cu", "b4cp_bmha_dq", "16,1024,256,4"),
     "dkv": ("attention_blockwise.cu", "b4cp_bmha_dkv", "16,1024,256,4"),
+    "mha_fwd": ("attention.cu", "b4cp_mha_fwd", "256,53,256,4"),
     "mha_bwd": ("attention.cu", "b4cp_mha_bwd", "256,53,256,4"),
+    "ce_fwd": ("fused_ce.cu", "b4cp_ce_fwd", "2560,55296,384"),
+    "ce_dx": ("fused_ce_two_pass.cu", "b4cp_ce_bwd_dx", "2560,55296,384"),
+    "ce_dw": ("fused_ce_two_pass.cu", "b4cp_ce_bwd_dw", "2560,55296,384"),
 }
-TUNED = ("attention_blockwise.cu", "attention.cu")
+TUNED = ("attention_blockwise.cu", "attention.cu", "fused_ce.cu", "fused_ce_two_pass.cu")
 
 
 def build_variants(variants: dict[str, dict[str, str]], sources: list[str], entries: list[str]) -> dict:
@@ -87,9 +106,11 @@ def build_variants(variants: dict[str, dict[str, str]], sources: list[str], entr
         entry = ""
         for line in log.splitlines():
             if "Compiling entry" in line:
-                entry = re.search(r"mha_\w+?_kernelILi\d+E|mha_\w+?_kernelI\w+?Li\d+E", line)
+                entry = re.search(r"mha_\w+?_kernelILi\d+E|mha_\w+?_kernelI\w+?Li\d+E|ce_fwd_kernelIfLb\dE"
+                                  r"|dx_mma_kernelILi\dELb\dE|dw_kernelIfLb\dE", line)
                 entry = entry.group(0) if entry else ""
-            elif "_mma_kernelILi64E" in entry and ("registers" in line or "spill" in line):
+            elif ("_mma_kernelILi64E" in entry or "ce_fwd_kernelIf" in entry or "dx_mma_kernel" in entry
+                  or "dw_kernelIf" in entry) and ("registers" in line or "spill" in line):
                 print(f"[{name}] {entry}: {line.strip()}", flush=True)
         lib = ctypes.CDLL(os.path.join(out_dir, name, "lib.so"))
         for fn in entries:
@@ -124,39 +145,71 @@ def device_ms(fn, reps: int) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def cases(kernels: list[str], shape: str | None) -> dict:
-    """kernel -> (call, plain results, shape): the wrapper's call on seeded
-    bf16 inputs (q, k, v slices of one projection, ragged padding) and what
-    its plain version gives for them."""
+def cases(kernels: list[str], shapes: list[str] | None) -> dict:
+    """(kernel, shape) -> (call, plain results, shape): the wrapper's call
+    on seeded inputs (attention: bf16 q, k, v slices of one projection,
+    ragged padding; CE forward: f32 x, a catalog window) and what its plain
+    version gives for them."""
+    from bert4clickpath_torch.ops.kernels import fused_ce as ce
+
     out = {}
     made = {}
     for kernel in kernels:
-        b, l, d, h = (int(x) for x in (shape or KERNELS[kernel][2]).split(","))
-        if (b, l, d, h) not in made:
-            rng = np.random.default_rng(0)
-            qkv = torch.from_numpy(rng.standard_normal((b, l, 3 * d), dtype=np.float32)).cuda().bfloat16()
-            q, k, v = qkv[..., :d], qkv[..., d : 2 * d], qkv[..., 2 * d :]
-            bias = torch.zeros(b, 1, 1, l, device="cuda")
-            for i, n in enumerate(rng.integers(1, l + 1, size=b)):
-                bias[i, ..., n:] = -1e9
-            do = torch.from_numpy(rng.standard_normal((b, l, d), dtype=np.float32)).cuda().bfloat16()
-            made[b, l, d, h] = (q, k, v, bias, do)
-        q, k, v, bias, do = made[b, l, d, h]
-        if kernel == "mha_bwd":
-            args = (q, k, v, bias, do, h)
-            out[kernel] = (lambda args=args: attn.mha_backward(*args), attn.mha_backward_reference(*args), [b, l, d, h])
-            continue
-        want_out, lse = attn.blockwise_mha_reference(q, k, v, bias, h)
-        args = (q, k, v, bias, lse, do, attn.attention_delta(do, want_out, h), h)
-        if kernel == "fwd":
-            out[kernel] = (lambda q=q, k=k, v=v, bias=bias, h=h: attn.blockwise_mha_forward(q, k, v, bias, h),
-                           (want_out, lse), [b, l, d, h])
-        elif kernel == "dq":
-            out[kernel] = (lambda args=args: (attn.blockwise_mha_dq(*args),), (attn.blockwise_dq_reference(*args),),
-                           [b, l, d, h])
-        else:
-            out[kernel] = (lambda args=args: attn.blockwise_mha_dkv(*args), attn.blockwise_dkv_reference(*args),
-                           [b, l, d, h])
+        for shape in shapes or [KERNELS[kernel][2]]:
+            dims = tuple(int(x) for x in shape.split(","))
+            if kernel in ("ce_fwd", "ce_dx", "ce_dw"):
+                n, v, d = dims
+                rng = np.random.default_rng(0)
+                x = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).cuda()
+                table = torch.from_numpy(rng.standard_normal((v, d), dtype=np.float32) * 0.02).cuda()
+                nv = min(v - 10, 54_542)
+                if kernel == "ce_fwd":
+                    out[kernel, shape] = (lambda x=x, t=table, nv=nv: ce.ce_stats(x, t, None, 10, nv),
+                                          ce.ce_stats_reference(x, table, None, 10, nv), list(dims))
+                    continue
+                lab = torch.from_numpy(np.where(rng.random(n) < 0.2, -1, rng.integers(10, 10 + nv, size=n))
+                                       .astype(np.int32)).cuda()
+                dnll = (lab >= 0).float() / (lab >= 0).sum()
+                m, l = ce.ce_stats_reference(x, table, None, 10, nv)
+                args = (x, table, None, lab, m + torch.log(l), dnll, 10, nv)
+                if kernel == "ce_dw":
+                    out[kernel, shape] = (lambda args=args: ce.ce_backward_dw(*args)[:1],
+                                          ce.ce_backward_dw_reference(*args)[:1], list(dims))
+                    continue
+                out[kernel, shape] = (lambda args=args: (ce.ce_backward_dx(*args),),
+                                      (ce.ce_backward_dx_reference(*args),), list(dims))
+                continue
+            b, l, d, h = dims
+            if dims not in made:
+                rng = np.random.default_rng(0)
+                qkv = torch.from_numpy(rng.standard_normal((b, l, 3 * d), dtype=np.float32)).cuda().bfloat16()
+                q, k, v = qkv[..., :d], qkv[..., d : 2 * d], qkv[..., 2 * d :]
+                bias = torch.zeros(b, 1, 1, l, device="cuda")
+                for i, n in enumerate(rng.integers(1, l + 1, size=b)):
+                    bias[i, ..., n:] = -1e9
+                do = torch.from_numpy(rng.standard_normal((b, l, d), dtype=np.float32)).cuda().bfloat16()
+                made[dims] = (q, k, v, bias, do)
+            q, k, v, bias, do = made[dims]
+            if kernel == "mha_fwd":
+                args = (q, k, v, bias, h)
+                out[kernel, shape] = (lambda args=args: (attn.fused_mha(*args),), (attn.mha_reference(*args),), list(dims))
+                continue
+            if kernel == "mha_bwd":
+                args = (q, k, v, bias, do, h)
+                out[kernel, shape] = (lambda args=args: attn.mha_backward(*args), attn.mha_backward_reference(*args),
+                                      list(dims))
+                continue
+            want_out, lse = attn.blockwise_mha_reference(q, k, v, bias, h)
+            args = (q, k, v, bias, lse, do, attn.attention_delta(do, want_out, h), h)
+            if kernel == "fwd":
+                out[kernel, shape] = (lambda q=q, k=k, v=v, bias=bias, h=h: attn.blockwise_mha_forward(q, k, v, bias, h),
+                                      (want_out, lse), list(dims))
+            elif kernel == "dq":
+                out[kernel, shape] = (lambda args=args: (attn.blockwise_mha_dq(*args),),
+                                      (attn.blockwise_dq_reference(*args),), list(dims))
+            else:
+                out[kernel, shape] = (lambda args=args: attn.blockwise_mha_dkv(*args),
+                                      attn.blockwise_dkv_reference(*args), list(dims))
     return out
 
 
@@ -166,7 +219,8 @@ def main() -> None:
     ap.add_argument("--kernel", action="append", choices=sorted(KERNELS), help="default: dq and dkv")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--shape", default=None, help="B,L,D,H for every timed kernel (default: its main-path shape)")
+    ap.add_argument("--shape", action="append", default=None,
+                    help="B,L,D,H (CE: N,V,D) for every timed kernel, repeatable (default: its main-path shape)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -183,23 +237,23 @@ def main() -> None:
 
     with torch.no_grad():
         todo = cases(kernels, args.shape)
-        times = {name: {kernel: [] for kernel in kernels} for name in libs}
+        times = {name: {f"{kernel}@{shape}": [] for kernel, shape in todo} for name in libs}
         errs = {name: {} for name in libs}
         for rnd in range(args.rounds):
             for name, lib in libs.items():
                 _build._lib = _Swapped(real, lib, entries)
-                for kernel, (call, want, _) in todo.items():
+                for (kernel, shape), (call, want, _) in todo.items():
+                    key = f"{kernel}@{shape}"
                     if rnd == 0:
                         got = call()
                         torch.cuda.synchronize()
                         # each result's largest error over its plain version's largest magnitude
-                        errs[name][kernel] = [float((g.float() - w.float()).abs().max() / w.float().abs().max())
-                                              for g, w in zip(got, want)]
-                    times[name][kernel].append(device_ms(call, args.reps))
+                        errs[name][key] = [float((g.float() - w.float()).abs().max() / w.float().abs().max())
+                                           for g, w in zip(got, want)]
+                    times[name][key].append(device_ms(call, args.reps))
         _build._lib = real
     for name in libs:
         print(json.dumps({"variant": name, "consts": variants[name],
-                          "shapes": {kernel: todo[kernel][2] for kernel in kernels},
                           "ms": times[name], "max_err_over_max": errs[name], "card": card}), flush=True)
 
 

@@ -6,8 +6,9 @@ suite's conftest.py imports jax, which the port's machines need not have):
 
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 
-Tolerances as in chip_smoke.py: attention forward bf16 abs 2e-2, f32 abs
-1e-5; attention backward bf16 abs 2e-2 + rel 2e-2 (one or two bf16 ulps of
+Tolerances as in chip_smoke.py: attention forward bf16 abs 2e-2 (the
+tensor-core kernel for heads up to 128: f32 sums in the mma's order, so a
+p may round to the other bf16 neighbour), f32 abs 1e-5; attention backward bf16 abs 2e-2 + rel 2e-2 (one or two bf16 ulps of
 an O(1) gradient: the tensor-core kernel sums p, dp and ds in the mma's
 order with the fast exp, so ds may round the other way), f32 (the scalar
 kernel) abs 1e-5 + rel 1e-4, two runs of either bit-equal; gather exact (both versions round
@@ -17,7 +18,9 @@ x) of the reference's largest magnitude (dx sums with atomics, in an order
 that varies run to run; bf16 x rounds A, which may round the other way).
 The two-pass CE backward: the same, but its dx sums in a fixed order, so two
 runs give the same bits, and a bf16 dx may besides round its f32 sum the
-other way (one bf16 ulp, 2^-7 of the value).
+other way (one bf16 ulp, 2^-7 of the value). Its dx pass runs on the
+tensor cores (f32 x as hi + lo tf32 terms, three products) and is held to
+the same f32 tolerance; no CE kernel refuses a row width.
 Blockwise attention: the running maximum the forward rounds p against, and
 the order of the f32 sums, depend on the tile walk, so the bf16 forward
 (tensor cores, 32 keys at a time, fast exp) is held to two bf16 ulps of the
@@ -95,6 +98,53 @@ def test_mha_kernel_matches_plain(cuda, dtype, shape):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
     # contiguous inputs give the same answer as strided slices
     torch.testing.assert_close(mha(q.contiguous(), k.contiguous(), v.contiguous(), bias, h), got, atol=0, rtol=0)
+
+
+MHA_FWD_SHAPES = [
+    (1, 53, 256, 4),  # flagship serving, batch 1, 8 and 64
+    (8, 53, 256, 4),
+    (64, 53, 256, 4),
+    (256, 53, 256, 4),  # the flagship's training shape
+    (256, 53, 384, 6),  # the wide model's
+    # the edges of the 16-row warps, the query-row blocks and the 64-key passes
+    (3, 1, 256, 4),
+    (3, 17, 256, 4),
+    (3, 64, 256, 4),
+    (3, 65, 256, 4),  # two passes over the keys: the scores are recomputed
+    (2, 116, 256, 4),
+    (2, 417, 256, 4),  # the longest row the dispatch sends here at Dh = 64
+    (3, 53, 64, 4),  # Dh = 16
+    (3, 53, 128, 4),  # Dh = 32
+    (3, 53, 512, 4),  # Dh = 128
+    (3, 53, 100, 4),  # Dh = 25 in the 32-wide instance: plain-load fill
+    (3, 53, 128, 2, "unaligned"),  # q, k, v one element into a wider tensor
+]
+
+
+@pytest.mark.parametrize("shape", MHA_FWD_SHAPES)
+def test_mha_forward_tensor_core_kernel(cuda, shape):
+    """bf16 heads up to 128 wide take the tensor-core forward: within abs
+    2e-2 of the plain version (f32 sums in the mma's order, so a p may round
+    to the other bf16 neighbour), a fully padded row included; two runs and
+    contiguous inputs give the same bits as strided slices."""
+    b, l, d, h = shape[:4]
+    off = 1 if shape[4:] == ("unaligned",) else 0
+    rng = np.random.default_rng(7)
+    qkv = torch.from_numpy(rng.standard_normal((b, l, 3 * d + 8 * off), dtype=np.float32)).to(cuda, torch.bfloat16)
+    q, k, v = (qkv[..., off + i * d : off + (i + 1) * d] for i in range(3))
+    bias = torch.from_numpy(np.where(rng.random((b, 1, 1, l)) < 0.3, -1e9, 0.0).astype(np.float32)).to(cuda)
+    bias[0] = -1e9  # a fully padded row
+    before = _build.launch_counts()["attention"]
+    got = fused_mha(q, k, v, bias, h)
+    assert _build.launch_counts()["attention"] == before + 1
+    want = mha_reference(q, k, v, bias, h)
+    again = fused_mha(q, k, v, bias, h)
+    same = fused_mha(q.contiguous(), k.contiguous(), v.contiguous(), bias, h)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (b, l, d) and torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
+    assert torch.equal(got, again), "two runs differ"
+    assert torch.equal(got, same), "contiguous inputs give other bits than strided slices"
 
 
 def test_mha_takes_what_one_block_cannot_hold(cuda):
@@ -499,9 +549,8 @@ def test_ce_two_pass_kernels_match_plain(cuda, n, v, d, dtype, with_bias):
     x, table, bias, lab, dnll, off, nv = _ce_case(n, v, d, dtype, with_bias, oov=True)
     wm, wl = ce_stats_reference(x, table, bias, off, nv)
     logz = wm + torch.log(wl)
-    if d <= ce_kernels.MAX_D_FWD:  # the forward at wide rows too
-        m, l = ce_stats(x, table, bias, off, nv)
-        torch.testing.assert_close(m + torch.log(l), logz, atol=1e-4, rtol=0)
+    m, l = ce_stats(x, table, bias, off, nv)  # the forward at wide rows too
+    torch.testing.assert_close(m + torch.log(l), logz, atol=1e-4, rtol=0)
     args = (x, table, bias, lab, logz, dnll, off, nv)
     before = _build.launch_counts()
     dx, dw, db = ce_kernels.ce_backward_two_pass(*args)
@@ -533,24 +582,97 @@ def test_ce_two_pass_kernels_match_plain(cuda, n, v, d, dtype, with_bias):
 
 def test_ce_kernels_name_their_widest_row(cuda):
     """D = 384 goes through the forward and, by its shape alone, through the
-    two-pass backward; D = 256 through the merged one; each kernel refuses
-    what it cannot hold by naming its limit, and never takes another route."""
-    for d, route in ((384, "two_pass"), (256, "merged")):
+    two-pass backward; D = 256 through the merged one. Only the merged
+    kernel has a width limit (its register tile, D <= 256), which it names;
+    every wider row takes the pair, which refuses none."""
+    for d, route in ((384, "two_pass"), (256, "merged"), (454, "two_pass"), (714, "two_pass"), (1024, "two_pass")):
         x, table, bias, lab, dnll, off, nv = _ce_case(70, 500, d, torch.float32, False)
         m, l = ce_stats(x, table, None, off, nv)
         _build.reset_launch_counts()
         ce_backward(x, table, None, lab, m + torch.log(l), dnll, off, nv)
         want = {"ce_bwd": 1} if route == "merged" else {"ce_bwd_dx": 1, "ce_bwd_dw": 1}
         assert _nonzero_counts() == want and ce_kernels.ce_backward_route(d) == route
-    x, table, _, lab, dnll, off, nv = _ce_case(70, 500, 454, torch.float32, False)
-    with pytest.raises(ValueError, match="D <= 453"):
-        ce_stats(x, table, None, off, nv)
+    x, table, _, lab, dnll, off, nv = _ce_case(70, 500, 257, torch.float32, False)
     with pytest.raises(ValueError, match="D <= 256"):
         ce_kernels.ce_backward_merged(x, table, None, lab, dnll, dnll, off, nv)
-    x, table, _, lab, dnll, off, nv = _ce_case(70, 500, 714, torch.float32, False)
-    for fn in (ce_kernels.ce_backward_dx, ce_kernels.ce_backward_dw, ce_backward):
-        with pytest.raises(ValueError, match="D <= 713"):
-            fn(x, table, None, lab, dnll, dnll, off, nv)
+
+
+DX_WIDTHS = [6, 32, 256, 384, 450, 713, 714, 1024]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", DX_WIDTHS)
+def test_ce_dx_pass_at_any_width(cuda, d, dtype):
+    """The tensor-core dx pass at widths around every chunk and tile edge
+    (x resident in shared memory up to D = 384 in f32, streamed above; D
+    split over the grid above 384), with and without a bias, an OOV label:
+    f32 within 1e-4 of the largest |dx|, bf16 within 2e-2 of it plus one
+    bf16 ulp of each value, two runs bit-equal."""
+    for with_bias in (False, True):
+        x, table, bias, lab, dnll, off, nv = _ce_case(130, 700, d, dtype, with_bias, seed=d, oov=True)
+        wm, wl = ce_stats_reference(x, table, bias, off, nv)
+        args = (x, table, bias, lab, wm + torch.log(wl), dnll, off, nv)
+        before = _build.launch_counts()["ce_bwd_dx"]
+        dx = ce_kernels.ce_backward_dx(*args)
+        again = ce_kernels.ce_backward_dx(*args)
+        assert _build.launch_counts()["ce_bwd_dx"] == before + 2
+        want = ce_kernels.ce_backward_dx_reference(*args)
+        torch.cuda.synchronize()
+        assert dx.dtype == dtype and dx.shape == (130, d) and torch.isfinite(dx).all()
+        assert torch.equal(dx, again), "two runs differ"
+        if dtype == torch.float32:
+            _near(dx, want, 1e-4)
+        else:
+            diff = (dx.float() - want.float()).abs()
+            assert bool((diff <= 2e-2 * want.float().abs().max() + 2.0**-7 * want.float().abs()).all())
+
+
+@pytest.mark.parametrize("d", [454, 714, 1024])
+def test_ce_forward_and_dw_at_wide_rows(cuda, d):
+    """The forward and the dW pass past the widths their whole tiles held
+    (the dW pass streams its table rows above D = 713; the forward streams
+    every D): logz abs 1e-4 plus 4e-6 of |logz| (logits reach ~60 at D =
+    1,024, where f32 sums in another order move logz by a few tens of its
+    ulps: 1.1e-4 measured on an H100), dW and db 1e-4 of the largest
+    magnitude (f32 x) or 2e-2 (bf16 x)."""
+    for dtype, with_bias in ((torch.float32, True), (torch.bfloat16, False)):
+        x, table, bias, lab, dnll, off, nv = _ce_case(130, 700, d, dtype, with_bias, seed=d + 1, oov=True)
+        m, l = ce_stats(x, table, bias, off, nv)
+        wm, wl = ce_stats_reference(x, table, bias, off, nv)
+        torch.testing.assert_close(m + torch.log(l), wm + torch.log(wl), atol=1e-4, rtol=4e-6)
+        args = (x, table, bias, lab, wm + torch.log(wl), dnll, off, nv)
+        dw, db = ce_kernels.ce_backward_dw(*args)
+        wdw, wdb = ce_kernels.ce_backward_dw_reference(*args)
+        torch.cuda.synchronize()
+        rel = 1e-4 if dtype == torch.float32 else 2e-2
+        _near(dw, wdw, rel)
+        if with_bias:
+            _near(db, wdb, rel)
+        blinded = torch.ones(700, dtype=torch.bool, device=cuda)
+        blinded[off : off + nv] = False
+        blinded[lab[1].long()] = False
+        assert (dw[blinded] == 0).all()
+
+
+def test_fused_ce_op_at_a_wide_row_on_card(cuda):
+    """fused_softmax_ce with gradients at D = 1,024 on the card against the
+    dense f32 oracle: nll abs 1e-4, gradients 1e-4 of the largest."""
+    from bert4clickpath_torch.ops.fused_ce import dense_softmax_ce, fused_softmax_ce
+
+    rng = np.random.default_rng(6)
+    n, v, d, off, nv = 200, 900, 1024, 10, 850
+    x = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).cuda().requires_grad_()
+    table = torch.from_numpy(rng.standard_normal((v, d), dtype=np.float32) * 0.05).cuda().requires_grad_()
+    labels = torch.from_numpy(rng.integers(0, nv, size=n).astype(np.int32)).cuda()
+    labels[::5] = LABEL_PAD
+    _build.reset_launch_counts()
+    nll = fused_softmax_ce(x, table, labels, off, nv)
+    got = torch.autograd.grad(nll.sum(), (x, table))
+    assert _nonzero_counts() == {"ce_fwd": 1, "ce_bwd_dx": 1, "ce_bwd_dw": 1}
+    want = dense_softmax_ce(x, table, labels, off, nv)
+    torch.testing.assert_close(nll, want, atol=1e-4, rtol=1e-5)
+    for g, w in zip(got, torch.autograd.grad(want.sum(), (x, table))):
+        _near(g, w, 1e-4)
 
 
 def test_fused_ce_op_on_card_matches_dense(cuda):

@@ -4,8 +4,9 @@
 tensors) against ``_bwd`` of ``bert4clickpath_tpu/ops/pallas/fused_ce.py``
 (its two Pallas kernels in interpret mode), called directly as the JAX tests
 call it, on the same numpy inputs: a window with a row offset, LABEL_PAD
-rows, an OOV label, with and without a bias, f32 and bf16, D = 384. Each
-test states its tolerance.
+rows, an OOV label, with and without a bias, f32 and bf16, D = 384 and 768
+(wider than any whole tile the card's kernels once held: they stream such
+rows, so no width is refused). Each test states its tolerance.
 """
 
 import jax.numpy as jnp
@@ -60,7 +61,7 @@ def _both(x, table, bias, labels, dnll, dtype):
 
 
 @pytest.mark.parametrize("with_bias", [False, True])
-@pytest.mark.parametrize("d,oov", [(32, False), (32, True), (384, False)])
+@pytest.mark.parametrize("d,oov", [(32, False), (32, True), (384, False), (768, False)])
 def test_two_pass_matches_jax_bwd_f32(d, oov, with_bias):
     """f32: rtol 1e-5 / atol 1e-6 of the JAX kernels (sums in another
     order). The OOV label's one-hot fires on a blinded row in both."""
@@ -111,7 +112,8 @@ def test_two_pass_equals_merged(dtype):
 def test_backward_route_is_a_function_of_d_alone():
     assert [k.ce_backward_route(d) for d in (1, 64, 256, 257, 384, 512)] == [
         "merged", "merged", "merged", "two_pass", "two_pass", "two_pass"]
-    assert k.MAX_D == 256 and k.MAX_D_FWD == 453 and k.MAX_D_TWO_PASS == 713
+    assert k.MAX_D == 256 and k.TWO_PASS_OUT_COLS == 384
+    assert not hasattr(k, "MAX_D_FWD") and not hasattr(k, "MAX_D_TWO_PASS")  # no kernel refuses a width
     # the dx grid: the vocabulary split covers every tile, for any shape
     for n, v, d in ((2560, 55296, 384), (160, 20480, 256), (1, 1, 1), (70000, 64, 700), (5, 100000, 384)):
         splits, per = k.ce_dx_splits(n, v, d)
@@ -155,3 +157,28 @@ def test_two_pass_wrappers_check_inputs():
             fn(*args[:4], logz[:-1], *args[5:])
         with pytest.raises(ValueError, match="bias must be"):
             fn(args[0], args[1], torch.zeros(V - 1), *args[3:])
+
+
+def test_fused_softmax_ce_matches_jax_at_a_wide_row():
+    """fused_softmax_ce at D = 768, small N and V, forward and gradients of
+    x and the table against the JAX package's fused CE (its Pallas kernels
+    in interpret mode): nll rtol 1e-5 / atol 1e-6, gradients rtol 1e-4 /
+    atol 1e-6 (f32 sums in another order)."""
+    import jax
+
+    from bert4clickpath_tpu.ops.pallas.fused_ce import fused_softmax_ce as jfused
+
+    x, table, _, labels, _ = _case(768, seed=4)
+    tx = torch.from_numpy(x).requires_grad_()
+    tt = torch.from_numpy(table).requires_grad_()
+    nll = tce.fused_softmax_ce(tx, tt, torch.from_numpy(labels), OFF, NV)
+    gx, gt = torch.autograd.grad(nll.sum(), (tx, tt))
+
+    jl = jnp.asarray(labels)
+    want = jfused(jnp.asarray(x), jnp.asarray(table), jl, OFF, NV)
+    jgx, jgt = jax.grad(lambda a, b: jfused(a, b, jl, OFF, NV).sum(), argnums=(0, 1))(
+        jnp.asarray(x), jnp.asarray(table))
+    np.testing.assert_allclose(nll.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(gx.numpy(), np.asarray(jgx), rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(gt.numpy(), np.asarray(jgt), rtol=1e-4, atol=1e-6)
+    assert (nll[labels == LABEL_PAD] == 0).all()
