@@ -21,29 +21,17 @@
 // What bounds them on the H100: arithmetic. Each kernel is two products of
 // 2*N*V*D operations (the recompute and its own), against a table and
 // activations of tens of MB: at N = 2,560, V = 55,296, D = 384 that is 217
-// GFLOP per kernel, 3.2 ms in f32 FMA at 67 TFLOP/s, 0.66 ms as three bf16
-// products on the tensor cores (989 TFLOP/s).
+// GFLOP per kernel, 3.2 ms in f32 FMA at 67 TFLOP/s, 1.0 ms as three tf32
+// products on the tensor cores (495 TFLOP/s).
 //
-// The dx kernel runs its products on the tensor cores (ce_bwd_dx_mma_kernel
-// below, with its own design notes): f32 x as hi + lo tf32 terms in three
-// m16n8k8 products (kDxNumerics), the numerics measured in PERF.md, "the dx
-// numerics decision"; bf16 x in one bf16 product.
-//
-// The dW kernel is f32 FMA on the 64 x 64 tiles of fused_ce_tiles.cuh:
-// * A block's 64 table rows sit whole in shared memory where they fit
-//   (64 * (D + 1) + 64 * 129 + 64 * 65 floats <= 227 KB, D <= 713). x
-//   streams through a 64 x 128 chunk buffer: once over all of D for the
-//   scores (the 4 x 4 register tiles sum across the chunks), then once more
-//   over the block's output columns, 64 at a time, for A^T x. Wider rows
-//   stream the table rows too, chunk by chunk beside x's, for the scores;
-//   A^T x needs only the A tile and x's chunks. So no D is refused.
-// * A block owns up to kOutCols = 384 columns of dW, 16 rows x 6 columns per
-//   thread in registers, summed over all row tiles and written once: no
-//   atomics, a fixed order, the same bits every run. Wider rows split D over
-//   blockIdx.y (each such block recomputes the scores); db comes from the
-//   blocks of the first D split only.
-// * A tile whose A is all zero (blinded, no label in it) skips its product.
-// Any N, V and D work, with the ragged edges masked.
+// Both kernels run their products on the tensor cores, with one design:
+// f32 x as hi + lo tf32 terms in three m16n8k8 products (kDxNumerics), the
+// numerics measured in PERF.md, "the dx numerics decision"; bf16 x in one
+// bf16 product. The dx kernel (ce_bwd_dx_mma_kernel) keeps 64 rows of x in
+// shared memory and streams the table; the dW kernel (ce_bwd_dw_mma_kernel)
+// is its mirror, 64 table rows resident and x streamed. Each has its design
+// notes below. Any N, V and D work, with the ragged edges masked; neither
+// uses atomics, so two runs give the same bits.
 
 #include <type_traits>
 
@@ -54,20 +42,8 @@ namespace {
 
 using namespace ce_tiles;
 
-constexpr int kChunk = 128;    // columns of the streamed operand per load
 constexpr int kOutChunks = 6;  // 64-column chunks of output a block owns
 constexpr int kOutCols = kTile * kOutChunks;
-constexpr int kCStride = kChunk + 1;
-constexpr int kAStride = kTile + 1;
-
-// the dW kernel's table rows: one whole (64, D + 1) tile where it fits
-// (whole), else a second chunk buffer, beside x's chunk buffer and the A tile
-size_t dw_smem(int d, bool whole) {
-  return sizeof(float) * (kTile * (whole ? d + 1 : kCStride) + kTile * kCStride + kTile * kAStride);
-}
-constexpr bool kDwWhole = true;  // false: stream the table rows at every D
-// the dW kernel's route, by D alone: the whole tile up to D = 713
-bool dw_whole(int d) { return kDwWhole && dw_smem(d, true) <= kMaxSmem; }
 
 // ---------------------------------------------------------------------- dx
 
@@ -150,9 +126,12 @@ constexpr int kDxChunk = 64;  // columns of a streamed chunk
 constexpr int kDxOutChunks = kOutCols / kDxChunk;
 constexpr int kDxStages = 3;  // cp.async stages of the table: two chunks in flight
 constexpr int kDxFlush = 4;   // k-steps whose products share fresh sums (kstep_sum), at most a chunk's
-constexpr int kDxStageRow = (kDxChunk + 4) * 4;  // bytes of a row of a raw f32 stage
+constexpr int kDxStageRow = (kDxChunk + 4) * 4;  // bytes of a row of a raw stage (64 f32, or 64 bf16 of x)
 constexpr int kDxStage = kDxVocab * kDxStageRow;
 
+// The names below are the dx pass's: x is the operand a block keeps
+// resident, W the one it streams. The dW pass swaps the roles (the table
+// resident, x streamed) and uses the same planes.
 template <int MODE>
 struct DxMode {
   static constexpr bool kBf16 = MODE == kDxBf16x3 || MODE == kDxBf16;  // bf16 planes, m16n8k16
@@ -173,26 +152,25 @@ struct DxMode {
   static constexpr int kOutRow = kBf16 ? kChunkRow : (kDxChunk + 8) * 4;
   static constexpr int kWPlane = kDxVocab * (kOutRow > kChunkRow ? kOutRow : kChunkRow);
   static constexpr int kKsteps = kDxChunk * kElem / 32;  // of a 64-wide chunk: 4 (bf16) or 8 (tf32)
-  static constexpr int kFlush = kDxFlush < kKsteps ? kDxFlush : kKsteps;
   using X = typename std::conditional<MODE == kDxBf16, __nv_bfloat16, float>::type;
 };
 
-// byte offsets of the dynamic shared memory: the raw f32 stages of the
-// table, its converted chunk, x's planes (resident, or one chunk), A's
-// planes
+// byte offsets of the dynamic shared memory: `stages` raw stages of the
+// streamed operand, its converted chunk, the resident operand's planes (all
+// of D, or one chunk), A's planes
 template <int MODE>
 struct DxSmem {
   using M = DxMode<MODE>;
-  int x_row, x_plane;
-  int w_at, x_at, a_at;
+  int res_row, res_plane;
+  int chunk_at, res_at, a_at;
   size_t total;
-  __host__ __device__ DxSmem(int d, bool resident) {
+  __host__ __device__ DxSmem(int d, bool resident, int stages) {
     const int dpad = (d + kDxChunk - 1) / kDxChunk * kDxChunk;
-    x_row = resident ? (dpad + M::kSkew) * M::kElem : M::kChunkRow;
-    x_plane = kDxRows * x_row;
-    w_at = kDxStages * kDxStage;
-    x_at = w_at + M::kPlanes * M::kWPlane;
-    a_at = x_at + M::kXPlanes * x_plane;
+    res_row = resident ? (dpad + M::kSkew) * M::kElem : M::kChunkRow;
+    res_plane = kDxRows * res_row;
+    chunk_at = stages * kDxStage;
+    res_at = chunk_at + M::kPlanes * M::kWPlane;
+    a_at = res_at + M::kXPlanes * res_plane;
     total = static_cast<size_t>(a_at) + M::kPlanes * M::kChunkPlane;
   }
 };
@@ -259,13 +237,15 @@ __device__ __forceinline__ void kstep_sum(float (&acc)[kDxNT][4], const float (&
 
 // s (16 x 8 kDxNT) += x (16 rows x 64 columns of the chunk) . W^T (the
 // warp's 8 kDxNT table rows x the same 64 columns). xa, wa: shared addresses of the warp's first row
-// plus the lane's rows-first (x) and cols-first (W) ldmatrix offsets.
-template <int MODE>
+// plus the lane's rows-first (x) and cols-first (W) ldmatrix offsets. The
+// products go into fresh sums every FLUSH k-steps (at most a chunk's).
+template <int MODE, int FLUSH = kDxFlush>
 __device__ __forceinline__ void dx_scores(float (&s)[kDxNT][4], uint32_t xa, int x_row, int x_plane,
                                           uint32_t wa, int w_row, int w_plane) {
   using M = DxMode<MODE>;
   constexpr int NP = kDxNT / 2;
-  static_assert(M::kKsteps % M::kFlush == 0, "a flush period divides the k-steps of a chunk");
+  constexpr int F = FLUSH < M::kKsteps ? FLUSH : M::kKsteps;
+  static_assert(M::kKsteps % F == 0, "a flush period divides the k-steps of a chunk");
   float ks[kDxNT][4];
 #pragma unroll
   for (int kb = 0; kb < M::kKsteps; ++kb) {
@@ -289,9 +269,9 @@ __device__ __forceinline__ void dx_scores(float (&s)[kDxNT][4], uint32_t xa, int
       for (int np = 0; np < NP; ++np) tc::ldmatrix_x4(b[p][np], wa + p * w_plane + np * 16 * w_row + kb * 32);
     }
     // the k-step's terms (the small ones first, then hi . hi) into fresh
-    // sums, added to s with round-to-nearest adds every kDxFlush k-steps:
-    // see kstep_sum
-    if (kb % M::kFlush == 0) {
+    // sums, added to s with round-to-nearest adds every FLUSH k-steps: see
+    // kstep_sum
+    if (kb % F == 0) {
 #pragma unroll
       for (int nt = 0; nt < kDxNT; ++nt)
 #pragma unroll
@@ -314,7 +294,7 @@ __device__ __forceinline__ void dx_scores(float (&s)[kDxNT][4], uint32_t xa, int
       dx_mma<MODE>(ks[2 * np], a[0], b[0][np][0], b[0][np][1]);
       dx_mma<MODE>(ks[2 * np + 1], a[0], b[0][np][2], b[0][np][3]);
     }
-    if ((kb + 1) % M::kFlush == 0) kstep_sum(s, ks);
+    if ((kb + 1) % F == 0) kstep_sum(s, ks);
   }
 }
 
@@ -322,13 +302,14 @@ __device__ __forceinline__ void dx_scores(float (&s)[kDxNT][4], uint32_t xa, int
 // 8 kDxNT columns of the chunk). aa: the warp's first row of A plus the lane's
 // rows-first offset; wt: the converted chunk's shared address (its rows
 // kOutRow bytes apart), wp: the same as a generic pointer; col: the warp's
-// first column in it.
-template <int MODE>
+// first column in it. FLUSH as for dx_scores.
+template <int MODE, int FLUSH = kDxFlush>
 __device__ __forceinline__ void dx_product(float (&acc)[kDxNT][4], uint32_t aa, uint32_t wt,
                                            const unsigned char* wp, int col, int lane) {
   using M = DxMode<MODE>;
   constexpr int w_row = M::kOutRow;
   constexpr int NP = kDxNT / 2;
+  constexpr int F = FLUSH < M::kKsteps ? FLUSH : M::kKsteps;
   float ks[kDxNT][4];
   const int rf_row = (lane & 7) + ((lane >> 3) & 1) * 8;
   const int rf_col = (lane >> 4) * 16;
@@ -362,7 +343,7 @@ __device__ __forceinline__ void dx_product(float (&acc)[kDxNT][4], uint32_t aa, 
         }
       }
     }
-    if (kb % M::kFlush == 0) {
+    if (kb % F == 0) {
 #pragma unroll
       for (int nt = 0; nt < kDxNT; ++nt)
 #pragma unroll
@@ -376,7 +357,7 @@ __device__ __forceinline__ void dx_product(float (&acc)[kDxNT][4], uint32_t aa, 
     }
 #pragma unroll
     for (int nt = 0; nt < kDxNT; ++nt) dx_mma<MODE>(ks[nt], a[0], b[0][nt][0], b[0][nt][1]);
-    if ((kb + 1) % M::kFlush == 0) kstep_sum(acc, ks);
+    if ((kb + 1) % F == 0) kstep_sum(acc, ks);
   }
 }
 
@@ -389,7 +370,7 @@ __global__ void __launch_bounds__(kDxThreads, 1)
                          int d, int row_offset, int num_valid, int tiles_per_split, int w_vec) {
   using M = DxMode<MODE>;
   extern __shared__ __align__(16) unsigned char smem_dx[];
-  const DxSmem<MODE> L(d, XRES);
+  const DxSmem<MODE> L(d, XRES, kDxStages);
   const int row0 = blockIdx.x * kDxRows;
   const int split = blockIdx.y;
   const int d_lo = blockIdx.z * kOutCols;
@@ -412,7 +393,7 @@ __global__ void __launch_bounds__(kDxThreads, 1)
   const int cf_row = (lane & 7) + (lane >> 4) * 8;
   const int cf_col = ((lane >> 3) & 1) * 16;
   const uint32_t base = tc::shared_addr(smem_dx);
-  const uint32_t w_addr = base + L.w_at;  // the table's converted chunk
+  const uint32_t w_addr = base + L.chunk_at;  // the table's converted chunk
 
   // columns [c0, c0 + ncols) of the block's rows of x into its planes
   auto load_x = [&](int c0, int ncols) {
@@ -421,7 +402,7 @@ __global__ void __launch_bounds__(kDxThreads, 1)
       const int c = idx - r * ncols;
       const bool ok = row0 + r < n && c0 + c < d;
       const float val = ok ? to_f(x[static_cast<long long>(row0 + r) * d + c0 + c]) : 0.f;
-      put_one<MODE>(smem_dx + L.x_at + r * L.x_row, L.x_plane, c, val);
+      put_one<MODE>(smem_dx + L.res_at + r * L.res_row, L.res_plane, c, val);
     }
   };
   // the table chunk of step `step` (vocab tile, then its columns) into its stage
@@ -468,7 +449,7 @@ __global__ void __launch_bounds__(kDxThreads, 1)
       const int rr = idx / (kDxChunk / 2);
       const int c = (idx % (kDxChunk / 2)) * 2;
       const float2 val = *reinterpret_cast<const float2*>(src + rr * (kDxChunk + 4) + c);
-      put_pair<MODE>(smem_dx + L.w_at + rr * w_row, M::kWPlane, c, val.x, val.y);
+      put_pair<MODE>(smem_dx + L.chunk_at + rr * w_row, M::kWPlane, c, val.x, val.y);
     }
     if (!XRES && x_col >= 0) load_x(x_col, kDxChunk);
     if (q + kDxStages - 1 < total) issue(q + kDxStages - 1);
@@ -494,9 +475,9 @@ __global__ void __launch_bounds__(kDxThreads, 1)
       for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
     for (int c = 0; c < nk; ++c) {
       advance(c * kDxChunk, M::kChunkRow);
-      const uint32_t xa = base + L.x_at + (XRES ? c * kDxChunk * M::kElem : 0) + (rg + rf_row) * L.x_row + rf_col;
+      const uint32_t xa = base + L.res_at + (XRES ? c * kDxChunk * M::kElem : 0) + (rg + rf_row) * L.res_row + rf_col;
       const uint32_t wa = w_addr + (cg + cf_row) * M::kChunkRow + cf_col;
-      dx_scores<MODE>(s, xa, L.x_row, L.x_plane, wa, M::kChunkRow, M::kWPlane);
+      dx_scores<MODE>(s, xa, L.res_row, L.res_plane, wa, M::kChunkRow, M::kWPlane);
     }
 
     // A = dnll (exp(s (+ b) - logz) - onehot), blinded outside the window;
@@ -536,7 +517,7 @@ __global__ void __launch_bounds__(kDxThreads, 1)
     for (int o = 0; o < kDxOutChunks; ++o) {
       if (o < no) {  // the same for every thread of the block
         advance(-1, M::kOutRow);
-        if (nonzero) dx_product<MODE>(acc[o], a_at, w_addr, smem_dx + L.w_at, cg, lane);
+        if (nonzero) dx_product<MODE>(acc[o], a_at, w_addr, smem_dx + L.chunk_at, cg, lane);
       }
     }
   }
@@ -557,91 +538,267 @@ __global__ void __launch_bounds__(kDxThreads, 1)
   }
 }
 
-// ---------------------------------------------------------------------- dW
+// ------------------------------------------------------- dW, tensor cores
+//
+// The dW pass is the dx pass mirrored: a block of 8 warps owns 64 table rows
+// and walks every row tile of x. Per tile of 64 rows of x it computes the
+// scores transposed, s^T = W_tile . x_tile^T (M = the 64 table rows, N = the
+// 64 rows of x, K = D), so that in s^T's accumulator fragments the rows
+// (g, g + 8) are table rows and the columns (2t, 2t + 1) rows of x; from
+// them A^T = dnll (exp(s^T (+ b) - logz) - onehot) (logz, dnll and the label
+// by column, the bias and the window by row), then dW += A^T . x (K = the
+// tile's 64 rows of x). A^T is the A operand of that product as it stands
+// (ldmatrix cannot transpose 32-bit elements; nothing needs transposing),
+// so both products are dx_scores and dx_product with the operands swapped,
+// in the same numerics (kDxNumerics; bf16 x: W rounded to bf16, A^T rounded
+// once, one product).
+//
+// The block's table rows stay in shared memory for its life as raw f32 that
+// tf32 fragments split as they are read (bf16 x: rounded to bf16) where they
+// fit (D <= 384 in tf32 x3, with kDwResident); wider rows load the table's
+// chunk beside each of x's. x streams in chunks of 64 rows x 64 columns
+// through kDwStages cp.async stages of raw elements, each converted once
+// into the numerics' planes: D/64 chunks for the score product, then the
+// block's output columns again, 64 at a time, for A^T x. A warp sums 16 table
+// rows x 32 columns of every 64-column output chunk: 96 f32 accumulators for
+// the block's 384 columns; wider rows split D over blockIdx.y (each such
+// block recomputes the scores). A row tile whose A^T is all zero skips its
+// second product. db is summed from the unrounded f32 A^T in registers, in
+// a fixed order: by each thread over its columns and the row tiles, across a
+// quad's lanes by shuffles, across the column warps through shared memory in
+// warp order; the blocks of the first D split write it. Every block writes
+// its dW rows once: no atomics, two runs give the same bits.
+//
+// What bounds it: as the dx pass, the mma.sync issue rate (the same 318 M
+// m16n8k8 instructions at N = 2,560, V = 55,296, D = 384). Its grid is
+// ceil(V / 64) x ceil(D / 384) blocks, one per SM: 864 at that shape, 6.5
+// waves of 132. The constants (kDwStages, kDwFlush, kDwResident) were timed
+// with examples/long_context/tune_blockwise_bwd.py --kernel ce_dw (PERF.md).
 
-// WHOLE: the block's 64 table rows sit whole in shared memory (D <= 713);
-// otherwise the score product streams them beside x's chunks, and the
-// second product, A^T x, needs only the A tile and x's chunks.
-template <typename T, bool WHOLE>
-__global__ void __launch_bounds__(kThreads)
-    ce_bwd_dw_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                     const float* __restrict__ bias,
-                     const int32_t* __restrict__ lab,
-                     const float* __restrict__ logz,
-                     const float* __restrict__ dnll, float* __restrict__ dw,
-                     float* __restrict__ db, int n, int v, int d,
-                     int row_offset, int num_valid) {
-  extern __shared__ float smem[];
-  const int stride = WHOLE ? d + 1 : kCStride;
-  float* ws = smem;                    // this block's table rows, or a chunk of them
-  float* cs = ws + kTile * stride;     // the streamed chunk of x
-  float* as = cs + kTile * kCStride;   // A for (row tile, vocab tile), f32
-  const int col0 = blockIdx.x * kTile;
+constexpr int kDwStages = 3;        // cp.async stages of x: two chunks in flight
+constexpr int kDwFlush = 8;         // k-steps whose products share fresh sums (kstep_sum): a chunk's
+constexpr bool kDwResident = true;  // false: stream the table rows beside x's at every D
+
+// two neighbouring elements of a stage as f32
+__device__ __forceinline__ float2 pair_at(const float* p) { return *reinterpret_cast<const float2*>(p); }
+__device__ __forceinline__ float2 pair_at(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+template <int MODE, bool WRES>
+__global__ void __launch_bounds__(kDxThreads, 1)
+    ce_bwd_dw_mma_kernel(const typename DxMode<MODE>::X* __restrict__ x,
+                         const float* __restrict__ w, const float* __restrict__ bias,
+                         const int32_t* __restrict__ lab, const float* __restrict__ logz,
+                         const float* __restrict__ dnll, float* __restrict__ dw,
+                         float* __restrict__ db, int n, int v, int d, int row_offset,
+                         int num_valid, int x_vec) {
+  using M = DxMode<MODE>;
+  using X = typename M::X;
+  constexpr int kVec = 16 / static_cast<int>(sizeof(X));                // elements of one 16-byte copy
+  constexpr int kStageRow = kDxStageRow / static_cast<int>(sizeof(X));  // elements of a stage row
+  extern __shared__ __align__(16) unsigned char smem_dw[];
+  const DxSmem<MODE> L(d, WRES, kDwStages);
+  const int vrow0 = blockIdx.x * kDxVocab;
   const int d_lo = blockIdx.y * kOutCols;
   const int d_hi = min(d, d_lo + kOutCols);
-  const int n_rtiles = (n + kTile - 1) / kTile;
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-  // dW register tile: table rows grp + 4r, columns d_lo + dcol + 64c
-  const int grp = threadIdx.x / 64;
-  const int dcol = threadIdx.x % 64;
-  const bool sums_db = db != nullptr && blockIdx.y == 0 && threadIdx.x < kTile;
+  const int n_rtiles = (n + kDxRows - 1) / kDxRows;
+  const int nk = (d + kDxChunk - 1) / kDxChunk;            // chunks of the score product
+  const int no = (d_hi - d_lo + kDxChunk - 1) / kDxChunk;  // and of the block's output columns
+  const int steps = nk + no;                               // chunks of x per row tile
+  const int total = n_rtiles * steps;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int rg = (warp & 3) * 16;            // the warp's 16 table rows (of s^T and of dW)
+  const int cg = (warp >> 2) * (8 * kDxNT);  // its first row of x in s^T, and column of each dW chunk
+  const int rf_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int rf_col = (lane >> 4) * 16;
+  const int cf_row = (lane & 7) + (lane >> 4) * 8;
+  const int cf_col = ((lane >> 3) & 1) * 16;
+  const uint32_t base = tc::shared_addr(smem_dw);
+  const uint32_t x_addr = base + L.chunk_at;  // x's converted chunk
 
-  if (WHOLE) load_w_tile<T>(ws, w, col0, v, d, 0, d, stride);
-  float acc[16][kOutChunks];
-#pragma unroll
-  for (int r = 0; r < 16; ++r)
-#pragma unroll
-    for (int c = 0; c < kOutChunks; ++c) acc[r][c] = 0.f;
-  float acc_db = 0.f;
+  // columns [c0, c0 + ncols) of the block's table rows into their planes
+  auto load_w = [&](int c0, int ncols) {
+    for (int idx = threadIdx.x; idx < kDxVocab * ncols; idx += kDxThreads) {
+      const int r = idx / ncols;
+      const int c = idx - r * ncols;
+      const bool ok = vrow0 + r < v && c0 + c < d;
+      const float val = ok ? w[static_cast<long long>(vrow0 + r) * d + c0 + c] : 0.f;
+      put_one<MODE>(smem_dw + L.res_at + r * L.res_row, L.res_plane, c, val);
+    }
+  };
+  // the chunk of x of step `step` (row tile, then its columns) into its stage
+  auto issue = [&](int step) {
+    const int tile = step / steps;
+    const int r = step - tile * steps;
+    const int col = r < nk ? r * kDxChunk : d_lo + (r - nk) * kDxChunk;
+    const int xrow0 = tile * kDxRows;
+    X* dst = reinterpret_cast<X*>(smem_dw + (step % kDwStages) * kDxStage);
+    if (x_vec) {
+      for (int idx = threadIdx.x; idx < kDxRows * kDxChunk / kVec; idx += kDxThreads) {
+        const int rr = idx / (kDxChunk / kVec);
+        const int c = (idx % (kDxChunk / kVec)) * kVec;
+        const bool ok = xrow0 + rr < n && col + c < d;
+        const X* src = ok ? x + static_cast<long long>(xrow0 + rr) * d + col + c : x;
+        tc::cp_async_16(dst + rr * kStageRow + c, src, ok);
+      }
+    } else {
+      for (int idx = threadIdx.x; idx < kDxRows * kDxChunk; idx += kDxThreads) {
+        const int rr = idx / kDxChunk;
+        const int c = idx % kDxChunk;
+        const bool ok = xrow0 + rr < n && col + c < d;
+        dst[rr * kStageRow + c] = ok ? x[static_cast<long long>(xrow0 + rr) * d + col + c] : from_f<X>(0.f);
+      }
+    }
+  };
 
+  if (WRES) load_w(0, (d + kDxChunk - 1) / kDxChunk * kDxChunk);
+  int q = 0;
+  for (int step = 0; step < kDwStages - 1; ++step) {  // one commit group per step, empty past the end
+    if (step < total) issue(step);
+    tc::cp_async_commit();
+  }
+  // Step q: wait for its chunk of x, convert it once into the numerics'
+  // planes (at the row of the product it feeds: x_row) and, without the
+  // resident table, load the table's chunk w_col (-1: none); start the copy
+  // of step q + kDwStages - 1 into the stage step q - 1 used. The first
+  // barrier also ends every read of the previous step's stage and planes.
+  auto advance = [&](int w_col, int x_row) {
+    tc::cp_async_wait<kDwStages - 2>();
+    __syncthreads();
+    const X* src = reinterpret_cast<const X*>(smem_dw + (q % kDwStages) * kDxStage);
+    for (int idx = threadIdx.x; idx < kDxRows * kDxChunk / 2; idx += kDxThreads) {
+      const int rr = idx / (kDxChunk / 2);
+      const int c = (idx % (kDxChunk / 2)) * 2;
+      const float2 val = pair_at(src + rr * kStageRow + c);
+      put_pair<MODE>(smem_dw + L.chunk_at + rr * x_row, M::kWPlane, c, val.x, val.y);
+    }
+    if (!WRES && w_col >= 0) load_w(w_col, kDxChunk);
+    if (q + kDwStages - 1 < total) issue(q + kDwStages - 1);
+    tc::cp_async_commit();
+    __syncthreads();
+    ++q;
+  };
+
+  float acc[kDxOutChunks][kDxNT][4];
+#pragma unroll
+  for (int o = 0; o < kDxOutChunks; ++o)
+#pragma unroll
+    for (int nt = 0; nt < kDxNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[o][nt][e] = 0.f;
+
+  // the thread's two table rows, rg + g and rg + g + 8, for the block's
+  // life: whether they exist, their bias, whether they are in the window;
+  // and their share of db
+  bool live[2], inside[2];
+  float b_row[2], db_sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = vrow0 + rg + g + 8 * half;
+    live[half] = row < v;
+    inside[half] = in_window(row, row_offset, num_valid);
+    b_row[half] = bias != nullptr && live[half] ? bias[row] : 0.f;
+  }
+
+  const uint32_t a_at = base + L.a_at + (rg + rf_row) * M::kChunkRow + rf_col;
   for (int it = 0; it < n_rtiles; ++it) {
-    const int row0 = it * kTile;
-    float s[4][4];
-    zero_tile(s);
-    for (int kc = 0; kc < d; kc += kChunk) {
-      __syncthreads();  // the readers of cs (and of as) are done
-      load_x_tile<T>(cs, x, row0, n, d, kc, kChunk, kCStride);
-      if (!WHOLE) load_w_tile<T>(ws, w, col0, v, d, kc, kChunk, stride);
-      __syncthreads();
-      score_add(cs + ty * kCStride, kCStride, ws + tx * stride + (WHOLE ? kc : 0), stride,
-                min(kChunk, d - kc), s);
+    float s[kDxNT][4];
+#pragma unroll
+    for (int nt = 0; nt < kDxNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+    for (int c = 0; c < nk; ++c) {
+      advance(c * kDxChunk, M::kChunkRow);
+      const uint32_t wa = base + L.res_at + (WRES ? c * kDxChunk * M::kElem : 0) + (rg + rf_row) * L.res_row + rf_col;
+      const uint32_t xa = x_addr + (cg + cf_row) * M::kChunkRow + cf_col;
+      dx_scores<MODE, kDwFlush>(s, wa, L.res_row, L.res_plane, xa, M::kChunkRow, M::kWPlane);
     }
-    const int nonzero = adjoint_tile(s, as, kAStride, bias, lab, logz, dnll,
-                                     row0, col0, n, v, row_offset, num_valid);
-    if (!__syncthreads_or(nonzero)) continue;  // A == 0: nothing to add
 
-    if (sums_db) {
-      for (int rr = 0; rr < kTile; ++rr) acc_db += as[rr * kAStride + threadIdx.x];
+    // A^T = dnll (exp(s^T (+ b) - logz) - onehot), blinded outside the
+    // window; 0 past n and v. Its columns are rows of x: logz, dnll, label.
+    const int row0 = it * kDxRows;
+    float lz[kDxNT][2], gr[kDxNT][2];
+    int lb[kDxNT][2];
+#pragma unroll
+    for (int nt = 0; nt < kDxNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = row0 + cg + nt * 8 + 2 * t + e;
+        const bool ok = row < n;
+        lz[nt][e] = ok ? logz[row] : 0.f;
+        gr[nt][e] = ok ? dnll[row] : 0.f;
+        lb[nt][e] = ok ? lab[row] : -1;
+      }
+    int nonzero = 0;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = rg + g + 8 * half;
+      const int vrow = vrow0 + r;
+#pragma unroll
+      for (int nt = 0; nt < kDxNT; ++nt) {
+        const int cl = cg + nt * 8 + 2 * t;
+        float a[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          a[e] = 0.f;
+          if (live[half] && row0 + cl + e < n) {
+            float val = s[nt][2 * half + e];
+            if (bias != nullptr) val = __fadd_rn(val, b_row[half]);
+            if (!inside[half]) val = kNegBig;
+            a[e] = gr[nt][e] * (expf(val - lz[nt][e]) - (vrow == lb[nt][e] ? 1.f : 0.f));  // blinded: exactly 0
+          }
+          nonzero |= a[e] != 0.f;
+          db_sum[half] += a[e];
+        }
+        put_pair<MODE>(smem_dw + L.a_at + r * M::kChunkRow, M::kChunkPlane, cl, a[0], a[1]);
+      }
     }
-    // dW[grp + 4r, dc0 + dcol] += sum_rr A[rr, grp + 4r] * x[rr, dc0 + dcol]
+    nonzero = __syncthreads_or(nonzero);
+
 #pragma unroll
-    for (int c = 0; c < kOutChunks; ++c) {
-      const int dc0 = d_lo + kTile * c;
-      if (dc0 >= d_hi) break;  // the same for every thread of the block
-      __syncthreads();         // the readers of cs are done
-      load_x_tile<T>(cs, x, row0, n, d, dc0, kTile, kCStride);
-      __syncthreads();
-      for (int rr = 0; rr < kTile; ++rr) {
-        const float xv = cs[rr * kCStride + dcol];
-#pragma unroll
-        for (int r = 0; r < 16; ++r)
-          acc[r][c] = fmaf(round_to<T>(as[rr * kAStride + grp + 4 * r]), xv,
-                           acc[r][c]);
+    for (int o = 0; o < kDxOutChunks; ++o) {
+      if (o < no) {  // the same for every thread of the block
+        advance(-1, M::kOutRow);
+        if (nonzero) dx_product<MODE, kDwFlush>(acc[o], a_at, x_addr, smem_dw + L.chunk_at, cg, lane);
       }
     }
   }
+  tc::cp_async_wait<0>();
+
 #pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    const int col = col0 + grp + 4 * r;
-    if (col >= v) continue;
+  for (int o = 0; o < kDxOutChunks; ++o) {
 #pragma unroll
-    for (int c = 0; c < kOutChunks; ++c) {
-      const int dc = d_lo + kTile * c + dcol;
-      if (dc < d_hi) dw[static_cast<long long>(col) * d + dc] = acc[r][c];
+    for (int nt = 0; nt < kDxNT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = vrow0 + rg + g + 8 * (e >> 1);
+        const int col = d_lo + o * kDxChunk + cg + nt * 8 + 2 * t + (e & 1);
+        if (o < no && row < v && col < d_hi) dw[static_cast<long long>(row) * d + col] = acc[o][nt][e];
+      }
     }
   }
-  if (sums_db && col0 + threadIdx.x < v) db[col0 + threadIdx.x] = acc_db;
+
+  if (db != nullptr && blockIdx.y == 0) {  // the same for every thread of the block
+#pragma unroll
+    for (int half = 0; half < 2; ++half) db_sum[half] = tc::quad_sum(db_sum[half]);
+    __syncthreads();  // every copy has landed and every stage been read: stage 0 is free
+    float* part = reinterpret_cast<float*>(smem_dw);  // (kDxColWarps, 64): each column warp's sums
+    if (t == 0) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) part[(warp >> 2) * kDxVocab + rg + g + 8 * half] = db_sum[half];
+    }
+    __syncthreads();
+    const int r = threadIdx.x;
+    if (r < kDxVocab && vrow0 + r < v) {
+      float sum = 0.f;
+      for (int cw = 0; cw < kDxColWarps; ++cw) sum += part[cw * kDxVocab + r];
+      db[vrow0 + r] = sum;
+    }
+  }
 }
 
 // ---------------------------------------------------------------- launchers
@@ -662,7 +819,7 @@ cudaError_t launch_dx_mma(const void* x, const void* w, const void* bias, const 
                           cudaStream_t stream) {
   using X = typename DxMode<MODE>::X;
   auto kernel = ce_bwd_dx_mma_kernel<MODE, XRES>;
-  const size_t smem = DxSmem<MODE>(d, XRES).total;
+  const size_t smem = DxSmem<MODE>(d, XRES, kDxStages).total;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int w_vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
@@ -681,38 +838,42 @@ cudaError_t launch_dx_tc(const void* x, const void* w, const void* bias, const v
                          const void* logz, const void* dnll, void* part, int n, int v, int d,
                          int row_offset, int num_valid, int splits, int tiles_per_split,
                          cudaStream_t stream) {
-  const bool resident = DxSmem<MODE>(d, true).total <= kMaxSmem;
+  const bool resident = DxSmem<MODE>(d, true, kDxStages).total <= kMaxSmem;
   return resident ? launch_dx_mma<MODE, true>(x, w, bias, lab, logz, dnll, part, n, v, d, row_offset,
                                               num_valid, splits, tiles_per_split, stream)
                   : launch_dx_mma<MODE, false>(x, w, bias, lab, logz, dnll, part, n, v, d, row_offset,
                                                num_valid, splits, tiles_per_split, stream);
 }
 
-template <typename T, bool WHOLE>
-cudaError_t launch_dw(const void* x, const void* w, const void* bias,
-                      const void* lab, const void* logz, const void* dnll,
-                      void* dw, void* db, int n, int v, int d, int row_offset,
-                      int num_valid, cudaStream_t stream) {
-  const size_t smem = dw_smem(d, WHOLE);
-  const cudaError_t err = allow_smem(ce_bwd_dw_kernel<T, WHOLE>, smem);
+template <int MODE, bool WRES>
+cudaError_t launch_dw_mma(const void* x, const void* w, const void* bias, const void* lab,
+                          const void* logz, const void* dnll, void* dw, void* db, int n, int v,
+                          int d, int row_offset, int num_valid, cudaStream_t stream) {
+  using X = typename DxMode<MODE>::X;
+  auto kernel = ce_bwd_dw_mma_kernel<MODE, WRES>;
+  const size_t smem = DxSmem<MODE>(d, WRES, kDwStages).total;
+  const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((v + kTile - 1) / kTile, (d + kOutCols - 1) / kOutCols);
-  ce_bwd_dw_kernel<T, WHOLE><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(bias), static_cast<const int32_t*>(lab),
-      static_cast<const float*>(logz), static_cast<const float*>(dnll),
-      static_cast<float*>(dw), static_cast<float*>(db), n, v, d, row_offset,
-      num_valid);
+  const int x_vec = d % (16 / sizeof(X)) == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const dim3 grid((v + kDxVocab - 1) / kDxVocab, (d + kOutCols - 1) / kOutCols);
+  kernel<<<grid, kDxThreads, smem, stream>>>(
+      static_cast<const X*>(x), static_cast<const float*>(w), static_cast<const float*>(bias),
+      static_cast<const int32_t*>(lab), static_cast<const float*>(logz),
+      static_cast<const float*>(dnll), static_cast<float*>(dw), static_cast<float*>(db), n, v, d,
+      row_offset, num_valid, x_vec);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dw_route(const void* x, const void* w, const void* bias, const void* lab,
-                            const void* logz, const void* dnll, void* dw, void* db, int n, int v,
-                            int d, int row_offset, int num_valid, cudaStream_t stream) {
-  return dw_whole(d)
-             ? launch_dw<T, true>(x, w, bias, lab, logz, dnll, dw, db, n, v, d, row_offset, num_valid, stream)
-             : launch_dw<T, false>(x, w, bias, lab, logz, dnll, dw, db, n, v, d, row_offset, num_valid, stream);
+// the table rows resident where their planes fit one block with the rest
+template <int MODE>
+cudaError_t launch_dw_tc(const void* x, const void* w, const void* bias, const void* lab,
+                         const void* logz, const void* dnll, void* dw, void* db, int n, int v,
+                         int d, int row_offset, int num_valid, cudaStream_t stream) {
+  const bool resident = kDwResident && DxSmem<MODE>(d, true, kDwStages).total <= kMaxSmem;
+  return resident ? launch_dw_mma<MODE, true>(x, w, bias, lab, logz, dnll, dw, db, n, v, d,
+                                              row_offset, num_valid, stream)
+                  : launch_dw_mma<MODE, false>(x, w, bias, lab, logz, dnll, dw, db, n, v, d,
+                                               row_offset, num_valid, stream);
 }
 
 }  // namespace
@@ -754,10 +915,9 @@ extern "C" int b4cp_ce_bwd_dw(const void* x, const void* w, const void* bias,
   if (set != cudaSuccess) return static_cast<int>(set);
   if (v == 0 || d == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch_dw_route<__nv_bfloat16>(x, w, bias, lab, logz, dnll, dw, db, n, v, d,
-                                               row_offset, num_valid, s)
-              : launch_dw_route<float>(x, w, bias, lab, logz, dnll, dw, db, n, v, d, row_offset,
-                                       num_valid, s);
+  const auto args = [&](auto launch) {
+    return launch(x, w, bias, lab, logz, dnll, dw, db, n, v, d, row_offset, num_valid, s);
+  };
+  const cudaError_t err = is_bf16 ? args(launch_dw_tc<kDxBf16>) : args(launch_dw_tc<kDxNumerics>);
   return static_cast<int>(err);
 }

@@ -19,14 +19,14 @@ Counterparts of the Pallas kernels of
   :func:`ce_backward_route`.
 
 All compute in x's dtype as the JAX kernels do (``w.astype(x.dtype)``, and
-A rounded to it before the products): for f32 x the forward, the merged
-backward and the dW pass in f32 FMA, and the dx pass on the tensor cores
-with each f32 operand as two tf32 terms, hi + lo, in three products with
-f32 sums (``kDxNumerics`` in ``fused_ce_two_pass.cu``: measured against a
-dense f64 oracle beside f32 FMA, one TF32 product and three bf16 ones,
-PERF.md "the dx numerics decision"; within the f32 tolerances of the plain
-version); for bf16 x exact bf16
-products with f32 sums (the dx pass on the tensor cores). dx sums in f32
+A rounded to it before the products): for f32 x the forward and the merged
+backward in f32 FMA, and the dx and dW passes on the tensor cores with each
+f32 operand as two tf32 terms, hi + lo, in three products with f32 sums
+(``kDxNumerics`` in ``fused_ce_two_pass.cu``: measured against a dense f64
+oracle beside f32 FMA, one TF32 product and three bf16 ones, PERF.md "the
+dx numerics decision"; within the f32 tolerances of the plain version); for
+bf16 x exact bf16 products with f32 sums (the two passes on the tensor
+cores). dx sums in f32
 over the whole vocabulary and rounds to x's dtype once; the JAX dx kernel
 rounds its bf16 output once per vocab tile, so bf16 dx agrees with it to a
 few bf16 ulps (f32 is unaffected). The CUDA kernels are

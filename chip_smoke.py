@@ -8,9 +8,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device  — requires a CUDA card; prints its name and power limit
    (nvidia-smi) and PyTorch's TF32 flags (left off: the catalog scan is f32,
-   and so are the plain versions the kernels are held to; the CE dx kernel
-   runs its own products on the tensor cores, each f32 operand split into
-   two tf32 terms inside the kernel, three products with f32 sums).
+   and so are the plain versions the kernels are held to; the CE dx and dW
+   kernels run their own products on the tensor cores, each f32 operand
+   split into two tf32 terms inside the kernel, three products with f32
+   sums).
 2. build   — builds the port's CUDA kernels from ``bert4clickpath_torch/csrc``
    with nvcc for sm_90a (one compile per source, in parallel) and prints the
    build time and ptxas' report.
@@ -30,8 +31,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    (16384, 256) (bit-equal to its plain Philox version), the gather and
    the fused CE once more at the long-session path's shapes, and the
    two-pass CE backward (dx and dW kernels) with the forward at N=2,560,
-   V=55,296, D=384 in f32 and bf16, with and without a bias, then at D=256
-   timed beside the merged backward; the dx pass's numerics table (the
+   V=55,296, D=384 in f32 and bf16, with and without a bias (two runs of
+   each pass bit-equal), then at D=256 timed beside the merged backward; the dx pass's numerics table (the
    shipped three TF32 products, and copies of its source built with one
    TF32 product and with three bf16 ones, beside the plain version's f32
    FMA, each against a dense f64 oracle at D=384 and 256, and on the card
@@ -184,9 +185,9 @@ BLOCKWISE_BWD_TOL = {torch.bfloat16: dict(share=2e-3, floor=1e-2, rtol=2.0**-6),
 # published peaks of one H100 SXM (dense): device memory bytes/s, bf16 tensor
 # FLOP/s, f32 FLOP/s outside the tensor cores (also used for integer work)
 PEAK = {"bytes": 3.35e12, "bf16": 989e12, "tf32": 495e12, "f32": 67e12}
-# the dx pass's numerics (csrc/fused_ce_two_pass.cu kDxNumerics, tf32 x3):
-# the operand type its products run at and how many products each of its
-# two takes
+# the numerics of the dx and dW passes (csrc/fused_ce_two_pass.cu
+# kDxNumerics, tf32 x3): the operand type their products run at and how many
+# products each of their two takes
 DX_RATING = ("tf32", 3)
 
 
@@ -839,6 +840,7 @@ def ce_two_pass_at(rng, n: int, v_rows: int, nv: int, d: int, card: str, off: in
             dx = k.ce_backward_dx(*args)
             dw, db = k.ce_backward_dw(*args)
             again = k.ce_backward_dx(*args)
+            dw2, db2 = k.ce_backward_dw(*args)
             want_dx = k.ce_backward_dx_reference(*args)
             want_dw, want_db = k.ce_backward_dw_reference(*args)
             torch.cuda.synchronize()
@@ -848,6 +850,8 @@ def ce_two_pass_at(rng, n: int, v_rows: int, nv: int, d: int, card: str, off: in
                 e_dw = max(e_dw, _held(f"CE dW pass {tag} db", db, want_db, CE_GRAD_REL))
             if not torch.equal(dx, again):
                 raise AssertionError(f"CE dx pass {tag}: two runs differ (it sums in a fixed order)")
+            if not torch.equal(dw, dw2) or (with_bias and not torch.equal(db, db2)):
+                raise AssertionError(f"CE dW pass {tag}: two runs differ (it sums in a fixed order)")
             if not bool((dw[blinded] == 0).all()):
                 raise AssertionError(f"CE dW pass {tag}: a blinded table row got a gradient")
             if dtype == torch.float32:
@@ -889,22 +893,24 @@ def ce_two_pass_at(rng, n: int, v_rows: int, nv: int, d: int, card: str, off: in
                 + (f"; merged backward {t['merged']:.3f} ms against dx + dW {t['dx'] + t['dw']:.3f} ms"
                    if "merged" in t else "") + f" (best of two windows of median device time) [{card}]")
     # bounds count what this run's data needs: the nv rows of the window and
-    # the rows whose label is not LABEL_PAD; each pass is two products. The
-    # dx pass is rated at its numerics' operand type, three products each
-    # for a split (its f32 rating logged beside). No PyTorch call computes
-    # either without the (N, V) logits: library_ms null
+    # the rows whose label is not LABEL_PAD; each pass is two products, rated
+    # at the numerics' operand type, three products each for a split (the
+    # f32 rating logged beside). No PyTorch call computes either without the
+    # (N, V) logits: library_ms null
     t = times[torch.float32]
     common = (n * d + nv * d + 3 * n) * 4
     ops = {"f32": 4.0 * live * nv * d}
     kind, terms = DX_RATING
-    dx_bound = bound(common + n * d * 4, {kind: terms * 4.0 * live * nv * d})
-    log(f"[kernels] CE dx pass N={n} V={v_rows} D={d} f32: {t['dx']:.4f} ms; bound {dx_bound['bound_ms']:.4f} ms "
-        f"at tf32 x3 ({terms} {kind} products each; share {dx_bound['bound_ms'] / t['dx']:.3f}), "
-        f"{bound(common + n * d * 4, ops)['bound_ms']:.4f} ms rated at f32 [{card}]")
+    bounds = {}
+    for name, label, out_bytes in (("dx", "dx", n * d * 4), ("dw", "dW", nv * d * 4)):
+        bounds[name] = bound(common + out_bytes, {kind: terms * 4.0 * live * nv * d})
+        log(f"[kernels] CE {label} pass N={n} V={v_rows} D={d} f32: {t[name]:.4f} ms; bound "
+            f"{bounds[name]['bound_ms']:.4f} ms at tf32 x3 ({terms} {kind} products each; share "
+            f"{bounds[name]['bound_ms'] / t[name]:.3f}), {bound(common + out_bytes, ops)['bound_ms']:.4f} ms "
+            f"rated at f32 [{card}]")
     return {
-        "ce_bwd_dx": dict(max_abs_err=errs["dx"], ms=t["dx"], plain_ms=t["dx_plain"], library_ms=None, **dx_bound),
-        "ce_bwd_dw": dict(max_abs_err=errs["dw"], ms=t["dw"], plain_ms=t["dw_plain"], library_ms=None,
-                          **bound(common + nv * d * 4, ops)),
+        "ce_bwd_dx": dict(max_abs_err=errs["dx"], ms=t["dx"], plain_ms=t["dx_plain"], library_ms=None, **bounds["dx"]),
+        "ce_bwd_dw": dict(max_abs_err=errs["dw"], ms=t["dw"], plain_ms=t["dw_plain"], library_ms=None, **bounds["dw"]),
         "times": times,
     }
 

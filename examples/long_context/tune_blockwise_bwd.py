@@ -12,13 +12,13 @@ ship with.
     python3 examples/long_context/tune_blockwise_bwd.py --kernel ce_fwd \\
         --shape 2560,55296,384 --variant shipped: --variant c64:kFwdChunk=64
     python3 examples/long_context/tune_blockwise_bwd.py --kernel ce_dw \\
-        --shape 2560,55296,256 --variant shipped: --variant stream:kDwWhole=false
+        --variant shipped: --variant flush4:kDwFlush=4 --variant stream:kDwResident=false
 
 ``--kernel`` (repeatable; default ``dq`` and ``dkv``) names what is timed:
 the blockwise forward (``fwd``), dq, dk/dv, the whole-row forward
 (``mha_fwd``) or backward (``mha_bwd``), or the fused CE forward
-(``ce_fwd``), dx pass (``ce_dx``, in the numerics ``kDxNumerics`` names)
-or dW pass (``ce_dw``), f32 x. Each ``--variant name:CONST=value,...`` is a
+(``ce_fwd``), dx pass (``ce_dx``) or dW pass (``ce_dw``), both in the
+numerics ``kDxNumerics`` names, f32 x. Each ``--variant name:CONST=value,...`` is a
 copy of the sources with the named ``constexpr`` constants set to the
 given expressions:
 ``kWalk``, ``kFragmentsResident``; ``kDqWarps``, ``kDqPass``,
@@ -28,7 +28,7 @@ given expressions:
 ``kMhaFragmentsResident``, ``kMhaDvSplit``; ``kMhaFwdWarps``,
 ``kMhaFwdPass``; ``kFwdChunk``; ``kDxNumerics`` (``kDxTf32``,
 ``kDxTf32x3``, ``kDxBf16x3``), ``kDxStages``, ``kDxFlush``, ``kDxColWarps``;
-``kDwWhole``. All copies are compiled
+``kDwStages``, ``kDwFlush``, ``kDwResident``. All copies are compiled
 together (one nvcc each) into ``build/tune/``, loaded beside the port's own
 library, held against the plain version at the kernel's main-path shape,
 bf16 ((B, L, D, H) = (16, 1024, 256, 4) for the blockwise kernels, (256, 53,
@@ -107,10 +107,10 @@ def build_variants(variants: dict[str, dict[str, str]], sources: list[str], entr
         for line in log.splitlines():
             if "Compiling entry" in line:
                 entry = re.search(r"mha_\w+?_kernelILi\d+E|mha_\w+?_kernelI\w+?Li\d+E|ce_fwd_kernelIfLb\dE"
-                                  r"|dx_mma_kernelILi\dELb\dE|dw_kernelIfLb\dE", line)
+                                  r"|d[xw]_mma_kernelILi\dELb\dE", line)
                 entry = entry.group(0) if entry else ""
             elif ("_mma_kernelILi64E" in entry or "ce_fwd_kernelIf" in entry or "dx_mma_kernel" in entry
-                  or "dw_kernelIf" in entry) and ("registers" in line or "spill" in line):
+                  or "dw_mma_kernel" in entry) and ("registers" in line or "spill" in line):
                 print(f"[{name}] {entry}: {line.strip()}", flush=True)
         lib = ctypes.CDLL(os.path.join(out_dir, name, "lib.so"))
         for fn in entries:

@@ -18,9 +18,10 @@ x) of the reference's largest magnitude (dx sums with atomics, in an order
 that varies run to run; bf16 x rounds A, which may round the other way).
 The two-pass CE backward: the same, but its dx sums in a fixed order, so two
 runs give the same bits, and a bf16 dx may besides round its f32 sum the
-other way (one bf16 ulp, 2^-7 of the value). Its dx pass runs on the
-tensor cores (f32 x as hi + lo tf32 terms, three products) and is held to
-the same f32 tolerance; no CE kernel refuses a row width.
+other way (one bf16 ulp, 2^-7 of the value). Its dx and dW passes run on
+the tensor cores (f32 x as hi + lo tf32 terms, three products) and are held
+to the same f32 tolerance; the dW pass writes each dW row once (no
+atomics), so two runs give the same bits; no CE kernel refuses a row width.
 Blockwise attention: the running maximum the forward rounds p against, and
 the order of the f32 sums, depend on the tile walk, so the bf16 forward
 (tensor cores, 32 keys at a time, fast exp) is held to two bf16 ulps of the
@@ -627,11 +628,63 @@ def test_ce_dx_pass_at_any_width(cuda, d, dtype):
             assert bool((diff <= 2e-2 * want.float().abs().max() + 2.0**-7 * want.float().abs()).all())
 
 
+def _check_dw(args, dtype, cuda):
+    """Two runs of the dW pass against its plain version: dW and db within
+    1e-4 (f32 x) or 2e-2 (bf16 x) of the largest magnitude, bit-equal to
+    each other, blinded rows but the OOV label's exactly 0."""
+    x, table, bias, lab, _, _, off, nv = args
+    v, d = table.shape
+    before = _build.launch_counts()["ce_bwd_dw"]
+    dw, db = ce_kernels.ce_backward_dw(*args)
+    dw2, db2 = ce_kernels.ce_backward_dw(*args)
+    assert _build.launch_counts()["ce_bwd_dw"] == before + 2
+    wdw, wdb = ce_kernels.ce_backward_dw_reference(*args)
+    torch.cuda.synchronize()
+    assert dw.dtype == torch.float32 and dw.shape == (v, d) and torch.isfinite(dw).all()
+    assert torch.equal(dw, dw2), "two runs differ"
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
+    _near(dw, wdw, rel)
+    if bias is None:
+        assert db is None and db2 is None
+    else:
+        assert db.shape == (v,) and torch.equal(db, db2), "two runs of db differ"
+        _near(db, wdb, rel)
+    blinded = torch.ones(v, dtype=torch.bool, device=cuda)
+    blinded[off : off + nv] = False
+    blinded[lab[1].long()] = False
+    assert (dw[blinded] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", DX_WIDTHS)
+def test_ce_dw_pass_at_any_width(cuda, d, dtype):
+    """The tensor-core dW pass at widths around every chunk and tile edge
+    (the table rows resident in shared memory up to D = 384 in f32, streamed
+    above; D split over the grid above 384), N = 130 rows (off the 64-row
+    tile) over a ragged V = 700, with and without a bias, an OOV label:
+    see _check_dw."""
+    for with_bias in (False, True):
+        x, table, bias, lab, dnll, off, nv = _ce_case(130, 700, d, dtype, with_bias, seed=d + 2, oov=True)
+        wm, wl = ce_stats_reference(x, table, bias, off, nv)
+        _check_dw((x, table, bias, lab, wm + torch.log(wl), dnll, off, nv), dtype, cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ce_dw_pass_skips_a_zero_row_tile(cuda, dtype):
+    """A tile of 64 rows of x whose dnll is all zero, between two live
+    ones, makes A^T zero there and the kernel skips that tile's product:
+    N = 200 over a ragged V = 1,000, D = 384, with a bias; see _check_dw."""
+    x, table, bias, lab, dnll, off, nv = _ce_case(200, 1000, 384, dtype, True, seed=5, oov=True)
+    dnll[64:128] = 0.0
+    wm, wl = ce_stats_reference(x, table, bias, off, nv)
+    _check_dw((x, table, bias, lab, wm + torch.log(wl), dnll, off, nv), dtype, cuda)
+
+
 @pytest.mark.parametrize("d", [454, 714, 1024])
 def test_ce_forward_and_dw_at_wide_rows(cuda, d):
     """The forward and the dW pass past the widths their whole tiles held
-    (the dW pass streams its table rows above D = 713; the forward streams
-    every D): logz abs 1e-4 plus 4e-6 of |logz| (logits reach ~60 at D =
+    (the dW pass streams its table rows above D = 384 in f32; the forward
+    streams every D): logz abs 1e-4 plus 4e-6 of |logz| (logits reach ~60 at D =
     1,024, where f32 sums in another order move logz by a few tens of its
     ulps: 1.1e-4 measured on an H100), dW and db 1e-4 of the largest
     magnitude (f32 x) or 2e-2 (bf16 x)."""
