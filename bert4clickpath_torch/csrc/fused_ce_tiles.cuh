@@ -1,9 +1,9 @@
-// Tile helpers shared by the fused-CE kernels (fused_ce.cu, the forward and
-// the merged backward; fused_ce_two_pass.cu, the two-pass backward): 64 x 64
-// tiles of s = x . W^T worked by 256 threads, each owning a 4 x 4 register
-// tile (rows ty + 16r, columns tx + 16c), the operands in shared memory as
-// f32 with rows padded by one float so lanes reading different rows hit
-// different banks.
+// Tile helpers of the fused-CE forward (fused_ce.cu), whose 64 x 64 tiles of
+// s = x . W^T are worked by 256 threads, each owning a 4 x 4 register tile
+// (rows ty + 16r, columns tx + 16c), the operands in shared memory as f32
+// with rows padded by one float so lanes reading different rows hit
+// different banks; and constants and helpers the backward kernels
+// (fused_ce_mma.cuh) and the blockwise attention kernels share.
 
 #pragma once
 
@@ -127,15 +127,6 @@ __device__ __forceinline__ void zero_tile(float acc[4][4]) {
     for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
 }
 
-// acc[r][c] = x_tile[ty + 16r] . w_tile[tx + 16c], both tiles whole (d wide)
-__device__ __forceinline__ void score_tile(const float* xs, const float* ws,
-                                           int d, int stride,
-                                           float acc[4][4]) {
-  zero_tile(acc);
-  score_add(xs + (threadIdx.x / 16) * stride, stride,
-            ws + (threadIdx.x % 16) * stride, stride, d, acc);
-}
-
 // reductions over the 16 lanes that share a row (lanes differ in tx)
 __device__ __forceinline__ float half_warp_max(float x) {
   for (int o = 8; o > 0; o >>= 1)
@@ -150,51 +141,6 @@ __device__ __forceinline__ float half_warp_sum(float x) {
 __device__ __forceinline__ bool in_window(int col, int row_offset,
                                           int num_valid) {
   return col >= row_offset && col < row_offset + num_valid;
-}
-
-// A = dnll * (exp(s - logz) - onehot(label)) for the caller's 4 x 4 entries
-// of the tile at (row0, col0), written into `as` (kTile x astride, f32,
-// unrounded). s is the raw product: the bias is added here, before the
-// blinding of columns outside the window, as in the forward. Entries past n
-// or v are 0. Returns whether any of the caller's entries is non-zero.
-__device__ __forceinline__ int adjoint_tile(
-    const float s[4][4], float* as, int astride,
-    const float* __restrict__ bias, const int32_t* __restrict__ lab,
-    const float* __restrict__ logz, const float* __restrict__ dnll, int row0,
-    int col0, int n, int v, int row_offset, int num_valid) {
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-  float bias_c[4];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int col = col0 + tx + 16 * c;
-    bias_c[c] = (bias != nullptr && col < v) ? bias[col] : 0.f;
-  }
-  int nonzero = 0;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = row0 + ty + 16 * r;
-    const bool valid_row = row < n;
-    const float lz = valid_row ? logz[row] : 0.f;
-    const float g = valid_row ? dnll[row] : 0.f;
-    const int lb = valid_row ? lab[row] : -1;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int col = col0 + tx + 16 * c;
-      float a = 0.f;
-      if (valid_row && col < v) {
-        float val = s[r][c];
-        if (bias != nullptr) val = __fadd_rn(val, bias_c[c]);
-        if (!in_window(col, row_offset, num_valid)) val = kNegBig;
-        const float p = expf(val - lz);  // blinded rows: exactly 0
-        const float onehot = col == lb ? 1.f : 0.f;
-        a = g * (p - onehot);
-      }
-      nonzero |= a != 0.f;
-      as[(ty + 16 * r) * astride + tx + 16 * c] = a;
-    }
-  }
-  return nonzero;
 }
 
 template <typename K>

@@ -53,9 +53,9 @@ SIGNATURES = {
     # num_valid, splits, tiles_per_split, device, stream
     "b4cp_ce_fwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _I, _I, _I, _P]),
-    # x, w, bias|NULL, labels_model, logz, dnll, dx32, dw, db|NULL, is_bf16,
-    # N, V, D, row_offset, num_valid, device, stream
-    "b4cp_ce_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+    # x, w, bias|NULL, labels_model, logz, dnll, live (N + 1 int32 scratch),
+    # dx32, dw, db|NULL, is_bf16, N, V, D, row_offset, num_valid, device, stream
+    "b4cp_ce_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _I, _I, _I, _P]),
     # x, w, bias|NULL, labels_model, logz, dnll, part (splits, N, D) f32, dx,
     # is_bf16, N, V, D, row_offset, num_valid, splits, tiles_per_split,

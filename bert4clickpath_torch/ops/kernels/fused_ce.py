@@ -19,21 +19,21 @@ Counterparts of the Pallas kernels of
   :func:`ce_backward_route`.
 
 All compute in x's dtype as the JAX kernels do (``w.astype(x.dtype)``, and
-A rounded to it before the products): for f32 x the forward and the merged
-backward in f32 FMA, and the dx and dW passes on the tensor cores with each
-f32 operand as two tf32 terms, hi + lo, in three products with f32 sums
-(``kDxNumerics`` in ``fused_ce_two_pass.cu``: measured against a dense f64
-oracle beside f32 FMA, one TF32 product and three bf16 ones, PERF.md "the
-dx numerics decision"; within the f32 tolerances of the plain version); for
-bf16 x exact bf16 products with f32 sums (the two passes on the tensor
-cores). dx sums in f32
-over the whole vocabulary and rounds to x's dtype once; the JAX dx kernel
-rounds its bf16 output once per vocab tile, so bf16 dx agrees with it to a
-few bf16 ulps (f32 is unaffected). The CUDA kernels are
-``bert4clickpath_torch/csrc/fused_ce.cu`` and ``fused_ce_two_pass.cu``;
-the ``*_reference`` functions are their plain PyTorch versions (dense
-(N, V) f32 logits). CPU tensors take the plain versions, CUDA tensors
-launch the kernels.
+A rounded to it before the products): for f32 x the forward in f32 FMA, and
+every backward product (merged kernel, dx and dW passes) on the tensor
+cores with each f32 operand as two tf32 terms, hi + lo, in three products
+with f32 sums (``kDxNumerics`` in ``csrc/fused_ce_mma.cuh``: measured
+against a dense f64 oracle beside f32 FMA, one TF32 product and three bf16
+ones, PERF.md "the dx numerics decision"; within the f32 tolerances of the
+plain version); for bf16 x exact bf16 products with f32 sums. dx sums in
+f32 over the whole vocabulary and rounds to x's dtype once; the JAX dx
+kernel rounds its bf16 output once per vocab tile, so bf16 dx agrees with it
+to a few bf16 ulps (f32 is unaffected). The CUDA kernels are
+``bert4clickpath_torch/csrc/fused_ce.cu`` (the forward and the merged
+backward's entry), ``fused_ce_two_pass.cu`` and ``fused_ce_mma.cuh``; the
+``*_reference`` functions are their plain PyTorch versions (dense (N, V)
+f32 logits). CPU tensors take the plain versions, CUDA tensors launch the
+kernels.
 
 Which backward runs is a function of the shape alone, like
 ``ops.kernels.attention.attention_family``: the merged kernel keeps a
@@ -216,8 +216,11 @@ def ce_backward_merged(
     num_valid: int,
 ) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """(dx in x's dtype, dW (V, D) f32, db (V,) f32 or None) from the
-    single-recompute kernel; on the card dx sums with atomics, so it
-    repeats to rounding, not bit for bit."""
+    single-recompute kernel. On the card it walks only the rows whose dnll
+    is nonzero (the others add nothing, and their dx rows are 0); dW and db
+    are summed in a fixed order (two runs give the same bits); dx sums
+    across vocab tiles with f32 atomic adds into a zeroed (N, D) f32
+    scratch, so it repeats to rounding, not bit for bit."""
     _check(x, table, bias, MAX_D)
     _check_rows(x, labels_model, logz, dnll)
     if x.device.type == "cpu":
@@ -229,6 +232,7 @@ def ce_backward_merged(
     lab = labels_model.to(torch.int32).contiguous()
     logz = logz.float().contiguous()
     dnll = dnll.float().contiguous()
+    live = torch.empty(n + 1, dtype=torch.int32, device=x.device)  # the rows the kernel walks
     dx32 = torch.zeros((n, d), dtype=torch.float32, device=x.device)
     dw = torch.empty((v, d), dtype=torch.float32, device=x.device)
     db = None if bias is None else torch.empty(v, dtype=torch.float32, device=x.device)
@@ -237,9 +241,9 @@ def ce_backward_merged(
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.b4cp_ce_bwd(
             x.data_ptr(), table.data_ptr(), _ptr(bias), lab.data_ptr(),
-            logz.data_ptr(), dnll.data_ptr(), dx32.data_ptr(), dw.data_ptr(),
-            _ptr(db), int(x.dtype == torch.bfloat16), n, v, d, row_offset,
-            num_valid, x.device.index, stream,
+            logz.data_ptr(), dnll.data_ptr(), live.data_ptr(), dx32.data_ptr(),
+            dw.data_ptr(), _ptr(db), int(x.dtype == torch.bfloat16), n, v, d,
+            row_offset, num_valid, x.device.index, stream,
         )
     _build.check(code, "fused CE backward")
     _build.count("ce_bwd")

@@ -8,10 +8,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device  — requires a CUDA card; prints its name and power limit
    (nvidia-smi) and PyTorch's TF32 flags (left off: the catalog scan is f32,
-   and so are the plain versions the kernels are held to; the CE dx and dW
-   kernels run their own products on the tensor cores, each f32 operand
-   split into two tf32 terms inside the kernel, three products with f32
-   sums).
+   and so are the plain versions the kernels are held to; the CE backward
+   kernels (merged, dx and dW) run their own products on the tensor cores,
+   each f32 operand split into two tf32 terms inside the kernel, three
+   products with f32 sums).
 2. build   — builds the port's CUDA kernels from ``bert4clickpath_torch/csrc``
    with nvcc for sm_90a (one compile per source, in parallel) and prints the
    build time and ptxas' report.
@@ -23,7 +23,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    bit-equal; the bf16 backward on the tensor cores, two runs bit-equal, its dv from p kept as
    two bf16 terms measured against p rounded once and against a dense f64
    dv; the f32 backward the scalar kernel), the fused CE
-   at its training shape, the three blockwise attention kernels at
+   at its training shape (the merged backward on the tensor cores, run
+   twice: dW and db bit-equal, dx within the tolerance each time; rated at
+   tf32 x3 with the f32 rating beside; also timed with bf16 x), the three blockwise attention kernels at
    (16, 1024, 256) and at L=1000 in bf16 (all three on the tensor cores,
    two runs bit-equal, the dk/dv kernel's dv from p rounded to bf16 measured
    against p kept as two bf16 terms and against a dense f64 dv) and f32 (the
@@ -526,7 +528,7 @@ def training_kernels(rng, card: str) -> dict:
                                 library_fwd_ms=lib_fwd, **attention_bounds(b, seq, d, h, 2)["bwd"])
 
     # fused CE: N = B * P rows, the padded Beauty-sized table, f32 x
-    out.update(ce_kernels_at(rng, B_TRAIN * 10, 55_296, N_ITEMS, d))
+    out.update(ce_kernels_at(rng, B_TRAIN * 10, 55_296, N_ITEMS, d, card=card))
     # the wide model's shapes: its gather and whole-row attention (the
     # summary rows stay on the flagship's), then the two-pass backward and
     # the forward at its D = 384, the dx grid's vocab split at three targets
@@ -689,16 +691,21 @@ def ce_wide_row_at(rng, card: str, d: int = 1024) -> None:
         _held(f"fused_softmax_ce D={d} {name}", g, w, CE_GRAD_REL)
 
 
-def ce_kernels_at(rng, n: int, v_rows: int, nv: int, d: int, off: int = 10) -> dict:
+def ce_kernels_at(rng, n: int, v_rows: int, nv: int, d: int, off: int = 10, card: str = "") -> dict:
     """The fused CE kernels against their plain versions at n rows of f32 x
     over a (v_rows, d) f32 table whose valid window is rows off .. off + nv,
     without and with a bias, a fifth of the labels LABEL_PAD; times and
-    bounds of the case without a bias."""
+    bounds of the case without a bias. The backward is run twice: dW and db
+    must repeat bit for bit (the merged kernel writes them once), dx is
+    held to the tolerance in each run (it sums across vocab tiles with
+    atomic adds). Where the merged kernel takes d, it is also timed on the
+    same inputs in bf16 (logged)."""
     from bert4clickpath_torch.constants import LABEL_PAD
     from bert4clickpath_torch.ops.fused_ce import _labels_model
     from bert4clickpath_torch.ops.kernels.fused_ce import (
         ce_backward,
         ce_backward_reference,
+        ce_backward_route,
         ce_stats,
         ce_stats_reference,
     )
@@ -719,22 +726,28 @@ def ce_kernels_at(rng, n: int, v_rows: int, nv: int, d: int, off: int = 10) -> d
         wm, wl = ce_stats_reference(x, table, bias, off, nv)
         logz, want_logz = m + torch.log(l), wm + torch.log(wl)
         got = ce_backward(x, table, bias, lab, want_logz, dnll, off, nv)
+        again = ce_backward(x, table, bias, lab, want_logz, dnll, off, nv)
         want = ce_backward_reference(x, table, bias, lab, want_logz, dnll, off, nv)
         torch.cuda.synchronize()
+        if not torch.equal(got[1], again[1]) or (with_bias and not torch.equal(got[2], again[2])):
+            raise AssertionError(f"CE backward (bias={with_bias}): two runs of dW or db differ")
+        dx_runs = (got[0] - again[0]).abs().max().item()
         err = (logz - want_logz).abs().max().item()
         if not torch.isfinite(logz).all() or err > CE_LOGZ_TOL:
             raise AssertionError(f"CE forward (bias={with_bias}): logz error {err} > {CE_LOGZ_TOL}")
         fwd_err = max(fwd_err, err)
-        for name, g, w in zip(("dx", "dW", "db"), got, want):
+        for name, g, g2, w in zip(("dx", "dW", "db"), got, again, want):
             if w is None:
                 continue
-            e = (g - w).abs().max().item()
+            e = max((g - w).abs().max().item(), (g2 - w).abs().max().item())
             scale = w.abs().max().item()
             log(f"[kernels] CE backward N={n} V={v_rows} {name} (bias={with_bias}): max_abs_err {e:.3e}, "
                 f"largest |value| {scale:.3e} (tol {CE_GRAD_REL:.0e} of it)")
             if not torch.isfinite(g).all() or e > CE_GRAD_REL * scale:
                 raise AssertionError(f"CE backward {name} (bias={with_bias}): error {e} > {CE_GRAD_REL} x {scale}")
             bwd_err = max(bwd_err, e)
+        log(f"[kernels] CE backward N={n} V={v_rows} D={d} (bias={with_bias}): two runs, dW and db bit-equal, "
+            f"dx apart by {dx_runs:.3e} at most (atomic adds)")
         blinded = torch.ones(v_rows, dtype=torch.bool, device=x.device)
         blinded[off : off + nv] = False
         if not bool((got[1][blinded] == 0).all()):
@@ -754,15 +767,32 @@ def ce_kernels_at(rng, n: int, v_rows: int, nv: int, d: int, off: int = 10) -> d
                 tflops = flop * n * v_rows * d / (tk * 1e-3) / 1e12
                 log(f"[kernels] CE {name} N={n} V={v_rows} D={d} f32: kernel {tk:.3f} ms "
                     f"({tflops:.1f} TFLOP/s f32), plain {tp:.3f} ms (median device time)")
+            if ce_backward_route(d) == "merged":
+                xb = x.to(torch.bfloat16)
+                tb = (device_time_ms(lambda: ce_backward(xb, table, None, lab, want_logz, dnll, off, nv), reps=20),
+                      device_time_ms(lambda: ce_backward_reference(xb, table, None, lab, want_logz, dnll, off, nv),
+                                     reps=20))
+                log(f"[kernels] CE merged backward N={n} V={v_rows} D={d} bf16 x: kernel {tb[0]:.3f} ms, "
+                    f"plain {tb[1]:.3f} ms (median device time) [{card}]")
     # bounds count what this run's data needs: the nv rows of the valid
     # window (the rest is blinded), and in the backward only the rows whose
     # label is not LABEL_PAD (the others' dnll is 0). No PyTorch call
     # computes either function without the (N, V) logits: library_ms null
+    # The backward's three products are rated at the numerics of the kernel
+    # that runs them (DX_RATING, tf32 x3: nine tf32 products), the f32
+    # rating logged beside, as for the two passes.
     live = int(mask.sum().item())
     out["ce_fwd"] = dict(max_abs_err=fwd_err, ms=t_fwd[0], plain_ms=t_fwd[1], library_ms=None,
                          **bound((n * d + nv * d + 2 * n) * 4, {"f32": 2.0 * n * nv * d}))
-    out["ce_bwd"] = dict(max_abs_err=bwd_err, ms=t_bwd[0], plain_ms=t_bwd[1], library_ms=None,
-                         **bound((2 * n * d + 2 * nv * d + 3 * n) * 4, {"f32": 6.0 * live * nv * d}))
+    bwd_bytes = (2 * n * d + 2 * nv * d + 3 * n) * 4
+    kind, terms = DX_RATING
+    rated = bound(bwd_bytes, {kind: terms * 6.0 * live * nv * d})
+    at_f32 = bound(bwd_bytes, {"f32": 6.0 * live * nv * d})
+    out["ce_bwd"] = dict(max_abs_err=bwd_err, ms=t_bwd[0], plain_ms=t_bwd[1], library_ms=None, **rated)
+    log(f"[kernels] CE backward ({ce_backward_route(d)}) N={n} V={v_rows} D={d} f32: {t_bwd[0]:.4f} ms; bound "
+        f"{rated['bound_ms']:.4f} ms at tf32 x3 ({terms} {kind} products for each of three; share "
+        f"{rated['bound_ms'] / t_bwd[0]:.3f}), {at_f32['bound_ms']:.4f} ms rated at f32 (share "
+        f"{at_f32['bound_ms'] / t_bwd[0]:.3f}); plain {t_bwd[1]:.4f} ms [{card}]")
     return out
 
 
@@ -1093,7 +1123,7 @@ def long_context_kernels(rng, card: str) -> dict:
 
     v_rows = padded_rows(LONG_ITEMS + 11)
     here = {"gather": gather_kernel_at(rng, v_rows, LONG_L, d, ((LONG_B, torch.float32), (LONG_B, torch.bfloat16))),
-            **ce_kernels_at(rng, LONG_B * LONG_P, v_rows, LONG_ITEMS, d)}
+            **ce_kernels_at(rng, LONG_B * LONG_P, v_rows, LONG_ITEMS, d, card=card)}
     for name, row in here.items():
         log(f"[kernels] {name} at the long-session shape: kernel {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
             f"by {row['bound_by']} (share {row['bound_ms'] / row['ms']:.3f}), plain {row['plain_ms']:.4f} ms [{card}]")
@@ -1829,9 +1859,9 @@ def main() -> None:
         ("fused_mha_fwd", "attention.cu", "attention.py:54", "attention", train),
         ("fused_mha_bwd", "attention.cu", "attention.py:76", "attention_bwd", train),
         ("fused_ce_fwd", "fused_ce.cu", "fused_ce.py:134", "ce_fwd", train),
-        ("fused_ce_bwd", "fused_ce.cu", "fused_ce.py:761", "ce_bwd", train),
+        ("fused_ce_bwd", "fused_ce_mma.cuh", "fused_ce.py:761", "ce_bwd", train),
         ("fused_ce_bwd_dx", "fused_ce_two_pass.cu", "fused_ce.py:293", "ce_bwd_dx", wide_train),
-        ("fused_ce_bwd_dw", "fused_ce_two_pass.cu", "fused_ce.py:321", "ce_bwd_dw", wide_train),
+        ("fused_ce_bwd_dw", "fused_ce_mma.cuh", "fused_ce.py:321", "ce_bwd_dw", wide_train),
         ("blockwise_mha_fwd", "attention_blockwise.cu", "attention.py:198", "blockwise_fwd", long_train),
         ("blockwise_mha_dq", "attention_blockwise.cu", "attention.py:245", "blockwise_dq", long_train),
         ("blockwise_mha_dkv", "attention_blockwise.cu", "attention.py:283", "blockwise_dkv", long_train),

@@ -1,7 +1,7 @@
 """Time the bf16 tensor-core attention kernels (and the CE kernels) under
 other tile constants than the ones ``csrc/attention_blockwise.cu``,
-``csrc/attention.cu``, ``csrc/fused_ce.cu`` and ``csrc/fused_ce_two_pass.cu``
-ship with.
+``csrc/attention.cu``, ``csrc/fused_ce.cu``, ``csrc/fused_ce_two_pass.cu`` and
+``csrc/fused_ce_mma.cuh`` ship with.
 
     python3 examples/long_context/tune_blockwise_bwd.py --kernel fwd \\
         --variant shipped: --variant wide:kFwdWarps=8,kFwdMinBlocks=2
@@ -13,12 +13,14 @@ ship with.
         --shape 2560,55296,384 --variant shipped: --variant c64:kFwdChunk=64
     python3 examples/long_context/tune_blockwise_bwd.py --kernel ce_dw \\
         --variant shipped: --variant flush4:kDwFlush=4 --variant stream:kDwResident=false
+    python3 examples/long_context/tune_blockwise_bwd.py --kernel ce_bwd \\
+        --variant shipped: --variant no_reduce:kMrgDxReduce=false
 
 ``--kernel`` (repeatable; default ``dq`` and ``dkv``) names what is timed:
 the blockwise forward (``fwd``), dq, dk/dv, the whole-row forward
 (``mha_fwd``) or backward (``mha_bwd``), or the fused CE forward
-(``ce_fwd``), dx pass (``ce_dx``) or dW pass (``ce_dw``), both in the
-numerics ``kDxNumerics`` names, f32 x. Each ``--variant name:CONST=value,...`` is a
+(``ce_fwd``), dx pass (``ce_dx``), dW pass (``ce_dw``) or merged backward
+(``ce_bwd``), the last three in the numerics ``kDxNumerics`` names, f32 x. Each ``--variant name:CONST=value,...`` is a
 copy of the sources with the named ``constexpr`` constants set to the
 given expressions:
 ``kWalk``, ``kFragmentsResident``; ``kDqWarps``, ``kDqPass``,
@@ -28,12 +30,14 @@ given expressions:
 ``kMhaFragmentsResident``, ``kMhaDvSplit``; ``kMhaFwdWarps``,
 ``kMhaFwdPass``; ``kFwdChunk``; ``kDxNumerics`` (``kDxTf32``,
 ``kDxTf32x3``, ``kDxBf16x3``), ``kDxStages``, ``kDxFlush``, ``kDxColWarps``;
-``kDwStages``, ``kDwFlush``, ``kDwResident``. All copies are compiled
+``kDwStages``, ``kDwFlush``, ``kDwResident``, ``kMrgDxReduce`` (false: the
+merged backward's dx product kept but its atomic adds dropped, which prices
+the reduction across blocks; dx is then wrong). All copies are compiled
 together (one nvcc each) into ``build/tune/``, loaded beside the port's own
 library, held against the plain version at the kernel's main-path shape,
 bf16 ((B, L, D, H) = (16, 1024, 256, 4) for the blockwise kernels, (256, 53,
 256, 4) for the whole-row ones; (N, V, D) = (2560, 55296, 384) f32 for the
-CE kernels, a catalog window of 54,542 rows, a fifth of the labels padding; ``--shape``, repeatable, sets
+CE kernels, D = 256 for the merged backward, a catalog window of 54,542 rows, a fifth of the labels padding; ``--shape``, repeatable, sets
 others for all), and timed in turns over ``--rounds`` rounds (CUDA events,
 median device time). Prints
 ptxas' registers per kernel, the times, and the card's name and power limit.
@@ -71,8 +75,9 @@ KERNELS = {
     "ce_fwd": ("fused_ce.cu", "b4cp_ce_fwd", "2560,55296,384"),
     "ce_dx": ("fused_ce_two_pass.cu", "b4cp_ce_bwd_dx", "2560,55296,384"),
     "ce_dw": ("fused_ce_two_pass.cu", "b4cp_ce_bwd_dw", "2560,55296,384"),
+    "ce_bwd": ("fused_ce.cu", "b4cp_ce_bwd", "2560,55296,256"),
 }
-TUNED = ("attention_blockwise.cu", "attention.cu", "fused_ce.cu", "fused_ce_two_pass.cu")
+TUNED = ("attention_blockwise.cu", "attention.cu", "fused_ce.cu", "fused_ce_two_pass.cu", "fused_ce_mma.cuh")
 
 
 def build_variants(variants: dict[str, dict[str, str]], sources: list[str], entries: list[str]) -> dict:
@@ -107,7 +112,7 @@ def build_variants(variants: dict[str, dict[str, str]], sources: list[str], entr
         for line in log.splitlines():
             if "Compiling entry" in line:
                 entry = re.search(r"mha_\w+?_kernelILi\d+E|mha_\w+?_kernelI\w+?Li\d+E|ce_fwd_kernelIfLb\dE"
-                                  r"|d[xw]_mma_kernelILi\dELb\dE", line)
+                                  r"|d[xw]_mma_kernelILi\dE(?:Lb\dE)+", line)
                 entry = entry.group(0) if entry else ""
             elif ("_mma_kernelILi64E" in entry or "ce_fwd_kernelIf" in entry or "dx_mma_kernel" in entry
                   or "dw_mma_kernel" in entry) and ("registers" in line or "spill" in line):
@@ -157,7 +162,7 @@ def cases(kernels: list[str], shapes: list[str] | None) -> dict:
     for kernel in kernels:
         for shape in shapes or [KERNELS[kernel][2]]:
             dims = tuple(int(x) for x in shape.split(","))
-            if kernel in ("ce_fwd", "ce_dx", "ce_dw"):
+            if kernel in ("ce_fwd", "ce_dx", "ce_dw", "ce_bwd"):
                 n, v, d = dims
                 rng = np.random.default_rng(0)
                 x = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).cuda()
@@ -172,6 +177,10 @@ def cases(kernels: list[str], shapes: list[str] | None) -> dict:
                 dnll = (lab >= 0).float() / (lab >= 0).sum()
                 m, l = ce.ce_stats_reference(x, table, None, 10, nv)
                 args = (x, table, None, lab, m + torch.log(l), dnll, 10, nv)
+                if kernel == "ce_bwd":  # dx and dW (no bias)
+                    out[kernel, shape] = (lambda args=args: ce.ce_backward_merged(*args)[:2],
+                                          ce.ce_backward_reference(*args)[:2], list(dims))
+                    continue
                 if kernel == "ce_dw":
                     out[kernel, shape] = (lambda args=args: ce.ce_backward_dw(*args)[:1],
                                           ce.ce_backward_dw_reference(*args)[:1], list(dims))

@@ -14,8 +14,11 @@ order with the fast exp, so ds may round the other way), f32 (the scalar
 kernel) abs 1e-5 + rel 1e-4, two runs of either bit-equal; gather exact (both versions round
 the same f32 value once). Fused CE: logz abs 1e-4 (f32 sums over the
 catalog in another order); dx, dW and db within 1e-4 (f32 x) or 2e-2 (bf16
-x) of the reference's largest magnitude (dx sums with atomics, in an order
-that varies run to run; bf16 x rounds A, which may round the other way).
+x) of the reference's largest magnitude (the merged backward's dx sums across
+vocab tiles with atomics, in an order that varies run to run; bf16 x rounds
+A, which may round the other way); the merged backward runs its products on
+the tensor cores (f32 x as hi + lo tf32 terms, three products) and writes dW
+and db once, so two runs of those give the same bits.
 The two-pass CE backward: the same, but its dx sums in a fixed order, so two
 runs give the same bits, and a bf16 dx may besides round its f32 sum the
 other way (one bf16 ulp, 2^-7 of the value). Its dx and dW passes run on
@@ -596,6 +599,99 @@ def test_ce_kernels_name_their_widest_row(cuda):
     x, table, _, lab, dnll, off, nv = _ce_case(70, 500, 257, torch.float32, False)
     with pytest.raises(ValueError, match="D <= 256"):
         ce_kernels.ce_backward_merged(x, table, None, lab, dnll, dnll, off, nv)
+
+
+def _check_merged(args, dtype, cuda):
+    """Two calls of the merged backward against its plain version: one
+    ce_bwd launch each and no other; dx, dW and db within 1e-4 (f32 x) or
+    2e-2 (bf16 x) of the largest magnitude; dW and db bit-equal over the
+    two calls; dx summed across vocab tiles with atomic adds, so each
+    call's dx is held to the tolerance alone (bf16 dx may besides round its
+    f32 sum the other way: one bf16 ulp, 2^-7 of the value); blinded rows
+    but the OOV label's get exactly zero dW."""
+    x, table, bias, lab, _, _, off, nv = args
+    n, d = x.shape
+    v = table.shape[0]
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
+    wdx, wdw, wdb = ce_backward_reference(*args)
+    runs = []
+    for _ in range(2):
+        _build.reset_launch_counts()
+        runs.append(ce_kernels.ce_backward_merged(*args))
+        torch.cuda.synchronize()
+        assert _nonzero_counts() == {"ce_bwd": 1}
+    (dx, dw, db), (dx2, dw2, db2) = runs
+    assert dx.dtype == dtype and dx.shape == (n, d) and dw.shape == (v, d)
+    assert torch.isfinite(dx).all() and torch.isfinite(dw).all()
+    assert torch.equal(dw, dw2), "two runs of dW differ"
+    for got in (dx, dx2):
+        diff = (got.float() - wdx.float()).abs()
+        elem = 0.0 if dtype == torch.float32 else 2.0**-7
+        assert bool((diff <= rel * wdx.float().abs().max() + elem * wdx.float().abs()).all())
+    _near(dw, wdw, rel)
+    if bias is None:
+        assert db is None and db2 is None
+    else:
+        assert db.shape == (v,) and torch.equal(db, db2), "two runs of db differ"
+        _near(db, wdb, rel)
+    blinded = torch.ones(v, dtype=torch.bool, device=cuda)
+    blinded[off : off + nv] = False
+    blinded[lab[1].long()] = False
+    assert (dw[blinded] == 0).all()
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 72, 200, 256])
+def test_ce_merged_backward_at_its_widths(cuda, d, dtype, with_bias):
+    """The tensor-core merged backward at widths around its 64-column
+    chunks up to its limit (D = 8, 72, 200, 256), N = 130 rows (off the
+    64-row tile) over a ragged V = 700, LABEL_PAD rows and an OOV label:
+    see _check_merged."""
+    x, table, bias, lab, dnll, off, nv = _ce_case(130, 700, d, dtype, with_bias, seed=d + 3, oov=True)
+    wm, wl = ce_stats_reference(x, table, bias, off, nv)
+    _check_merged((x, table, bias, lab, wm + torch.log(wl), dnll, off, nv), dtype, cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ce_merged_backward_skips_a_zero_row_tile(cuda, dtype):
+    """A tile of 64 rows of x whose dnll is all zero, between two live
+    ones, makes A zero there and the kernel skips that tile's dW and dx
+    products: N = 200 over a ragged V = 1,000, D = 256, with a bias; see
+    _check_merged (dx of the skipped rows exactly 0)."""
+    x, table, bias, lab, dnll, off, nv = _ce_case(200, 1000, 256, dtype, True, seed=7, oov=True)
+    dnll[64:128] = 0.0
+    wm, wl = ce_stats_reference(x, table, bias, off, nv)
+    args = (x, table, bias, lab, wm + torch.log(wl), dnll, off, nv)
+    _check_merged(args, dtype, cuda)
+    assert (ce_kernels.ce_backward_merged(*args)[0][64:128] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ce_merged_backward_walks_only_live_rows(cuda, dtype):
+    """The merged backward walks only the rows whose dnll is nonzero: with
+    every dnll 0 it walks none, and dx, dW and db are exactly 0; with one
+    live row among 130 it matches the plain version (see _check_merged)."""
+    x, table, bias, lab, dnll, off, nv = _ce_case(130, 700, 200, dtype, True, seed=13, oov=True)
+    wm, wl = ce_stats_reference(x, table, bias, off, nv)
+    zero = torch.zeros_like(dnll)
+    dx, dw, db = ce_kernels.ce_backward_merged(x, table, bias, lab, wm + torch.log(wl), zero, off, nv)
+    torch.cuda.synchronize()
+    assert not dx.any() and not dw.any() and not db.any()
+    one = zero.clone()
+    one[77] = 0.5
+    _check_merged((x, table, bias, lab, wm + torch.log(wl), one, off, nv), dtype, cuda)
+
+
+def test_ce_merged_backward_at_wide_logits(cuda):
+    """f32 x at D = 256 over a table of N(0, 1): logits of ~16, the spread
+    at which three bf16 products missed 1e-4 at D = 1,024 (PERF.md, the dx
+    numerics decision). The shipped tf32 x3 holds 1e-4 of the largest
+    magnitude here too; see _check_merged."""
+    x, table, bias, lab, dnll, off, nv = _ce_case(130, 700, 256, torch.float32, True, seed=11, oov=True)
+    table = table * 2.0
+    wm, wl = ce_stats_reference(x, table, bias, off, nv)
+    _check_merged((x, table, bias, lab, wm + torch.log(wl), dnll, off, nv), torch.float32, cuda)
 
 
 DX_WIDTHS = [6, 32, 256, 384, 450, 713, 714, 1024]

@@ -1,12 +1,14 @@
-"""The port's two-pass CE backward against the JAX package's, on the CPU.
+"""The port's CE backward routes against the JAX package's, on the CPU.
 
 ``ce_backward_two_pass`` (the plain versions of the dx and dW kernels on CPU
 tensors) against ``_bwd`` of ``bert4clickpath_tpu/ops/pallas/fused_ce.py``
-(its two Pallas kernels in interpret mode), called directly as the JAX tests
-call it, on the same numpy inputs: a window with a row offset, LABEL_PAD
-rows, an OOV label, with and without a bias, f32 and bf16, D = 384 and 768
-(wider than any whole tile the card's kernels once held: they stream such
-rows, so no width is refused). Each test states its tolerance.
+(its two Pallas kernels in interpret mode), and ``ce_backward_merged``
+against ``_bwd_fused`` (the merged Pallas kernel), called directly as the
+JAX tests call them, on the same numpy inputs: a window with a row offset,
+LABEL_PAD rows, an OOV label, with and without a bias, f32 and bf16, D =
+256, 384 and 768 (wider than any whole tile the card's kernels once held:
+they stream such rows, so no width is refused). Each test states its
+tolerance.
 """
 
 import jax.numpy as jnp
@@ -107,6 +109,55 @@ def test_two_pass_equals_merged(dtype):
     dw, db = k.ce_backward_dw(*args)
     assert torch.equal(dx, k.ce_backward_dx_reference(*args))
     assert torch.equal(dw, k.ce_backward_dw_reference(*args)[0]) and db is not None
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_merged_matches_jax_bwd_fused(dtype, with_bias):
+    """``ce_backward_merged`` (its plain version, on CPU tensors) against
+    the JAX merged backward ``_bwd_fused`` (interpret mode) on the same
+    arrays, D = 256, N = 100 and V = 300 (off the card kernel's 64-row
+    tiles; one whole-table tile in the JAX kernel), a window of 250 rows at
+    offset 10, LABEL_PAD rows and an OOV label. f32: rtol 1e-5 / atol 1e-6
+    (sums in another order). bf16 x: A rounds to bf16 before the products,
+    and an f32 exp that differs in its last bit can round an entry to the
+    other neighbour, so dW and db are held to 1e-3 of their largest
+    magnitude (measured: 6.5e-5) and dx, which both round once from an f32
+    sum, to that plus one bf16 ulp of each value (2^-7 of it)."""
+    n, v, d, nv = 100, 300, 256, 250
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    table = (rng.normal(size=(v, d)) / np.sqrt(d)).astype(np.float32)
+    bias = rng.normal(size=(v,)).astype(np.float32) if with_bias else None
+    labels = rng.integers(0, nv, size=(n,)).astype(np.int32)
+    labels[::5] = LABEL_PAD
+    labels[1] = nv + 20  # a row outside the window (blinded)
+    dnll = (rng.random(n).astype(np.float32) + 0.5) * (labels != LABEL_PAD)
+    tx = torch.from_numpy(x).to(dtype)
+    tb = None if bias is None else torch.from_numpy(bias)
+    m, l = k.ce_stats_reference(tx, torch.from_numpy(table), tb, OFF, nv)
+    logz = (m + torch.log(l)).numpy()
+    got = k.ce_backward_merged(tx, torch.from_numpy(table), tb, tce._labels_model(torch.from_numpy(labels), OFF),
+                               torch.from_numpy(logz), torch.from_numpy(dnll), OFF, nv)
+    want = jce._bwd_fused(
+        jnp.asarray(x).astype(jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32), jnp.asarray(table),
+        jce._labels_model(jnp.asarray(labels), OFF), jnp.asarray(logz), jnp.asarray(dnll), OFF, nv,
+        bias=None if bias is None else jnp.asarray(bias).reshape(1, -1),
+    )
+    assert len(want) == (3 if with_bias else 2) and got[0].dtype == dtype
+    dx, jdx = got[0].float().numpy(), np.asarray(want[0].astype(jnp.float32))
+    pairs = [(got[1].numpy(), np.asarray(want[1]))]
+    if with_bias:
+        pairs.append((got[2].numpy(), np.asarray(want[2]).reshape(-1)))
+    else:
+        assert got[2] is None
+    if dtype == torch.float32:
+        for g, w in [(dx, jdx), *pairs]:
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
+    else:
+        assert (np.abs(dx - jdx) <= 1e-3 * np.abs(jdx).max() + 2.0**-7 * np.abs(jdx)).all()
+        for g, w in pairs:
+            assert np.abs(g - w).max() <= 1e-3 * np.abs(w).max()
 
 
 def test_backward_route_is_a_function_of_d_alone():
