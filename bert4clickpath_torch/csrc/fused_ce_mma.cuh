@@ -1,7 +1,8 @@
-// Tensor-core building blocks of the fused-CE backward kernels, and the
-// kernel that owns table rows: the dW pass of fused_ce_two_pass.cu and the
-// merged backward of fused_ce.cu are one template (ce_bwd_dw_mma_kernel,
-// the merged backward with DX = true).
+// Tensor-core building blocks of the fused-CE kernels (the forward of
+// fused_ce.cu, the dx pass of fused_ce_two_pass.cu and the kernel below),
+// and the kernel that owns table rows: the dW pass of fused_ce_two_pass.cu
+// and the merged backward of fused_ce.cu are one template
+// (ce_bwd_dw_mma_kernel, the merged backward with DX = true).
 //
 // Every product runs on the tensor cores with f32 sums:
 //
@@ -30,14 +31,25 @@
 #include <type_traits>
 
 #include "attention_mma.cuh"
-#include "fused_ce_tiles.cuh"
 
 namespace {
 
-using namespace ce_tiles;
-
+constexpr int kTile = 64;  // rows of x, and rows of the table, per tile
+constexpr float kNegBig = -1e30f;  // the blinding of rows outside the window
+// the most dynamic shared memory one block can have on sm_90
+constexpr size_t kMaxSmem = 232448;
 constexpr int kOutChunks = 6;  // 64-column chunks of output a block owns
 constexpr int kOutCols = kTile * kOutChunks;
+
+__device__ __forceinline__ bool in_window(int col, int row_offset, int num_valid) {
+  return col >= row_offset && col < row_offset + num_valid;
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+}
 
 enum DxNumerics : int { kDxTf32 = 0, kDxTf32x3 = 1, kDxBf16x3 = 2, kDxBf16 = 3 };
 // f32 x: the fastest numerics that holds every f32 tolerance (PERF.md)
@@ -158,6 +170,78 @@ __device__ __forceinline__ void put_terms(unsigned char* row, int plane_bytes, i
     raw_terms<MODE>(hi, lo);
     reinterpret_cast<uint32_t*>(row)[col] = hi;
     if constexpr (DxMode<MODE>::kSplit) reinterpret_cast<uint32_t*>(row + plane_bytes)[col] = lo;
+  }
+}
+
+// columns [c0, c0 + ncols) of rows row0 .. row0 + 64 of a (rows, d) matrix
+// into a resident operand's planes (rows `row` bytes apart, terms `plane`
+// bytes apart): bf16 terms, or raw f32; zero past `rows` and d
+template <int MODE, typename S>
+__device__ __forceinline__ void load_rows(unsigned char* planes, int row, int plane, const S* __restrict__ src,
+                                          int row0, int rows, int d, int c0, int ncols) {
+  for (int idx = threadIdx.x; idx < kDxRows * ncols; idx += kDxThreads) {
+    const int r = idx / ncols;
+    const int c = idx - r * ncols;
+    const bool ok = row0 + r < rows && c0 + c < d;
+    const float val = ok ? to_f(src[static_cast<long long>(row0 + r) * d + c0 + c]) : 0.f;
+    put_one<MODE>(planes + r * row, plane, c, val);
+  }
+}
+
+// all of D (zero-padded to dpad columns) of rows row0 .. row0 + 64 of x
+// into a resident operand's plane (rows `row` bytes apart) by 16-byte
+// cp.async copies, the caller committing and waiting: for planes that hold
+// x's elements as they are (raw f32, or bf16 x in a bf16 plane), d a
+// multiple of a copy's elements and x 16-byte aligned; zero past n and d
+template <int MODE>
+__device__ __forceinline__ void copy_rows(unsigned char* plane, int row, const typename DxMode<MODE>::X* __restrict__ x,
+                                          int row0, int n, int d, int dpad) {
+  using X = typename DxMode<MODE>::X;
+  static_assert(DxMode<MODE>::kXPlanes == 1 && sizeof(X) == DxMode<MODE>::kElem, "the plane holds x as it is");
+  constexpr int kVec = 16 / static_cast<int>(sizeof(X));
+  const int per_row = dpad / kVec;
+  for (int idx = threadIdx.x; idx < kDxRows * per_row; idx += kDxThreads) {
+    const int r = idx / per_row;
+    const int c = (idx - r * per_row) * kVec;
+    const bool ok = row0 + r < n && c < d;
+    const X* src = ok ? x + static_cast<long long>(row0 + r) * d + c : x;
+    tc::cp_async_16(plane + r * row + c * static_cast<int>(sizeof(X)), src, ok);
+  }
+}
+
+// the table's chunk of rows vrow0 .. vrow0 + 64, columns col .. col + 64,
+// into a raw f32 stage, zero past v and d: 16-byte cp.async copies where
+// w_vec (d % 4 == 0, w 16-byte aligned; the caller commits), else element
+// by element
+__device__ __forceinline__ void copy_table_chunk(float* dst, const float* __restrict__ w, int vrow0, int col,
+                                                 int v, int d, int w_vec) {
+  if (w_vec) {
+    for (int idx = threadIdx.x; idx < kDxVocab * kDxChunk / 4; idx += kDxThreads) {
+      const int rr = idx / (kDxChunk / 4);
+      const int c = (idx % (kDxChunk / 4)) * 4;
+      const bool ok = vrow0 + rr < v && col + c < d;
+      const float* src = ok ? w + static_cast<long long>(vrow0 + rr) * d + col + c : w;
+      tc::cp_async_16(dst + rr * (kDxChunk + 4) + c, src, ok);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < kDxVocab * kDxChunk; idx += kDxThreads) {
+      const int rr = idx / kDxChunk;
+      const int c = idx % kDxChunk;
+      const bool ok = vrow0 + rr < v && col + c < d;
+      dst[rr * (kDxChunk + 4) + c] = ok ? w[static_cast<long long>(vrow0 + rr) * d + col + c] : 0.f;
+    }
+  }
+}
+
+// a raw f32 stage of the table converted once into the numerics' planes
+// (rows w_row bytes apart, terms kWPlane apart)
+template <int MODE>
+__device__ __forceinline__ void convert_table_chunk(unsigned char* planes, const float* src, int w_row) {
+  for (int idx = threadIdx.x; idx < kDxVocab * kDxChunk / 2; idx += kDxThreads) {
+    const int rr = idx / (kDxChunk / 2);
+    const int c = (idx % (kDxChunk / 2)) * 2;
+    const float2 val = *reinterpret_cast<const float2*>(src + rr * (kDxChunk + 4) + c);
+    put_pair<MODE>(planes + rr * w_row, DxMode<MODE>::kWPlane, c, val.x, val.y);
   }
 }
 
@@ -422,7 +506,13 @@ __device__ __forceinline__ void mrg_dx_product(float (&acc)[2][2][4], uint32_t a
 //   blocks that start at the same one take dx's column chunks in another
 //   turn, so that the blocks in flight add into different parts of dx.
 //   kMrgDxReduce = false (the product kept, the atomics dropped) is a tune
-//   variant that prices the reduction.
+//   variant that prices the reduction: 0.24 of 6.08 ms (4%) on an H100.
+//   They are kept on purpose: a fixed-order reduction (per-split partials
+//   and a combine, as the dx pass has) would cost at least that, for bits
+//   that no tolerance needs. Two runs of dx are held within 1e-5 of the
+//   largest |dx| of each other (2.3e-7 measured; tests/test_torch_cuda.py
+//   and chip_smoke.py's CE_DX_REPEAT), a tenth of dx's tolerance against
+//   its plain version.
 //
 // What bounds it: as the dx pass, the mma.sync issue rate (the same 318 M
 // m16n8k8 instructions at N = 2,560, V = 55,296, D = 384; the merged
@@ -561,13 +651,7 @@ __global__ void __launch_bounds__(kDxThreads, 1)
 
   // columns [c0, c0 + ncols) of the block's table rows into their planes
   auto load_w = [&](int c0, int ncols) {
-    for (int idx = threadIdx.x; idx < kDxVocab * ncols; idx += kDxThreads) {
-      const int r = idx / ncols;
-      const int c = idx - r * ncols;
-      const bool ok = vrow0 + r < v && c0 + c < d;
-      const float val = ok ? w[static_cast<long long>(vrow0 + r) * d + c0 + c] : 0.f;
-      put_one<MODE>(smem_dw + L.res_at + r * L.res_row, L.res_plane, c, val);
-    }
+    load_rows<MODE>(smem_dw + L.res_at, L.res_row, L.res_plane, w, vrow0, v, d, c0, ncols);
   };
   // the chunk of x of step `step` (row tile, then its columns) into its stage
   // DX: the source rows of the two row tiles in flight (the one whose chunks

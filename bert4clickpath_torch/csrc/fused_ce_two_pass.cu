@@ -130,37 +130,15 @@ __global__ void __launch_bounds__(kDxThreads, 1)
 
   // columns [c0, c0 + ncols) of the block's rows of x into its planes
   auto load_x = [&](int c0, int ncols) {
-    for (int idx = threadIdx.x; idx < kDxRows * ncols; idx += kDxThreads) {
-      const int r = idx / ncols;
-      const int c = idx - r * ncols;
-      const bool ok = row0 + r < n && c0 + c < d;
-      const float val = ok ? to_f(x[static_cast<long long>(row0 + r) * d + c0 + c]) : 0.f;
-      put_one<MODE>(smem_dx + L.res_at + r * L.res_row, L.res_plane, c, val);
-    }
+    load_rows<MODE>(smem_dx + L.res_at, L.res_row, L.res_plane, x, row0, n, d, c0, ncols);
   };
   // the table chunk of step `step` (vocab tile, then its columns) into its stage
   auto issue = [&](int step) {
     const int tile = step / steps;
     const int r = step - tile * steps;
     const int col = r < nk ? r * kDxChunk : d_lo + (r - nk) * kDxChunk;
-    const int vrow0 = (j0 + tile) * kDxVocab;
-    float* dst = reinterpret_cast<float*>(smem_dx + (step % kDxStages) * kDxStage);
-    if (w_vec) {
-      for (int idx = threadIdx.x; idx < kDxVocab * kDxChunk / 4; idx += kDxThreads) {
-        const int rr = idx / (kDxChunk / 4);
-        const int c = (idx % (kDxChunk / 4)) * 4;
-        const bool ok = vrow0 + rr < v && col + c < d;
-        const float* src = ok ? w + static_cast<long long>(vrow0 + rr) * d + col + c : w;
-        tc::cp_async_16(dst + rr * (kDxChunk + 4) + c, src, ok);
-      }
-    } else {
-      for (int idx = threadIdx.x; idx < kDxVocab * kDxChunk; idx += kDxThreads) {
-        const int rr = idx / kDxChunk;
-        const int c = idx % kDxChunk;
-        const bool ok = vrow0 + rr < v && col + c < d;
-        dst[rr * (kDxChunk + 4) + c] = ok ? w[static_cast<long long>(vrow0 + rr) * d + col + c] : 0.f;
-      }
-    }
+    copy_table_chunk(reinterpret_cast<float*>(smem_dx + (step % kDxStages) * kDxStage), w,
+                     (j0 + tile) * kDxVocab, col, v, d, w_vec);
   };
 
   if (XRES) load_x(0, (d + kDxChunk - 1) / kDxChunk * kDxChunk);
@@ -177,13 +155,8 @@ __global__ void __launch_bounds__(kDxThreads, 1)
   auto advance = [&](int x_col, int w_row) {
     tc::cp_async_wait<kDxStages - 2>();
     __syncthreads();
-    const float* src = reinterpret_cast<const float*>(smem_dx + (q % kDxStages) * kDxStage);
-    for (int idx = threadIdx.x; idx < kDxVocab * kDxChunk / 2; idx += kDxThreads) {
-      const int rr = idx / (kDxChunk / 2);
-      const int c = (idx % (kDxChunk / 2)) * 2;
-      const float2 val = *reinterpret_cast<const float2*>(src + rr * (kDxChunk + 4) + c);
-      put_pair<MODE>(smem_dx + L.chunk_at + rr * w_row, M::kWPlane, c, val.x, val.y);
-    }
+    convert_table_chunk<MODE>(smem_dx + L.chunk_at,
+                              reinterpret_cast<const float*>(smem_dx + (q % kDxStages) * kDxStage), w_row);
     if (!XRES && x_col >= 0) load_x(x_col, kDxChunk);
     if (q + kDxStages - 1 < total) issue(q + kDxStages - 1);
     tc::cp_async_commit();

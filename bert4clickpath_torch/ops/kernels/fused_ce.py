@@ -19,8 +19,8 @@ Counterparts of the Pallas kernels of
   :func:`ce_backward_route`.
 
 All compute in x's dtype as the JAX kernels do (``w.astype(x.dtype)``, and
-A rounded to it before the products): for f32 x the forward in f32 FMA, and
-every backward product (merged kernel, dx and dW passes) on the tensor
+A rounded to it before the products): for f32 x every product (the
+forward's scores, the merged kernel, the dx and dW passes) on the tensor
 cores with each f32 operand as two tf32 terms, hi + lo, in three products
 with f32 sums (``kDxNumerics`` in ``csrc/fused_ce_mma.cuh``: measured
 against a dense f64 oracle beside f32 FMA, one TF32 product and three bf16
@@ -45,6 +45,12 @@ its shared memory whole, the kernels stream it in chunks too, a route each
 C entry takes by D alone. No flag or environment variable changes a route,
 and a launch that fails raises.
 
+Where the streamed routes fall off: above D = 384 the dx pass streams x's
+chunks and the dW pass its table rows (f32 x), and at D = 1,024 (no main
+path) they take 54.4 / 56.2 ms against their plain versions' 14.0 / 14.8
+(N = 2,560, V = 55,296, f32, NVIDIA H100 80GB HBM3 at 700 W; PERF.md). The
+route past that cliff is ``wgmma`` (ROADMAP.md, Queue 2).
+
 ``labels_model`` is the row id of each label in the table (-1 for a padded
 row, whose one-hot never fires): ``ops/fused_ce.py`` builds it.
 """
@@ -58,8 +64,16 @@ import torch
 from bert4clickpath_torch.ops.kernels import _build
 
 NEG_BIG = -1e30
-TILE = 64  # csrc/fused_ce_tiles.cuh kTile: rows of x and of the table per tile
-TILES_PER_SPLIT = 32  # forward: vocab tiles one block walks (2,048 rows)
+TILE = 64  # csrc/fused_ce_mma.cuh kTile: rows of x and of the table per tile
+# forward grid: the vocabulary is split until row tiles x vocab splits
+# reaches FWD_TARGET_BLOCKS blocks (one resident per SM: ~15 waves of 132,
+# whose last, partly empty wave costs little), each split walking at least
+# FWD_MIN_TILES vocab tiles (a block's x copy and pipeline fill cost about
+# as much as a tile, which a short N would otherwise pay once a tile). Timed
+# at N=2,560, V=55,296 and at N=160, V=20,480 on an H100 (700 W) by
+# chip_smoke.py's sweeps of both (PERF.md)
+FWD_TARGET_BLOCKS = 2112
+FWD_MIN_TILES = 4
 MAX_D = 256  # the merged backward holds a (64, D) dW tile in registers
 TWO_PASS_OUT_COLS = 384  # kOutCols: output columns one two-pass block owns
 # dx grid: one block is resident per SM (its shared memory), so the grid runs
@@ -166,10 +180,21 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def ce_splits(v: int) -> int:
-    """Vocab splits of the forward grid: blocks of 32 vocab tiles."""
-    n_vtiles = -(-v // TILE)
-    return max(1, -(-n_vtiles // TILES_PER_SPLIT))
+def _vocab_splits(base: int, v: int, target: int, min_tiles: int = 1) -> tuple[int, int]:
+    """(splits, vocab tiles per split): the vocabulary split until ``base``
+    blocks x splits reaches ``target``, with at least ``min_tiles`` tiles
+    a split, then evened out; every vocab tile in exactly one split."""
+    n_vtiles = max(1, -(-v // TILE))
+    splits = min(n_vtiles, max(1, -(-target // base)))
+    per_split = max(min_tiles, -(-n_vtiles // splits))
+    return -(-n_vtiles // per_split), per_split
+
+
+def ce_splits(n: int, v: int) -> tuple[int, int]:
+    """(splits, vocab tiles per split) of the forward grid: row tiles x
+    vocab splits aimed at ``FWD_TARGET_BLOCKS``, a split at least
+    ``FWD_MIN_TILES`` tiles."""
+    return _vocab_splits(max(1, -(-n // TILE)), v, FWD_TARGET_BLOCKS, FWD_MIN_TILES)
 
 
 def ce_stats(
@@ -187,7 +212,7 @@ def ce_stats(
     v = table.shape[0]
     x, table = x.contiguous(), table.contiguous()
     bias = None if bias is None else bias.contiguous()
-    splits = ce_splits(v)
+    splits, per_split = ce_splits(n, v)
     part = torch.empty((2, splits, n), dtype=torch.float32, device=x.device)
     m = torch.empty(n, dtype=torch.float32, device=x.device)
     l = torch.empty(n, dtype=torch.float32, device=x.device)
@@ -198,7 +223,7 @@ def ce_stats(
             x.data_ptr(), table.data_ptr(), _ptr(bias), part[0].data_ptr(),
             part[1].data_ptr(), m.data_ptr(), l.data_ptr(),
             int(x.dtype == torch.bfloat16), n, v, d, row_offset, num_valid,
-            splits, TILES_PER_SPLIT, x.device.index, stream,
+            splits, per_split, x.device.index, stream,
         )
     _build.check(code, "fused CE forward")
     _build.count("ce_fwd")
@@ -220,7 +245,9 @@ def ce_backward_merged(
     is nonzero (the others add nothing, and their dx rows are 0); dW and db
     are summed in a fixed order (two runs give the same bits); dx sums
     across vocab tiles with f32 atomic adds into a zeroed (N, D) f32
-    scratch, so it repeats to rounding, not bit for bit."""
+    scratch, so it repeats to rounding, not bit for bit: two runs within
+    1e-5 of the largest |dx| of each other (kept on purpose: the atomics
+    cost 4% of the kernel's time, a fixed order at least as much)."""
     _check(x, table, bias, MAX_D)
     _check_rows(x, labels_model, logz, dnll)
     if x.device.type == "cpu":
@@ -251,14 +278,9 @@ def ce_backward_merged(
 
 
 def ce_dx_splits(n: int, v: int, d: int) -> tuple[int, int]:
-    """(splits, vocab tiles per split) of the dx grid: the vocabulary is
-    split until row tiles x D splits x vocab splits reaches
-    ``DX_TARGET_BLOCKS``, then evened out."""
-    n_vtiles = max(1, -(-v // TILE))
-    base = max(1, -(-n // TILE)) * max(1, -(-d // TWO_PASS_OUT_COLS))
-    splits = min(n_vtiles, max(1, -(-DX_TARGET_BLOCKS // base)))
-    per_split = -(-n_vtiles // splits)
-    return -(-n_vtiles // per_split), per_split
+    """(splits, vocab tiles per split) of the dx grid: row tiles x D splits
+    x vocab splits aimed at ``DX_TARGET_BLOCKS``."""
+    return _vocab_splits(max(1, -(-n // TILE)) * max(1, -(-d // TWO_PASS_OUT_COLS)), v, DX_TARGET_BLOCKS)
 
 
 def ce_backward_dx(

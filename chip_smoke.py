@@ -23,9 +23,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    bit-equal; the bf16 backward on the tensor cores, two runs bit-equal, its dv from p kept as
    two bf16 terms measured against p rounded once and against a dense f64
    dv; the f32 backward the scalar kernel), the fused CE
-   at its training shape (the merged backward on the tensor cores, run
-   twice: dW and db bit-equal, dx within the tolerance each time; rated at
-   tf32 x3 with the f32 rating beside; also timed with bf16 x), the three blockwise attention kernels at
+   at its training shape (the forward on the tensor cores, f32 and bf16 x,
+   two runs bit-equal, its grid's two constants swept; the
+   merged backward on the tensor cores, run twice: dW and db bit-equal, dx
+   within the tolerance each time and the two within 1e-5 of the largest
+   |dx| of each other; both rated at tf32 x3 with the f32 rating beside;
+   the backward also timed with bf16 x), the three blockwise attention kernels at
    (16, 1024, 256) and at L=1000 in bf16 (all three on the tensor cores,
    two runs bit-equal, the dk/dv kernel's dv from p rounded to bf16 measured
    against p kept as two bf16 terms and against a dense f64 dv) and f32 (the
@@ -133,6 +136,9 @@ ATTN_BWD_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-5, 1e-4)}
 # atomics in an order that varies run to run)
 CE_LOGZ_TOL = 1e-4
 CE_GRAD_REL = 1e-4
+# the merged backward keeps its atomic adds for dx (ROADMAP.md Queue 3): two
+# runs of its f32 dx may differ by this much of the largest |dx|
+CE_DX_REPEAT = 1e-5
 # train phase: the flagship step at B=256, K steps per scan call
 B_TRAIN = 256
 K_TRAIN = 20
@@ -159,6 +165,9 @@ WIDE_D, WIDE_HEADS, WIDE_LAYERS = 384, 6, 4
 WIDE_STEPS, WIDE_EPOCHS, WIDE_EVAL_BATCHES, WIDE_SESSIONS = 40, 2, 8, 20_000
 WIDE_TIMED = 20  # train steps in the timed window after the run
 DX_TARGETS = (132, 264, 528, 1056, 2112)  # dx grid sizes timed at the wide shapes (1 to 16 waves of blocks)
+# the CE forward's grid, timed at the flagship's and long-session shapes:
+# the blocks it aims at, and the fewest vocab tiles a split walks
+FWD_GRID_SWEEPS = {"FWD_TARGET_BLOCKS": (528, 1056, 2112, 4224, 8448), "FWD_MIN_TILES": (1, 2, 4, 8, 16)}
 # eval sums, card vs CPU, relative to each sum's magnitude: f32 sums in
 # another order; bf16 as the train step's loss tolerance
 EVAL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -187,9 +196,9 @@ BLOCKWISE_BWD_TOL = {torch.bfloat16: dict(share=2e-3, floor=1e-2, rtol=2.0**-6),
 # published peaks of one H100 SXM (dense): device memory bytes/s, bf16 tensor
 # FLOP/s, f32 FLOP/s outside the tensor cores (also used for integer work)
 PEAK = {"bytes": 3.35e12, "bf16": 989e12, "tf32": 495e12, "f32": 67e12}
-# the numerics of the dx and dW passes (csrc/fused_ce_two_pass.cu
+# the numerics of the CE kernels' f32 products (csrc/fused_ce_mma.cuh
 # kDxNumerics, tf32 x3): the operand type their products run at and how many
-# products each of their two takes
+# products each product of the function takes
 DX_RATING = ("tf32", 3)
 
 
@@ -212,6 +221,25 @@ def bound(n_bytes: float, ops: dict) -> dict:
     by_bytes = n_bytes / PEAK["bytes"] * 1e3
     by_ops = sum(n / PEAK[kind] for kind, n in ops.items()) * 1e3
     return dict(bound_ms=max(by_bytes, by_ops), bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def log_ce_fwd(tag: str, n: int, nv: int, d: int, dtype, ms: float, plain_ms: float, card: str) -> dict:
+    """Logs the CE forward's time beside its bound at both ratings and its
+    plain version's time at n rows of x over the nv rows of the window (the
+    blinded rest needs no product): x and the window's table rows in, (m, l)
+    out; its one product 2 n nv d rated at the numerics of the kernel that
+    runs it (f32 x: DX_RATING, three tf32 products; bf16 x: one bf16
+    product), and the same product at the f32 peak. Returns the former."""
+    n_bytes = n * d * (2 if dtype == torch.bfloat16 else 4) + nv * d * 4 + 2 * n * 4
+    prod = 2.0 * n * nv * d
+    kind, terms = DX_RATING
+    rated = bound(n_bytes, {"bf16": prod} if dtype == torch.bfloat16 else {kind: terms * prod})
+    at_f32 = bound(n_bytes, {"f32": prod})
+    numerics = "one bf16 product" if dtype == torch.bfloat16 else "tf32 x3"
+    log(f"[kernels] CE forward {tag}: {ms:.4f} ms; bound {rated['bound_ms']:.4f} ms at {numerics} (share "
+        f"{rated['bound_ms'] / ms:.3f}), {at_f32['bound_ms']:.4f} ms rated at f32 (share "
+        f"{at_f32['bound_ms'] / ms:.3f}); plain {plain_ms:.4f} ms ({plain_ms / ms:.2f}x the kernel) [{card}]")
+    return rated
 
 
 def attention_bounds(b, l, d, h, itemsize) -> dict:
@@ -723,8 +751,22 @@ def ce_kernels_at(rng, n: int, v_rows: int, nv: int, d: int, off: int = 10, card
     for with_bias in (False, True):
         bias = torch.from_numpy(rng.standard_normal(v_rows, dtype=np.float32)).cuda() if with_bias else None
         m, l = ce_stats(x, table, bias, off, nv)
+        m2, l2 = ce_stats(x, table, bias, off, nv)
         wm, wl = ce_stats_reference(x, table, bias, off, nv)
         logz, want_logz = m + torch.log(l), wm + torch.log(wl)
+        if not torch.equal(m, m2) or not torch.equal(l, l2):
+            raise AssertionError(f"CE forward (bias={with_bias}): two runs differ (nothing in it is atomic)")
+        # bf16 x too (the train step's CE input is f32; the card tests hold
+        # both): the table rounded to bf16, one exact bf16 product
+        xb = x.to(torch.bfloat16)
+        mb, lb = ce_stats(xb, table, bias, off, nv)
+        mb2, lb2 = ce_stats(xb, table, bias, off, nv)
+        wmb, wlb = ce_stats_reference(xb, table, bias, off, nv)
+        err_b = (mb + torch.log(lb) - wmb - torch.log(wlb)).abs().max().item()
+        log(f"[kernels] CE forward N={n} V={v_rows} D={d} bf16 x (bias={with_bias}): logz max_abs_err {err_b:.3e} "
+            f"(tol {CE_LOGZ_TOL:.0e})")
+        if not torch.equal(mb, mb2) or not torch.equal(lb, lb2) or err_b > CE_LOGZ_TOL:
+            raise AssertionError(f"CE forward bf16 x (bias={with_bias}): error {err_b}, or two runs differ")
         got = ce_backward(x, table, bias, lab, want_logz, dnll, off, nv)
         again = ce_backward(x, table, bias, lab, want_logz, dnll, off, nv)
         want = ce_backward_reference(x, table, bias, lab, want_logz, dnll, off, nv)
@@ -746,14 +788,18 @@ def ce_kernels_at(rng, n: int, v_rows: int, nv: int, d: int, off: int = 10, card
             if not torch.isfinite(g).all() or e > CE_GRAD_REL * scale:
                 raise AssertionError(f"CE backward {name} (bias={with_bias}): error {e} > {CE_GRAD_REL} x {scale}")
             bwd_err = max(bwd_err, e)
+        dx_scale = want[0].abs().max().item()
         log(f"[kernels] CE backward N={n} V={v_rows} D={d} (bias={with_bias}): two runs, dW and db bit-equal, "
-            f"dx apart by {dx_runs:.3e} at most (atomic adds)")
+            f"dx apart by {dx_runs:.3e} at most ({dx_runs / dx_scale:.2e} of the largest |dx|, held to "
+            f"{CE_DX_REPEAT:.0e}: atomic adds)")
+        if dx_runs > CE_DX_REPEAT * dx_scale:
+            raise AssertionError(f"CE backward (bias={with_bias}): two runs of dx differ by {dx_runs}")
         blinded = torch.ones(v_rows, dtype=torch.bool, device=x.device)
         blinded[off : off + nv] = False
         if not bool((got[1][blinded] == 0).all()):
             raise AssertionError("CE backward: a blinded table row got a gradient")
         log(f"[kernels] CE forward N={n} V={v_rows} D={d} f32 (bias={with_bias}): logz max_abs_err {err:.3e} "
-            f"(tol {CE_LOGZ_TOL:.0e}); LABEL_PAD rows {int((labels == LABEL_PAD).sum())}")
+            f"(tol {CE_LOGZ_TOL:.0e}), two runs bit-equal; LABEL_PAD rows {int((labels == LABEL_PAD).sum())}")
         if not with_bias:
             t_fwd = (
                 device_time_ms(lambda: ce_stats(x, table, None, off, nv), reps=20),
@@ -766,7 +812,8 @@ def ce_kernels_at(rng, n: int, v_rows: int, nv: int, d: int, off: int = 10, card
             for name, (tk, tp), flop in (("forward", t_fwd, 2), ("backward", t_bwd, 6)):
                 tflops = flop * n * v_rows * d / (tk * 1e-3) / 1e12
                 log(f"[kernels] CE {name} N={n} V={v_rows} D={d} f32: kernel {tk:.3f} ms "
-                    f"({tflops:.1f} TFLOP/s f32), plain {tp:.3f} ms (median device time)")
+                    f"({tflops:.1f} TFLOP/s of f32 products), plain {tp:.3f} ms (median device time)")
+            ce_fwd_grid(x, table, want_logz, off, nv, card)
             if ce_backward_route(d) == "merged":
                 xb = x.to(torch.bfloat16)
                 tb = (device_time_ms(lambda: ce_backward(xb, table, None, lab, want_logz, dnll, off, nv), reps=20),
@@ -778,12 +825,12 @@ def ce_kernels_at(rng, n: int, v_rows: int, nv: int, d: int, off: int = 10, card
     # window (the rest is blinded), and in the backward only the rows whose
     # label is not LABEL_PAD (the others' dnll is 0). No PyTorch call
     # computes either function without the (N, V) logits: library_ms null
-    # The backward's three products are rated at the numerics of the kernel
-    # that runs them (DX_RATING, tf32 x3: nine tf32 products), the f32
-    # rating logged beside, as for the two passes.
+    # Each product is rated at the numerics of the kernel that runs it
+    # (DX_RATING, tf32 x3: three tf32 products for each), the f32 rating
+    # logged beside, as for the two passes.
     live = int(mask.sum().item())
     out["ce_fwd"] = dict(max_abs_err=fwd_err, ms=t_fwd[0], plain_ms=t_fwd[1], library_ms=None,
-                         **bound((n * d + nv * d + 2 * n) * 4, {"f32": 2.0 * n * nv * d}))
+                         **log_ce_fwd(f"N={n} V={v_rows} D={d} f32", n, nv, d, torch.float32, *t_fwd, card))
     bwd_bytes = (2 * n * d + 2 * nv * d + 3 * n) * 4
     kind, terms = DX_RATING
     rated = bound(bwd_bytes, {kind: terms * 6.0 * live * nv * d})
@@ -794,6 +841,36 @@ def ce_kernels_at(rng, n: int, v_rows: int, nv: int, d: int, off: int = 10, card
         f"{rated['bound_ms'] / t_bwd[0]:.3f}), {at_f32['bound_ms']:.4f} ms rated at f32 (share "
         f"{at_f32['bound_ms'] / t_bwd[0]:.3f}); plain {t_bwd[1]:.4f} ms [{card}]")
     return out
+
+
+def ce_fwd_grid(x, table, want_logz, off: int, nv: int, card: str) -> None:
+    """The CE forward with each of its grid's constants (FWD_GRID_SWEEPS:
+    the blocks the vocab split aims at, the fewest tiles a split walks) set
+    to each value in turn, the other shipped (the wrapper's constant set for
+    the call and put back), logz held to CE_LOGZ_TOL at each, timed in
+    turns: best of two windows of median device time per value."""
+    from bert4clickpath_torch.ops.kernels import fused_ce as k
+
+    n, v_rows = x.shape[0], table.shape[0]
+    row_tiles = -(-n // k.TILE)
+    for name, values in FWD_GRID_SWEEPS.items():
+        shipped, sweep = getattr(k, name), {}
+        for _ in range(2):  # in turns
+            for value in values:
+                setattr(k, name, value)
+                try:
+                    m, l = k.ce_stats(x, table, None, off, nv)
+                    err = (m + torch.log(l) - want_logz).abs().max().item()
+                    if err > CE_LOGZ_TOL:
+                        raise AssertionError(f"CE forward, {name} = {value}: logz error {err}")
+                    ms = device_time_ms(lambda: k.ce_stats(x, table, None, off, nv), reps=10)
+                    splits = k.ce_splits(n, v_rows)[0]
+                finally:
+                    setattr(k, name, shipped)
+                sweep[value] = (splits, min(ms, sweep.get(value, (0, ms))[1]))
+        log(f"[kernels] CE forward N={n} V={v_rows} D={x.shape[1]} f32, grid by {name} (splits, blocks, ms): "
+            + ", ".join(f"{value}: ({s}, {row_tiles * s}, {ms:.4f})" for value, (s, ms) in sweep.items())
+            + f"; shipped {shipped} (best of two windows of median device time) [{card}]")
 
 
 def _held(tag: str, got, want, rel_scale: float, rel_elem: float = 0.0) -> float:
@@ -861,10 +938,13 @@ def ce_two_pass_at(rng, n: int, v_rows: int, nv: int, d: int, card: str, off: in
             wm, wl = k.ce_stats_reference(x, table, bias, off, nv)
             want_logz = wm + torch.log(wl)
             m, l = k.ce_stats(x, table, bias, off, nv)
+            m2, l2 = k.ce_stats(x, table, bias, off, nv)
             e = (m + torch.log(l) - want_logz).abs().max().item()
-            log(f"[kernels] CE forward {tag}: logz max_abs_err {e:.3e} (tol {CE_LOGZ_TOL:.0e})")
+            log(f"[kernels] CE forward {tag}: logz max_abs_err {e:.3e} (tol {CE_LOGZ_TOL:.0e}), two runs bit-equal")
             if not torch.isfinite(m + torch.log(l)).all() or e > CE_LOGZ_TOL:
                 raise AssertionError(f"CE forward {tag}: logz error {e} > {CE_LOGZ_TOL}")
+            if not torch.equal(m, m2) or not torch.equal(l, l2):
+                raise AssertionError(f"CE forward {tag}: two runs differ (nothing in it is atomic)")
             errs["fwd"] = max(errs["fwd"], e)
             args = (x, table, bias, lab, want_logz, dnll, off, nv)
             dx = k.ce_backward_dx(*args)
@@ -915,6 +995,7 @@ def ce_two_pass_at(rng, n: int, v_rows: int, nv: int, d: int, card: str, off: in
                     + ", ".join(f"{target}: ({_dx_splits_at(k, target, n, v_rows, d)}, {ms:.3f})"
                                 for target, ms in sweep.items())
                     + f"; shipped {shipped} (best of two windows of median device time) [{card}]")
+            log_ce_fwd(f"N={n} V={v_rows} D={d} {dtype}", n, nv, d, dtype, t["fwd"], t["fwd_plain"], card)
             unit = 2.0 * n * v_rows * d / 1e9  # GFLOP of one product over the whole table
             log(f"[kernels] CE two-pass {tag}: dx {t['dx']:.3f} ms ({2 * unit / t['dx']:.1f} TFLOP/s), "
                 f"dW {t['dw']:.3f} ms ({2 * unit / t['dw']:.1f} TFLOP/s), plain dx {t['dx_plain']:.3f} ms, "

@@ -601,6 +601,85 @@ def test_ce_kernels_name_their_widest_row(cuda):
         ce_kernels.ce_backward_merged(x, table, None, lab, dnll, dnll, off, nv)
 
 
+def _logz_f64(x, table, bias, off, nv):
+    """logz of x . round_to_x(table)^T (+ bias) over the window [off, off +
+    nv), in f64, 256 rows at a time: the forward's oracle, so that the plain
+    version's own f32 sums (cuBLAS) do not count against the kernel."""
+    w = table.to(x.dtype).double()
+    out = []
+    for r0 in range(0, x.shape[0], 256):
+        s = x[r0 : r0 + 256].double() @ w[off : off + nv].T
+        if bias is not None:
+            s = s + bias[off : off + nv].double()
+        out.append(torch.logsumexp(s, dim=1))
+    return torch.cat(out)
+
+
+def _check_fwd(x, table, bias, off, nv):
+    """Two calls of the forward: one ce_fwd launch each and no other, the
+    same bits (nothing is atomic), m and l finite of shape (N,), and logz =
+    m + log(l) within abs 1e-4 of the f64 oracle (CE_LOGZ_TOL; the f32 x
+    products run as three tf32 ones, bf16 x as one exact bf16 product)."""
+    runs = []
+    for _ in range(2):
+        _build.reset_launch_counts()
+        runs.append(ce_stats(x, table, bias, off, nv))
+        torch.cuda.synchronize()
+        assert _nonzero_counts() == {"ce_fwd": 1}
+    (m, l), (m2, l2) = runs
+    assert m.shape == l.shape == (x.shape[0],) and m.dtype == l.dtype == torch.float32
+    assert torch.equal(m, m2) and torch.equal(l, l2), "two runs differ"
+    logz = m + torch.log(l)
+    assert torch.isfinite(logz).all()
+    torch.testing.assert_close(logz.double(), _logz_f64(x, table, bias, off, nv), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "n,v,d",
+    [
+        (2560, 55_296, 256),  # the flagship's CE shape
+        (2560, 55_296, 384),  # the wide model's
+        (160, 20_480, 256),  # the long-session path's: 3 row tiles, the grid split by V
+        (130, 1000, 6),  # N off the 64-row tile, ragged V, D not a multiple of 4: element-wise copies
+        (77, 700, 512),  # the widest x that stays resident in f32
+        (77, 700, 513),  # one column past it: x streamed in f32, resident in bf16
+        (64, 300, 1344),  # past bf16's widest resident x (1,280): streamed in both
+    ],
+)
+def test_ce_forward_tensor_cores(cuda, n, v, d, dtype, with_bias):
+    """The tensor-core forward at the three main paths' CE shapes and
+    around its tile and resident-width edges, f32 and bf16 x, with and
+    without a bias: see _check_fwd."""
+    x, table, bias, _, _, off, nv = _ce_case(n, v, d, dtype, with_bias, seed=d + n)
+    _check_fwd(x, table, bias, off, nv)
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_ce_forward_at_wide_logits(cuda, with_bias):
+    """f32 x at D = 1,024 over a table of N(0, 0.5^2): logits of ~16 (the
+    spread at which three bf16 products missed 1e-4, PERF.md), x streamed
+    chunk by chunk: see _check_fwd (the f64 oracle; the plain version's own
+    f32 sums move logz by ~1e-4 here)."""
+    x, table, bias, _, _, off, nv = _ce_case(130, 700, 1024, torch.float32, with_bias, seed=41)
+    _check_fwd(x, table, bias, off, nv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ce_forward_split_all_blinded(cuda, dtype):
+    """A vocab split whose every row lies outside the window (the window
+    ends 10 rows before the last split of 2,560 rows starts): its partial
+    (m, l) is (-1e30, rows) and the combine weighs it by exp(-1e30 - m) =
+    0. A bias is added before the blinding. See _check_fwd."""
+    n, v, off = 130, 2560, 10
+    splits, per = ce_kernels.ce_splits(n, v)
+    assert splits > 1
+    nv = (splits - 1) * per * ce_kernels.TILE - off - 10
+    x, table, bias, _, _, _, _ = _ce_case(n, v, 64, dtype, True, seed=17)
+    _check_fwd(x, table, bias, off, nv)
+
+
 def _check_merged(args, dtype, cuda):
     """Two calls of the merged backward against its plain version: one
     ce_bwd launch each and no other; dx, dW and db within 1e-4 (f32 x) or
@@ -692,6 +771,28 @@ def test_ce_merged_backward_at_wide_logits(cuda):
     table = table * 2.0
     wm, wl = ce_stats_reference(x, table, bias, off, nv)
     _check_merged((x, table, bias, lab, wm + torch.log(wl), dnll, off, nv), torch.float32, cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ce_merged_backward_dx_repeats_within_its_bound(cuda, dtype):
+    """The merged backward sums dx across blocks with atomic adds, kept on
+    purpose (ROADMAP.md, Queue 3: they cost 4% of its time), so dx repeats
+    to rounding, not bit for bit. Two runs at the flagship's CE shape (N =
+    2,560, V = 55,296, D = 256, with a bias) differ by at most 1e-5 of the
+    largest |dx| (a tenth of the tolerance that holds dx against the plain
+    version; each element sums 864 vocab tiles' f32 partials in an order
+    that varies; 2.3e-7 measured on an H100); a bf16 dx, each run rounding
+    its own f32 sum once, besides by one bf16 ulp of each value (2^-7 of
+    it). dW and db are bit-equal."""
+    x, table, bias, lab, dnll, off, nv = _ce_case(2560, 55_296, 256, dtype, True, seed=23)
+    wm, wl = ce_stats_reference(x, table, bias, off, nv)
+    args = (x, table, bias, lab, wm + torch.log(wl), dnll, off, nv)
+    (dx, dw, db), (dx2, dw2, db2) = (ce_kernels.ce_backward_merged(*args) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    gap = (dx.float() - dx2.float()).abs()
+    elem = 0.0 if dtype == torch.float32 else 2.0**-7
+    assert bool((gap <= 1e-5 * dx.float().abs().max() + elem * dx.float().abs()).all()), gap.max().item()
 
 
 DX_WIDTHS = [6, 32, 256, 384, 450, 713, 714, 1024]

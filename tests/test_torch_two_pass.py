@@ -160,6 +160,54 @@ def test_merged_matches_jax_bwd_fused(dtype, with_bias):
             assert np.abs(g - w).max() <= 1e-3 * np.abs(w).max()
 
 
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,v", [(77, 300), (N, V)])
+def test_forward_stats_match_jax_fwd_stats(n, v, dtype, with_bias):
+    """``ce_stats`` (its plain version, on CPU tensors) against the JAX
+    forward ``_fwd_stats`` (``_fwd_kernel`` in interpret mode) on the same
+    arrays: m and l themselves, not only logz. N = 77 and V = 300 lie off
+    the card kernel's 64-row tiles (one whole-table tile in the JAX kernel),
+    the window blinds rows at both ends. x in f32 or bf16 (the table rounded
+    to bf16 by both, so the products are exact and only the order of the f32
+    sums differs): m within rtol 1e-6 / atol 1e-6, l within rtol 1e-5."""
+    nv = v - OFF - 7
+    rng = np.random.default_rng(n + v)
+    x = rng.normal(size=(n, 64)).astype(np.float32)
+    table = (rng.normal(size=(v, 64)) / 4).astype(np.float32)
+    bias = rng.normal(size=(v,)).astype(np.float32) if with_bias else None
+    tx = torch.from_numpy(x).to(dtype)
+    m, l = k.ce_stats(tx, torch.from_numpy(table), None if bias is None else torch.from_numpy(bias), OFF, nv)
+    jm, jl = jce._fwd_stats(
+        jnp.asarray(x).astype(jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32), jnp.asarray(table),
+        jnp.asarray(0, jnp.int32), OFF, nv, bias=None if bias is None else jnp.asarray(bias).reshape(1, -1),
+    )
+    assert m.shape == l.shape == (n,) and m.dtype == l.dtype == torch.float32
+    np.testing.assert_allclose(m.numpy(), np.asarray(jm).reshape(-1), rtol=1e-6, atol=1e-6, err_msg="m")
+    np.testing.assert_allclose(l.numpy(), np.asarray(jl).reshape(-1), rtol=1e-5, err_msg="l")
+
+
+def test_forward_split_rule_covers_every_tile_once():
+    """The forward's grid: its vocabulary splits cover every 64-row vocab
+    tile exactly once (each split non-empty) at a spread of (N, V), aim at
+    ``FWD_TARGET_BLOCKS`` blocks with at least ``FWD_MIN_TILES`` tiles a
+    split (short of the vocabulary's end), and the long-session shape (N =
+    160, V = 20,480: 3 row tiles) fills at least one wave of the H100's 132
+    SMs."""
+    for n, v in ((2560, 55296), (160, 20480), (1, 1), (1, 64), (70000, 64), (5, 100000), (130, 700), (64, 65)):
+        splits, per = k.ce_splits(n, v)
+        tiles = -(-v // k.TILE)
+        covered = [j for s in range(splits) for j in range(s * per, min((s + 1) * per, tiles))]
+        assert covered == list(range(tiles)), (n, v)
+        assert all(s * per < tiles for s in range(splits)), (n, v)  # no empty split
+        assert per >= min(k.FWD_MIN_TILES, tiles), (n, v)
+        row_tiles = -(-n // k.TILE)
+        most = row_tiles * -(-tiles // min(k.FWD_MIN_TILES, tiles))  # blocks at the fewest tiles a split
+        assert row_tiles * splits >= min(k.FWD_TARGET_BLOCKS, most) // 2, (n, v)
+    splits, _ = k.ce_splits(160, 20480)
+    assert 3 * splits >= 132
+
+
 def test_backward_route_is_a_function_of_d_alone():
     assert [k.ce_backward_route(d) for d in (1, 64, 256, 257, 384, 512)] == [
         "merged", "merged", "merged", "two_pass", "two_pass", "two_pass"]
