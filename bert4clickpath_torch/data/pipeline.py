@@ -193,13 +193,19 @@ def prefetch_to_device(iterator, to_device, depth: int = 2):
         yield queue.popleft()
 
 
-def to_device(batch: ClozeBatch, device) -> dict:
-    """A host batch (or a stacked one, from ``stack_batches``) as the train
-    step's dict of int32 tensors: ``{"features": {...}, "head_positions",
-    "labels"}``."""
+def to_device(batch, device) -> dict:
+    """A host batch as the train step's dict of int32 tensors:
+    ``{"features": {...}, "head_positions", "labels"}``. The batch is a
+    ``ClozeBatch`` (or a stacked one, from ``stack_batches``) or a dict of
+    numpy arrays with those keys, as the task scripts build them, whose
+    ``head_positions`` may be None (segment routing)."""
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    if isinstance(batch, dict):
+        features, positions, labels = batch["features"], batch.get("head_positions"), batch["labels"]
+    else:
+        features, positions, labels = batch.features, batch.head_positions, batch.labels
     return {
-        "features": {k: put(v) for k, v in batch.features.items()},
-        "head_positions": put(batch.head_positions),
-        "labels": put(batch.labels),
+        "features": {k: put(v) for k, v in features.items()},
+        "head_positions": None if positions is None else put(positions),
+        "labels": put(labels),
     }

@@ -1,8 +1,12 @@
 """Task heads (counterpart of ``bert4clickpath_tpu/models/heads.py``).
 
-Only the softmax ("parity") head is ported so far, so that an export with
-the reference's MLP head can be served; the binary and multilabel heads
-come with their slices. The tied-weight head lives in
+Position-wise heads on the routed encoder outputs, each an MLP (``mlp``,
+Dense + ReLU per dim) and a final Dense named ``out``, as the flax modules
+name them, so ``convert.state_dict_from_flax`` maps them by name: the
+softmax ("parity") head, the binary head (one logit per position) and the
+multilabel head (C independent logits). Every head returns logits in the
+compute dtype, as flax's ``Dense(dtype=...)`` does; the losses widen them
+to f32. The tied-weight head lives in
 :mod:`bert4clickpath_torch.models.model` because it shares the item table.
 """
 
@@ -49,3 +53,25 @@ class SoftmaxHead(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.out(self.mlp(x))
+
+
+class BinaryHead(SoftmaxHead):
+    """MLP -> one logit per position, the last axis squeezed: (B, P)."""
+
+    def __init__(self, in_dim: int, dense_dims: tuple[int, ...], dtype: torch.dtype, *, device):
+        super().__init__(in_dim, dense_dims, 1, dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x).squeeze(-1)
+
+
+class MultiLabelHead(SoftmaxHead):
+    """MLP -> C independent logits per position. A single routed position
+    (3-D logits with ``shape[1] == 1``) is squeezed to (B, C); P > 1 keeps
+    (B, P, C)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        logits = super().forward(x)
+        if logits.dim() == 3 and logits.shape[1] == 1:
+            logits = logits.squeeze(1)
+        return logits

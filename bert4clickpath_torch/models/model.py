@@ -10,8 +10,10 @@ gather of positions (``routing='mask'``) or a static slice
 the other by name.
 
 Ported: ``encode``, ``gather_head_inputs``, ``head_trunk_outputs``, the
-catalog (``head_catalog``) and ``forward``, the (B, P, V) logits of the
-tied-softmax and softmax heads (the dense training and eval path). A
+catalog (``head_catalog``) and ``forward``: the (B, P, V) logits of the
+tied-softmax and softmax heads (the dense training and eval path), the
+(B, P) logits of the binary head and the (B, C) logits of the multilabel
+head on one routed position ((B, P, C) on P > 1). A
 single-feature model without an input projection embeds through the fused
 gather kernel (one rounding of table*sqrt(d)+pos, as the JAX kernel path
 does); other models follow the JAX xla path (per-feature embed, concat,
@@ -19,8 +21,7 @@ x sqrt(width) before ``input_proj``, then + pos). Every method takes an
 optional ``torch.Generator``: with one, the encoder's dropout is live
 (training); without, the forward is deterministic. ``dropout_impl``
 (``"mask"``, the default, or ``"fused"``, the dropout kernel) is the JAX
-model's ``dropout_impl`` (``"xla"`` / ``"pallas"``). The binary and
-multilabel heads are not ported yet.
+model's ``dropout_impl`` (``"xla"`` / ``"pallas"``).
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ from torch import nn
 from bert4clickpath_torch.config import ModelConfig
 from bert4clickpath_torch.constants import NUM_RESERVED_TOKENS, SEP_ID
 from bert4clickpath_torch.models.encoder import Dense, Encoder, LayerNorm
-from bert4clickpath_torch.models.heads import SoftmaxHead
+from bert4clickpath_torch.models.heads import BinaryHead, MultiLabelHead, SoftmaxHead
 from bert4clickpath_torch.models.positional import LearnedPositions, sinusoidal_positions
 from bert4clickpath_torch.ops.fused_ce import padded_rows
 from bert4clickpath_torch.ops.kernels.gather import gather_scale_pos
@@ -84,8 +85,12 @@ class ClickstreamModel(nn.Module):
             self.head = SoftmaxHead(
                 cfg.d_model, tuple(head.dense_dims), head.output_size, dtype, device=device
             )
-        elif head.kind != "tied_softmax":
-            raise ValueError(f"head kind {head.kind!r} is not ported yet")
+        elif head.kind == "binary":
+            self.head = BinaryHead(cfg.d_model, tuple(head.dense_dims), dtype, device=device)
+        elif head.kind == "multilabel":
+            self.head = MultiLabelHead(
+                cfg.d_model, tuple(head.dense_dims), head.output_size, dtype, device=device
+            )
         self.n_tied_transform = 0
         self.tied_proj: Optional[Dense] = None
         if head.kind == "tied_softmax":
@@ -204,11 +209,13 @@ class ClickstreamModel(nn.Module):
         self, features: dict[str, torch.Tensor], head_positions: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        """(B, P, V) head logits. For the tied head, f32 logits of the
-        transformed inputs against the item table's label rows (bf16
-        operands under bf16 compute, f32 sums, as the JAX einsum with
-        ``preferred_element_type=f32``) plus ``tied_out_bias``; for the
-        softmax head, its MLP and final ``Dense(V)``."""
+        """Head logits: (B, P, V) for the softmax heads, (B, P) for the
+        binary head, (B, C) for the multilabel head on one routed position.
+        For the tied head, f32 logits of the transformed inputs against the
+        item table's label rows (bf16 operands under bf16 compute, f32 sums,
+        as the JAX einsum with ``preferred_element_type=f32``) plus
+        ``tied_out_bias``; every other head returns its final Dense's output
+        in the compute dtype."""
         h = self.encode(features, generator)
         gathered = self._route(h, head_positions)
         if self.config.head.kind == "tied_softmax":

@@ -26,8 +26,7 @@ What differs from the JAX package, by design:
 * ``make_eval_step`` runs under ``torch.no_grad()`` with dropout off and
   returns its sums as tensors on the device; with ``steps_per_call`` > 1 it
   is a Python loop over the stacked batch, like the scan train step.
-* No ``axis_name``, ``raw``, ``donate`` or sampled softmax yet; the binary
-  and multilabel heads' eval waits for those heads.
+* No ``axis_name``, ``raw``, ``donate`` or sampled softmax yet.
 """
 
 from __future__ import annotations
@@ -333,7 +332,9 @@ def make_eval_step(
     steps_per_call: int = 1,
 ) -> Callable:
     """Returns ``(params, batch) -> stats``: a dict of **sums** (``loss_sum``,
-    ``n``, ``recall@k_sum``, ``ndcg@k_sum``) as device tensors, so a pass
+    ``n``; ``recall@k_sum``, ``ndcg@k_sum`` for the softmax-family heads;
+    ``positives_sum``, ``pred_positives_sum``, ``tp_sum`` for the binary
+    and multilabel heads) as device tensors, so a pass
     accumulates exactly across batches and fetches once
     (``ops.metrics.merge`` / ``finalize``). Runs without dropout and without
     a graph.
@@ -376,6 +377,12 @@ def make_eval_step(
             rstats = metrics_lib.ranking_stats(logits, labels, ks=ks)
             rstats.pop("n")
             stats.update(rstats)
+        else:
+            # binary_stats is elementwise, so it takes (B, C) multi-hot
+            # labels unchanged (per-class counts pooled)
+            bstats = metrics_lib.binary_stats(logits, labels)
+            bstats.pop("n")
+            stats.update(bstats)
         return stats
 
     @torch.no_grad()

@@ -92,6 +92,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    count continues), the trained export served by ``ServingModel`` on the
    card, and one train step and one eval batch at B=32, dropout 0, card vs
    CPU in f32 and bf16.
+9. heads — the task heads and their example scripts at the flagship's width and
+   depth (4 layers, d_model 256, 4 heads, FFN 1024, L=53, qkv_fused, bf16,
+   dropout 0.1, B=256), each on its script's batches and configuration
+   (``examples/chained/train_torch.py``, ``examples/tasks/multilabel_torch.py``,
+   ``examples/bert4rec/transfer_torch.py``, ``multivariable_torch.py``):
+   the transfer chain's Cloze pretrain (tied softmax, fused CE), its
+   encoder restored under a binary head on [CLS]; the chained binary model
+   (history 41 + basket 8, segment routing and embeddings, pos_weight 2);
+   the multilabel model on [CLS] (12 classes); the multi-variable model
+   (items 224 + events 32, softmax MLP head over the catalog through the
+   fused CE with bias). Each takes a warm-up step and 20 timed steps (exact
+   launches per step, finite losses, the last 5 below the first 5) and 2
+   eval batches (exact launches); one train step at B=32 card vs CPU in f32
+   and bf16 (the MLP heads' bf16 step held against the CPU's f32 step, see
+   BF16_TO_F32), one eval batch card vs CPU (the binary counts equal but for
+   logits within the tolerance of 0); the whole-row attention forward and
+   backward held on the chained batch's pads inside the sequence; the
+   multi-variable export served with dict sessions against the CPU; device
+   profiles of the binary and multi-variable steps; then the four scripts'
+   ``main`` on the card at small sizes.
 
 The line before the last is the card's name and power limit; the line
 before that is the kernels' JSON summary; the last line is the device JSON.
@@ -153,6 +173,21 @@ B_CHECK = 32  # card vs CPU gradient check
 # gradients, and card vs CPU in bf16 differ by 3.06e-2 there (median
 # 6.4e-3 over all parameters).
 TRAIN_TOL = {"float32": (1e-4, 1e-3), "bfloat16": (2e-2, 5e-2)}
+# The heads with an MLP (binary, multilabel, softmax) put one more bf16 ReLU
+# between the loss and the encoder, and the binary and multilabel losses
+# read one routed position (or one short segment) a row, so their gradients
+# enter the encoder through a few rows: bf16 rounding moves them far more
+# than it moves the tied head's Cloze step. At the flagship's width, B=32 and
+# seeded weights, the CPU's own bf16 step is 1.6-7.9% (median over the
+# parameters; worst 4.6-13%) from its f32 step on these heads; card vs CPU
+# in bf16 measured 5.0% (worst 6.8%) on the binary [CLS] head and 3.6%
+# (worst 5.3%) on the multi-variable softmax head (NVIDIA H100 80GB HBM3,
+# 700 W): the 5e-2 above sits inside the noise. For those heads the
+# card's bf16 step is held against the CPU's f32 step instead, no further
+# from it than this multiple of the CPU's own bf16 step, in median and worst
+# over the parameters (measured 0.72 to 1.41 of it); the f32 steps are held
+# to each other at TRAIN_TOL as for every head.
+BF16_TO_F32 = 2.0
 # long-session path: examples/long_context/bench_torch.py --seq_len 1024 --batch 16
 LONG_L, LONG_B, LONG_ITEMS, LONG_P = 1024, 16, 20_000, 10
 LONG_TIMED = 20  # timed steps per dropout back end
@@ -168,6 +203,19 @@ DX_TARGETS = (132, 264, 528, 1056, 2112)  # dx grid sizes timed at the wide shap
 # the CE forward's grid, timed at the flagship's and long-session shapes:
 # the blocks it aims at, and the fewest vocab tiles a split walks
 FWD_GRID_SWEEPS = {"FWD_TARGET_BLOCKS": (528, 1056, 2112, 4224, 8448), "FWD_MIN_TILES": (1, 2, 4, 8, 16)}
+# heads phase: the task heads and their example scripts (examples/chained/train_torch.py,
+# examples/tasks/multilabel_torch.py, examples/bert4rec/transfer_torch.py and
+# multivariable_torch.py) at the flagship's width and depth, B=256, max_len 53
+HEADS_BATCHES = 8  # host batches of B_TRAIN per model, cycled
+HEADS_STEPS = 20  # timed train steps per model, after a warm-up step
+HEADS_EVAL = 2  # eval batches per model
+HEADS_PROFILED = 10  # train steps in a profiled window
+HEADS_MAX_ITEMS = 50  # sessions of up to 50 items: 53 tokens
+HEADS_HIST = 41  # chained: history 41 + basket 8, chained_length 53
+N_CLASSES, N_EVENTS, POS_WEIGHT = 12, 8, 2.0
+MV_DIMS = (224, 32)  # items + events embedding widths: the JAX script's 7:1, summing to d_model 256
+# binary and multilabel eval logits, card vs CPU in f32: sums in another order
+HEADS_LOGIT_TOL = 1e-4
 # eval sums, card vs CPU, relative to each sum's magnitude: f32 sums in
 # another order; bf16 as the train step's loss tolerance
 EVAL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -367,16 +415,20 @@ def phase_build() -> None:
             log(f"[build] {line.strip()}")
 
 
-def _qkv_bias(b, seq, d, rng, full_pad_row: bool):
+def _qkv_bias(b, seq, d, rng, full_pad_row: bool, tokens=None):
+    """Random (b, seq, 3d) q/k/v and the padding bias of ``tokens`` ((b, seq)
+    int32 ids; None: ragged padding at the end of each row, and with
+    ``full_pad_row`` row 0 all pads)."""
     from bert4clickpath_torch.constants import PAD_ID
     from bert4clickpath_torch.ops.masking import padding_bias
 
     qkv = torch.from_numpy(rng.standard_normal((b, seq, 3 * d), dtype=np.float32)).cuda()
-    tokens = np.ones((b, seq), np.int32)
-    for i, n in enumerate(rng.integers(1, seq + 1, size=b)):  # ragged padding
-        tokens[i, n:] = PAD_ID
-    if full_pad_row:
-        tokens[0] = PAD_ID
+    if tokens is None:
+        tokens = np.ones((b, seq), np.int32)
+        for i, n in enumerate(rng.integers(1, seq + 1, size=b)):  # ragged padding
+            tokens[i, n:] = PAD_ID
+        if full_pad_row:
+            tokens[0] = PAD_ID
     return qkv, padding_bias(torch.from_numpy(tokens).cuda())
 
 
@@ -422,18 +474,19 @@ def gather_kernel_at(rng, v_rows: int, seq: int, d: int, cases) -> dict:
                 **bound(n * 4 + n * d * 4 + seq * d * 4 + n * d * 2, {"f32": 2.0 * n * d}))
 
 
-def attention_forward_at(rng, b: int, seq: int, d: int, h: int) -> tuple[float, tuple[float, float]]:
+def attention_forward_at(rng, b: int, seq: int, d: int, h: int, tokens=None) -> tuple[float, tuple[float, float]]:
     """The whole-row attention forward against its plain version at
     (b, seq, d) with h heads, bf16 (the tensor-core kernel) and f32 (the
     scalar one), qkv as strided column slices of one (b, seq, 3d) tensor,
-    ragged padding and (b > 1) one fully padded row, two runs bit-equal;
-    returns the bf16 case's error and its (kernel, plain) ms."""
+    ragged padding and (b > 1) one fully padded row, or the pads of
+    ``tokens``, two runs bit-equal; returns the bf16 case's error and its
+    (kernel, plain) ms."""
     from bert4clickpath_torch.ops.kernels.attention import mha, mha_reference
 
     out = None
     with torch.no_grad():
         for dtype in (torch.bfloat16, torch.float32):
-            qkv, bias = _qkv_bias(b, seq, d, rng, full_pad_row=(b > 1))
+            qkv, bias = _qkv_bias(b, seq, d, rng, full_pad_row=(b > 1), tokens=tokens)
             qkv = qkv.to(dtype)
             q, k, v = qkv[..., :d], qkv[..., d : 2 * d], qkv[..., 2 * d :]
             got = mha(q, k, v, bias, h)
@@ -461,11 +514,12 @@ def attention_forward_at(rng, b: int, seq: int, d: int, h: int) -> tuple[float, 
     return out
 
 
-def attention_backward_at(rng, b: int, seq: int, d: int, h: int, card: str):
+def attention_backward_at(rng, b: int, seq: int, d: int, h: int, card: str, tokens=None):
     """The whole-row attention backward against its plain version at
     (b, seq, d) with h heads, bf16 (the tensor-core kernel) and f32 (the
     scalar one), q/k/v as strided slices of one (b, seq, 3d) tensor, ragged
-    padding and one fully padded row, two runs bit-equal; in bf16 also the
+    padding and one fully padded row (or the pads of ``tokens``), two runs
+    bit-equal; in bf16 also the
     kernel's dv (p as two bf16 terms) against a dense f64 dv beside p
     rounded once; returns the bf16 case's error, its (kernel, plain) ms and
     the f32 case's (q, k, v, bias, do)."""
@@ -473,7 +527,7 @@ def attention_backward_at(rng, b: int, seq: int, d: int, h: int, card: str):
 
     err_bf16, times = None, None
     for dtype in (torch.bfloat16, torch.float32):
-        qkv, bias = _qkv_bias(b, seq, d, rng, full_pad_row=True)
+        qkv, bias = _qkv_bias(b, seq, d, rng, full_pad_row=True, tokens=tokens)
         qkv = qkv.to(dtype)
         q, k, v = qkv[..., :d], qkv[..., d : 2 * d], qkv[..., 2 * d :]
         do = torch.from_numpy(rng.standard_normal((b, seq, d), dtype=np.float32)).cuda().to(dtype)
@@ -1302,6 +1356,29 @@ def profile_requests(served, rng, b: int) -> dict:
     return dict(stages_ms=med, kernels_per_request=launches, busy_share=share)
 
 
+def _served_as_on_cpu(served, cpu, requests, tag: str) -> float:
+    """Each request's top-K answers from the card against the same bundle
+    served on the CPU (the plain path): log-probs within SERVE_TOL, and the
+    same items wherever the CPU's scores are further apart than that.
+    Returns the largest log-prob difference."""
+    worst = 0.0
+    for sessions in requests:
+        got, want = served.recommend(sessions, k=K), cpu.recommend(sessions, k=K)
+        for g, w in zip(got, want):
+            gs, ws = np.array([s for _, s in g]), np.array([s for _, s in w])
+            worst = max(worst, float(np.abs(gs - ws).max()))
+            gaps = np.diff(ws) < -SERVE_TOL
+            sep = np.ones(K, bool)
+            sep[:-1] &= gaps
+            sep[1:] &= gaps
+            if [n for (n, _), s in zip(g, sep) if s] != [n for (n, _), s in zip(w, sep) if s]:
+                raise AssertionError(f"GPU and CPU rankings differ: {g} vs {w}")
+    log(f"{tag}: GPU vs CPU plain path, max |top-{K} log-prob diff| {worst:.3e} (tol {SERVE_TOL})")
+    if worst > SERVE_TOL:
+        raise AssertionError(f"GPU and CPU log-probs differ by {worst} > {SERVE_TOL}")
+    return worst
+
+
 def phase_serve(card: str) -> dict:
     from bert4clickpath_torch.data.synthetic import seeded_state_dict
     from bert4clickpath_torch.ops.kernels import _build
@@ -1352,22 +1429,7 @@ def phase_serve(card: str) -> dict:
 
         # the same bundle on the CPU (the kernels' plain versions)
         cpu = ServingModel(tmp, device="cpu")
-        worst = 0.0
-        for b in (1, 8):
-            sessions = _sessions(rng, b)
-            got, want = served.recommend(sessions, k=K), cpu.recommend(sessions, k=K)
-            for g, w in zip(got, want):
-                gs, ws = np.array([s for _, s in g]), np.array([s for _, s in w])
-                worst = max(worst, float(np.abs(gs - ws).max()))
-                gaps = np.diff(ws) < -SERVE_TOL
-                sep = np.ones(K, bool)
-                sep[:-1] &= gaps
-                sep[1:] &= gaps
-                if [n for (n, _), s in zip(g, sep) if s] != [n for (n, _), s in zip(w, sep) if s]:
-                    raise AssertionError(f"GPU and CPU rankings differ: {g} vs {w}")
-        log(f"[serve] GPU vs CPU plain path, batch 1 and 8: max |log-prob diff| {worst:.3e} (tol {SERVE_TOL})")
-        if worst > SERVE_TOL:
-            raise AssertionError(f"GPU and CPU log-probs differ by {worst} > {SERVE_TOL}")
+        _served_as_on_cpu(served, cpu, [_sessions(rng, b) for b in (1, 8)], "[serve] batch 1 and 8")
     return dict(counts=counts, latency=stats, sessions_per_s_b64=per_s, peak_bytes=peak, profiles=profiles)
 
 
@@ -1554,18 +1616,12 @@ def _long_batches(n: int, batch: int, seed: int) -> list:
     return [synthetic_batch(rng, batch, LONG_L - 3, LONG_P, LONG_ITEMS) for _ in range(n)]
 
 
-def _to(batch: dict, device) -> dict:
-    return {
-        "features": {k: torch.from_numpy(v).to(device) for k, v in batch["features"].items()},
-        "head_positions": torch.from_numpy(batch["head_positions"]).to(device),
-        "labels": torch.from_numpy(batch["labels"]).to(device),
-    }
-
-
-def _card_vs_cpu_step(cfg, batch_on, num_valid: int, tag: str) -> dict:
+def _card_vs_cpu_step(cfg, batch_on, num_valid, tag: str, loss_fn=None) -> dict:
     """One step's loss and gradients at dropout 0 from the same weights on
     the card (kernels) and on the CPU (plain versions), in f32 and bf16;
-    ``batch_on(device)`` gives the batch there."""
+    ``batch_on(device)`` gives the batch there; the loss is the train
+    step's (the fused CE over ``num_valid`` labels, or dense logits through
+    ``loss_fn``)."""
     from bert4clickpath_torch.data.synthetic import seeded_state_dict
     from bert4clickpath_torch.models.model import ClickstreamModel
     from bert4clickpath_torch.training.train_state import make_loss_fn
@@ -1579,35 +1635,78 @@ def _card_vs_cpu_step(cfg, batch_on, num_valid: int, tag: str) -> dict:
             m = ClickstreamModel(cfg0, device=device)
             m.load_state_dict(sd)
             names = [n for n, _ in m.named_parameters()]
-            loss = make_loss_fn(m, fused_ce_num_valid=num_valid)(batch_on(device))
+            loss = make_loss_fn(m, loss_fn, fused_ce_num_valid=num_valid)(batch_on(device))
             grads = torch.autograd.grad(loss, [p for _, p in m.named_parameters()])
             results.append((loss.item(), {n: g.float().cpu() for n, g in zip(names, grads)}))
         (gpu_loss, gpu_g), (cpu_loss, cpu_g) = results
 
-        def rel_err(n):
+        def rel_err(got, want, n):
             # a separate key projection's bias has a zero gradient in exact
             # arithmetic (the softmax does not see a shift of all keys): both
             # sides compute rounding noise there, so their difference is held
             # against the same layer's query bias gradient
-            ref = cpu_g[n.replace("wk.bias", "wq.bias")]
-            return ((gpu_g[n] - cpu_g[n]).norm() / ref.norm().clamp(min=1e-30)).item()
+            ref = want[n.replace("wk.bias", "wq.bias")]
+            return ((got[n] - want[n]).norm() / ref.norm().clamp(min=1e-30)).item()
 
-        errs = {n: rel_err(n) for n in cpu_g}
+        errs = {n: rel_err(gpu_g, cpu_g, n) for n in cpu_g}
         worst = max(errs, key=lambda n: (not np.isfinite(errs[n]), errs[n]))
         log(f"{tag} dropout 0 {dtype}, card vs CPU: loss {gpu_loss:.6f} vs {cpu_loss:.6f} "
             f"(|diff| {abs(gpu_loss - cpu_loss):.2e}, tol {loss_tol:.0e}); relative gradient norm error "
             f"median {statistics.median(errs.values()):.2e}, worst {errs[worst]:.3e} at {worst} (tol {grad_tol:.0e})")
-        if not abs(gpu_loss - cpu_loss) <= loss_tol or not errs[worst] <= grad_tol:
+        grads_held = errs[worst] <= grad_tol
+        if dtype == "bfloat16" and cfg.head.kind != "tied_softmax":
+            # each side's bf16 step against the CPU's f32 step
+            to_f32 = [{n: rel_err(g, f32_cpu, n) for n in f32_cpu} for g in (gpu_g, cpu_g)]
+            (card_med, cpu_med), (card_max, cpu_max) = (
+                [agg(e.values()) for e in to_f32] for agg in (statistics.median, max))
+            log(f"{tag} dropout 0 bfloat16 against the CPU's float32 step: relative gradient norm error median "
+                f"{card_med:.3e} (card) vs {cpu_med:.3e} (CPU), worst {card_max:.3e} vs {cpu_max:.3e} (the card's held "
+                f"to {BF16_TO_F32:.1f}x the CPU's)")
+            grads_held = card_med <= BF16_TO_F32 * cpu_med and card_max <= BF16_TO_F32 * cpu_max
+        if not abs(gpu_loss - cpu_loss) <= loss_tol or not grads_held:
             raise AssertionError(
                 f"card and CPU train steps differ ({dtype}): loss {gpu_loss} vs {cpu_loss}, {worst} {errs[worst]}"
             )
         worst_errs[dtype] = errs[worst]
+        if dtype == "float32":
+            f32_cpu = cpu_g
     return worst_errs
+
+
+def _card_vs_cpu_eval(cfg, batch_on, num_valid, tag: str, loss_fn=None) -> None:
+    """One eval batch's sums (the chunked catalog scan over ``num_valid``
+    labels) at dropout 0 from the same weights on the card and on the CPU,
+    in f32 and bf16: the loss sum within EVAL_TOL of its magnitude, each hit
+    sum within one hit of it."""
+    from bert4clickpath_torch.data.synthetic import seeded_state_dict
+    from bert4clickpath_torch.models.model import ClickstreamModel
+    from bert4clickpath_torch.training.train_state import make_eval_step
+
+    for dtype, tol in EVAL_TOL.items():
+        cfg0 = dataclasses.replace(cfg, dropout_rate=0.0, dtype=dtype)
+        sd = seeded_state_dict(cfg0, SEED + 2)
+        sums = []
+        for device in ("cuda", "cpu"):
+            m = ClickstreamModel(cfg0, device=device)
+            m.load_state_dict(sd)
+            step = make_eval_step(m, loss_fn=loss_fn, chunked_num_valid=num_valid)
+            sums.append({k: float(v) for k, v in step(dict(m.named_parameters()), batch_on(device)).items()})
+        gpu, cpu = sums
+        # the hit sums move by one whole hit where rounding reorders a near tie
+        err = {k: abs(gpu[k] - cpu[k]) / max(abs(cpu[k]), 1.0) for k in cpu}
+        log(f"{tag} {dtype}, card vs CPU: {gpu} vs {cpu}; worst relative difference {max(err.values()):.2e} "
+            f"(tol {tol:.0e})")
+        if gpu["n"] != cpu["n"] or err["loss_sum"] > tol:
+            raise AssertionError(f"card and CPU eval sums differ ({dtype}): {gpu} vs {cpu}")
+        for key in (k for k in cpu if "@" in k):
+            if abs(gpu[key] - cpu[key]) > 1.0 + tol * abs(cpu[key]):
+                raise AssertionError(f"card and CPU eval sums differ ({dtype}) at {key}: {gpu[key]} vs {cpu[key]}")
 
 
 def phase_long_train(card: str) -> dict:
     """The long-session train step: B=16, L=1024, full width and depth."""
     from bert4clickpath_torch.config import TrainConfig
+    from bert4clickpath_torch.data.pipeline import to_device
     from bert4clickpath_torch.data.synthetic import long_context_config, seeded_state_dict
     from bert4clickpath_torch.models.model import ClickstreamModel
     from bert4clickpath_torch.ops.kernels import _build
@@ -1615,7 +1714,7 @@ def phase_long_train(card: str) -> dict:
     from bert4clickpath_torch.training.train_state import TrainState, make_optimizer, make_train_step
 
     cfg = long_context_config(LONG_L, LONG_ITEMS)
-    batches = [_to(b, "cuda") for b in _long_batches(4, LONG_B, SEED)]
+    batches = [to_device(b, "cuda") for b in _long_batches(4, LONG_B, SEED)]
     log(f"[long-train] B={LONG_B} L={LONG_L}, {cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} heads, "
         f"{LONG_ITEMS} labels over {cfg.features['items'].vocab_rows} rows, dropout {cfg.dropout_rate}, {cfg.dtype}")
 
@@ -1694,7 +1793,7 @@ def phase_long_train(card: str) -> dict:
     t0 = time.perf_counter()
     small = _long_batches(1, LONG_B_CHECK, SEED + 3)[0]
     result["worst_grad_err"] = _card_vs_cpu_step(
-        cfg, lambda device: _to(small, device), LONG_ITEMS, f"[long-train] B={LONG_B_CHECK}")
+        cfg, lambda device: to_device(small, device), LONG_ITEMS, f"[long-train] B={LONG_B_CHECK}")
     log(f"[long-train] B={LONG_B_CHECK} card vs CPU checks in {time.perf_counter() - t0:.2f} s")
     result.update(first10=first, last10=last)
     return result
@@ -1755,13 +1854,11 @@ def phase_wide_train(card: str) -> dict:
     this process on the wide tied-head model (4 layers, d_model 384, 6 heads),
     whose CE backward is the two-pass pair."""
     from bert4clickpath_torch.data.pipeline import to_device
-    from bert4clickpath_torch.data.synthetic import seeded_state_dict
-    from bert4clickpath_torch.models.model import ClickstreamModel
     from bert4clickpath_torch.ops import metrics as metrics_lib
     from bert4clickpath_torch.ops.kernels import _build
     from bert4clickpath_torch.training import checkpoint as ckpt_lib
     from bert4clickpath_torch.training.serving import ServingModel
-    from bert4clickpath_torch.training.train_state import eval_params, make_eval_step
+    from bert4clickpath_torch.training.train_state import eval_params
     from examples.bert4rec import train_torch
 
     model_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", f"wide_train_{os.getpid()}")
@@ -1888,29 +1985,343 @@ def phase_wide_train(card: str) -> dict:
     num_valid = cfg.head.output_size
     worst = _card_vs_cpu_step(cfg, lambda device: to_device(h0, device), num_valid, f"[wide-train] B={B_CHECK}")
     e0 = next(iter(ds.eval_batches(B_CHECK, limit_batches=1)))
-    for dtype, tol in EVAL_TOL.items():
-        cfg0 = dataclasses.replace(cfg, dropout_rate=0.0, dtype=dtype)
-        sd = seeded_state_dict(cfg0, SEED + 2)
-        sums = []
-        for device in ("cuda", "cpu"):
-            m = ClickstreamModel(cfg0, device=device)
-            m.load_state_dict(sd)
-            stats = make_eval_step(m, chunked_num_valid=num_valid)(dict(m.named_parameters()), to_device(e0, device))
-            sums.append({k: float(v) for k, v in stats.items()})
-        gpu, cpu = sums
-        # the hit sums move by one whole hit where rounding reorders a near tie
-        err = {k: abs(gpu[k] - cpu[k]) / max(abs(cpu[k]), 1.0) for k in cpu}
-        log(f"[wide-train] eval batch B={B_CHECK} {dtype}, card vs CPU: {gpu} vs {cpu}; worst relative "
-            f"difference {max(err.values()):.2e} (tol {tol:.0e})")
-        if gpu["n"] != cpu["n"] or err["loss_sum"] > tol:
-            raise AssertionError(f"card and CPU eval sums differ ({dtype}): {gpu} vs {cpu}")
-        for key in (k for k in cpu if "@" in k):
-            if abs(gpu[key] - cpu[key]) > 1.0 + tol * abs(cpu[key]):
-                raise AssertionError(f"card and CPU eval sums differ ({dtype}) at {key}: {gpu[key]} vs {cpu[key]}")
+    _card_vs_cpu_eval(cfg, lambda device: to_device(e0, device), num_valid, f"[wide-train] eval batch B={B_CHECK}")
     log(f"[wide-train] card vs CPU checks in {time.perf_counter() - t0:.2f} s")
     return dict(counts=counts, step_counts=step_counts, ms_per_step=ms_step, examples_per_s=B_TRAIN / ms_step * 1e3,
                 eval_ms_per_batch=ms_eval, peak_bytes=peak, profile=prof, worst_grad_err=worst,
                 train_loss=[r["train_loss"] for r in records])
+
+
+def _rows(batch, n: int) -> dict:
+    """The first n rows of a host batch (a ClozeBatch or a dict of numpy
+    arrays) as a dict."""
+    if not isinstance(batch, dict):
+        batch = {"features": batch.features, "head_positions": batch.head_positions, "labels": batch.labels}
+    positions = batch.get("head_positions")
+    return {"features": {k: v[:n] for k, v in batch["features"].items()},
+            "head_positions": None if positions is None else positions[:n], "labels": batch["labels"][:n]}
+
+
+def _card_vs_cpu_logits(cfg, batch_on, tag: str, loss_fn=None) -> int:
+    """A binary or multilabel eval batch at dropout 0 in f32 from the same
+    weights on the card and on the CPU: the logits within HEADS_LOGIT_TOL,
+    the loss sum within EVAL_TOL of its magnitude, the label and positive
+    counts equal, and the predicted-positive and true-positive counts equal
+    but for labels whose logit lies within the tolerance of 0 (the
+    threshold), which may fall on either side. Returns how many did."""
+    from bert4clickpath_torch.constants import LABEL_PAD
+    from bert4clickpath_torch.data.synthetic import seeded_state_dict
+    from bert4clickpath_torch.models.model import ClickstreamModel
+    from bert4clickpath_torch.training.train_state import make_eval_step
+
+    cfg0 = dataclasses.replace(cfg, dropout_rate=0.0, dtype="float32")
+    sd = seeded_state_dict(cfg0, SEED + 2)
+    out = []
+    for device in ("cuda", "cpu"):
+        m = ClickstreamModel(cfg0, device=device)
+        m.load_state_dict(sd)
+        batch = batch_on(device)
+        with torch.no_grad():
+            logits = m(batch["features"], batch.get("head_positions")).cpu()
+        stats = make_eval_step(m, loss_fn=loss_fn)(dict(m.named_parameters()), batch)
+        out.append((logits, {k: float(v) for k, v in stats.items()}))
+    (gpu_logits, gpu), (cpu_logits, cpu) = out
+    labels = batch_on("cpu")["labels"]
+    err = (gpu_logits - cpu_logits).abs().max().item()
+    near = int(((cpu_logits.abs() <= HEADS_LOGIT_TOL) & (labels != LABEL_PAD)).sum())
+    log(f"{tag} float32, card vs CPU: logits {tuple(cpu_logits.shape)} max |diff| {err:.3e} (tol "
+        f"{HEADS_LOGIT_TOL:.0e}); sums {gpu} vs {cpu}; {near} labels with a logit within the tol of 0")
+    if not err <= HEADS_LOGIT_TOL:
+        raise AssertionError(f"{tag}: card and CPU logits differ by {err}")
+    if abs(gpu["loss_sum"] - cpu["loss_sum"]) > EVAL_TOL["float32"] * max(abs(cpu["loss_sum"]), 1.0):
+        raise AssertionError(f"{tag}: card and CPU loss sums differ: {gpu} vs {cpu}")
+    for key in ("n", "positives_sum", "pred_positives_sum", "tp_sum"):
+        if abs(gpu[key] - cpu[key]) > (near if key in ("pred_positives_sum", "tp_sum") else 0):
+            raise AssertionError(f"{tag}: card and CPU {key} differ: {gpu} vs {cpu} ({near} logits near 0)")
+    return near
+
+
+def _heads_model(tag: str, cfg, host: list, evals: list, per_step: dict, card: str, weights=None, loss_fn=None,
+                 num_valid=None, profile: bool = False) -> dict:
+    """One task model as its script trains it, batches already on the card:
+    a warm-up step, HEADS_STEPS timed steps over ``host`` (cycled) with
+    dropout live, the exact launches of each (``per_step``), finite losses
+    whose last 5 lie below the first 5 on average, then HEADS_EVAL eval
+    batches (1 gather unless the model has two features, 1 whole-row
+    attention a layer each) with finite metrics; with ``profile`` a
+    device-only profiled window."""
+    from bert4clickpath_torch.config import TrainConfig
+    from bert4clickpath_torch.data.pipeline import to_device
+    from bert4clickpath_torch.data.synthetic import seeded_state_dict
+    from bert4clickpath_torch.models.model import ClickstreamModel
+    from bert4clickpath_torch.ops import metrics as metrics_lib
+    from bert4clickpath_torch.ops.kernels import _build
+    from bert4clickpath_torch.training import schedules
+    from bert4clickpath_torch.training.train_state import (
+        TrainState,
+        eval_params,
+        make_eval_step,
+        make_optimizer,
+        make_train_step,
+    )
+
+    t0 = time.perf_counter()
+    model = ClickstreamModel(cfg, device="cuda")
+    model.load_state_dict(seeded_state_dict(cfg, SEED) if weights is None else weights)
+    tx = make_optimizer(TrainConfig(batch_size=B_TRAIN), mu_dtype=torch.bfloat16)
+    state = TrainState.create(dict(model.named_parameters()), tx)
+    step = make_train_step(model, tx, schedules.constant(1e-3), loss_fn=loss_fn, fused_ce_num_valid=num_valid)
+    eval_step = make_eval_step(model, loss_fn=loss_fn, chunked_num_valid=num_valid)
+    batches = [to_device(b, "cuda") for b in host]
+    rng = torch.Generator("cuda").manual_seed(SEED)
+    state, loss = step(state, batches[0], rng)
+    log(f"[heads] {tag}: {cfg.head}, routing {cfg.routing} {cfg.segment_bounds or ''}, features "
+        f"{ {k: (f.vocab_rows, f.embedding_dim) for k, f in cfg.features.items()} }, d_model {cfg.d_model}, "
+        f"max_len {cfg.max_len}; warm-up step loss {loss.item():.4f}; set-up {time.perf_counter() - t0:.2f} s")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(HEADS_STEPS):
+        state, loss = step(state, batches[(i + 1) % len(batches)], rng)
+        losses.append(loss)
+    losses = torch.stack(losses).float().cpu().numpy()  # the fetch waits for the steps
+    ms_step = (time.perf_counter() - t0) / HEADS_STEPS * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    counts = {k: n for k, n in _build.launch_counts().items() if n}
+    expected = {k: n * HEADS_STEPS for k, n in per_step.items() if n}
+    first, last = float(losses[:5].mean()), float(losses[-5:].mean())
+    log(f"[heads] {tag}: {HEADS_STEPS} train steps at B={B_TRAIN}, dropout {cfg.dropout_rate}: {ms_step:.3f} ms/step, "
+        f"{B_TRAIN / ms_step * 1e3:.1f} examples/s; peak device memory {peak / 2**20:.1f} MiB; mean loss of the "
+        f"first 5 {first:.4f}, of the last 5 {last:.4f}; launches {counts} (expected {expected}) [{card}]")
+    if counts != expected:
+        raise AssertionError(f"{tag}: kernel launches {counts} != {expected}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{tag}: a non-finite training loss: {losses}")
+    if not last < first:
+        raise AssertionError(f"{tag}: the loss did not fall: first 5 {first}, last 5 {last}")
+
+    per_eval = {"gather": int(len(cfg.features) == 1), "attention": cfg.num_layers}
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    acc = None
+    for b in evals:
+        stats = eval_step(eval_params(state), to_device(b, "cuda"))
+        acc = stats if acc is None else metrics_lib.merge(acc, stats)
+    metrics = metrics_lib.finalize(acc)
+    ms_eval = (time.perf_counter() - t0) / len(evals) * 1e3
+    eval_counts = {k: n for k, n in _build.launch_counts().items() if n}
+    expected = {k: n * len(evals) for k, n in per_eval.items() if n}
+    log(f"[heads] {tag}: {len(evals)} eval batches, {ms_eval:.3f} ms/batch (host batches included): "
+        f"{ {k: round(v, 4) for k, v in metrics.items()} }; launches {eval_counts} (expected {expected}) [{card}]")
+    if eval_counts != expected:
+        raise AssertionError(f"{tag}: eval launches {eval_counts} != {expected}")
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"{tag}: non-finite eval metrics {metrics}")
+
+    prof = None
+    if profile:
+        holder = {"state": state}
+
+        def profiled():
+            for i in range(HEADS_PROFILED):
+                holder["state"], _ = step(holder["state"], batches[i % len(batches)], rng)
+
+        prof = _device_profile(profiled, HEADS_PROFILED, f"heads {tag}", card)
+        state = holder["state"]
+        log(f"[heads] {tag}: device time {prof['device_ms_per_step']:.3f} ms/step (profiled kernels) against "
+            f"{ms_step:.3f} ms/step unprofiled: busy share {prof['device_ms_per_step'] / ms_step:.3f} [{card}]")
+    return dict(state=state, counts={k: n // HEADS_STEPS for k, n in counts.items()}, ms_per_step=ms_step,
+                eval_ms_per_batch=ms_eval, peak_bytes=peak, first5=first, last5=last, metrics=metrics, profile=prof)
+
+
+def phase_heads(card: str) -> dict:
+    """The binary and multilabel heads, segment-routed chained sessions, the
+    transfer chain and the multi-variable model at the flagship's width and
+    depth, each on its script's batches and configuration, then the four
+    scripts' ``main`` on the card at small sizes."""
+    import functools
+    import itertools
+
+    from bert4clickpath_torch.config import FeatureConfig, HeadConfig
+    from bert4clickpath_torch.constants import PAD_ID
+    from bert4clickpath_torch.data.generator import ClickStreamGenerator
+    from bert4clickpath_torch.data.pipeline import ClozeDataset, to_device
+    from bert4clickpath_torch.data.synthetic import seeded_state_dict
+    from bert4clickpath_torch.ops.kernels import _build
+    from bert4clickpath_torch.ops.losses import masked_binary_cross_entropy
+    from bert4clickpath_torch.training import checkpoint as ckpt_lib
+    from bert4clickpath_torch.training.serving import ServingModel
+    from examples.bert4rec import multivariable_torch, transfer_torch
+    from examples.chained import train_torch as chained
+    from examples.tasks import multilabel_torch
+
+    t0 = time.perf_counter()
+    flag, _ = flagship_config()
+    gen = ClickStreamGenerator(n_items=N_ITEMS, n_events=N_EVENTS, session_cohesiveness=200, seed=0)
+    items, events = gen.generate_sessions(HEADS_BATCHES * B_TRAIN)
+    vocab, event_vocab = gen.item_vocab(), gen.event_vocab()
+    num_valid = vocab.label_vocab_size
+    mx, n = HEADS_MAX_ITEMS, HEADS_BATCHES
+
+    def first(stream, k: int = n) -> list:
+        return list(itertools.islice(stream, k))
+
+    def at_flagship(cfg, head, **fields):
+        """A script's configuration at the flagship's width and depth."""
+        keep = ("features", "num_layers", "num_heads", "ffn_dim", "dropout_rate", "positional", "dtype", "qkv_fused")
+        return dataclasses.replace(cfg, **{**{f: getattr(flag, f) for f in keep}, "head": head, **fields})
+
+    ds = ClozeDataset(items, vocab, max_items=mx)
+    pw_loss = functools.partial(masked_binary_cross_entropy, pos_weight=POS_WEIGHT)
+    enc = {"attention": flag.num_layers, "attention_bwd": flag.num_layers}
+    ce = {"ce_fwd": 1, "ce_bwd": 1}
+    # (tag, configuration, train batches, eval batches, launches per train step, kwargs)
+    runs = {
+        "transfer-1": (flag, first(ds.train_batches(B_TRAIN, seed=SEED)), list(ds.eval_batches(B_TRAIN, HEADS_EVAL)),
+                       {"gather": 1, **enc, **ce}, dict(num_valid=num_valid)),
+        "transfer-2": (at_flagship(transfer_torch.finetune_config(flag), HeadConfig("binary", (256,))),
+                       first(transfer_torch.binary_batches(items, N_ITEMS, B_TRAIN, mx, np.random.default_rng(5))),
+                       first(transfer_torch.binary_batches(items, N_ITEMS, B_TRAIN, mx, np.random.default_rng(7),
+                                                           shuffle=False), HEADS_EVAL),
+                       {"gather": 1, **enc}, dict(profile=True)),
+        "chained": (at_flagship(chained.build_model_config(vocab, HEADS_HIST), HeadConfig("binary", (256, 128))),
+                    first(chained.make_chained_batches(items, B_TRAIN, HEADS_HIST, np.random.default_rng(1),
+                                                       n_catalog=N_ITEMS)),
+                    first(chained.make_chained_batches(items, B_TRAIN, HEADS_HIST, np.random.default_rng(2),
+                                                       train=False, n_catalog=N_ITEMS), HEADS_EVAL),
+                    {"gather": 1, **enc}, dict(loss_fn=pw_loss)),
+        "multilabel": (at_flagship(multilabel_torch.build_model_config(vocab, mx, N_CLASSES),
+                                   HeadConfig("multilabel", (256,), N_CLASSES)),
+                       first(multilabel_torch.make_batches(items, B_TRAIN, mx, N_CLASSES, np.random.default_rng(1))),
+                       first(multilabel_torch.make_batches(items, B_TRAIN, mx, N_CLASSES, np.random.default_rng(2),
+                                                           train=False), HEADS_EVAL),
+                       {"gather": 1, **enc}, {}),
+        "multi-variable": (
+            at_flagship(multivariable_torch.build_model_config(vocab, event_vocab, mx),
+                        HeadConfig("softmax", (256,), num_valid),
+                        features={"items": FeatureConfig(vocab.model_vocab_size, MV_DIMS[0]),
+                                  "events": FeatureConfig(event_vocab.model_vocab_size, MV_DIMS[1])}),
+            first(multivariable_torch.make_pair_batches(items, events, B_TRAIN, mx, np.random.default_rng(1))),
+            first(multivariable_torch.make_pair_batches(items, events, B_TRAIN, mx, np.random.default_rng(0),
+                                                        train=False), HEADS_EVAL),
+            {**enc, **ce}, dict(num_valid=num_valid, profile=True)),
+    }
+    for tag, (cfg, host, evals, _, _) in runs.items():
+        if cfg.max_len != 53 or cfg.d_model != flag.d_model or len(host) != n or len(evals) != HEADS_EVAL:
+            raise AssertionError(f"{tag}: max_len {cfg.max_len}, d_model {cfg.d_model}, {len(host)} / {len(evals)} "
+                                 "batches")
+    log(f"[heads] {len(items)} simulated sessions over {N_ITEMS} items and {N_EVENTS} events, batches of the five "
+        f"models made in {time.perf_counter() - t0:.2f} s")
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        pretrained = os.path.join(tmp, "pretrained", ckpt_lib.PARAMS_FILE)
+        for tag, (cfg, host, evals, per_step, kw) in runs.items():
+            kw = dict(kw)
+            if tag == "transfer-2":
+                # stage 1's encoder and embeddings under a fresh binary head
+                weights = ckpt_lib.restore_encoder(os.path.dirname(pretrained), seeded_state_dict(cfg, SEED + 1))
+                saved = torch.load(pretrained, weights_only=True)
+                moved = [k for k in weights if ckpt_lib.is_transferred(k)]
+                if not moved or any(not torch.equal(weights[k], saved[k]) for k in moved):
+                    raise AssertionError("restore_encoder did not carry stage 1's encoder across")
+                log(f"[heads] transfer-2: {len(moved)} tensors restored from stage 1, "
+                    f"{len(weights) - len(moved)} fresh ({sorted(set(weights) - set(moved))})")
+                kw["weights"] = weights
+            out[tag] = _heads_model(tag, cfg, host, evals, per_step, card, **kw)
+            # what the later checks need of a trained model; then its memory
+            # goes, so that each model's peak is its own
+            params = out[tag].pop("state").params
+            if tag == "transfer-1":
+                ckpt_lib.save_params(pretrained, {k: v for k, v in params.items() if ckpt_lib.is_transferred(k)})
+            elif tag == "multi-variable":
+                export = ckpt_lib.export_serving(os.path.join(tmp, "mv_export"), params, cfg,
+                                                 {"items": vocab, "events": event_vocab})
+            del params
+
+        # card vs CPU at B=32, dropout 0: one train step in f32 and bf16, and
+        # one eval batch
+        t0 = time.perf_counter()
+        for tag, (cfg, host, evals, _, kw) in runs.items():
+            loss_fn, nv = kw.get("loss_fn"), kw.get("num_valid")
+            out[tag]["worst_grad_err"] = _card_vs_cpu_step(
+                cfg, lambda device: to_device(_rows(host[0], B_CHECK), device), nv, f"[heads] {tag} B={B_CHECK}",
+                loss_fn)
+            eval_on = lambda device: to_device(_rows(evals[0], B_CHECK), device)  # noqa: E731
+            if nv is None:
+                out[tag]["near_zero_logits"] = _card_vs_cpu_logits(cfg, eval_on, f"[heads] {tag} eval B={B_CHECK}",
+                                                                   loss_fn)
+            else:
+                _card_vs_cpu_eval(cfg, eval_on, nv, f"[heads] {tag} eval B={B_CHECK}", loss_fn)
+        log(f"[heads] card vs CPU checks in {time.perf_counter() - t0:.2f} s")
+
+        # the chained batches' pads inside the sequence, before each [SEP]:
+        # the whole-row attention forward and backward against their plain
+        # versions on that padding
+        tokens = runs["chained"][1][0]["features"]["items"]
+        pads = tokens == PAD_ID
+        interior = int((pads[:, :-1] & ~pads[:, 1:]).any(axis=1).sum())
+        if not interior:
+            raise AssertionError("no chained row has a pad before a real token")
+        log(f"[heads] interior pads: {interior} of {len(tokens)} chained rows have a pad before a real token; the "
+            "whole-row kernels held on their padding:")
+        rng = np.random.default_rng(SEED + 12)
+        attention_forward_at(rng, B_TRAIN, tokens.shape[1], flag.d_model, flag.num_heads, tokens=tokens)
+        attention_backward_at(rng, B_TRAIN, tokens.shape[1], flag.d_model, flag.num_heads, card, tokens=tokens)
+
+        # the multi-variable model's export served with dict sessions
+        cfg_mv = runs["multi-variable"][0]
+        rng = np.random.default_rng(SEED + 13)
+
+        def mv_sessions(b: int) -> list:
+            lens = rng.integers(1, 61, size=b)
+            return [{"items": [f"item_{i}" for i in rng.integers(0, N_ITEMS, size=k)],
+                     "events": [f"event_{e}" for e in rng.integers(0, N_EVENTS, size=k)]} for k in lens]
+
+        served = ServingModel(export, device="cuda", warmup_batches=(8,), warmup_k=K)
+        lat = []
+        for _ in range(5):
+            batch = mv_sessions(8)
+            _build.reset_launch_counts()
+            t1 = time.perf_counter()
+            res = served.recommend(batch, k=K)
+            lat.append((time.perf_counter() - t1) * 1e3)
+            _check_result(res, 8)
+            counts = {k: c for k, c in _build.launch_counts().items() if c}
+            if counts != {"attention": cfg_mv.num_layers}:
+                raise AssertionError(f"multi-variable serving launches {counts}")
+        log(f"[heads] multi-variable export served batch-8 dict-session requests: launches per request {counts}, "
+            f"latency ms {[round(x, 3) for x in lat]}; first row {res[0][:3]} [{card}]")
+        out["multi-variable"]["serve_ms"] = statistics.median(lat)
+        _served_as_on_cpu(served, ServingModel(export, device="cpu"), [mv_sessions(b) for b in (1, 8)],
+                          "[heads] multi-variable served, batch 1 and 8")
+        # the four scripts as a user runs them, on the card, at small sizes
+        scripts = [
+            ("chained", chained.main, ["--n_items", "300", "--n_sessions", "640", "--epochs", "2"]),
+            ("multilabel", multilabel_torch.main, ["--n_items", "500", "--n_sessions", "640", "--epochs", "2"]),
+            ("transfer", transfer_torch.main, ["--pretrain_steps", "40", "--finetune_steps", "20", "--pos_frac", "0.7"]),
+            ("multi-variable", multivariable_torch.main, ["--n_sessions", "640", "--epochs", "2"]),
+        ]
+        for name, main_fn, argv in scripts:
+            _build.reset_launch_counts()
+            t1 = time.perf_counter()
+            result = main_fn(argv + ["--model_dir", os.path.join(tmp, f"script_{name}")])
+            torch.cuda.synchronize()
+            counts = {k: c for k, c in _build.launch_counts().items() if c}
+            log(f"[heads] {name} script on the card in {time.perf_counter() - t1:.2f} s: launches {counts}")
+            if not counts.get("attention") or not counts.get("attention_bwd"):
+                raise AssertionError(f"{name} script: the attention kernels were not launched: {counts}")
+            if name in ("transfer", "multi-variable") and not (counts.get("ce_fwd") and counts.get("ce_bwd")):
+                raise AssertionError(f"{name} script: the CE kernels were not launched: {counts}")
+            if name == "transfer":
+                if not all(0.0 <= result[arm]["f1"] <= 1.0 for arm in ("scratch", "transfer")):
+                    raise AssertionError(f"transfer script: {result}")
+            elif not all(np.isfinite(r["train_loss"]) and np.isfinite(r["val_loss"]) for r in result.trainer.history):
+                raise AssertionError(f"{name} script: {result.trainer.history}")
+    return out
 
 
 def main() -> None:
@@ -1931,6 +2342,8 @@ def main() -> None:
     long_train = timed("long-train", phase_long_train, card)
     timed("long-serve", phase_long_serve, card)
     wide_train = timed("wide-train", phase_wide_train, card)
+    heads = timed("heads", phase_heads, card)
+    log("[heads] launches per train step: " + json.dumps({tag: run["counts"] for tag, run in heads.items()}))
     # name, source, TPU kernel, counter (= key in `kernels`), the main path
     # whose launches are reported: the flagship train step's timed window,
     # the long-session train step's, or one step of the wide training run

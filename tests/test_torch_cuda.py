@@ -1041,3 +1041,111 @@ def test_train_step_on_card_matches_cpu(cuda, d_model, heads):
     for k in cg:
         err = (gg[k] - cg[k]).norm() / cg[k].norm().clamp(min=1e-30)
         assert err <= 2e-2, (k, err.item())
+
+
+def _chained_bias(b, rng, device):
+    """The padding bias of chained rows ``[CLS][SEP] history [SEP] basket
+    [SEP]`` (history 41, basket 8: L=53), each segment's pads before its
+    [SEP]: pads inside the sequence."""
+    from bert4clickpath_torch.constants import PAD_ID
+    from bert4clickpath_torch.data.chaining import chain_sequences
+    from bert4clickpath_torch.ops.masking import padding_bias
+
+    segs = []
+    for width in (41, 8):
+        seg = np.full((b, width), PAD_ID, np.int32)
+        for i, n in enumerate(rng.integers(0, width + 1, size=b)):
+            seg[i, :n] = rng.integers(10, 1000, size=n)
+        segs.append(seg)
+    return padding_bias(torch.from_numpy(chain_sequences(segs)).to(device))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(256, 4, 256), (7, 2, 64)])
+def test_mha_kernels_with_interior_pads(cuda, dtype, shape):
+    """The whole-row forward and backward on chained rows (pads before each
+    [SEP], not only at the end) against their plain versions, at the
+    tolerances of the tests above; two runs bit-equal."""
+    b, h, d = shape
+    rng = np.random.default_rng(7)
+    bias = _chained_bias(b, rng, cuda)
+    l = bias.shape[-1]
+    assert ((bias[:, 0, 0, :-1] < 0) & (bias[:, 0, 0, 1:] == 0)).any()  # a pad before a real token
+    qkv = torch.from_numpy(rng.standard_normal((b, l, 3 * d), dtype=np.float32)).to(cuda, dtype)
+    q, k, v = qkv[..., :d], qkv[..., d : 2 * d], qkv[..., 2 * d :]
+    do = torch.from_numpy(rng.standard_normal((b, l, d), dtype=np.float32)).to(cuda, dtype)
+    _build.reset_launch_counts()
+    out, out2 = mha(q, k, v, bias, h), mha(q, k, v, bias, h)
+    grads, grads2 = mha_backward(q, k, v, bias, do, h), mha_backward(q, k, v, bias, do, h)
+    assert _nonzero_counts() == {"attention": 2, "attention_bwd": 2}
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(out.float(), mha_reference(q, k, v, bias, h).float(), atol=tol, rtol=0)
+    assert torch.equal(out, out2)
+    atol, rtol = (2e-2, 2e-2) if dtype == torch.bfloat16 else (1e-5, 1e-4)
+    for name, g, w, g2 in zip(("dq", "dk", "dv"), grads, mha_backward_reference(q, k, v, bias, do, h), grads2):
+        torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=rtol, msg=lambda m: f"{name}: {m}")
+        assert torch.equal(g, g2), name
+
+
+@pytest.mark.parametrize("kind", ["binary", "multilabel"])
+def test_task_head_step_on_card_matches_cpu(cuda, kind):
+    """One train step of a small f32 binary (chained layout, segment
+    embeddings, pos_weight 2) or multilabel ([CLS]) model, dropout 0, from
+    the same weights and batch on the card and on the CPU: the launches of
+    the step (gather 1, whole-row attention and its backward one a layer,
+    no CE kernel), loss abs 1e-4, every parameter's gradient within 1e-3
+    relative norm error."""
+    import functools
+
+    from bert4clickpath_torch.config import FeatureConfig, HeadConfig, ModelConfig
+    from bert4clickpath_torch.data.chaining import chain_sequences, segment_bounds
+    from bert4clickpath_torch.data.pipeline import to_device
+    from bert4clickpath_torch.data.synthetic import seeded_state_dict
+    from bert4clickpath_torch.models.model import ClickstreamModel
+    from bert4clickpath_torch.ops.losses import masked_binary_cross_entropy
+    from bert4clickpath_torch.training.train_state import make_loss_fn
+
+    rng = np.random.default_rng(8)
+    b = 16
+    if kind == "binary":
+        segs = (20, 6)
+        hist = rng.integers(10, 500, size=(b, 20)).astype(np.int32)
+        basket = rng.integers(10, 500, size=(b, 6)).astype(np.int32)
+        for i in range(b):
+            hist[i, rng.integers(0, 21):] = 0
+            basket[i, rng.integers(1, 7):] = 0
+        labels = np.where(basket > 0, rng.integers(0, 2, size=basket.shape), LABEL_PAD).astype(np.int32)
+        tokens = chain_sequences([hist, basket])
+        head = HeadConfig("binary", (48, 16))
+        extra = dict(segment_bounds=segment_bounds(segs, 2), use_segment_embeddings=True)
+        loss_fn = functools.partial(masked_binary_cross_entropy, pos_weight=2.0)
+    else:
+        hist = rng.integers(10, 500, size=(b, 20)).astype(np.int32)
+        for i in range(b):
+            hist[i, rng.integers(1, 21):] = 0
+        tokens = chain_sequences([hist])
+        labels = rng.integers(0, 2, size=(b, 12)).astype(np.int32)
+        head = HeadConfig("multilabel", (48,), 12)
+        extra = dict(segment_bounds=(0, 1))
+        loss_fn = None
+    cfg = ModelConfig(features={"items": FeatureConfig(512, 64)}, num_layers=2, num_heads=4, ffn_dim=128,
+                      dropout_rate=0.0, max_len=tokens.shape[1], routing="segment", head=head, qkv_fused=True,
+                      **extra)
+    sd = seeded_state_dict(cfg, 0)
+    host = {"features": {"items": tokens}, "labels": labels}
+    results = []
+    for device in (cuda, torch.device("cpu")):
+        model = ClickstreamModel(cfg, device=device)
+        model.load_state_dict(sd)
+        _build.reset_launch_counts()
+        loss = make_loss_fn(model, loss_fn)(to_device(host, device))
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        if device.type == "cuda":
+            assert _nonzero_counts() == {"gather": 1, "attention": 2, "attention_bwd": 2}
+        results.append((loss.item(), {n: g.cpu() for (n, _), g in zip(model.named_parameters(), grads)}))
+    (gl, gg), (cl, cg) = results
+    assert abs(gl - cl) <= 1e-4
+    for k in cg:
+        err = (gg[k] - cg[k]).norm() / cg[k].norm().clamp(min=1e-30)
+        assert err <= 1e-3, (k, err.item())

@@ -218,8 +218,15 @@ def test_state_dict_from_flax_raises_on_unmapped_and_missing():
 
 
 def test_unported_heads_and_logits_path_raise():
-    with pytest.raises(ValueError, match="not ported"):
-        ClickstreamModel(_port_cfg(_jcfg(head=JHead("binary", (8,)))), device="meta")
+    from bert4clickpath_torch.config import HeadConfig
+    from bert4clickpath_torch.models.heads import BinaryHead, MultiLabelHead
+
+    # every head kind of the JAX package builds; a kind it lacks is refused
+    binary = ClickstreamModel(_port_cfg(_jcfg(head=JHead("binary", (8,)))), device="meta")
+    multilabel = ClickstreamModel(_port_cfg(_jcfg(head=JHead("multilabel", (8,), 3))), device="meta")
+    assert isinstance(binary.head, BinaryHead) and isinstance(multilabel.head, MultiLabelHead)
+    with pytest.raises(ValueError, match="unknown head kind"):
+        HeadConfig("ranking")
     # the logits path is ported; with mask routing it refuses missing positions
     jcfg = _jcfg()
     feats, _ = _inputs(2)

@@ -216,8 +216,8 @@ def test_artifacts_load_in_both_packages(tied, tmp_path):
 
 def test_port_never_imports_jax():
     """Importing the serving and training paths, the trainer, the training
-    CLI and chip_smoke pulls in no jax, flax, optax, orbax or JAX-package
-    module."""
+    CLI, the task drivers and chip_smoke pulls in no jax, flax, optax, orbax
+    or JAX-package module."""
     code = (
         "import sys, bert4clickpath_torch.training.serving, bert4clickpath_torch.convert, chip_smoke\n"
         "import bert4clickpath_torch.training.train_state, bert4clickpath_torch.ops.fused_ce\n"
@@ -229,6 +229,9 @@ def test_port_never_imports_jax():
         "import bert4clickpath_torch.training.trainer, bert4clickpath_torch.training.checkpoint\n"
         "import bert4clickpath_torch.utils.tb, bert4clickpath_torch.data.beauty, bert4clickpath_torch.data.etl\n"
         "import bert4clickpath_torch.ops.kernels.fused_ce, examples.bert4rec.train_torch\n"
+        "import bert4clickpath_torch.data.chaining, bert4clickpath_torch.models.heads\n"
+        "import examples.chained.train_torch, examples.tasks.multilabel_torch\n"
+        "import examples.bert4rec.transfer_torch, examples.bert4rec.multivariable_torch\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'bert4clickpath_tpu'))\n"
         "assert not bad, bad\n"

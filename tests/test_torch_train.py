@@ -288,7 +288,12 @@ def test_train_trajectory_matches_jax(fused):
     in exact arithmetic) into a full +-lr step whose sign is the noise's, so
     only the size of the steps is bounded; every other leaf must agree to
     1e-4."""
-    jcfg = _jcfg()
+    _trajectory_held(_jcfg(), fused)
+
+
+def _trajectory_held(jcfg, fused: bool) -> None:
+    """The body of test_train_trajectory_matches_jax for the model of
+    ``jcfg``, at its tolerances."""
     host = _host_batches(5)
     jbs = [_jax_batch(b) for b in host]
     jmodel = JModel(jcfg, attn_impl="pallas", embed_impl="pallas")
@@ -325,6 +330,24 @@ def test_train_trajectory_matches_jax(fused):
             continue  # the key bias: noise-level gradient, see above
         np.testing.assert_allclose(flat_got[path], np.asarray(w), rtol=0, atol=1e-4,
                                    err_msg=jax.tree_util.keystr(path))
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize(
+    "variant",
+    [
+        # a 16-wide item table under the 32-wide encoder: the input
+        # projection up, the tied head's width-matching projection back
+        dict(features={"items": JFeature(padded_rows(N_ITEMS + 11), 16)}, encoder_dim=D),
+        dict(head=JHead("tied_softmax", output_size=N_ITEMS, tied_bias=True)),
+    ],
+    ids=["encoder_dim", "tied_bias"],
+)
+def test_train_trajectory_matches_jax_factorized_and_tied_bias(variant, fused):
+    """The 5-step trajectory of test_train_trajectory_matches_jax, at its
+    tolerances, for the factorized input (``encoder_dim``) and the tied
+    head's free output bias, on the fused CE and the dense-logits path."""
+    _trajectory_held(_jcfg(**variant), fused)
 
 
 @pytest.mark.parametrize(
