@@ -5,10 +5,11 @@
 //
 //   _fwd_kernel (via _fwd_stats / _fwd):  per row n of x (N, D),
 //       s[n, v] = x[n] . round_to_x(W[v]) (+ bias[v]),   f32 accumulation
-//       s[n, v] = -1e30 where v is outside [row_offset, row_offset+num_valid)
+//       s[n, v] = -1e30 where row_start + v is outside
+//                 [row_offset, row_offset+num_valid)
 //       m[n] = max_v s[n, v],  l[n] = sum_v exp(s[n, v] - m[n])
 //   _bwd_fused_kernel (via _bwd_fused / _bwd_auto): recompute s once, then
-//       A[n, v] = dnll[n] * (exp(s[n, v] - logz[n]) - [v == label[n]])
+//       A[n, v] = dnll[n] * (exp(s[n, v] - logz[n]) - [row_start + v == label[n]])
 //       dx = round_to_x(A) . round_to_x(W)      (N, D), stored in x's type
 //       dW = round_to_x(A)^T . x                (V, D), summed in f32
 //       db = sum_n A[n, v]                      (V,),   f32, unrounded A
@@ -321,11 +322,14 @@ cudaError_t launch_fwd(const void* x, const void* w, const void* bias, void* m_p
 }  // namespace
 
 // bias may be null. m_part / l_part are (splits, n) f32 scratch; m, l (n,).
-// splits * tiles_per_split must cover the vocab tiles.
+// splits * tiles_per_split must cover the vocab tiles. row_start is the
+// global row id of w's first row (0 unless w is one row shard of a larger
+// table); the window [row_offset, row_offset + num_valid) is in global
+// rows, and the kernels take it in w's local rows (row_offset - row_start).
 extern "C" int b4cp_ce_fwd(const void* x, const void* w, const void* bias,
                            void* m_part, void* l_part, void* m, void* l,
                            int is_bf16, int n, int v, int d, int row_offset,
-                           int num_valid, int splits, int tiles_per_split,
+                           int num_valid, int row_start, int splits, int tiles_per_split,
                            int device, void* stream) {
   // this library links its own CUDA runtime: select the caller's device in it
   const cudaError_t set = cudaSetDevice(device);
@@ -335,8 +339,8 @@ extern "C" int b4cp_ce_fwd(const void* x, const void* w, const void* bias,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto args = [&](auto launch) {
-    return launch(x, w, bias, m_part, l_part, m, l, n, v, d, row_offset, num_valid, splits,
-                  tiles_per_split, s);
+    return launch(x, w, bias, m_part, l_part, m, l, n, v, d, row_offset - row_start, num_valid,
+                  splits, tiles_per_split, s);
   };
   const cudaError_t err = is_bf16 ? args(launch_fwd<kDxBf16>) : args(launch_fwd<kDxNumerics>);
   return static_cast<int>(err);
@@ -344,19 +348,23 @@ extern "C" int b4cp_ce_fwd(const void* x, const void* w, const void* bias,
 
 // bias and db may be null. live is (n + 1) int32 scratch. dx32 (n, d) f32
 // must be zero on entry and is added into; dw (v, d) f32 and db (v,) f32
-// are written whole (zero when n == 0). d <= 256.
+// are written whole (zero when n == 0). d <= 256. row_start and the window
+// as for b4cp_ce_fwd; lab holds each label's row in w's local rows (the
+// global row - row_start; the caller shifts it), so a row whose label lies
+// on another shard matches no row here and still adds its softmax share.
 extern "C" int b4cp_ce_bwd(const void* x, const void* w, const void* bias,
                            const void* lab, const void* logz,
                            const void* dnll, void* live, void* dx32, void* dw, void* db,
                            int is_bf16, int n, int v, int d, int row_offset,
-                           int num_valid, int device, void* stream) {
+                           int num_valid, int row_start, int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   if (v == 0 || d == 0) return static_cast<int>(cudaGetLastError());
   if (d > kDxChunk * kMrgOutChunks) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto args = [&](auto launch) {
-    return launch(x, w, bias, lab, logz, dnll, live, dw, db, dx32, n, v, d, row_offset, num_valid, s);
+    return launch(x, w, bias, lab, logz, dnll, live, dw, db, dx32, n, v, d, row_offset - row_start,
+                  num_valid, s);
   };
   const cudaError_t err = is_bf16 ? args(launch_dw_mma<kDxBf16, true, true>)
                                   : args(launch_dw_mma<kDxNumerics, true, true>);

@@ -5,9 +5,9 @@
 // Replaces two Pallas kernels of bert4clickpath_tpu/ops/pallas/fused_ce.py,
 // _bwd_dx_kernel and _bwd_dw_kernel (launched by _bwd):
 //
-//   s[n, v] = x[n] . round_to_x(W[v]) (+ bias[v]);  -1e30 where v is outside
-//             [row_offset, row_offset + num_valid)
-//   A[n, v] = dnll[n] * (exp(s[n, v] - logz[n]) - [v == label_row[n]])   f32
+//   s[n, v] = x[n] . round_to_x(W[v]) (+ bias[v]);  -1e30 where row_start + v
+//             is outside [row_offset, row_offset + num_valid)
+//   A[n, v] = dnll[n] * (exp(s[n, v] - logz[n]) - [row_start + v == label_row[n]])
 //   dx kernel:  dx = round_to_x(A) . round_to_x(W)     (N, D), in x's type
 //   dW kernel:  dW = round_to_x(A)^T . x               (V, D), f32
 //               db = sum_n A[n, v]                     (V,),   f32, unrounded A
@@ -304,11 +304,15 @@ cudaError_t launch_dw_tc(const void* x, const void* w, const void* bias, const v
 
 // bias may be null. part is (splits, n, d) f32 scratch, written whole; dx is
 // (n, d) in x's type. splits * tiles_per_split must cover the vocab tiles.
+// row_start is the global row id of w's first row; the window [row_offset,
+// row_offset + num_valid) is in global rows (the kernels take it in w's
+// local rows); lab holds each label's row in w's local rows (the global row
+// - row_start; the caller shifts it).
 extern "C" int b4cp_ce_bwd_dx(const void* x, const void* w, const void* bias,
                               const void* lab, const void* logz,
                               const void* dnll, void* part, void* dx,
                               int is_bf16, int n, int v, int d, int row_offset,
-                              int num_valid, int splits, int tiles_per_split,
+                              int num_valid, int row_start, int splits, int tiles_per_split,
                               int device, void* stream) {
   // this library links its own CUDA runtime: select the caller's device in it
   const cudaError_t set = cudaSetDevice(device);
@@ -318,8 +322,8 @@ extern "C" int b4cp_ce_bwd_dx(const void* x, const void* w, const void* bias,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto args = [&](auto launch) {
-    return launch(x, w, bias, lab, logz, dnll, part, n, v, d, row_offset, num_valid, splits,
-                  tiles_per_split, s);
+    return launch(x, w, bias, lab, logz, dnll, part, n, v, d, row_offset - row_start, num_valid,
+                  splits, tiles_per_split, s);
   };
   cudaError_t err = is_bf16 ? args(launch_dx_tc<kDxBf16>) : args(launch_dx_tc<kDxNumerics>);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -329,18 +333,18 @@ extern "C" int b4cp_ce_bwd_dx(const void* x, const void* w, const void* bias,
 }
 
 // bias and db may be null. dw (v, d) f32 and db (v,) f32 are written whole
-// (zero when n == 0).
+// (zero when n == 0). row_start, the window and lab as for b4cp_ce_bwd_dx.
 extern "C" int b4cp_ce_bwd_dw(const void* x, const void* w, const void* bias,
                               const void* lab, const void* logz,
                               const void* dnll, void* dw, void* db,
                               int is_bf16, int n, int v, int d, int row_offset,
-                              int num_valid, int device, void* stream) {
+                              int num_valid, int row_start, int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   if (v == 0 || d == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto args = [&](auto launch) {
-    return launch(x, w, bias, lab, logz, dnll, dw, db, n, v, d, row_offset, num_valid, s);
+    return launch(x, w, bias, lab, logz, dnll, dw, db, n, v, d, row_offset - row_start, num_valid, s);
   };
   const cudaError_t err = is_bf16 ? args(launch_dw_tc<kDxBf16>) : args(launch_dw_tc<kDxNumerics>);
   return static_cast<int>(err);

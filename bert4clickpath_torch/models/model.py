@@ -27,7 +27,7 @@ model's ``dropout_impl`` (``"xla"`` / ``"pallas"``).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -114,9 +114,13 @@ class ClickstreamModel(nn.Module):
 
     def encode(
         self, features: dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
+        item_lookup: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     ) -> torch.Tensor:
         """dict of (B, L) int32 -> (B, L, d_model) contextual embeddings;
-        dropout live iff a generator is given."""
+        dropout live iff a generator is given. ``item_lookup``: (B, L) ids ->
+        (B, L, d_item) item embeddings in the compute dtype, in place of the
+        item table's own lookup (the vocab-sharded tier's sharded lookup);
+        the features then take the per-feature path."""
         cfg = self.config
         names = list(cfg.features)
         first = features[names[0]]
@@ -126,7 +130,7 @@ class ClickstreamModel(nn.Module):
             pos = self.positions(seq_len)
         else:
             pos = self.sinusoid[:seq_len]
-        if len(names) == 1 and self.input_proj is None:
+        if len(names) == 1 and self.input_proj is None and item_lookup is None:
             # fused gather+scale+pos-add kernel: one write of the activation
             embedded = gather_scale_pos(
                 getattr(self, f"embed_{names[0]}").weight, first, pos,
@@ -135,7 +139,11 @@ class ClickstreamModel(nn.Module):
         else:
             # per-feature embed, concat on the embedding axis
             embedded = torch.cat(
-                [getattr(self, f"embed_{n}")(features[n]).to(self.dtype) for n in names],
+                [
+                    item_lookup(features[n]) if item_lookup is not None and n == cfg.item_feature
+                    else getattr(self, f"embed_{n}")(features[n]).to(self.dtype)
+                    for n in names
+                ],
                 dim=-1,
             )
             # x sqrt(embedding width) in the compute dtype, BEFORE any
@@ -187,11 +195,13 @@ class ClickstreamModel(nn.Module):
     def gather_head_inputs(
         self, features: dict[str, torch.Tensor], head_positions: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        item_lookup: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     ) -> torch.Tensor:
         """Encode, gather the routed positions, and (for tied heads) apply the
         pre-projection transform: everything except the catalog projection.
-        (B, P, d_head) f32, the fused CE's input."""
-        h = self.encode(features, generator)
+        (B, P, d_head) f32, the fused CE's input. ``item_lookup``: as
+        :meth:`encode`."""
+        h = self.encode(features, generator, item_lookup)
         return self.apply_tied_transform(self._route(h, head_positions)).float()
 
     def head_trunk_outputs(

@@ -77,10 +77,13 @@ def chunked_scores(
     num_valid: Optional[int] = None,
     chunk: int = 8192,
     bias: Optional[torch.Tensor] = None,  # (V,) per-row logit bias, model space
+    base_row: int = 0,
 ):
     """Returns (logz, label_logit, topk_vals, topk_rows) with global row ids
     (int64). Rows outside ``[row_offset, row_offset + num_valid)`` are
-    blinded to ``NEG_BIG``. Requires V % chunk == 0 (pad the table)."""
+    blinded to ``NEG_BIG``. Requires V % chunk == 0 (pad the table).
+    ``base_row``: the global row id of table[0] (a row shard's first row;
+    the window and the labels are in global rows)."""
     v, d = table.shape
     if v % chunk:
         raise ValueError(f"table rows {v} not divisible by chunk {chunk}")
@@ -90,7 +93,7 @@ def chunked_scores(
     xf = x.reshape(n, d).float()
     flat = labels.reshape(-1).long()
     labels_model = torch.where(flat == LABEL_PAD, -1, flat + row_offset)
-    rows_all = torch.arange(v, dtype=torch.int64, device=dev)
+    rows_all = base_row + torch.arange(v, dtype=torch.int64, device=dev)
     valid_all = None
     if num_valid is not None:
         valid_all = (rows_all >= row_offset) & (rows_all < row_offset + num_valid)
@@ -113,14 +116,14 @@ def chunked_scores(
         l = l * torch.exp(m - m_new) + torch.exp(logits - m_new[:, None]).sum(dim=1)
         m = m_new
         # label logit: the label's column when it falls in this chunk
-        local = labels_model - start
+        local = labels_model - base_row - start
         hit = (local >= 0) & (local < chunk)
         picked = logits.gather(1, local.clamp(0, chunk - 1)[:, None])[:, 0]
         g = g + torch.where(hit, picked, 0.0)
         # running top-k: merge the chunk's top-k with the carry
         cv, cidx = torch.topk(logits, kc, dim=1)
         av = torch.cat([tv, cv], dim=1)
-        ar = torch.cat([ti, cidx + start], dim=1)
+        ar = torch.cat([ti, cidx + base_row + start], dim=1)
         tv, sel = torch.topk(av, k, dim=1)
         ti = ar.gather(1, sel)
     logz = m + torch.log(torch.clamp(l, min=1e-30))

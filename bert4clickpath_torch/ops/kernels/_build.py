@@ -50,22 +50,23 @@ SIGNATURES = {
     "b4cp_mha_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _LL, _LL, _LL, _LL, _LL, _LL, _F, _I, _P]),
     # x, w, bias|NULL, m_part, l_part, m, l, is_bf16, N, V, D, row_offset,
-    # num_valid, splits, tiles_per_split, device, stream
+    # num_valid, row_start, splits, tiles_per_split, device, stream
     "b4cp_ce_fwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _P]),
-    # x, w, bias|NULL, labels_model, logz, dnll, live (N + 1 int32 scratch),
-    # dx32, dw, db|NULL, is_bf16, N, V, D, row_offset, num_valid, device, stream
-    "b4cp_ce_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                         _I, _I, _I, _P]),
-    # x, w, bias|NULL, labels_model, logz, dnll, part (splits, N, D) f32, dx,
-    # is_bf16, N, V, D, row_offset, num_valid, splits, tiles_per_split,
+                         _I, _I, _I, _I, _P]),
+    # x, w, bias|NULL, labels (local rows), logz, dnll, live (N + 1 int32 scratch),
+    # dx32, dw, db|NULL, is_bf16, N, V, D, row_offset, num_valid, row_start,
     # device, stream
+    "b4cp_ce_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _I, _I, _I, _P]),
+    # x, w, bias|NULL, labels (local rows), logz, dnll, part (splits, N, D) f32, dx,
+    # is_bf16, N, V, D, row_offset, num_valid, row_start, splits,
+    # tiles_per_split, device, stream
     "b4cp_ce_bwd_dx": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _I, _P]),
-    # x, w, bias|NULL, labels_model, logz, dnll, dw, db|NULL, is_bf16,
-    # N, V, D, row_offset, num_valid, device, stream
+                            _I, _I, _I, _I, _I, _I, _P]),
+    # x, w, bias|NULL, labels (local rows), logz, dnll, dw, db|NULL, is_bf16,
+    # N, V, D, row_offset, num_valid, row_start, device, stream
     "b4cp_ce_bwd_dw": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _I, _I, _P]),
+                            _I, _I, _I, _I, _P]),
     # q, k, v, bias, out, lse, is_bf16, B, L, D, H,
     # q/k/v batch and row strides (elements), scale, vec, device, stream
     "b4cp_bmha_fwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

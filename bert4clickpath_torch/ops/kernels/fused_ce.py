@@ -53,6 +53,22 @@ route past that cliff is ``wgmma`` (ROADMAP.md, Queue 2).
 
 ``labels_model`` is the row id of each label in the table (-1 for a padded
 row, whose one-hot never fires): ``ops/fused_ce.py`` builds it.
+
+``row_start`` (every entry; default 0) is the global row id of
+``table[0]``, as the JAX kernels' ``row_start`` operand: a table that is
+one row shard of a larger one (the vocab-sharded tier,
+``parallel/spmd.py``) passes ``shard * V_local``. The window and
+``labels_model`` are in global rows, and table row r is global row
+``row_start + r``. The arithmetic shift, not the kernels, carries it: the
+C entries hand the kernels the window in local rows (``row_offset -
+row_start``, on the host), and the backward wrappers shift the labels
+(``labels_model - row_start``, one elementwise op, skipped at row_start
+0). So the kernels are the ones from before the argument existed, with
+their bits and times at row_start 0, and a shard's call is the call
+shifted by its row_start (both held on the card: PERF.md). A row whose
+label lies on another shard matches no local row, keeps its nonzero dnll
+and still adds its softmax share to this shard's dx, dW and db (the
+merged kernel's row list keys on dnll).
 """
 
 from __future__ import annotations
@@ -84,32 +100,38 @@ DX_TARGET_BLOCKS = 1056
 _X_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _scores(x, table, bias, row_offset, num_valid):
+def _rows(table, row_start):
+    """The global row id of each of the table's rows."""
+    return row_start + torch.arange(table.shape[0], device=table.device)
+
+
+def _scores(x, table, bias, row_offset, num_valid, row_start=0):
     """(N, V) f32 logits in x's dtype (f32 accumulation), the bias added
-    before the blinding of rows outside the window."""
+    before the blinding of rows outside the window (in global rows)."""
     s = x.float() @ table.to(x.dtype).float().T
     if bias is not None:
         s = s + bias.float()
-    rows = torch.arange(table.shape[0], device=x.device)
+    rows = _rows(table, row_start)
     inside = (rows >= row_offset) & (rows < row_offset + num_valid)
     return torch.where(inside, s, torch.full_like(s, NEG_BIG))
 
 
 def ce_stats_reference(
     x: torch.Tensor, table: torch.Tensor, bias: Optional[torch.Tensor],
-    row_offset: int, num_valid: int,
+    row_offset: int, num_valid: int, row_start: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the forward kernel: (m, l), each (N,) f32."""
-    s = _scores(x, table, bias, row_offset, num_valid)
+    s = _scores(x, table, bias, row_offset, num_valid, row_start)
     m = s.max(dim=1).values
     return m, torch.exp(s - m[:, None]).sum(dim=1)
 
 
-def _adjoint(x, table, bias, labels_model, logz, dnll, row_offset, num_valid):
-    """A = dnll * (softmax - onehot(label)), (N, V) f32, unrounded."""
-    s = _scores(x, table, bias, row_offset, num_valid)
+def _adjoint(x, table, bias, labels_model, logz, dnll, row_offset, num_valid, row_start=0):
+    """A = dnll * (softmax - onehot(label)), (N, V) f32, unrounded; labels
+    are global rows, so a label on another shard adds no one-hot here."""
+    s = _scores(x, table, bias, row_offset, num_valid, row_start)
     p = torch.exp(s - logz[:, None])  # blinded rows: exactly 0
-    rows = torch.arange(table.shape[0], device=x.device)
+    rows = _rows(table, row_start)
     onehot = (rows[None, :] == labels_model.long()[:, None]).float()
     return dnll[:, None] * (p - onehot)
 
@@ -117,20 +139,20 @@ def _adjoint(x, table, bias, labels_model, logz, dnll, row_offset, num_valid):
 def ce_backward_dx_reference(
     x: torch.Tensor, table: torch.Tensor, bias: Optional[torch.Tensor],
     labels_model: torch.Tensor, logz: torch.Tensor, dnll: torch.Tensor,
-    row_offset: int, num_valid: int,
+    row_offset: int, num_valid: int, row_start: int = 0,
 ) -> torch.Tensor:
     """Plain version of the dx kernel: dx (N, D) in x's dtype."""
-    a = _adjoint(x, table, bias, labels_model, logz, dnll, row_offset, num_valid)
+    a = _adjoint(x, table, bias, labels_model, logz, dnll, row_offset, num_valid, row_start)
     return (a.to(x.dtype).float() @ table.to(x.dtype).float()).to(x.dtype)
 
 
 def ce_backward_dw_reference(
     x: torch.Tensor, table: torch.Tensor, bias: Optional[torch.Tensor],
     labels_model: torch.Tensor, logz: torch.Tensor, dnll: torch.Tensor,
-    row_offset: int, num_valid: int,
+    row_offset: int, num_valid: int, row_start: int = 0,
 ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Plain version of the dW kernel: (dW (V, D) f32, db (V,) f32 or None)."""
-    a = _adjoint(x, table, bias, labels_model, logz, dnll, row_offset, num_valid)
+    a = _adjoint(x, table, bias, labels_model, logz, dnll, row_offset, num_valid, row_start)
     dw = a.to(x.dtype).float().T @ x.float()
     return dw, (a.sum(dim=0) if bias is not None else None)
 
@@ -138,11 +160,11 @@ def ce_backward_dw_reference(
 def ce_backward_reference(
     x: torch.Tensor, table: torch.Tensor, bias: Optional[torch.Tensor],
     labels_model: torch.Tensor, logz: torch.Tensor, dnll: torch.Tensor,
-    row_offset: int, num_valid: int,
+    row_offset: int, num_valid: int, row_start: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Plain version of the merged backward kernel: (dx in x's dtype, dW f32,
     db f32 or None), from one A."""
-    a = _adjoint(x, table, bias, labels_model, logz, dnll, row_offset, num_valid)
+    a = _adjoint(x, table, bias, labels_model, logz, dnll, row_offset, num_valid, row_start)
     ab = a.to(x.dtype).float()
     dx = (ab @ table.to(x.dtype).float()).to(x.dtype)
     dw = ab.T @ x.float()
@@ -176,6 +198,12 @@ def _check_rows(x, labels_model, logz, dnll):
             raise ValueError(f"{name} must be ({n},) on {x.device}, got {tuple(t.shape)} on {t.device}")
 
 
+def _local_labels(labels_model: torch.Tensor, row_start: int) -> torch.Tensor:
+    """The kernels' int32 labels, in the table's local rows."""
+    lab = labels_model if row_start == 0 else labels_model - row_start
+    return lab.to(torch.int32).contiguous()
+
+
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
@@ -203,11 +231,12 @@ def ce_stats(
     bias: Optional[torch.Tensor],  # (V,) f32
     row_offset: int,
     num_valid: int,
+    row_start: int = 0,  # global row id of table[0] (a shard's first row)
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(m, l), each (N,) f32: logz = m + log(l)."""
     _check(x, table, bias)
     if x.device.type == "cpu":
-        return ce_stats_reference(x, table, bias, row_offset, num_valid)
+        return ce_stats_reference(x, table, bias, row_offset, num_valid, row_start)
     n, d = x.shape
     v = table.shape[0]
     x, table = x.contiguous(), table.contiguous()
@@ -223,7 +252,7 @@ def ce_stats(
             x.data_ptr(), table.data_ptr(), _ptr(bias), part[0].data_ptr(),
             part[1].data_ptr(), m.data_ptr(), l.data_ptr(),
             int(x.dtype == torch.bfloat16), n, v, d, row_offset, num_valid,
-            splits, per_split, x.device.index, stream,
+            row_start, splits, per_split, x.device.index, stream,
         )
     _build.check(code, "fused CE forward")
     _build.count("ce_fwd")
@@ -239,6 +268,7 @@ def ce_backward_merged(
     dnll: torch.Tensor,  # (N,) f32
     row_offset: int,
     num_valid: int,
+    row_start: int = 0,  # global row id of table[0]
 ) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """(dx in x's dtype, dW (V, D) f32, db (V,) f32 or None) from the
     single-recompute kernel. On the card it walks only the rows whose dnll
@@ -251,12 +281,14 @@ def ce_backward_merged(
     _check(x, table, bias, MAX_D)
     _check_rows(x, labels_model, logz, dnll)
     if x.device.type == "cpu":
-        return ce_backward_reference(x, table, bias, labels_model, logz, dnll, row_offset, num_valid)
+        return ce_backward_reference(
+            x, table, bias, labels_model, logz, dnll, row_offset, num_valid, row_start
+        )
     n, d = x.shape
     v = table.shape[0]
     x, table = x.contiguous(), table.contiguous()
     bias = None if bias is None else bias.contiguous()
-    lab = labels_model.to(torch.int32).contiguous()
+    lab = _local_labels(labels_model, row_start)
     logz = logz.float().contiguous()
     dnll = dnll.float().contiguous()
     live = torch.empty(n + 1, dtype=torch.int32, device=x.device)  # the rows the kernel walks
@@ -270,7 +302,7 @@ def ce_backward_merged(
             x.data_ptr(), table.data_ptr(), _ptr(bias), lab.data_ptr(),
             logz.data_ptr(), dnll.data_ptr(), live.data_ptr(), dx32.data_ptr(),
             dw.data_ptr(), _ptr(db), int(x.dtype == torch.bfloat16), n, v, d,
-            row_offset, num_valid, x.device.index, stream,
+            row_offset, num_valid, row_start, x.device.index, stream,
         )
     _build.check(code, "fused CE backward")
     _build.count("ce_bwd")
@@ -292,18 +324,21 @@ def ce_backward_dx(
     dnll: torch.Tensor,  # (N,) f32
     row_offset: int,
     num_valid: int,
+    row_start: int = 0,  # global row id of table[0]
 ) -> torch.Tensor:
     """dx (N, D) in x's dtype: the first pass of the two-pass backward.
     Summed in a fixed order (no atomics): the same bits every run."""
     _check(x, table, bias)
     _check_rows(x, labels_model, logz, dnll)
     if x.device.type == "cpu":
-        return ce_backward_dx_reference(x, table, bias, labels_model, logz, dnll, row_offset, num_valid)
+        return ce_backward_dx_reference(
+            x, table, bias, labels_model, logz, dnll, row_offset, num_valid, row_start
+        )
     n, d = x.shape
     v = table.shape[0]
     x, table = x.contiguous(), table.contiguous()
     bias = None if bias is None else bias.contiguous()
-    lab = labels_model.to(torch.int32).contiguous()
+    lab = _local_labels(labels_model, row_start)
     logz = logz.float().contiguous()
     dnll = dnll.float().contiguous()
     splits, per_split = ce_dx_splits(n, v, d)
@@ -316,7 +351,7 @@ def ce_backward_dx(
             x.data_ptr(), table.data_ptr(), _ptr(bias), lab.data_ptr(),
             logz.data_ptr(), dnll.data_ptr(), part.data_ptr(), dx.data_ptr(),
             int(x.dtype == torch.bfloat16), n, v, d, row_offset, num_valid,
-            splits, per_split, x.device.index, stream,
+            row_start, splits, per_split, x.device.index, stream,
         )
     _build.check(code, "fused CE backward, dx pass")
     _build.count("ce_bwd_dx")
@@ -332,18 +367,21 @@ def ce_backward_dw(
     dnll: torch.Tensor,  # (N,) f32
     row_offset: int,
     num_valid: int,
+    row_start: int = 0,  # global row id of table[0]
 ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(dW (V, D) f32, db (V,) f32 or None): the second pass of the
     two-pass backward."""
     _check(x, table, bias)
     _check_rows(x, labels_model, logz, dnll)
     if x.device.type == "cpu":
-        return ce_backward_dw_reference(x, table, bias, labels_model, logz, dnll, row_offset, num_valid)
+        return ce_backward_dw_reference(
+            x, table, bias, labels_model, logz, dnll, row_offset, num_valid, row_start
+        )
     n, d = x.shape
     v = table.shape[0]
     x, table = x.contiguous(), table.contiguous()
     bias = None if bias is None else bias.contiguous()
-    lab = labels_model.to(torch.int32).contiguous()
+    lab = _local_labels(labels_model, row_start)
     logz = logz.float().contiguous()
     dnll = dnll.float().contiguous()
     dw = torch.empty((v, d), dtype=torch.float32, device=x.device)
@@ -355,7 +393,7 @@ def ce_backward_dw(
             x.data_ptr(), table.data_ptr(), _ptr(bias), lab.data_ptr(),
             logz.data_ptr(), dnll.data_ptr(), dw.data_ptr(), _ptr(db),
             int(x.dtype == torch.bfloat16), n, v, d, row_offset, num_valid,
-            x.device.index, stream,
+            row_start, x.device.index, stream,
         )
     _build.check(code, "fused CE backward, dW pass")
     _build.count("ce_bwd_dw")
@@ -364,10 +402,11 @@ def ce_backward_dw(
 
 def ce_backward_two_pass(
     x, table, bias, labels_model, logz, dnll, row_offset: int, num_valid: int,
+    row_start: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """(dx, dW, db) from the dx pass and the dW pass (two recomputes of the
     scores): the counterpart of the JAX package's ``_bwd``."""
-    args = (x, table, bias, labels_model, logz, dnll, row_offset, num_valid)
+    args = (x, table, bias, labels_model, logz, dnll, row_offset, num_valid, row_start)
     dx = ce_backward_dx(*args)
     dw, db = ce_backward_dw(*args)
     return dx, dw, db
@@ -382,8 +421,9 @@ def ce_backward_route(d: int) -> str:
 
 def ce_backward(
     x, table, bias, labels_model, logz, dnll, row_offset: int, num_valid: int,
+    row_start: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """(dx in x's dtype, dW (V, D) f32, db (V,) f32 or None) by the route of
     :func:`ce_backward_route`, on either device."""
     route = ce_backward_merged if ce_backward_route(x.shape[-1]) == "merged" else ce_backward_two_pass
-    return route(x, table, bias, labels_model, logz, dnll, row_offset, num_valid)
+    return route(x, table, bias, labels_model, logz, dnll, row_offset, num_valid, row_start)

@@ -4,14 +4,21 @@
 Labels are always fixed-shape with ``LABEL_PAD`` fill; losses take logits
 and run in f32; the masked mean divides by ``max(count, 1)``. The JAX
 versions' ``axis_name`` (a psum of sums and counts across devices) is left
-out: the port's data-parallel tier will reduce outside autograd.
-``sampled_softmax_ce`` is not ported yet.
+out: the port's data-parallel tier (``parallel/spmd.py``) reduces sums and
+counts outside autograd instead.
+
+``sampled_softmax_ce`` takes its negatives as an argument:
+:func:`sample_negatives` draws them from an explicit ``torch.Generator``
+(the JAX version draws them from ``jax.random`` inside; the bits cannot
+match, so tests pass the JAX package's negatives in). Plain PyTorch, as it
+is plain XLA in the JAX package.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from bert4clickpath_torch.constants import LABEL_PAD
@@ -86,3 +93,51 @@ def masked_multilabel_cross_entropy(
 ) -> torch.Tensor:
     """Independent-sigmoid CE over (B, C) multi-hot labels with -1 pads."""
     return masked_binary_cross_entropy(logits, labels, label_pad=label_pad)
+
+
+def sample_negatives(num_valid: int, num_samples: int, generator: torch.Generator) -> torch.Tensor:
+    """(num_samples,) int64 label-space ids drawn uniformly from [0,
+    num_valid) with replacement, on the generator's device: the batch-shared
+    negatives of :func:`sampled_softmax_ce`."""
+    return torch.randint(0, num_valid, (num_samples,), generator=generator, device=generator.device)
+
+
+def sampled_softmax_ce(
+    x: torch.Tensor,  # (N, D) head inputs
+    table: torch.Tensor,  # (V, D) catalog rows (model space)
+    labels: torch.Tensor,  # (N,) label-space ids, LABEL_PAD allowed
+    row_offset: int,
+    num_valid: int,
+    negatives: torch.Tensor,  # (S,) label-space ids (sample_negatives)
+    bias: Optional[torch.Tensor] = None,  # (V,) model-space logit bias
+) -> torch.Tensor:
+    """Per-row sampled-softmax NLL over a tied catalog projection: the
+    label's logit against S batch-shared negatives instead of all V rows.
+
+    Negatives get ``+log(num_valid / S)`` (the -log Q correction of a
+    uniform sampler; the always-present positive has Q = 1), and an
+    accidental hit (a negative equal to the row's own label) is blinded to
+    -1e30. Products in x's dtype with f32 sums, as the fused CE. Returns nll
+    (N,) f32 with 0 at LABEL_PAD rows; differentiable in x, table and bias
+    (only the S + N gathered rows get a gradient)."""
+    s = negatives.shape[0]
+    neg_lab = negatives.long()
+    lab_safe = labels.long().clamp(min=0)
+    xf = x.float()
+    w_pos = table[lab_safe + row_offset].to(x.dtype).float()  # (N, D)
+    w_neg = table[neg_lab + row_offset].to(x.dtype).float()  # (S, D)
+    pos = (xf * w_pos).sum(dim=-1)
+    neg = xf @ w_neg.T
+    if bias is not None:
+        b = bias.float()
+        pos = pos + b[lab_safe + row_offset]
+        neg = neg + b[neg_lab + row_offset]
+    # importance correction (f32, as the JAX version), then accidental hits
+    correction = float(np.log(np.float32(num_valid) / np.float32(s)))
+    neg = neg + correction
+    hit = neg_lab[None, :] == lab_safe[:, None]
+    neg = torch.where(hit, torch.full_like(neg, -1e30), neg)
+    m = torch.maximum(pos, neg.max(dim=-1).values)
+    logz = m + torch.log(torch.exp(pos - m) + torch.exp(neg - m[:, None]).sum(dim=-1))
+    mask = (labels != LABEL_PAD).float()
+    return (logz - pos) * mask

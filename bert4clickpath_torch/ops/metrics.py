@@ -4,7 +4,7 @@
 Each ``*_stats`` returns a dict of scalar **sums** plus a count ``n``, as
 tensors on the inputs' device (no host sync); accumulate with
 :func:`merge` and read rates with :func:`finalize`, which fetches once.
-``psum_stats`` (the reduction across a mesh) waits for the parallel tiers.
+:func:`psum_stats` sums them over a mesh axis (``parallel/mesh.py``).
 
 ``torch.topk`` and ``lax.top_k`` may order exact ties differently; the sums
 agree wherever no tie straddles a cut-off.
@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from bert4clickpath_torch.constants import LABEL_PAD
+from bert4clickpath_torch.parallel.mesh import sum_flat
 
 
 def _mask(labels: torch.Tensor) -> torch.Tensor:
@@ -137,6 +138,14 @@ def merge(*stats: Mapping[str, torch.Tensor]) -> dict:
         for k, v in s.items():
             out[k] = out[k] + v if k in out else v
     return out
+
+
+@torch.no_grad()
+def psum_stats(stats: Mapping[str, torch.Tensor], mesh, axis: str = "data") -> dict:
+    """Every sum summed over the mesh axis (the data group by default): one
+    ``all_reduce`` of the packed sums, outside autograd."""
+    keys = list(stats)
+    return dict(zip(keys, sum_flat([stats[k] for k in keys], mesh, axis)))
 
 
 def finalize(stats: Mapping[str, torch.Tensor]) -> dict[str, float]:

@@ -26,7 +26,11 @@ What differs from the JAX package, by design:
 * ``make_eval_step`` runs under ``torch.no_grad()`` with dropout off and
   returns its sums as tensors on the device; with ``steps_per_call`` > 1 it
   is a Python loop over the stacked batch, like the scan train step.
-* No ``axis_name``, ``raw``, ``donate`` or sampled softmax yet.
+* Sampled softmax (``sampled_softmax_samples``) draws its negatives from a
+  ``torch.Generator`` given to ``make_train_step`` (JAX folds 1 into the
+  step's key); a caller may also hand one step its negatives.
+* No ``axis_name``, ``raw`` or ``donate``: the data-parallel and
+  vocab-sharded tiers are ``parallel/spmd.py``.
 """
 
 from __future__ import annotations
@@ -49,6 +53,8 @@ from bert4clickpath_torch.ops.losses import (
     masked_binary_cross_entropy,
     masked_multilabel_cross_entropy,
     masked_softmax_cross_entropy,
+    sample_negatives,
+    sampled_softmax_ce,
 )
 
 Params = dict[str, torch.Tensor]
@@ -199,6 +205,28 @@ def fused_head_ce_sums(
     return fused_masked_ce_sums(gathered, table, batch["labels"], row_offset, num_valid, bias=bias)
 
 
+def sampled_head_ce_sums(
+    model, batch: dict, generator: Optional[torch.Generator], num_valid: int,
+    negatives: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(nll_sum, mask_count) through sampled softmax (``ops/losses.py``):
+    O(N·S·D) instead of O(N·V·D). The same heads and sums contract as
+    :func:`fused_head_ce_sums`; ``negatives`` (S,) are label-space ids
+    (``sample_negatives``)."""
+    head_kind = model.config.head.kind
+    if head_kind not in ("tied_softmax", "softmax"):
+        raise ValueError(f"sampled softmax requires a softmax-family head, got {head_kind}")
+    gather = model.gather_head_inputs if head_kind == "tied_softmax" else model.head_trunk_outputs
+    gathered = gather(batch["features"], batch.get("head_positions"), generator)
+    table, bias, row_offset, _ = head_catalog(model.config, dict(model.named_parameters()))
+    labels = batch["labels"].reshape(-1)
+    nll = sampled_softmax_ce(
+        gathered.reshape(-1, gathered.shape[-1]), table, labels, row_offset, num_valid, negatives,
+        bias=bias,
+    )
+    return nll.sum(), (labels != LABEL_PAD).float().sum()
+
+
 def loss_for_head(head_kind: str) -> Callable:
     if head_kind in ("softmax", "tied_softmax"):
         return masked_softmax_cross_entropy
@@ -212,14 +240,22 @@ def loss_for_head(head_kind: str) -> Callable:
 def make_loss_fn(
     model, loss_fn: Optional[Callable] = None, fused_ce_num_valid: Optional[int] = None,
 ) -> Callable:
-    """``(batch, generator) -> scalar loss`` of the train step: the fused CE
-    (``fused_ce_num_valid`` = the raw label vocabulary size V, softmax-family
-    heads) or dense logits through ``loss_fn``."""
+    """``(batch, generator, negatives=None) -> scalar loss`` of the train
+    step: the fused CE (``fused_ce_num_valid`` = the raw label vocabulary
+    size V, softmax-family heads), sampled softmax over ``negatives`` when
+    they are given (with ``fused_ce_num_valid``), or dense logits through
+    ``loss_fn``."""
     head_kind = model.config.head.kind
     loss_fn = loss_fn or loss_for_head(head_kind)
     use_fused = fused_ce_num_valid is not None and head_kind in ("tied_softmax", "softmax")
 
-    def compute_loss(batch: dict, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def compute_loss(
+        batch: dict, generator: Optional[torch.Generator] = None,
+        negatives: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        if use_fused and negatives is not None:
+            total, count = sampled_head_ce_sums(model, batch, generator, fused_ce_num_valid, negatives)
+            return total / count.clamp(min=1.0)
         if use_fused:
             total, count = fused_head_ce_sums(model, batch, generator, fused_ce_num_valid)
             return total / count.clamp(min=1.0)
@@ -236,34 +272,69 @@ def make_train_step(
     loss_fn: Optional[Callable] = None,
     fused_ce_num_valid: Optional[int] = None,
     ema_decay: float = 0.0,
+    sampled_softmax_samples: Optional[int] = None,
+    negatives_generator: Optional[torch.Generator] = None,
 ) -> Callable:
-    """Returns ``(state, batch, generator=None) -> (state, loss)``.
+    """Returns ``(state, batch, generator=None, negatives=None) -> (state,
+    loss)``.
 
     batch: ``{'features': {...}, 'head_positions': (B, P), 'labels':
     (B, P)}`` int32 tensors on the model's device (``data.pipeline.
     to_device``). ``state.params`` must be the model's parameters.
     ``generator``: the dropout RNG (None: no dropout). The loss comes back
     as a device scalar (no host sync).
+
+    sampled_softmax_samples: with ``fused_ce_num_valid`` (it supplies V),
+    train on S batch-shared uniform negatives instead of the full catalog
+    (``ops/losses.py:sampled_softmax_ce``); eval stays exact. Each step
+    draws them from ``negatives_generator`` (default: a generator on the
+    model's device seeded with 0) unless the call passes ``negatives``.
     """
+    head_kind = model.config.head.kind
+    use_fused = fused_ce_num_valid is not None and head_kind in ("tied_softmax", "softmax")
+    if sampled_softmax_samples is not None:
+        if not use_fused:
+            raise ValueError(
+                "sampled_softmax_samples requires fused_ce_num_valid (it supplies the "
+                "valid-row count) and a softmax-family head"
+            )
+        if sampled_softmax_samples <= 0:
+            raise ValueError("sampled_softmax_samples must be positive")
+        if negatives_generator is None:
+            device = next(model.parameters()).device
+            negatives_generator = torch.Generator(device).manual_seed(0)
     compute_loss = make_loss_fn(model, loss_fn, fused_ce_num_valid)
 
-    def step(state: TrainState, batch: dict, generator: Optional[torch.Generator] = None):
+    def step(
+        state: TrainState, batch: dict, generator: Optional[torch.Generator] = None,
+        negatives: Optional[torch.Tensor] = None,
+    ):
         names = list(state.params)
-        loss = compute_loss(batch, generator)
+        if sampled_softmax_samples is not None and negatives is None:
+            negatives = sample_negatives(fused_ce_num_valid, sampled_softmax_samples, negatives_generator)
+        loss = compute_loss(batch, generator, negatives)
         grads = dict(zip(names, torch.autograd.grad(loss, [state.params[n] for n in names])))
-        updates, opt_state = tx.update(grads, state.opt_state, state.params)
-        with torch.no_grad():
-            lr = schedule(state.step) * state.lr_scale
-            for name, p in state.params.items():
-                p.add_(updates[name] * lr)
-            ema = state.ema_params
-            if ema_decay > 0.0:
-                if ema is None:
-                    raise ValueError("ema_decay > 0 requires TrainState.create(..., ema=True)")
-                ema_update(ema, state.params, state.step, ema_decay)
-        return state.replace(step=state.step + 1, opt_state=opt_state), loss.detach()
+        return apply_gradients(state, grads, tx, schedule, ema_decay), loss.detach()
 
     return step
+
+
+def apply_gradients(
+    state: TrainState, grads: Params, tx: Adam, schedule: Callable[[int], float], ema_decay: float = 0.0,
+) -> TrainState:
+    """One optimizer update in place: Adam, the LR ``schedule(step) *
+    lr_scale``, the EMA; returns the state one step on (shared by the
+    single-device step and the parallel tiers)."""
+    updates, opt_state = tx.update(grads, state.opt_state, state.params)
+    with torch.no_grad():
+        lr = schedule(state.step) * state.lr_scale
+        for name, p in state.params.items():
+            p.add_(updates[name] * lr)
+        if ema_decay > 0.0:
+            if state.ema_params is None:
+                raise ValueError("ema_decay > 0 requires TrainState.create(..., ema=True)")
+            ema_update(state.ema_params, state.params, state.step, ema_decay)
+    return state.replace(step=state.step + 1, opt_state=opt_state)
 
 
 def dropout_generator(device, seed: int, step: int = 0) -> torch.Generator:
@@ -278,7 +349,7 @@ def dropout_generator(device, seed: int, step: int = 0) -> torch.Generator:
     return torch.Generator(device).manual_seed(mixed)
 
 
-def _unstack(stacked: dict, i: int) -> dict:
+def unstack(stacked: dict, i: int) -> dict:
     """Batch i of a stacked batch (leaves carry a leading (K, ...) axis)."""
     return {
         "features": {k: v[i] for k, v in stacked["features"].items()},
@@ -293,12 +364,17 @@ def make_scan_train_step(model, tx: Adam, schedule: Callable[[int], float], **kw
     axis and already sit on the device. The math is K calls of
     :func:`make_train_step` (kwargs forward to it); ``losses`` is a (K,)
     device tensor, returned without a host sync."""
-    step = make_train_step(model, tx, schedule, **kwargs)
+    return looped(make_train_step(model, tx, schedule, **kwargs))
+
+
+def looped(step: Callable) -> Callable:
+    """``step`` over a stacked batch, one call per leading index:
+    ``(state, stacked, generator=None) -> (state, (K,) losses)``."""
 
     def multi(state: TrainState, stacked: dict, generator: Optional[torch.Generator] = None):
         losses = []
         for i in range(stacked["labels"].shape[0]):
-            state, loss = step(state, _unstack(stacked, i), generator)
+            state, loss = step(state, unstack(stacked, i), generator)
             losses.append(loss)
         return state, torch.stack(losses)
 
@@ -391,6 +467,6 @@ def make_eval_step(
             if steps_per_call <= 1:
                 return one(params, batch)
             k = batch["labels"].shape[0]
-            return metrics_lib.merge(*(one(params, _unstack(batch, i)) for i in range(k)))
+            return metrics_lib.merge(*(one(params, unstack(batch, i)) for i in range(k)))
 
     return step

@@ -113,6 +113,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    profiles of the binary and multi-variable steps; then the four scripts'
    ``main`` on the card at small sizes.
 
+10. sharded-ce — the CE kernels with their ``row_start`` on 4 row shards of
+   the flagship table padded by ``padded_vocab_rows`` (57,344 rows): at the
+   flagship's CE inputs (N = 2,560, D = 256, the merged backward) and the
+   wide ones (D = 384, the pair), without and with a bias; each shard's
+   forward and backward with its row_start, combined as the vocab-sharded
+   tier combines them (the max, then the rescaled sum; dx summed, dW
+   stacked, db in its window); logz, dx, dW and db held against the
+   unsharded kernel call and the plain version; exact launches (4 forward,
+   4 backward); times of the 4 shards beside the unsharded call.
+11. tiers — two ranks sharing the card over gloo (``parallel/mesh.py:spawn``,
+   ``parallel/drive.py``): the data-parallel tier at data = 2 and the
+   vocab-sharded tier at model = 2 (``tied_bias``) on the flagship, three
+   f32 steps each held against the one-process step on the same global
+   batches (loss 1e-4; after one step the summed gradients 1e-3 of each
+   norm; after three the parameters 1e-3 of each norm, or 2 lr steps
+   element by element where Adam's first steps amplify rounding; the SPMD
+   table gathered back), one eval batch each against the one-process eval, eight
+   bf16 steps each over two batches cycled with falling losses, two bf16
+   steps of the SPMD tier on
+   the wide model (the CE pair), exact launches per rank and step.
+12. cli-dp — ``torchrun --nproc_per_node=1 examples/bert4rec/train_torch.py
+   --parallel dp``: a world of one over NCCL on the card, two epochs.
+13. sampled — sampled softmax with 1,024 negatives: one flagship step at
+   B=32 card vs CPU with the same negatives (f32), then one step at B=256
+   on the card (launches: gather and attention only).
+
 The line before the last is the card's name and power limit; the line
 before that is the kernels' JSON summary; the last line is the device JSON.
 Imports nothing of JAX.
@@ -241,6 +267,26 @@ BLOCKWISE_TOL = {torch.bfloat16: (2e-3, 2.0**-6), torch.float32: (1e-5, 0.0)}
 # largest magnitude.
 BLOCKWISE_BWD_TOL = {torch.bfloat16: dict(share=2e-3, floor=1e-2, rtol=2.0**-6),
                      torch.float32: dict(atol=1e-5, rtol=1e-4)}
+# vocab-sharded CE: row shards of the padded flagship table (padded_vocab_rows)
+SHARDS = 4
+# parallel tiers on two ranks sharing the card: f32 steps held against one
+# process; bf16 steps over two batches cycled, whose loss must fall (from
+# seeded weights the loss sits near log(54,542) for the first steps, and a
+# few distinct batches do not move it)
+TIER_STEPS, TIER_BF16_STEPS, TIER_LR = 3, 8, 1e-3
+# Adam's first steps are lr * sign(g): a gradient of rounding size (a ReLU
+# unit barely active) steps a whole lr either way, so after three steps a
+# tier's parameter may sit past 1e-3 of its norm from the one-process run's
+# on a few elements. Such a parameter is held to the share of its elements
+# apart by more than TIER_LR / 10, at most TIER_FLIP_SHARE (a fault that
+# moves a whole parameter, or its steps' size, moves nearly every element
+# past that). Adam's first moment after the three steps, the summed
+# gradients of the steps, is held within TIER_MU_REL of each norm. Set from
+# the readings on an H100 (PERF.md, section 6): at most 1.95e-3 of a
+# parameter's elements apart (2 of 1,024), the first moment 6.6e-3 apart
+TIER_FLIP_SHARE = 1e-2
+TIER_MU_REL = 2e-2
+SAMPLED = 1024  # sampled softmax: negatives a step
 # published peaks of one H100 SXM (dense): device memory bytes/s, bf16 tensor
 # FLOP/s, f32 FLOP/s outside the tensor cores (also used for integer work)
 PEAK = {"bytes": 3.35e12, "bf16": 989e12, "tf32": 495e12, "f32": 67e12}
@@ -2324,6 +2370,462 @@ def phase_heads(card: str) -> dict:
     return out
 
 
+# -- the vocab-sharded CE, the parallel tiers, the DP CLI, sampled softmax --
+
+
+def _sharded_pass(k, x, table, bias, lab, logz, dnll, off, nv, v_local, backward: bool):
+    """The CE entries on each row shard of ``table`` with its row_start,
+    combined as the vocab-sharded tier combines them (here in one process):
+    logz from the shards' (m, l) by the max and the rescaled sum; or dx
+    summed, the dW shards stacked, db in its window."""
+    shards = table.shape[0] // v_local
+    parts = []
+    for s in range(shards):
+        lo = s * v_local
+        tb, bb = table[lo : lo + v_local], None if bias is None else bias[lo : lo + v_local]
+        if backward:
+            parts.append(k.ce_backward(x, tb, bb, lab, logz, dnll, off, nv, lo))
+        else:
+            parts.append(k.ce_stats(x, tb, bb, off, nv, lo))
+    if not backward:
+        m = torch.stack([p[0] for p in parts])
+        gmax = m.max(dim=0).values
+        return gmax + torch.log((torch.stack([p[1] for p in parts]) * torch.exp(m - gmax)).sum(dim=0))
+    dx = torch.stack([p[0].float() for p in parts]).sum(dim=0).to(x.dtype)
+    db = None if bias is None else torch.cat([p[2] for p in parts])
+    return dx, torch.cat([p[1] for p in parts]), db
+
+
+def sharded_ce_at(rng, d: int, card: str) -> dict:
+    """The CE kernels on SHARDS row shards of the padded flagship table
+    (``padded_vocab_rows(rows, SHARDS)``), each with its row_start, at N =
+    2,560 rows of f32 x: logz, dx, dW and db combined from the shards held
+    against the unsharded kernel call and the plain version (logz within
+    1e-5 of the plain logz's magnitude, gradients within CE_GRAD_REL of the
+    plain version's largest), without and with a bias; launches exact (one
+    forward and one backward entry per shard). Times of the 4 shards' calls
+    in turns with the unsharded call (no bias)."""
+    from bert4clickpath_torch.constants import LABEL_PAD
+    from bert4clickpath_torch.ops.fused_ce import _labels_model
+    from bert4clickpath_torch.ops.kernels import _build
+    from bert4clickpath_torch.ops.kernels import fused_ce as k
+    from bert4clickpath_torch.parallel.spmd import padded_vocab_rows
+
+    _, vocab = flagship_config()
+    n, off, nv = B_TRAIN * 10, 10, N_ITEMS
+    rows = padded_vocab_rows(vocab.model_vocab_size, SHARDS)
+    v_local = rows // SHARDS
+    route = k.ce_backward_route(d)
+    bwd_counts = {"ce_bwd": SHARDS} if route == "merged" else {"ce_bwd_dx": SHARDS, "ce_bwd_dw": SHARDS}
+    x = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).cuda()
+    table = torch.from_numpy(rng.standard_normal((rows, d), dtype=np.float32) * 0.02).cuda()
+    labels_np = rng.integers(0, nv, size=n).astype(np.int32)
+    labels_np[rng.random(n) < 0.2] = LABEL_PAD
+    labels = torch.from_numpy(labels_np).cuda()
+    lab = _labels_model(labels, off)
+    mask = (labels != LABEL_PAD).float()
+    dnll = mask / mask.sum()
+    errs = {"fwd": 0.0, "bwd": 0.0, "dx": 0.0, "dw": 0.0}
+    tag = f"N={n} V={rows} ({SHARDS} shards of {v_local}) D={d} f32"
+    for with_bias in (False, True):
+        bias = torch.from_numpy(rng.standard_normal(rows, dtype=np.float32)).cuda() if with_bias else None
+        wm, wl = k.ce_stats_reference(x, table, bias, off, nv)
+        plain_logz = wm + torch.log(wl)
+        m, l = k.ce_stats(x, table, bias, off, nv)
+        _build.reset_launch_counts()
+        logz = _sharded_pass(k, x, table, bias, lab, None, None, off, nv, v_local, False)
+        torch.cuda.synchronize()
+        fwd_counts = {c: v for c, v in _build.launch_counts().items() if v}
+        scale = plain_logz.abs().max().item()
+        e_plain = (logz - plain_logz).abs().max().item()
+        e_full = (logz - (m + torch.log(l))).abs().max().item()
+        log(f"[sharded-ce] forward {tag} bias={with_bias}: logz max_abs_err {e_plain:.3e} against plain, "
+            f"{e_full:.3e} against the unsharded kernel (tol {1e-5 * scale:.3e}: 1e-5 of |logz|); launches {fwd_counts}")
+        if fwd_counts != {"ce_fwd": SHARDS} or not torch.isfinite(logz).all() or max(e_plain, e_full) > 1e-5 * scale:
+            raise AssertionError(f"sharded CE forward {tag} bias={with_bias}: {e_plain}, {e_full}, {fwd_counts}")
+        errs["fwd"] = max(errs["fwd"], e_plain)
+        args = (x, table, bias, lab, plain_logz, dnll, off, nv)
+        _build.reset_launch_counts()
+        got = _sharded_pass(k, *args, v_local, True)
+        torch.cuda.synchronize()
+        counts = {c: v for c, v in _build.launch_counts().items() if v}
+        full = k.ce_backward(*args)
+        want = k.ce_backward_reference(*args)
+        for name, g, f, w in zip(("dx", "dW", "db"), got, full, want):
+            if w is None:
+                continue
+            scale = w.abs().max().item()
+            e_w, e_f = (g - w).abs().max().item(), (g - f).abs().max().item()
+            log(f"[sharded-ce] backward ({route}) {tag} bias={with_bias} {name}: max_abs_err {e_w:.3e} against "
+                f"plain, {e_f:.3e} against the unsharded kernel, largest |value| {scale:.3e} (tol {CE_GRAD_REL:.0e} "
+                f"of it)")
+            if not torch.isfinite(g).all() or max(e_w, e_f) > CE_GRAD_REL * scale:
+                raise AssertionError(f"sharded CE backward {tag} bias={with_bias} {name}: {e_w}, {e_f} > {scale}")
+            key = "bwd" if route == "merged" else ("dx" if name == "dx" else "dw")
+            errs[key] = max(errs[key], e_w)
+        if counts != bwd_counts:
+            raise AssertionError(f"sharded CE backward {tag}: launches {counts}, want {bwd_counts}")
+    # times, no bias, in turns: the shards' calls summed against the one call
+    args = (x, table, None, lab, plain_logz, dnll, off, nv)
+    t = {"fwd": [], "fwd_full": [], "bwd": [], "bwd_full": []}
+    for _ in range(2):
+        t["fwd"].append(device_time_ms(lambda: _sharded_pass(k, x, table, None, lab, None, None, off, nv, v_local,
+                                                             False), reps=10))
+        t["fwd_full"].append(device_time_ms(lambda: k.ce_stats(x, table, None, off, nv), reps=10))
+        t["bwd"].append(device_time_ms(lambda: _sharded_pass(k, *args, v_local, True), reps=10))
+        t["bwd_full"].append(device_time_ms(lambda: k.ce_backward(*args), reps=10))
+    t = {name: min(v) for name, v in t.items()}
+
+    def plain_pass(backward):
+        parts = []
+        for s in range(SHARDS):
+            lo = s * v_local
+            tb = table[lo : lo + v_local]
+            parts.append(k.ce_backward_reference(x, tb, None, lab, plain_logz, dnll, off, nv, lo) if backward
+                         else k.ce_stats_reference(x, tb, None, off, nv, lo))
+        return parts
+
+    t["fwd_plain"] = device_time_ms(lambda: plain_pass(False), reps=5)
+    t["bwd_plain"] = device_time_ms(lambda: plain_pass(True), reps=5)
+    log(f"[sharded-ce] times {tag}: forward {t['fwd']:.4f} ms over the {SHARDS} shards against {t['fwd_full']:.4f} "
+        f"ms unsharded ({t['fwd'] / t['fwd_full']:.3f}x); backward ({route}) {t['bwd']:.4f} ms against "
+        f"{t['bwd_full']:.4f} ms ({t['bwd'] / t['bwd_full']:.3f}x); plain {t['fwd_plain']:.4f} / {t['bwd_plain']:.4f} "
+        f"ms (best of two windows of median device time) [{card}]")
+    # bounds: the work of the unsharded call (the window's rows and the
+    # labelled rows), plus each shard's (m, l) written; no PyTorch call
+    # computes either without the (N, V) logits: library_ms null
+    live = int(mask.sum().item())
+    kind, terms = DX_RATING
+    fwd_bound = bound(n * d * 4 + nv * d * 4 + SHARDS * 2 * n * 4, {kind: terms * 2.0 * n * nv * d})
+    common = (n * d + nv * d + 3 * n) * 4
+    out = {"fwd": dict(max_abs_err=errs["fwd"], ms=t["fwd"], plain_ms=t["fwd_plain"], library_ms=None, **fwd_bound)}
+    if route == "merged":
+        out["bwd"] = dict(max_abs_err=errs["bwd"], ms=t["bwd"], plain_ms=t["bwd_plain"], library_ms=None,
+                          **bound((2 * n * d + 2 * nv * d + 3 * n) * 4, {kind: terms * 6.0 * live * nv * d}))
+        return out
+    # the pair: each pass timed alone over the shards, its plain half too
+    for name, entry, ref, out_bytes in (("dx", k.ce_backward_dx, k.ce_backward_dx_reference, n * d * 4),
+                                        ("dw", k.ce_backward_dw, k.ce_backward_dw_reference, nv * d * 4)):
+        def run(fn=entry):
+            return [fn(x, table[s * v_local : (s + 1) * v_local], None, lab, plain_logz, dnll, off, nv, s * v_local)
+                    for s in range(SHARDS)]
+
+        def run_plain(fn=ref):
+            return [fn(x, table[s * v_local : (s + 1) * v_local], None, lab, plain_logz, dnll, off, nv, s * v_local)
+                    for s in range(SHARDS)]
+
+        ms = min(device_time_ms(run, reps=10) for _ in range(2))
+        out[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=device_time_ms(run_plain, reps=5), library_ms=None,
+                         **bound(common + out_bytes, {kind: terms * 4.0 * live * nv * d}))
+        log(f"[sharded-ce] {name} pass {tag}: {ms:.4f} ms over the {SHARDS} shards, bound "
+            f"{out[name]['bound_ms']:.4f} ms, plain {out[name]['plain_ms']:.4f} ms [{card}]")
+    return out
+
+
+def phase_sharded_ce(card: str) -> dict:
+    """The CE kernels with their row_start on 4 row shards: the flagship's
+    CE inputs (D = 256, the merged backward) and the wide ones (D = 384, the
+    pair)."""
+    rng = np.random.default_rng(SEED + 5)
+    flag, wide = sharded_ce_at(rng, 256, card), sharded_ce_at(rng, WIDE_D, card)
+    return {"ce_fwd_sharded": flag["fwd"], "ce_bwd_sharded": flag["bwd"],
+            "ce_bwd_dx_sharded": wide["dx"], "ce_bwd_dw_sharded": wide["dw"], "ce_fwd_sharded_wide": wide["fwd"]}
+
+
+def _rel_errs(got: dict, want: dict, key_bias_steps: float) -> dict:
+    """Per parameter, |got - want| / |want| (norms). The key bias (the k
+    third of a fused QKV bias) has a zero gradient in exact arithmetic:
+    both sides step on noise, so it is held only to its steps' size
+    (``key_bias_steps``, an absolute bound) and left out of the norm."""
+    errs = {}
+    for name, w in want.items():
+        g, w = torch.as_tensor(got[name]).double(), torch.as_tensor(w).double()
+        if name.endswith("wqkv.bias"):
+            third = w.shape[0] // 3
+            if (g[third : 2 * third] - w[third : 2 * third]).abs().max().item() > key_bias_steps:
+                raise AssertionError(f"{name}: the key bias moved more than its steps allow")
+            g = torch.cat([g[:third], g[2 * third :]])
+            w = torch.cat([w[:third], w[2 * third :]])
+        errs[name] = ((g - w).norm() / w.norm().clamp(min=1e-30)).item()
+    return errs
+
+
+def _apart_shares(got: dict, want: dict, threshold: float) -> dict:
+    """Per parameter, the share of its elements apart by more than
+    ``threshold``; the key third of a fused QKV bias left out, as in
+    :func:`_rel_errs`."""
+    out = {}
+    for name, w in want.items():
+        apart = np.abs(np.asarray(got[name], dtype=np.float64) - np.asarray(w, dtype=np.float64)) > threshold
+        if name.endswith("wqkv.bias"):
+            third = apart.shape[0] // 3
+            apart = np.concatenate([apart[:third], apart[2 * third :]])
+        out[name] = float(apart.mean())
+    return out
+
+
+def _one_process(cfg, sd, host, ev, num_valid: int, lr: float):
+    """The port's one-process train step on the card over the full global
+    batches, and one eval batch: (losses, params, Adam's first moment, eval
+    sums)."""
+    from bert4clickpath_torch.config import TrainConfig
+    from bert4clickpath_torch.data.pipeline import to_device
+    from bert4clickpath_torch.models.model import ClickstreamModel
+    from bert4clickpath_torch.training import schedules
+    from bert4clickpath_torch.training.train_state import TrainState, make_eval_step, make_optimizer, make_train_step
+
+    model = ClickstreamModel(cfg, device="cuda")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+    tx = make_optimizer(TrainConfig())
+    step = make_train_step(model, tx, schedules.constant(lr), fused_ce_num_valid=num_valid)
+    state = TrainState.create(dict(model.named_parameters()), tx)
+    losses = []
+    for b in host:
+        state, loss = step(state, to_device(b, "cuda"))
+        losses.append(loss.item())
+    stats = make_eval_step(model, chunked_num_valid=num_valid)(state.params, to_device(ev, "cuda"))
+    params = {k: v.detach().cpu().numpy() for k, v in state.params.items()}
+    mu = {k: v.float().cpu().numpy() for k, v in state.opt_state.mu.items()}
+    return losses, params, mu, {k: float(v) for k, v in stats.items()}
+
+
+def phase_tiers(card: str) -> dict:
+    """The data-parallel tier (data = 2) and the vocab-sharded SPMD tier
+    (model = 2, tied_bias) with two ranks sharing the one card over gloo,
+    on the flagship (4L/256d, qkv_fused, tied softmax over 54,542 items,
+    global B = 256, dropout 0), in f32 against the port's one-process step
+    on the same global batches: one step (loss 1e-4 relative; the summed
+    gradients, as Adam's first moment, within 1e-3 of each norm), then
+    three (losses 1e-4; every parameter within 1e-3 of its norm, or, where
+    Adam's sign-like first steps turned a gradient of rounding size into a
+    whole step either way, with at most TIER_FLIP_SHARE of its elements
+    apart by more than lr / 10; Adam's first moment within TIER_MU_REL of
+    each norm; the SPMD table gathered back) and one eval batch against the
+    one-process eval;
+    eight bf16 steps
+    of each over two batches cycled, the last two losses below the first
+    two; two bf16 steps of the SPMD tier on the
+    wide model (D = 384: the CE pair with its row_start); exact kernel
+    launches per rank and step. ms/step is printed for information only:
+    two ranks sharing one card over gloo say nothing of a multi-card
+    tier."""
+    from bert4clickpath_torch.data.generator import ClickStreamGenerator
+    from bert4clickpath_torch.data.pipeline import ClozeDataset
+    from bert4clickpath_torch.data.synthetic import seeded_state_dict
+    from bert4clickpath_torch.ops.kernels import _build
+    from bert4clickpath_torch.parallel import drive
+    from bert4clickpath_torch.parallel.mesh import spawn
+    from bert4clickpath_torch.parallel.spmd import padded_vocab_rows
+
+    t0 = time.perf_counter()
+    cfg, vocab = flagship_config()
+    num_valid = vocab.label_vocab_size
+    rows = cfg.features["items"].vocab_rows
+    if padded_vocab_rows(vocab.model_vocab_size, 2) != rows:
+        raise AssertionError("the flagship table does not cut into two equal shards")
+    f32 = dataclasses.replace(cfg, dropout_rate=0.0, dtype="float32")
+    f32_bias = dataclasses.replace(f32, head=dataclasses.replace(f32.head, tied_bias=True))
+    wide = dataclasses.replace(
+        f32_bias, dtype="bfloat16", features={"items": dataclasses.replace(cfg.features["items"], embedding_dim=WIDE_D)},
+        num_heads=WIDE_HEADS, ffn_dim=4 * WIDE_D)
+    gen = ClickStreamGenerator(n_items=N_ITEMS, session_cohesiveness=200, seed=1)
+    items, _ = gen.generate_sessions(B_TRAIN * 8)
+    ds = ClozeDataset(items, gen.item_vocab(), max_items=50)
+    it = ds.train_batches(B_TRAIN, seed=0)
+    host = [next(it) for _ in range(TIER_STEPS)]
+    ev = next(ds.eval_batches(B_TRAIN))
+    as_np = lambda b: {"features": dict(b.features), "head_positions": b.head_positions, "labels": b.labels}  # noqa: E731
+    sd, sd_bias, sd_wide = (
+        {k: v.numpy() for k, v in seeded_state_dict(c, SEED + 3).items()} for c in (f32, f32_bias, wide))
+    common = dict(device="cuda", num_valid=num_valid, lr=TIER_LR)
+    jobs = {
+        "dp f32": dict(tier="dp", mesh=(2, 1), config=f32.to_json(), state=sd, eval_batches=[as_np(ev)]),
+        "spmd f32": dict(tier="spmd", mesh=(1, 2), config=f32_bias.to_json(), state=sd_bias,
+                         eval_batches=[as_np(ev)]),
+        "dp bf16": dict(tier="dp", mesh=(2, 1), config=dataclasses.replace(f32, dtype="bfloat16").to_json(),
+                        state=sd, eval_batches=[]),
+        "spmd bf16": dict(tier="spmd", mesh=(1, 2), config=dataclasses.replace(f32_bias, dtype="bfloat16").to_json(),
+                          state=sd_bias, eval_batches=[]),
+        "spmd wide bf16": dict(tier="spmd", mesh=(1, 2), config=wide.to_json(), state=sd_wide, eval_batches=[]),
+        # one step: Adam's first moment is then (1 - b1) x the summed gradient
+        "dp f32 step 1": dict(tier="dp", mesh=(2, 1), config=f32.to_json(), state=sd, eval_batches=[]),
+        "spmd f32 step 1": dict(tier="spmd", mesh=(1, 2), config=f32_bias.to_json(), state=sd_bias, eval_batches=[]),
+    }
+    for name, job in jobs.items():
+        batches = (host[:1] if "step 1" in name else host if "f32" in name else host[:2] if "wide" in name
+                   else [host[i % 2] for i in range(TIER_BF16_STEPS)])
+        job.update(common, batches=[as_np(b) for b in batches])
+    log(f"[tiers] flagship f32/bf16 on two ranks sharing the card over gloo, global B={B_TRAIN}; "
+        f"set-up {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn(drive.run_jobs, 2, os.path.join(tmp, "store"), (list(jobs.values()),), timeout_s=600)
+    log(f"[tiers] the two ranks ran {len(jobs)} jobs in {time.perf_counter() - t0:.2f} s")
+    results = {name: [r[i] for r in ranks] for i, name in enumerate(jobs)}
+    # the one-process references on the card: three steps, and one step
+    refs = {name: _one_process(cfg_, sd_, host[:steps], ev, num_valid, TIER_LR)
+            for name, cfg_, sd_, steps in (("dp f32", f32, sd, TIER_STEPS), ("spmd f32", f32_bias, sd_bias, TIER_STEPS),
+                                           ("dp f32 step 1", f32, sd, 1), ("spmd f32 step 1", f32_bias, sd_bias, 1))}
+    per_step = {"dp": {"gather": 1, "attention": 4, "attention_bwd": 4, "ce_fwd": 1, "ce_bwd": 1},
+                "spmd": {"attention": 4, "attention_bwd": 4, "ce_fwd": 1, "ce_bwd": 1},
+                "spmd wide": {"attention": 4, "attention_bwd": 4, "ce_fwd": 1, "ce_bwd_dx": 1, "ce_bwd_dw": 1}}
+    per_eval = {"dp": {"gather": 1, "attention": 4}, "spmd": {"attention": 4}}
+    for name, per_rank in results.items():
+        kind = "spmd wide" if "wide" in name else name.split()[0]
+        steps = len(jobs[name]["batches"])
+        for r in per_rank:
+            got = {c: v for c, v in r["train_launches"].items() if v}
+            want = {c: v * steps for c, v in per_step[kind].items()}
+            if got != want:
+                raise AssertionError(f"[tiers] {name} rank {r['coords']}: launches {got}, want {want}")
+            if jobs[name]["eval_batches"]:
+                got = {c: v for c, v in r["eval_launches"].items() if v}
+                if got != per_eval[kind]:
+                    raise AssertionError(f"[tiers] {name} eval rank {r['coords']}: launches {got}")
+            if not np.all(np.isfinite(r["losses"])):
+                raise AssertionError(f"[tiers] {name}: a loss is not finite: {r['losses']}")
+        ms = [1e3 * statistics.median(r["step_seconds"][1:] or r["step_seconds"]) for r in per_rank]
+        log(f"[tiers] {name}: losses {np.round(per_rank[0]['losses'], 5).tolist()}; launches per rank and step "
+            f"{per_step[kind]}; {', '.join(f'{m:.1f}' for m in ms)} ms/step on the two ranks (information only: "
+            f"two ranks share one card over gloo) [{card}]")
+        losses = per_rank[0]["losses"]
+        if "bf16" in name and "wide" not in name and not losses[-2:].mean() < losses[:2].mean():
+            raise AssertionError(f"[tiers] {name}: the loss did not fall: {losses}")
+    for name, (losses, params, mu, stats) in refs.items():
+        steps = len(losses)
+        for r in results[name]:
+            loss_err = float(np.max(np.abs(r["losses"] - losses) / np.abs(losses)))
+            if steps == 1:
+                # the gradients, summed over the tier's ranks, against one
+                # process: Adam's first moment after one step
+                errs = _rel_errs(r["mu"], mu, float("inf"))
+                worst = max(errs, key=errs.get)
+                log(f"[tiers] {name} rank {r['coords']} against one process: loss rel err {loss_err:.2e} (tol 1e-4); "
+                    f"gradients (Adam's first moment after one step) median rel err "
+                    f"{statistics.median(errs.values()):.2e}, worst {errs[worst]:.2e} at {worst} (tol 1e-3)")
+                if loss_err > 1e-4 or errs[worst] > 1e-3:
+                    raise AssertionError(f"[tiers] {name}: the gradients differ from the one-process step's")
+                continue
+            # after three steps: within 1e-3 of each parameter's norm, or
+            # with at most TIER_FLIP_SHARE of its elements apart by more
+            # than lr / 10 (Adam's sign-like first steps; see the constant);
+            # the first moment within TIER_MU_REL
+            errs = _rel_errs(r["params"], params, 2 * TIER_LR * steps)
+            shares = _apart_shares(r["params"], params, TIER_LR / 10)
+            past = {k: e for k, e in errs.items() if e > 1e-3}
+            mu_errs = _rel_errs(r["mu"], mu, float("inf"))
+            worst, worst_mu = max(errs, key=errs.get), max(mu_errs, key=mu_errs.get)
+            ev_got = r["evals"][0]
+            ev_err = max(abs(ev_got[k] - v) / max(abs(v), 1.0) for k, v in stats.items())
+            log(f"[tiers] {name} rank {r['coords']} against one process: loss rel err {loss_err:.2e} (tol 1e-4); "
+                f"parameters median rel err {statistics.median(errs.values()):.2e}, worst {errs[worst]:.2e} at "
+                f"{worst}; {len(past)} of {len(errs)} past 1e-3 of their norm, their shares of elements apart by "
+                f"more than lr/10 {', '.join(f'{k} {shares[k]:.3e}' for k in sorted(past))} (tol "
+                f"{TIER_FLIP_SHARE:.0e}); largest share of any parameter {max(shares.values()):.3e}; Adam's first "
+                f"moment median rel err {statistics.median(mu_errs.values()):.2e}, worst {mu_errs[worst_mu]:.2e} at "
+                f"{worst_mu} (tol {TIER_MU_REL:.0e}); eval sums worst rel diff {ev_err:.2e} ({ev_got['n']:.0f} rows)")
+            if (loss_err > 1e-4 or any(shares[k] > TIER_FLIP_SHARE for k in past) or mu_errs[worst_mu] > TIER_MU_REL
+                    or ev_got["n"] != stats["n"] or ev_err > EVAL_TOL["float32"]):
+                raise AssertionError(f"[tiers] {name} differs from the one-process run")
+            for key in (k for k in stats if "@" in k):
+                if abs(ev_got[key] - stats[key]) > 1.0:
+                    raise AssertionError(f"[tiers] {name} eval {key}: {ev_got[key]} against {stats[key]}")
+    return {"spmd": results["spmd f32"][0]["train_launches"],
+            "spmd wide": results["spmd wide bf16"][0]["train_launches"]}
+
+
+def phase_cli_dp(card: str) -> None:
+    """``train_torch.py --parallel dp`` under ``torchrun --nproc_per_node=1``:
+    a world of one over NCCL on the card, two short epochs of the tied
+    preset; the history is written."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
+               os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "bert4rec", "train_torch.py"),
+               "--parallel", "dp", "--simulated", "--preset", "tpu", "--n_items", "5000", "--n_sessions", "4000",
+               "--batch", "64", "--epochs", "2", "--steps_per_epoch", "10", "--eval_batches", "2",
+               "--model_dir", os.path.join(tmp, "run")]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        log(f"[cli-dp] {' '.join(cmd[2:5])} train_torch.py ... exited {out.returncode} in "
+            f"{time.perf_counter() - t0:.2f} s")
+        for line in out.stdout.splitlines()[-6:]:
+            log(f"[cli-dp] {line}")
+        if out.returncode != 0:
+            raise AssertionError(f"train_torch.py --parallel dp failed:\n{out.stderr[-3000:]}")
+        if "data-parallel over 1 ranks" not in out.stdout:
+            raise AssertionError("train_torch.py did not take the data-parallel tier")
+        with open(os.path.join(tmp, "run", "history.jsonl")) as f:
+            hist = [json.loads(line) for line in f]
+        if len(hist) != 2 or not all(np.isfinite(h["train_loss"]) and np.isfinite(h["val_loss"]) for h in hist):
+            raise AssertionError(f"bad history: {hist}")
+        log(f"[cli-dp] history: {[(h['step'], round(h['train_loss'], 4), round(h['val_loss'], 4)) for h in hist]}")
+
+
+def phase_sampled(card: str) -> None:
+    """Sampled softmax (1,024 negatives) on the flagship: one step's loss
+    and gradients on the card against the CPU with the same negatives (f32,
+    dropout 0, B=32, TRAIN_TOL), then one train step on the card at B=256
+    with its launches (gather and attention; no CE kernel)."""
+    from bert4clickpath_torch.config import TrainConfig
+    from bert4clickpath_torch.data.generator import ClickStreamGenerator
+    from bert4clickpath_torch.data.pipeline import ClozeDataset, to_device
+    from bert4clickpath_torch.data.synthetic import seeded_state_dict
+    from bert4clickpath_torch.models.model import ClickstreamModel
+    from bert4clickpath_torch.ops.kernels import _build
+    from bert4clickpath_torch.ops.losses import sample_negatives
+    from bert4clickpath_torch.training import schedules
+    from bert4clickpath_torch.training.train_state import TrainState, make_loss_fn, make_optimizer, make_train_step
+
+    cfg, vocab = flagship_config()
+    num_valid = vocab.label_vocab_size
+    gen = ClickStreamGenerator(n_items=N_ITEMS, session_cohesiveness=200, seed=2)
+    items, _ = gen.generate_sessions(B_TRAIN * 2)
+    ds = ClozeDataset(items, gen.item_vocab(), max_items=50)
+    host = next(ds.train_batches(B_TRAIN, seed=0))
+    small = next(ds.train_batches(B_CHECK, seed=1))
+    neg = sample_negatives(num_valid, SAMPLED, torch.Generator().manual_seed(SEED))
+    loss_tol, grad_tol = TRAIN_TOL["float32"]
+    cfg32 = dataclasses.replace(cfg, dropout_rate=0.0, dtype="float32")
+    sd = seeded_state_dict(cfg32, SEED + 4)
+    results = []
+    for device in ("cuda", "cpu"):
+        m = ClickstreamModel(cfg32, device=device)
+        m.load_state_dict(sd)
+        loss = make_loss_fn(m, fused_ce_num_valid=num_valid)(to_device(small, device), None, neg.to(device))
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        results.append((loss.item(), {n: g.float().cpu() for (n, _), g in zip(m.named_parameters(), grads)}))
+    (gl, gg), (cl, cg) = results
+    errs = {n: ((gg[n] - cg[n]).norm() / cg[n.replace("wk.bias", "wq.bias")].norm().clamp(min=1e-30)).item()
+            for n in cg}
+    worst = max(errs, key=errs.get)
+    log(f"[sampled] {SAMPLED} negatives, B={B_CHECK} f32 dropout 0, card vs CPU: loss {gl:.6f} vs {cl:.6f} "
+        f"(tol {loss_tol:.0e}); relative gradient norm error median {statistics.median(errs.values()):.2e}, worst "
+        f"{errs[worst]:.2e} at {worst} (tol {grad_tol:.0e})")
+    if abs(gl - cl) > loss_tol or errs[worst] > grad_tol:
+        raise AssertionError("sampled softmax: card and CPU steps differ")
+    model = ClickstreamModel(cfg, device="cuda")
+    model.load_state_dict(seeded_state_dict(cfg, SEED + 4))
+    tx = make_optimizer(TrainConfig(), mu_dtype=torch.bfloat16)
+    step = make_train_step(model, tx, schedules.constant(1e-3), fused_ce_num_valid=num_valid,
+                           sampled_softmax_samples=SAMPLED,
+                           negatives_generator=torch.Generator("cuda").manual_seed(SEED))
+    state = TrainState.create(dict(model.named_parameters()), tx)
+    batch = to_device(host, "cuda")
+    state, _ = step(state, batch, torch.Generator("cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, loss = step(state, batch, torch.Generator("cuda").manual_seed(SEED + 1))
+    loss = loss.item()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = {c: v for c, v in _build.launch_counts().items() if v}
+    want = {"gather": 1, "attention": 4, "attention_bwd": 4}
+    log(f"[sampled] flagship B={B_TRAIN} bf16 dropout {cfg.dropout_rate} step on the card: loss {loss:.4f}, "
+        f"{ms:.1f} ms (host clock, one step), launches {counts} [{card}]")
+    if counts != want or not np.isfinite(loss):
+        raise AssertionError(f"sampled softmax step: launches {counts} (want {want}), loss {loss}")
+
+
 def main() -> None:
     walls = {}
 
@@ -2344,6 +2846,10 @@ def main() -> None:
     wide_train = timed("wide-train", phase_wide_train, card)
     heads = timed("heads", phase_heads, card)
     log("[heads] launches per train step: " + json.dumps({tag: run["counts"] for tag, run in heads.items()}))
+    kernels.update(timed("sharded-ce", phase_sharded_ce, card))
+    tiers = timed("tiers", phase_tiers, card)
+    timed("cli-dp", phase_cli_dp, card)
+    timed("sampled", phase_sampled, card)
     # name, source, TPU kernel, counter (= key in `kernels`), the main path
     # whose launches are reported: the flagship train step's timed window,
     # the long-session train step's, or one step of the wide training run
@@ -2360,6 +2866,15 @@ def main() -> None:
         ("blockwise_mha_dq", "attention_blockwise.cu", "attention.py:245", "blockwise_dq", long_train),
         ("blockwise_mha_dkv", "attention_blockwise.cu", "attention.py:283", "blockwise_dkv", long_train),
         ("fused_dropout", "dropout.cu", "dropout.py:46", "dropout", long_train),
+        # the CE kernels with their row_start on a row shard: held in the
+        # sharded-ce phase, launched on the vocab-sharded tier's main path
+        # (rank 0's timed steps; the pair on the wide model)
+        ("fused_ce_fwd_sharded", "fused_ce.cu", "fused_ce.py:134", "ce_fwd_sharded", {"counts": tiers["spmd"]}),
+        ("fused_ce_bwd_sharded", "fused_ce_mma.cuh", "fused_ce.py:761", "ce_bwd_sharded", {"counts": tiers["spmd"]}),
+        ("fused_ce_bwd_dx_sharded", "fused_ce_two_pass.cu", "fused_ce.py:293", "ce_bwd_dx_sharded",
+         {"counts": tiers["spmd wide"]}),
+        ("fused_ce_bwd_dw_sharded", "fused_ce_mma.cuh", "fused_ce.py:321", "ce_bwd_dw_sharded",
+         {"counts": tiers["spmd wide"]}),
     ]
     summary = {"kernels": [
         {
@@ -2367,7 +2882,7 @@ def main() -> None:
             "route": "cuda",
             "source": f"bert4clickpath_torch/csrc/{src}",
             "replaces": pallas + tpu,
-            "launches": path["counts"][counter],
+            "launches": path["counts"][counter.replace("_sharded", "")],
             **{k: kernels[counter][k] for k in
                ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         }

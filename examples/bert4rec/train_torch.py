@@ -14,16 +14,26 @@ Two model presets, as in the JAX script:
 
 Runs on the CUDA card (``--device cuda``, the default, which raises where
 there is none) or, when asked, on the CPU (``--device cpu``: the kernels'
-plain versions). What the port has not got yet is refused by name before
-any step is built: ``--parallel dp``, ``--sampled_softmax``, ``--attn_impl
-xla|auto`` (attention always runs the hand-written kernels, the JAX
-script's ``pallas``).
+plain versions). ``--attn_impl xla|auto`` is refused by name (attention
+always runs the hand-written kernels, the JAX script's ``pallas``), and the
+support matrix (``bert4clickpath_torch/parallel/support.py``) refuses what
+it refuses, before any step is built.
+
+``--sampled_softmax S`` trains the softmax-family heads on S batch-shared
+uniform negatives a step (eval stays exact). ``--parallel dp`` (or
+``auto`` under ``torchrun`` with more than one process) trains
+data-parallel, one process per card: each rank takes its rows of every
+global batch (``--batch`` and the eval batch must divide by the world
+size), the gradients and eval sums are summed over the world, and only rank
+0 writes the history, checkpoints and the export.
 
 Usage:
   python examples/bert4rec/train_torch.py --data beauty.txt \
       --model_dir runs/run1 --preset parity --epochs 200
   python examples/bert4rec/train_torch.py --simulated --n_items 1000 \
       --model_dir runs/sim --preset tpu --device cpu --epochs 2
+  torchrun --nproc_per_node=2 examples/bert4rec/train_torch.py --parallel dp \
+      --simulated --model_dir runs/dp --preset tpu
 """
 
 from __future__ import annotations
@@ -44,6 +54,9 @@ from bert4clickpath_torch.data.generator import ClickStreamGenerator
 from bert4clickpath_torch.data.pipeline import ClozeDataset, to_device
 from bert4clickpath_torch.models.model import ClickstreamModel, init_state_dict
 from bert4clickpath_torch.ops.fused_ce import padded_rows
+from bert4clickpath_torch.parallel import spmd
+from bert4clickpath_torch.parallel.mesh import initialize_distributed, make_mesh
+from bert4clickpath_torch.parallel.support import validate_tier
 from bert4clickpath_torch.training import checkpoint as ckpt_lib
 from bert4clickpath_torch.training import schedules
 from bert4clickpath_torch.training.train_state import (
@@ -139,7 +152,9 @@ def parse_args(argv=None):
                    "or the parity softmax head's dense stack (default 1024,512,256,128)")
     p.add_argument("--norm_style", default="post", choices=["post", "pre"])
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--sampled_softmax", type=int, default=0, help="not ported yet: refused")
+    p.add_argument("--sampled_softmax", type=int, default=0,
+                   help="train on N batch-shared uniform negatives instead of the full catalog "
+                   "(softmax-family heads through the fused path; eval stays exact); 0 = off")
     p.add_argument("--qkv_fused", action="store_true", help="single (D, 3D) QKV projection")
     p.add_argument("--eval_batches", type=int, default=0, help="0 = full eval")
     p.add_argument("--eval_batch", type=int, default=0, help="0 = --batch")
@@ -147,7 +162,8 @@ def parse_args(argv=None):
                    help="run the full-catalog eval every N epochs (patience counters "
                    "advance only on evaluated epochs)")
     p.add_argument("--parallel", default="auto", choices=["auto", "none", "dp"],
-                   help="none / auto: one device; dp is not ported yet: refused")
+                   help="dp: data-parallel over the torchrun world (one process per card); "
+                   "auto: dp when WORLD_SIZE > 1; none: one device")
     p.add_argument("--steps_per_call", type=int, default=-1,
                    help="train steps per call over one stacked host-to-device transfer; -1: 1")
     p.add_argument("--mu_dtype", default="float32", choices=["float32", "bfloat16"],
@@ -185,10 +201,6 @@ def parse_args(argv=None):
 
 def refuse_unported(args) -> None:
     """Exit with a message naming the first flag the port cannot honour yet."""
-    if args.parallel == "dp":
-        raise SystemExit("--parallel dp: the data-parallel tier is not ported yet (one device only)")
-    if args.sampled_softmax:
-        raise SystemExit("--sampled_softmax: sampled softmax is not ported yet")
     if args.attn_impl != "pallas":
         raise SystemExit(
             f"--attn_impl {args.attn_impl}: the port has the kernel path only (--attn_impl pallas)"
@@ -224,7 +236,20 @@ def main(argv=None):
     refuse_unported(args)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA card (torch.cuda.is_available() is False); pass --device cpu")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    use_dp = args.parallel == "dp" or (args.parallel == "auto" and world > 1)
+    if world > 1 and not use_dp:
+        raise SystemExit(f"--parallel none under a world of {world}: one process trains alone")
     device = torch.device(args.device)
+    mesh, rank = None, 0
+    if use_dp:
+        # under torchrun, or a world of one
+        rank, world, device = initialize_distributed(args.device)
+        mesh = make_mesh(None, device)
+    if rank:
+        # one voice: only rank 0 prints, writes the history, checkpoints
+        # and the export (the Trainer's is_host0)
+        sys.stdout = open(os.devnull, "w")
 
     sequences, vocab = load_sequences(args)
     print(f"sequences={len(sequences)} items={vocab.size}", flush=True)
@@ -233,6 +258,24 @@ def main(argv=None):
         masked_percentage=args.mask_pct or None,
     )
     cfg = build_model_config(args.preset, vocab, args)
+    # tied heads train through the fused CE (no dense logits); --fused_head
+    # opts the parity MLP head into the same kernels
+    fused_num_valid = (
+        vocab.label_vocab_size
+        if cfg.head.kind == "tied_softmax" or (cfg.head.kind == "softmax" and args.fused_head)
+        else None
+    )
+    # against the support matrix, before any step is built
+    try:
+        validate_tier(
+            "dp" if use_dp else "single", cfg.head.kind, attn_impl=args.attn_impl,
+            dropout_impl="pallas" if args.dropout_impl == "fused" else "xla",
+            qkv_fused=cfg.qkv_fused, sampled=args.sampled_softmax,
+        )
+    except ValueError as e:
+        raise SystemExit(str(e))
+    if args.sampled_softmax and not fused_num_valid:
+        raise SystemExit("--sampled_softmax requires a softmax-family head (tied preset or --fused_head)")
     steps_per_epoch = args.steps_per_epoch or max(1, len(ds) // args.batch)
     tcfg = TrainConfig(
         batch_size=args.batch,
@@ -279,26 +322,46 @@ def main(argv=None):
         schedule = schedules.warmup_constant(tcfg.learning_rate, args.warmup_steps)
     else:
         schedule = schedules.constant(tcfg.learning_rate)
-    # tied heads train through the fused CE (no dense logits); --fused_head
-    # opts the parity MLP head into the same kernels
-    fused_num_valid = (
-        vocab.label_vocab_size
-        if cfg.head.kind == "tied_softmax" or (cfg.head.kind == "softmax" and args.fused_head)
-        else None
-    )
     spc = args.steps_per_call
     if spc < 0:
         spc = 1
     elif spc > 1 and steps_per_epoch % spc:
         raise SystemExit(f"--steps_per_call {spc} does not divide steps_per_epoch {steps_per_epoch}")
     espc = max(1, args.eval_steps_per_call)
-    make_step = make_scan_train_step if spc > 1 else make_train_step
+    eval_bs = args.eval_batch or args.batch
     if spc > 1:
         print(f"scan train step: {spc} steps/call", flush=True)
-    train_step = make_step(model, tx, schedule, fused_ce_num_valid=fused_num_valid, ema_decay=args.ema_decay)
-    # tied heads (and --fused_head MLP heads) evaluate via the chunked
-    # blinded catalog scan
-    eval_step = make_eval_step(model, ks=(5, 10), chunked_num_valid=fused_num_valid, steps_per_call=espc)
+    if use_dp:
+        if args.batch % world or eval_bs % world:
+            raise SystemExit(
+                f"--parallel dp: batch {args.batch} and eval batch {eval_bs} must divide over {world} ranks"
+            )
+        espc = 1  # DP evaluates a batch a call
+        state = spmd.replicate_state(state, mesh)
+        train_step = spmd.make_dp_train_step(
+            model, mesh, tx, schedule, ema_decay=args.ema_decay, fused_ce_num_valid=fused_num_valid,
+            steps_per_call=spc,
+        )
+        eval_step = spmd.make_dp_eval_step(model, mesh, ks=(5, 10), chunked_num_valid=fused_num_valid)
+        shard = spmd.shard_stacked_batch if spc > 1 else spmd.shard_batch
+        batch_to_device = lambda b: shard(to_device(b, device), mesh)  # noqa: E731
+        print(f"data-parallel over {world} ranks", flush=True)
+    else:
+        make_step = make_scan_train_step if spc > 1 else make_train_step
+        sampled = {}
+        if args.sampled_softmax:
+            sampled = dict(
+                sampled_softmax_samples=args.sampled_softmax,
+                negatives_generator=dropout_generator(device, args.seed + 3, int(state.step)),
+            )
+            print(f"sampled softmax: {args.sampled_softmax} negatives a step", flush=True)
+        train_step = make_step(
+            model, tx, schedule, fused_ce_num_valid=fused_num_valid, ema_decay=args.ema_decay, **sampled
+        )
+        # tied heads (and --fused_head MLP heads) evaluate via the chunked
+        # blinded catalog scan
+        eval_step = make_eval_step(model, ks=(5, 10), chunked_num_valid=fused_num_valid, steps_per_call=espc)
+        batch_to_device = lambda b: to_device(b, device)  # noqa: E731
     if espc > 1:
         print(f"stacked eval step: {espc} batches/call", flush=True)
 
@@ -310,23 +373,33 @@ def main(argv=None):
         eval_step,
         tcfg,
         model_dir=args.model_dir,
-        to_device=lambda b: to_device(b, device),
+        to_device=batch_to_device,
         export_fn=export_fn,
+        is_host0=rank == 0,
         lr_fn=schedule,
         steps_per_call=spc,
         stack_batches=stack_batches if spc > 1 or espc > 1 else None,
         eval_steps_per_call=espc,
     )
     eval_limit = args.eval_batches or None
-    eval_bs = args.eval_batch or args.batch
+    # a resumed run folds its restored step in: fresh masks, not step 0's;
+    # data ranks draw apart
+    step0 = int(state.step)
+    generator = (
+        spmd.tier_generator(mesh, args.seed + 2, step0) if use_dp else dropout_generator(device, args.seed + 2, step0)
+    )
     state = trainer.fit(
         state,
         ds.train_batches(args.batch, seed=args.seed + 1),
         lambda: ds.eval_batches(eval_bs, limit_batches=eval_limit),
-        # a resumed run folds its restored step in: fresh masks, not step 0's
-        dropout_generator(device, args.seed + 2, int(state.step)),
+        generator,
     )
     print("done", flush=True)
+    if use_dp:
+        torch.distributed.destroy_process_group()
+        if rank:
+            sys.stdout.close()
+            sys.stdout = sys.__stdout__
     # for a caller that drives the run in its own process
     return types.SimpleNamespace(trainer=trainer, state=state, model=model, dataset=ds, vocab=vocab)
 

@@ -1,0 +1,208 @@
+"""Time the CE kernels of two (or more) checkouts of the port in turns, on one
+card, and hold their outputs bit for bit across the checkouts.
+
+    python3 examples/long_context/ce_kernel_turns.py --checkouts OLD,NEW \
+        --order 0,1,1,0
+
+Each entry of ``--order`` runs in a fresh process that imports
+``bert4clickpath_torch`` from that checkout (and builds its kernels there,
+into its own ``build/``), times the CE entries at the training shapes and
+prints one JSON line: the forward and the merged backward at N = 2,560,
+V = 55,296, D = 256, and the forward, the dx pass and the dW pass at D =
+384, f32 x, no bias (median device time of 20 warm calls, CUDA events).
+Every entry is called without ``row_start``, so a checkout from before the
+argument existed takes the same calls. The first process of each checkout
+pays its build; the parent prints the table of runs in order, and each
+kernel's spread over the runs of one checkout beside the gap between the
+checkouts.
+
+Outputs: the same process then calls each entry once more on the same
+inputs without and with a bias (seeded, the same in every checkout) and
+keeps every output: the forward's (m, l), the merged backward's dx, dW and
+db, the dx pass's dx, the dW pass's dW and db. Each is written to a
+scratch directory; the parent compares every run's outputs with the first
+run's. Every output must be bit-equal across all runs, except the merged
+backward's dx, which sums across blocks with atomic adds in an order that
+varies run to run: its largest gap between checkouts is printed beside its
+largest gap between two runs of one checkout, and is held to the repeat
+bound of ``ce_backward_merged`` (1e-5 of the largest |dx|); the same
+kernel's dW and db, from the same A, are bit-equal. The script exits non-zero otherwise. A
+card is required.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import tempfile
+
+N, V, NUM_VALID, OFF = 2560, 55_296, 54_542, 10
+# two runs of the merged backward's dx may differ by this much of its
+# largest |value| (atomic adds; ops/kernels/fused_ce.py:ce_backward_merged)
+DX_REPEAT = 1e-5
+SHAPES = {"fwd_256": 256, "bwd_merged_256": 256, "fwd_384": 384, "dx_384": 384, "dw_384": 384}
+
+
+def _ce_registers(build_log: str) -> list:
+    """ptxas' registers and spills of each CE kernel instance, from a build
+    made in this process (empty when the library was already built)."""
+    out, entry = [], None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            entry = next((k for k in ("ce_fwd_mma", "ce_bwd_dx_mma", "ce_bwd_dw_mma") if k in name), None)
+            entry = entry and f"{entry}:{name[-40:]}"
+        elif entry and ("registers" in line or "spill" in line):
+            out.append(f"{entry} {line.split(':', 1)[-1].strip()}")
+    return out
+
+
+def _time_in(checkout: str, out_dir: str) -> dict:
+    sys.path.insert(0, os.path.abspath(checkout))
+    import numpy as np
+    import torch
+
+    from bert4clickpath_torch.ops.kernels import _build
+    from bert4clickpath_torch.ops.kernels import fused_ce as k
+
+    if not os.path.abspath(k.__file__).startswith(os.path.abspath(checkout)):
+        raise RuntimeError(f"imported {k.__file__}, not the checkout {checkout}")
+    if not torch.cuda.is_available():
+        raise SystemExit("a CUDA card is required")
+    _build.library()
+    rng = np.random.default_rng(0)
+
+    def median_ms(fn, reps=20):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        pairs = []
+        for _ in range(reps):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(1_000_000)
+            s.record()
+            fn()
+            e.record()
+            pairs.append((s, e))
+        torch.cuda.synchronize()
+        return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+    out = {"build_seconds": _build.build_seconds, "ptxas": _ce_registers(_build.build_log)}
+    inputs = {}
+    for d in (256, 384):
+        x = torch.from_numpy(rng.standard_normal((N, d), dtype=np.float32)).cuda()
+        table = torch.from_numpy(rng.standard_normal((V, d), dtype=np.float32) * 0.02).cuda()
+        labels = rng.integers(0, NUM_VALID, size=N).astype(np.int32) + OFF
+        labels[rng.random(N) < 0.2] = -1
+        lab = torch.from_numpy(labels).cuda()
+        dnll = (lab >= 0).float() / (lab >= 0).float().sum()
+        m, l = k.ce_stats_reference(x, table, None, OFF, NUM_VALID)
+        inputs[d] = (x, table, None, lab, m + torch.log(l), dnll, OFF, NUM_VALID)
+    def entry(name, a):
+        return {
+            "fwd": lambda: k.ce_stats(a[0], a[1], a[2], OFF, NUM_VALID),
+            "bwd": lambda: k.ce_backward_merged(*a),
+            "dx": lambda: k.ce_backward_dx(*a),
+            "dw": lambda: k.ce_backward_dw(*a),
+        }[name.split("_")[0]]
+
+    for name, d in SHAPES.items():
+        out[name] = median_ms(entry(name, inputs[d]))
+    # the outputs, without and with a bias, for the comparison across runs
+    outputs = {}
+    for d in (256, 384):
+        bias = torch.from_numpy(rng.standard_normal(V, dtype=np.float32)).cuda()
+        with_bias = list(inputs[d])
+        with_bias[2] = bias
+        for name in (n for n, dd in SHAPES.items() if dd == d):
+            for tag, a in (("", inputs[d]), ("+bias", tuple(with_bias))):
+                got = entry(name, a)()
+                got = got if isinstance(got, tuple) else (got,)
+                for i, t in enumerate(got):
+                    if t is not None:
+                        outputs[f"{name}{tag}.{i}"] = t.detach().cpu().numpy()
+    torch.cuda.synchronize()
+    np.savez(os.path.join(out_dir, "outputs.npz"), **outputs)
+    out["card"] = torch.cuda.get_device_name(0)
+    return out
+
+
+def _compare_outputs(dirs: list, runs: list) -> bool:
+    """Every run's outputs against the first run's: bit-equal, except the
+    merged backward's dx (atomic adds), whose gap across checkouts is held
+    to its repeat bound, DX_REPEAT of its largest |value|. Prints one line
+    an output."""
+    import numpy as np
+
+    loaded = [np.load(os.path.join(d, "outputs.npz")) for d in dirs]
+    ok = True
+    for key in loaded[0].files:
+        arrays = [f[key] for f in loaded]
+        if key.startswith("bwd_merged") and key.endswith(".0"):
+            gap = lambda i, j: float(np.abs(arrays[i] - arrays[j]).max())  # noqa: E731
+            pairs = [(i, j) for i in range(len(runs)) for j in range(i + 1, len(runs))]
+            within = max((gap(i, j) for i, j in pairs if runs[i][0] == runs[j][0]), default=0.0)
+            across = max((gap(i, j) for i, j in pairs if runs[i][0] != runs[j][0]), default=0.0)
+            scale = float(np.abs(arrays[0]).max())
+            print(f"output {key}: largest gap across checkouts {across:.3e}, between runs of one checkout "
+                  f"{within:.3e} (held to {DX_REPEAT * scale:.3e}: {DX_REPEAT:.0e} of the largest |value|)", flush=True)
+            ok &= across <= DX_REPEAT * scale
+        else:
+            same = [bool(np.array_equal(arrays[0], a)) for a in arrays[1:]]
+            print(f"output {key} {arrays[0].shape}: bit-equal to run 1 in runs 2-{len(runs)}: {same}", flush=True)
+            ok &= all(same)
+    return ok
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser()
+    p.add_argument("--checkouts", help="comma-separated checkout roots")
+    p.add_argument("--order", default="0,1,1,0", help="indices into --checkouts, run in this order")
+    p.add_argument("--time", help="(internal) time the checkout at this root and print JSON")
+    p.add_argument("--out", help="(internal) the directory the --time run writes its outputs to")
+    args = p.parse_args(argv)
+    if args.time:
+        print(json.dumps(_time_in(args.time, args.out)), flush=True)
+        return
+    roots = args.checkouts.split(",")
+    runs, dirs = [], []
+    scratch = tempfile.mkdtemp(prefix="ce_turns_")
+    try:
+        for i in (int(j) for j in args.order.split(",")):
+            dirs.append(os.path.join(scratch, str(len(dirs))))
+            os.makedirs(dirs[-1])
+            res = subprocess.run([sys.executable, os.path.abspath(__file__), "--time", roots[i], "--out", dirs[-1]],
+                                 capture_output=True, text=True, timeout=900)
+            if res.returncode != 0:
+                raise SystemExit(f"checkout {roots[i]} failed:\n{res.stderr[-3000:]}")
+            runs.append((i, json.loads(res.stdout.strip().splitlines()[-1])))
+            _print_run(len(runs), i, roots[i], runs[-1][1])
+        same = _compare_outputs(dirs, runs)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    for name in SHAPES:
+        per = {i: [row[name] for j, row in runs if j == i] for i in range(len(roots))}
+        spread = {i: (max(v) - min(v)) / min(v) for i, v in per.items() if len(v) > 1}
+        means = {i: statistics.mean(v) for i, v in per.items()}
+        print(f"{name}: " + ", ".join(f"checkout {i} {means[i]:.4f} ms (spread {spread.get(i, 0):.2%})"
+                                      for i in means)
+              + "".join(f"; checkout {i} / checkout 0 = {means[i] / means[0]:.4f}" for i in means if i), flush=True)
+    print(json.dumps({"runs": runs, "outputs_equal": same}), flush=True)
+    if not same:
+        raise SystemExit("the checkouts' CE outputs differ")
+
+
+def _print_run(n: int, i: int, root: str, row: dict) -> None:
+    print(f"run {n} checkout {i} ({root}): " + ", ".join(f"{name} {row[name]:.4f}" for name in SHAPES)
+          + f" ms; build {row['build_seconds']} s", flush=True)
+    for line in row["ptxas"]:
+        print(f"  ptxas checkout {i}: {line}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,8 @@
 """End-to-end runs of the port's training CLI on simulated data, on the CPU,
 in a subprocess: both presets train, resume and export; ``ServingModel``
-loads the export; the flags the port cannot honour yet exit with their
-message; and the subprocess never imports jax or the JAX package.
+loads the export; the flags the port cannot honour (or the support matrix
+refuses) exit with their message; and the subprocess never imports jax or
+the JAX package.
 """
 
 import importlib.util
@@ -130,8 +131,8 @@ def test_init_ckpt_warm_starts_the_encoder(tmp_path):
 
 
 @pytest.mark.parametrize("flags,message", [
-    (["--parallel", "dp"], "--parallel dp: the data-parallel tier is not ported yet"),
-    (["--sampled_softmax", "64"], "--sampled_softmax: sampled softmax is not ported yet"),
+    (["--parallel", "dp", "--sampled_softmax", "64"], "tier 'dp' rejects 'sampled'"),
+    (["--preset", "parity", "--sampled_softmax", "64"], "--sampled_softmax requires a softmax-family head"),
     (["--attn_impl", "xla"], "--attn_impl xla: the port has the kernel path only"),
     (["--attn_impl", "auto"], "--attn_impl auto: the port has the kernel path only"),
     (["--steps_per_call", "4"], "--steps_per_call 4 does not divide steps_per_epoch 9"),

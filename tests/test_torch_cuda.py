@@ -25,6 +25,12 @@ other way (one bf16 ulp, 2^-7 of the value). Its dx and dW passes run on
 the tensor cores (f32 x as hi + lo tf32 terms, three products) and are held
 to the same f32 tolerance; the dW pass writes each dW row once (no
 atomics), so two runs give the same bits; no CE kernel refuses a row width.
+The CE entries take a row_start (a shard's first global row): on row
+shards they are held against their plain versions given the same
+row_start (which the plain versions apply to the row ids, the wrappers as
+a shift of the window and the labels). That row_start = 0 keeps the bits
+of the calls from before the argument existed is held across checkouts by
+``examples/long_context/ce_kernel_turns.py``.
 Blockwise attention: the running maximum the forward rounds p against, and
 the order of the f32 sums, depend on the tile walk, so the bf16 forward
 (tensor cores, 32 keys at a time, fast exp) is held to two bf16 ulps of the
@@ -793,6 +799,55 @@ def test_ce_merged_backward_dx_repeats_within_its_bound(cuda, dtype):
     gap = (dx.float() - dx2.float()).abs()
     elem = 0.0 if dtype == torch.float32 else 2.0**-7
     assert bool((gap <= 1e-5 * dx.float().abs().max() + elem * dx.float().abs()).all()), gap.max().item()
+
+
+def _shard_case(d, dtype, with_bias, shards=4, v=4096, n=300, seed=31):
+    """A table cut into row shards: the window starts in the first shard
+    and ends inside the last (a boundary tile there), the labels global, so
+    most of each shard's rows' labels lie on other shards."""
+    x, table, bias, lab, dnll, off, nv = _ce_case(n, v, d, dtype, with_bias, seed=seed, row_offset=10)
+    nv = v - off - 100  # ends mid-tile in the last shard
+    lab = torch.where(lab >= off + nv, off + nv - 1, lab)
+    wm, wl = ce_stats_reference(x, table, bias, off, nv)
+    return x, table, bias, lab, dnll, off, nv, wm + torch.log(wl), v // shards
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("entry", ["fwd", "merged", "dx", "dw"])
+def test_ce_entries_with_row_start_match_plain(cuda, entry, dtype, with_bias):
+    """Each CE entry on each of 4 row shards with its row_start (the
+    vocab-sharded tier's call) against its plain version given the same
+    row_start, at the kernels' tolerances: the forward's (m, l) logz at abs
+    1e-4, the gradients within 1e-4 (f32 x) or 2e-2 (bf16 x) of the plain
+    version's largest. D = 64 for the merged kernel, 384 for the pair."""
+    d = 64 if entry in ("fwd", "merged") else 384
+    x, table, bias, lab, dnll, off, nv, logz, v_local = _shard_case(d, dtype, with_bias)
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
+    for s in range(4):
+        lo = s * v_local
+        tb, bb = table[lo : lo + v_local], None if bias is None else bias[lo : lo + v_local]
+        if entry == "fwd":
+            m, l = ce_stats(x, tb, bb, off, nv, row_start=lo)
+            wm, wl = ce_stats_reference(x, tb, bb, off, nv, row_start=lo)
+            torch.testing.assert_close(m + torch.log(l), wm + torch.log(wl), atol=1e-4, rtol=0)
+            continue
+        args = (x, tb, bb, lab, logz, dnll, off, nv, lo)
+        if entry == "merged":
+            got, want = ce_kernels.ce_backward_merged(*args), ce_backward_reference(*args)
+        elif entry == "dx":
+            got, want = (ce_kernels.ce_backward_dx(*args),), (ce_kernels.ce_backward_dx_reference(*args),)
+        else:
+            got, want = ce_kernels.ce_backward_dw(*args), ce_kernels.ce_backward_dw_reference(*args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            if w is None:
+                assert g is None
+            elif entry == "dx" and dtype == torch.bfloat16:
+                diff = (g.float() - w.float()).abs()
+                assert bool((diff <= rel * w.float().abs().max() + 2.0**-7 * w.float().abs()).all())
+            else:
+                _near(g, w, rel)
 
 
 DX_WIDTHS = [6, 32, 256, 384, 450, 713, 714, 1024]

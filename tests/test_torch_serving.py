@@ -216,8 +216,9 @@ def test_artifacts_load_in_both_packages(tied, tmp_path):
 
 def test_port_never_imports_jax():
     """Importing the serving and training paths, the trainer, the training
-    CLI, the task drivers and chip_smoke pulls in no jax, flax, optax, orbax
-    or JAX-package module."""
+    CLI, the task drivers, the sampled-softmax path, every module of the
+    parallel tiers (and the tests' worker module) and chip_smoke pulls in
+    no jax, flax, optax, orbax or JAX-package module."""
     code = (
         "import sys, bert4clickpath_torch.training.serving, bert4clickpath_torch.convert, chip_smoke\n"
         "import bert4clickpath_torch.training.train_state, bert4clickpath_torch.ops.fused_ce\n"
@@ -232,6 +233,11 @@ def test_port_never_imports_jax():
         "import bert4clickpath_torch.data.chaining, bert4clickpath_torch.models.heads\n"
         "import examples.chained.train_torch, examples.tasks.multilabel_torch\n"
         "import examples.bert4rec.transfer_torch, examples.bert4rec.multivariable_torch\n"
+        "import bert4clickpath_torch.parallel.mesh, bert4clickpath_torch.parallel.support\n"
+        "import bert4clickpath_torch.parallel.embedding, bert4clickpath_torch.parallel.spmd\n"
+        "import bert4clickpath_torch.parallel.drive, tests.torch_parallel_workers\n"
+        "from bert4clickpath_torch.ops.losses import sampled_softmax_ce, sample_negatives\n"
+        "from bert4clickpath_torch.training.train_state import sampled_head_ce_sums\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'bert4clickpath_tpu'))\n"
         "assert not bad, bad\n"
