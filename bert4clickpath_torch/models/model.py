@@ -207,12 +207,14 @@ class ClickstreamModel(nn.Module):
     def head_trunk_outputs(
         self, features: dict[str, torch.Tensor], head_positions: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        item_lookup: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     ) -> torch.Tensor:
         """Encode, gather, and run the softmax head's MLP trunk: every layer
-        except the final ``Dense(V)`` catalog projection. (B, P, d_trunk) f32."""
+        except the final ``Dense(V)`` catalog projection. (B, P, d_trunk) f32.
+        ``item_lookup``: as :meth:`encode`."""
         if self.config.head.kind != "softmax":
             raise ValueError("head_trunk_outputs requires head kind 'softmax'")
-        h = self.encode(features, generator)
+        h = self.encode(features, generator, item_lookup)
         return self.head.trunk(self._route(h, head_positions)).float()
 
     def forward(

@@ -16,7 +16,7 @@ is plain XLA in the JAX package.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -110,6 +110,7 @@ def sampled_softmax_ce(
     num_valid: int,
     negatives: torch.Tensor,  # (S,) label-space ids (sample_negatives)
     bias: Optional[torch.Tensor] = None,  # (V,) model-space logit bias
+    take: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,  # model-space ids -> rows
 ) -> torch.Tensor:
     """Per-row sampled-softmax NLL over a tied catalog projection: the
     label's logit against S batch-shared negatives instead of all V rows.
@@ -119,13 +120,18 @@ def sampled_softmax_ce(
     accidental hit (a negative equal to the row's own label) is blinded to
     -1e30. Products in x's dtype with f32 sums, as the fused CE. Returns nll
     (N,) f32 with 0 at LABEL_PAD rows; differentiable in x, table and bias
-    (only the S + N gathered rows get a gradient)."""
+    (only the S + N gathered rows get a gradient). ``take``: how the
+    labels' and the negatives' rows are read, ``table[ids]`` by default
+    (the sampled SPMD tier reads a row-sharded table through its sharded
+    lookup)."""
+    if take is None:
+        take = table.__getitem__
     s = negatives.shape[0]
     neg_lab = negatives.long()
     lab_safe = labels.long().clamp(min=0)
     xf = x.float()
-    w_pos = table[lab_safe + row_offset].to(x.dtype).float()  # (N, D)
-    w_neg = table[neg_lab + row_offset].to(x.dtype).float()  # (S, D)
+    w_pos = take(lab_safe + row_offset).to(x.dtype).float()  # (N, D)
+    w_neg = take(neg_lab + row_offset).to(x.dtype).float()  # (S, D)
     pos = (xf * w_pos).sum(dim=-1)
     neg = xf @ w_neg.T
     if bias is not None:

@@ -19,6 +19,13 @@ One process per mesh position (``parallel/mesh.py``), each with its own
   ``parallel/embedding.py:sharded_fused_softmax_ce`` (the CE kernels with their
   ``row_start``), which is already the global mean, so the gradients are
   summed (not averaged) over the data group.
+* **Sampled SPMD** (:func:`make_sampled_spmd_train_step`, the
+  softmax-family heads): the SPMD layout, trained on sampled softmax
+  whose label and negative rows come through the sharded lookup.
+
+The tensor-parallel tiers (``parallel/tp.py``, ``parallel/tp_spmd.py``)
+build on this module: their steps are :func:`summed_train_step` and
+:func:`make_spmd_train_step` on a model carrying the TP encoder.
 
 Dropout: the caller seeds each rank's generator from (seed, data index)
 only (:func:`tier_generator`), never from the model index, so the model
@@ -42,12 +49,13 @@ import torch.distributed as dist
 from torch import nn
 
 from bert4clickpath_torch.constants import LABEL_PAD, NUM_RESERVED_TOKENS
-from bert4clickpath_torch.models.model import tied_bias_model_space
+from bert4clickpath_torch.models.model import head_catalog, tied_bias_model_space
 from bert4clickpath_torch.ops import losses as losses_lib
 from bert4clickpath_torch.ops import metrics as metrics_lib
 from bert4clickpath_torch.parallel import embedding as emb_ops
 from bert4clickpath_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh, all_gather_stacked, sum_flat
 from bert4clickpath_torch.parallel.support import validate_tier
+from bert4clickpath_torch.parallel.tp_encoder import TPEncoder
 from bert4clickpath_torch.training.train_state import (
     AdamState,
     TrainState,
@@ -77,11 +85,11 @@ def table_name(config) -> str:
 
 
 def param_specs(params: dict, config) -> dict:
-    """Per parameter, the mesh axis its rows shard over (None: replicated):
-    the item table over ``model``, everything else replicated. The Adam
-    moments and the EMA shadow shard with their parameter; step, count and
-    lr_scale are replicated."""
-    return {k: (MODEL_AXIS if k == table_name(config) else None) for k in params}
+    """Per parameter, the dimension that shards over the model group (None:
+    replicated): the item table's rows, everything else replicated. The
+    Adam moments and the EMA shadow shard with their parameter; step, count
+    and lr_scale are replicated."""
+    return {k: (0 if k == table_name(config) else None) for k in params}
 
 
 def tier_generator(mesh: Mesh, seed: int, step: int = 0) -> torch.Generator:
@@ -101,6 +109,23 @@ def _features_flags(model) -> dict:
         embed_impl="pallas" if single_gather else "xla",
         qkv_fused=cfg.qkv_fused,
     )
+
+
+TP_TIERS = ("tp", "tp_spmd")
+
+
+def check_tier(model, tier: str, **flags) -> None:
+    """Validate ``tier`` for the model against the support matrix (``flags``
+    replacing the model's own), and check that the model carries the
+    encoder the tier runs: the tensor-parallel tiers the TP encoder that
+    their shard function installs (so the state is sharded before the step
+    is built), every other tier the single-device encoder."""
+    validate_tier(tier, model.config.head.kind, **{**_features_flags(model), **flags})
+    if isinstance(model.encoder, TPEncoder) != (tier in TP_TIERS):
+        raise ValueError(
+            f"tier {tier!r}: the model's encoder is tensor-parallel" if tier not in TP_TIERS
+            else f"tier {tier!r}: shard the state with the tier's shard function before building its steps"
+        )
 
 
 # -- batches ---------------------------------------------------------------
@@ -143,6 +168,46 @@ def _sum_gradients(loss_sums: list, grads: list, mesh: Mesh) -> tuple[list, list
     return out[: len(loss_sums)], out[len(loss_sums) :]
 
 
+def summed_train_step(
+    local_sums: Callable, mesh: Mesh, tx, schedule: Callable[[int], float], ema_decay: float = 0.0,
+    steps_per_call: int = 1,
+) -> Callable:
+    """The train step of every tier whose loss is one global mean over the
+    data group (DP, TP, sampled SPMD): ``local_sums(batch, generator,
+    *extra) -> (loss_sum, count, scale)`` on this rank's rows, with no
+    collective; the sums and every gradient are summed over the data group
+    (never the model group: a replicated parameter's gradient is already
+    whole on every model rank) and the gradient is divided by the global
+    count times ``scale``: exactly the single-device global-mean gradient,
+    never a mean of per-shard means. ``(state, batch, generator=None,
+    *extra) -> (state, loss)``; steps_per_call > 1: a loop over a stacked
+    (K, B_local, ...) batch returning (K,) losses."""
+
+    def step(state: TrainState, batch: dict, generator: Optional[torch.Generator] = None, *extra):
+        names = list(state.params)
+        total, count, scale = local_sums(batch, generator, *extra)
+        grads = torch.autograd.grad(total, [state.params[n] for n in names])
+        (total, count), grads = _sum_gradients([total.detach(), count.detach()], list(grads), mesh)
+        denom = count.clamp(min=1.0) * scale
+        grads = {n: g / denom for n, g in zip(names, grads)}
+        return apply_gradients(state, grads, tx, schedule, ema_decay), total / denom
+
+    return step if steps_per_call <= 1 else looped(step)
+
+
+def summed_eval_step(model, mesh: Mesh, ks=(5, 10), loss_fn: Optional[Callable] = None,
+                     chunked_num_valid: Optional[int] = None) -> Callable:
+    """``(params, batch) -> stats``: the single-device ``make_eval_step``'s
+    sums on this rank's rows summed over the data group
+    (``psum_stats``)."""
+    local = make_eval_step(model, loss_fn, ks=ks, chunked_num_valid=chunked_num_valid)
+
+    def step(params: dict, batch: dict) -> dict:
+        return metrics_lib.psum_stats(local(params, batch), mesh, DATA_AXIS)
+
+    return step
+
+
 # -- the pure data-parallel tier (any head kind) --------------------------
 
 
@@ -175,6 +240,20 @@ def _dp_sums_from_logits(head_kind: str, logits, labels, pos_weight):
     return (items * mask).sum(), mask.sum(), scale
 
 
+def logits_sums(model, batch: dict, generator, pos_weight: Optional[float] = None,
+                loss_fn: Optional[Callable] = None):
+    """(loss_sum, count, scale) of the model's dense logits on this rank's
+    rows: the head's own loss, or ``loss_fn(logits, labels)``, a masked
+    mean over the labels that are not LABEL_PAD (every loss of
+    ``ops/losses.py`` is one), times that count."""
+    logits = model(batch["features"], batch.get("head_positions"), generator)
+    labels = batch["labels"]
+    if loss_fn is None:
+        return _dp_sums_from_logits(model.config.head.kind, logits, labels, pos_weight)
+    count = (labels != LABEL_PAD).float().sum()
+    return loss_fn(logits, labels) * count, count, 1.0
+
+
 def make_dp_train_step(
     model,
     mesh: Mesh,
@@ -187,33 +266,24 @@ def make_dp_train_step(
 ) -> Callable:
     """Data-parallel train step for any head kind: ``(state, batch,
     generator=None) -> (state, loss)`` over this rank's rows of the global
-    batch. Gradient = (sum over the data group of the local-sum gradients)
-    / (global mask count): the single-device global-mean gradient.
+    batch (:func:`summed_train_step`).
 
     fused_ce_num_valid: softmax-family heads take each rank's local CE sums
     through the fused-CE kernels (no (B_local, P, V) logits); the reduction
     is unchanged. steps_per_call > 1: a loop over a stacked (K, B_local,
     ...) batch returning (K,) losses."""
     cfg = model.config
-    validate_tier("dp", cfg.head.kind, **_features_flags(model))
+    check_tier(model, "dp")
     if fused_ce_num_valid is not None and cfg.head.kind not in ("tied_softmax", "softmax"):
         raise ValueError("fused_ce_num_valid requires a softmax-family head")
 
-    def step(state: TrainState, batch: dict, generator: Optional[torch.Generator] = None):
-        names = list(state.params)
-        if fused_ce_num_valid is not None:
-            total, count = fused_head_ce_sums(model, batch, generator, fused_ce_num_valid)
-            scale = 1.0
-        else:
-            logits = model(batch["features"], batch.get("head_positions"), generator)
-            total, count, scale = _dp_sums_from_logits(cfg.head.kind, logits, batch["labels"], pos_weight)
-        grads = torch.autograd.grad(total, [state.params[n] for n in names])
-        (total, count), grads = _sum_gradients([total.detach(), count.detach()], list(grads), mesh)
-        denom = count.clamp(min=1.0) * scale
-        grads = {n: g / denom for n, g in zip(names, grads)}
-        return apply_gradients(state, grads, tx, schedule, ema_decay), total / denom
+    def local_sums(batch: dict, generator):
+        if fused_ce_num_valid is None:
+            return logits_sums(model, batch, generator, pos_weight)
+        total, count = fused_head_ce_sums(model, batch, generator, fused_ce_num_valid)
+        return total, count, 1.0
 
-    return step if steps_per_call <= 1 else looped(step)
+    return summed_train_step(local_sums, mesh, tx, schedule, ema_decay, steps_per_call)
 
 
 def make_dp_eval_step(
@@ -223,21 +293,15 @@ def make_dp_eval_step(
     pos_weight: Optional[float] = None,
     chunked_num_valid: Optional[int] = None,
 ) -> Callable:
-    """Data-parallel eval step: ``(params, batch) -> stats``, the
-    single-device ``make_eval_step``'s sums on this rank's rows summed over
-    the data group (``psum_stats``). ``chunked_num_valid``: softmax-family
-    heads rank their rows by the chunked catalog scan instead of dense
+    """Data-parallel eval step: ``(params, batch) -> stats``
+    (:func:`summed_eval_step`). ``chunked_num_valid``: softmax-family heads
+    rank their rows by the chunked catalog scan instead of dense
     (B_local, P, V) logits."""
-    validate_tier("dp", model.config.head.kind, **_features_flags(model))
+    check_tier(model, "dp")
     loss_fn = None
     if pos_weight is not None and model.config.head.kind in ("binary", "multilabel"):
         loss_fn = functools.partial(losses_lib.masked_binary_cross_entropy, pos_weight=pos_weight)
-    local = make_eval_step(model, loss_fn, ks=ks, chunked_num_valid=chunked_num_valid)
-
-    def step(params: dict, batch: dict) -> dict:
-        return metrics_lib.psum_stats(local(params, batch), mesh, DATA_AXIS)
-
-    return step
+    return summed_eval_step(model, mesh, ks, loss_fn, chunked_num_valid)
 
 
 # -- the vocab-sharded SPMD tier (tied head) ------------------------------
@@ -247,59 +311,69 @@ def _table_module(model) -> nn.Embedding:
     return getattr(model, f"embed_{model.config.item_feature}")
 
 
-def shard_state(state: TrainState, model, mesh: Mesh) -> TrainState:
-    """This rank's SPMD state from a full single-device state (the same on
-    every rank): the model's replicated parameters take the state's values,
-    its item table becomes this rank's row shard (rows ``model_index *
-    V_local`` on; the table's rows must divide over the model group, see
-    :func:`padded_vocab_rows`), and the Adam moments and EMA are cut the
-    same way. The returned state's params are the model's parameters."""
-    specs = param_specs(state.params, model.config)
-    dev = mesh.device
+def _cut(name: str, t: torch.Tensor, dim: Optional[int], mesh: Mesh) -> torch.Tensor:
+    """This rank's slice of ``t`` along ``dim`` (None: a copy of all of it)
+    on the mesh's device."""
+    if dim is not None:
+        if t.shape[dim] % mesh.model_size:
+            raise ValueError(f"{name}: {t.shape[dim]} along dimension {dim} does not divide over "
+                             f"{mesh.model_size} model ranks (padded_vocab_rows for a table)")
+        n = t.shape[dim] // mesh.model_size
+        t = t.narrow(dim, mesh.model_index * n, n)
+    return t.detach().to(mesh.device).contiguous().clone()
 
-    def cut(k, t):
-        if specs[k] != MODEL_AXIS:
-            return t.detach().to(dev).clone()
-        if t.shape[0] % mesh.model_size:
-            raise ValueError(f"{k}: {t.shape[0]} rows do not divide over {mesh.model_size} model ranks "
-                             "(padded_vocab_rows)")
-        v_local = t.shape[0] // mesh.model_size
-        return t[mesh.model_index * v_local : (mesh.model_index + 1) * v_local].detach().to(dev).clone()
 
+def shard_by_specs(state: TrainState, model, mesh: Mesh, specs: dict) -> TrainState:
+    """This rank's state from a full single-device state (the same on every
+    rank): each parameter whose spec names a dimension becomes this rank's
+    slice along it (a new parameter of the model), every other one takes
+    the state's values; the Adam moments and the EMA are cut the same way.
+    The returned state's params are the model's parameters."""
     with torch.no_grad():
-        for k, p in model.named_parameters():
-            if specs[k] != MODEL_AXIS and state.params[k] is not p:
-                p.copy_(state.params[k])
-        name = table_name(model.config)
-        _table_module(model).weight = nn.Parameter(cut(name, state.params[name]))
-    params = dict(model.named_parameters())
+        for k, p in dict(model.named_parameters()).items():
+            if specs[k] is None:
+                if state.params[k] is not p:
+                    p.copy_(state.params[k])
+                continue
+            owner, _, leaf = k.rpartition(".")
+            setattr(model.get_submodule(owner), leaf, nn.Parameter(_cut(k, state.params[k], specs[k], mesh)))
+    cut = lambda d: {k: _cut(k, v, specs[k], mesh) for k, v in d.items()}  # noqa: E731
     opt = state.opt_state
     return TrainState(
         step=state.step,
-        params=params,
-        opt_state=AdamState(
-            opt.count, {k: cut(k, v) for k, v in opt.mu.items()}, {k: cut(k, v) for k, v in opt.nu.items()}
-        ),
-        lr_scale=state.lr_scale.detach().to(dev).clone(),
-        ema_params=None if state.ema_params is None else {k: cut(k, v) for k, v in state.ema_params.items()},
+        params=dict(model.named_parameters()),
+        opt_state=AdamState(opt.count, cut(opt.mu), cut(opt.nu)),
+        lr_scale=state.lr_scale.detach().to(mesh.device).clone(),
+        ema_params=None if state.ema_params is None else cut(state.ema_params),
     )
 
 
+def shard_state(state: TrainState, model, mesh: Mesh) -> TrainState:
+    """This rank's SPMD state from a full single-device state: the item
+    table becomes this rank's row shard (rows ``model_index * V_local`` on;
+    the table's rows must divide over the model group, see
+    :func:`padded_vocab_rows`), everything else is replicated."""
+    return shard_by_specs(state, model, mesh, param_specs(state.params, model.config))
+
+
 @torch.no_grad()
-def gather_state(state: TrainState, mesh: Mesh, config) -> TrainState:
+def gather_state(state: TrainState, mesh: Mesh, config, specs: Optional[dict] = None) -> TrainState:
     """The full single-device state from the shards (on the CPU, the same
-    on every rank): the table, its moments and its EMA assembled from the
-    model group's shards. For comparisons; not a checkpoint format."""
-    specs = param_specs(state.params, config)
+    on every rank): each sharded parameter, its moments and its EMA
+    assembled from the model group's slices along the dimension of its spec
+    (``specs``: a tier's ``param_specs``; default this tier's). For
+    comparisons; not a checkpoint format."""
+    if specs is None:
+        specs = param_specs(state.params, config)
 
     def whole(d: Optional[dict]) -> Optional[dict]:
         if d is None:
             return None
         out = {}
         for k, t in d.items():
-            if specs[k] == MODEL_AXIS:
+            if specs[k] is not None:
                 parts = all_gather_stacked(t.detach().float(), mesh, MODEL_AXIS)
-                t = parts.reshape(-1, *t.shape[1:]).to(t.dtype)
+                t = torch.cat(list(parts.unbind(0)), dim=specs[k]).to(t.dtype)
             out[k] = t.detach().cpu().clone()
         return out
 
@@ -313,21 +387,22 @@ def gather_state(state: TrainState, mesh: Mesh, config) -> TrainState:
     )
 
 
+def sharded_item_lookup(model, mesh: Mesh, compute_dtype=None) -> Callable:
+    """ids -> rows of the item table through the row-sharded lookup."""
+    table_shard = _table_module(model).weight
+    return lambda ids: emb_ops.sharded_embedding_lookup(table_shard, ids, mesh, compute_dtype)
+
+
 def _forward_gathered(model, mesh: Mesh, features: dict, head_positions, generator):
     """The model's forward to the (transformed) head inputs with the item
     table row-sharded: (gathered (B, P, d_item) f32, the table shard). The
-    item lookup goes through the sharded lookup; everything else is the
-    single-device model's."""
-    table_shard = _table_module(model).weight
-
-    def lookup(ids):
-        return emb_ops.sharded_embedding_lookup(table_shard, ids, mesh, model.dtype)
-
-    return model.gather_head_inputs(features, head_positions, generator, item_lookup=lookup), table_shard
-
-
-def _check_spmd(model) -> None:
-    validate_tier("spmd", model.config.head.kind, **{**_features_flags(model), "embed_impl": "xla"})
+    item lookup goes through the sharded lookup; everything else, the
+    encoder included (the single-device one, or the TP encoder of the
+    composed tier), is the model's."""
+    gathered = model.gather_head_inputs(
+        features, head_positions, generator, item_lookup=sharded_item_lookup(model, mesh, model.dtype)
+    )
+    return gathered, _table_module(model).weight
 
 
 def _full_bias(model, v_local: int, mesh: Mesh) -> torch.Tensor:
@@ -344,6 +419,7 @@ def make_spmd_train_step(
     label_vocab_size: int,
     ema_decay: float = 0.0,
     steps_per_call: int = 1,
+    _tier: str = "spmd",
 ) -> Callable:
     """The vocab-sharded train step of the tied head: ``(state, batch,
     generator=None) -> (state, loss)`` on a state from :func:`shard_state`
@@ -352,8 +428,14 @@ def make_spmd_train_step(
     so every gradient is summed over the data group. The table shard's
     gradient and its Adam update stay on the rank that owns the rows.
     steps_per_call > 1: a loop over a stacked batch returning (K,)
-    losses."""
-    _check_spmd(model)
+    losses.
+
+    ``_tier``: the tier the caller validates for. The composed tier
+    (``parallel/tp_spmd.py``) runs this step on a model whose shard
+    function installed the TP encoder; the encoder is the model's, so
+    nothing else changes (the port's counterpart of the JAX step's
+    ``_encoder``/``_specs_fn`` hooks)."""
+    check_tier(model, _tier, embed_impl="xla")
     cfg = model.config
 
     def step(state: TrainState, batch: dict, generator: Optional[torch.Generator] = None):
@@ -379,12 +461,13 @@ def make_spmd_train_step(
     return step if steps_per_call <= 1 else looped(step)
 
 
-def make_spmd_eval_step(model, mesh: Mesh, label_vocab_size: int, ks=(5, 10)) -> Callable:
+def make_spmd_eval_step(model, mesh: Mesh, label_vocab_size: int, ks=(5, 10), _tier: str = "spmd") -> Callable:
     """The vocab-sharded eval step: ``(params, batch) -> stats`` of sums over
     the whole mesh; each shard scans its rows in chunks
     (``sharded_chunked_eval_stats``), so no (B, P, V_local) tile exists.
-    ``params``: this rank's sharded parameters (or its EMA shard)."""
-    _check_spmd(model)
+    ``params``: this rank's sharded parameters (or its EMA shard).
+    ``_tier``: as :func:`make_spmd_train_step`."""
+    check_tier(model, _tier, embed_impl="xla")
     cfg = model.config
 
     @torch.no_grad()
@@ -404,3 +487,68 @@ def make_spmd_eval_step(model, mesh: Mesh, label_vocab_size: int, ks=(5, 10)) ->
             )
 
     return step
+
+
+# -- sampled softmax over the row-sharded table ---------------------------
+
+
+def negatives_generator(device, seed: int = 0) -> torch.Generator:
+    """The generator of the sampled tier's negatives: seeded from ``seed``
+    alone, never from a mesh index, so that every rank of the world draws
+    the same batch-shared negatives each step (JAX's single program draws
+    one set)."""
+    return torch.Generator(device).manual_seed(int(seed))
+
+
+def make_sampled_spmd_train_step(
+    model,
+    mesh: Mesh,
+    tx,
+    schedule: Callable[[int], float],
+    num_valid: int,
+    num_samples: int,
+    ema_decay: float = 0.0,
+    negatives_from: Optional[torch.Generator] = None,
+) -> Callable:
+    """Sampled-softmax training over the row-sharded table (counterpart of
+    JAX ``make_sampled_spmd_train_step``): ``(state, batch, generator=None,
+    negatives=None) -> (state, loss)`` on a state from :func:`shard_state`
+    and this rank's rows of the global batch, for the softmax-family heads.
+
+    The item table and its moments are row-sharded; the input lookups go
+    through the sharded lookup. The tied head takes the labels' and the
+    negatives' rows through the same lookup (a masked take and a sum over
+    the model group; the gradient lands on the owning shard only), with
+    ``tied_out_bias`` replicated; the MLP softmax head's output layer stays
+    replicated and is taken from directly. The loss is
+    ``ops/losses.py:sampled_softmax_ce``, plain PyTorch as it is plain XLA
+    in the JAX package (no CE kernel), reduced as :func:`summed_train_step`
+    reduces. Each step without ``negatives`` draws ``num_samples`` from
+    ``negatives_from`` (default :func:`negatives_generator` with seed 0, as
+    the single-device step's default), the same on every rank."""
+    check_tier(model, "sampled_spmd", embed_impl="xla", sampled=num_samples)
+    cfg = model.config
+    if negatives_from is None:
+        negatives_from = negatives_generator(mesh.device)
+
+    def local_sums(batch: dict, generator, negatives: Optional[torch.Tensor] = None):
+        if negatives is None:
+            negatives = losses_lib.sample_negatives(num_valid, num_samples, negatives_from)
+        features, positions = batch["features"], batch.get("head_positions")
+        lookup = sharded_item_lookup(model, mesh, model.dtype)
+        if cfg.head.kind == "tied_softmax":
+            x = model.gather_head_inputs(features, positions, generator, item_lookup=lookup)
+            table = _table_module(model).weight
+            bias = _full_bias(model, table.shape[0], mesh) if cfg.head.tied_bias else None
+            row_offset, take = NUM_RESERVED_TOKENS, sharded_item_lookup(model, mesh)
+        else:
+            x = model.head_trunk_outputs(features, positions, generator, item_lookup=lookup)
+            table, bias, row_offset, _ = head_catalog(cfg, dict(model.named_parameters()))
+            take = None
+        labels = batch["labels"].reshape(-1)
+        nll = losses_lib.sampled_softmax_ce(
+            x.reshape(-1, x.shape[-1]), table, labels, row_offset, num_valid, negatives, bias=bias, take=take,
+        )
+        return nll.sum(), (labels != LABEL_PAD).float().sum(), 1.0
+
+    return summed_train_step(local_sums, mesh, tx, schedule, ema_decay)

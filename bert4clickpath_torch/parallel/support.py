@@ -3,17 +3,25 @@
 
 Each parallel tier composes with a subset of (head kind, attention /
 dropout / embedding impl, qkv_fused, sampled softmax). Every tier
-constructor (``parallel/spmd.py``) and the training driver call
-:func:`validate_tier` before they build anything. ``RULES`` is the JAX
-package's table, feature for feature, so the port refuses what the JAX
-package refuses. The feature names keep the JAX package's impl names:
-``attn:pallas``, ``dropout:pallas`` and ``embed:pallas`` are the port's
-hand-written kernels (its attention always, ``dropout_impl="fused"``, the
-gather kernel).
+constructor (``parallel/spmd.py``, ``tp.py``, ``tp_spmd.py``) and the
+training driver call :func:`validate_tier` before they build anything. The
+feature names keep the JAX package's impl names: ``attn:pallas``,
+``dropout:pallas`` and ``embed:pallas`` are the port's hand-written
+kernels (its attention always, ``dropout_impl="fused"``, the gather
+kernel).
 
-Tiers the port has not got yet (:data:`UNPORTED`: tensor parallelism, its
-composition with the vocab-sharded tier, and the sampled-softmax SPMD
-tier) are refused by name.
+``RULES`` is the JAX package's table, feature for feature, except for the
+cells of :data:`PORT_ACCEPTS`, which the port accepts where the JAX
+package refuses. The JAX package refuses its Pallas kernels in the
+tensor-parallel and sampled SPMD tiers because pjit's partitioner has no
+rules for them and its composed tier runs its own per-head attention. The
+port's tiers are explicit per-rank programs, with no partitioner, and its
+attention kernel takes heads as column ranges of any slice, so called on a
+rank's D / S columns with H / S heads it is the head-sharded attention.
+The port's models always run that kernel (on a card there is no plain
+attention), so without these cells the three tiers would refuse every
+model; with them they compute what the JAX tiers compute with
+``attn_impl="xla"``.
 """
 
 from __future__ import annotations
@@ -21,19 +29,24 @@ from __future__ import annotations
 from typing import Optional
 
 TIERS = ("single", "dp", "spmd", "tp", "tp_spmd", "sampled_spmd")
-# in the JAX package's matrix, not in the port yet: refused by name
-UNPORTED = ("tp", "tp_spmd", "sampled_spmd")
 HEAD_KINDS = ("tied_softmax", "softmax", "binary", "multilabel")
+
+_P_RANK_PROGRAMS = (
+    "the port's tier is an explicit per-rank program (no partitioner), and its "
+    "attention kernel takes heads as column ranges of any (B, L, D / S) slice"
+)
+# the cells the port accepts and the JAX package refuses, with the reason
+PORT_ACCEPTS: dict[str, dict[str, str]] = {
+    "tp": {"attn:pallas": _P_RANK_PROGRAMS, "dropout:pallas": _P_RANK_PROGRAMS, "embed:pallas": _P_RANK_PROGRAMS},
+    "tp_spmd": {"attn:pallas": _P_RANK_PROGRAMS, "dropout:pallas": _P_RANK_PROGRAMS},
+    "sampled_spmd": {"attn:pallas": _P_RANK_PROGRAMS, "dropout:pallas": _P_RANK_PROGRAMS},
+}
 
 # Why-strings double as error messages and matrix footnotes.
 _R_SPMD_HEAD = (
     "the vocab-sharded SPMD tier requires the tied head (the projection "
     "shards with the table); MLP-softmax/binary/multilabel heads use the "
     "pure data-parallel tier"
-)
-_R_TP_PALLAS = (
-    "the tensor-parallel tier is pjit auto-sharding; Pallas kernels have no "
-    "SPMD partitioning rules (the sharded-kernel path is parallel/spmd.py)"
 )
 _R_TP_QKV = (
     "tensor-parallel column splits are per-projection (wq/wk/wv); the fused "
@@ -62,10 +75,6 @@ _R_SPMD_EMBED = (
     "the single-device/DP lookup only"
 )
 _R_SSPMD_SAMPLES = "the sampled_spmd tier IS the sampled-softmax path (pass num_samples > 0)"
-_R_TPSPMD_ATTN = (
-    "the composed tp_spmd tier runs the per-head lane-slice attention on "
-    "each shard's H/S heads; Pallas kernels are not head-sharded"
-)
 
 # rules[tier][feature] -> None (supported) | reason string (rejected).
 # Features: per head kind, the three pallas impls, qkv_fused, sampled.
@@ -81,9 +90,7 @@ RULES: dict[str, dict[str, Optional[str]]] = {
         "sampled": _R_SAMPLED_SPMD,
     },
     "tp": {
-        "attn:pallas": _R_TP_PALLAS,
-        "dropout:pallas": _R_TP_PALLAS,
-        "embed:pallas": _R_TP_PALLAS,
+        # PORT_ACCEPTS: attn:pallas, dropout:pallas, embed:pallas
         "qkv_fused": _R_TP_QKV,
         "sampled": _R_SAMPLED_TP,
     },
@@ -91,8 +98,7 @@ RULES: dict[str, dict[str, Optional[str]]] = {
         "head:softmax": _R_SPMD_HEAD,
         "head:binary": _R_SPMD_HEAD,
         "head:multilabel": _R_SPMD_HEAD,
-        "attn:pallas": _R_TPSPMD_ATTN,
-        "dropout:pallas": _R_TPSPMD_ATTN,
+        # PORT_ACCEPTS: attn:pallas, dropout:pallas
         "embed:pallas": _R_SPMD_EMBED,
         "qkv_fused": _R_TP_QKV,
         "sampled": _R_SAMPLED_SPMD,
@@ -100,8 +106,7 @@ RULES: dict[str, dict[str, Optional[str]]] = {
     "sampled_spmd": {
         "head:binary": _R_SAMPLED_HEAD,
         "head:multilabel": _R_SAMPLED_HEAD,
-        "attn:pallas": _R_SSPMD_PALLAS,
-        "dropout:pallas": _R_SSPMD_PALLAS,
+        # PORT_ACCEPTS: attn:pallas, dropout:pallas
         "embed:pallas": _R_SSPMD_PALLAS,
         "no_sampled": _R_SSPMD_SAMPLES,
     },
@@ -127,11 +132,6 @@ def validate_tier(
     driver both call this BEFORE building a step."""
     if tier not in TIERS:
         raise ValueError(f"unknown tier {tier!r}; expected one of {TIERS}")
-    if tier in UNPORTED:
-        raise ValueError(
-            f"tier {tier!r} is not ported yet (the port has "
-            f"{tuple(t for t in TIERS if t not in UNPORTED)})"
-        )
     if head_kind not in HEAD_KINDS:
         raise ValueError(
             f"unknown head kind {head_kind!r}; expected one of {HEAD_KINDS}"

@@ -133,9 +133,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    bf16 steps each over two batches cycled with falling losses, two bf16
    steps of the SPMD tier on
    the wide model (the CE pair), exact launches per rank and step.
-12. cli-dp — ``torchrun --nproc_per_node=1 examples/bert4rec/train_torch.py
+12. tp-tiers — the tensor-parallel tier, the composed tensor-parallel and
+   vocab-sharded tier and sampled softmax over the row-sharded table, two
+   ranks sharing the card over gloo at (data, model) = (1, 2), global
+   B=256: tp and tp_spmd on the flagship's widths with separate q/k/v (2
+   heads and 512 FFN units a rank; ``tied_bias`` on tp_spmd), sampled_spmd
+   on the flagship as it is with 1,024 negatives; f32 runs held against
+   the one-process step on the same batches as in phase 11 (one step, three
+   steps, an eval batch; one tp_spmd step in pre-LN; the sampled tier on
+   the same negatives), eight bf16 steps of each with dropout 0.1 (the
+   fused dropout kernel on tp_spmd) and a falling loss, the model ranks'
+   encoder outputs under dropout bit-equal, the sampled negatives equal on
+   both ranks, exact launches per rank and step.
+13. cli-dp — ``torchrun --nproc_per_node=1 examples/bert4rec/train_torch.py
    --parallel dp``: a world of one over NCCL on the card, two epochs.
-13. sampled — sampled softmax with 1,024 negatives: one flagship step at
+14. sampled — sampled softmax with 1,024 negatives: one flagship step at
    B=32 card vs CPU with the same negatives (f32), then one step at B=256
    on the card (launches: gather and attention only).
 
@@ -2499,6 +2511,8 @@ def sharded_ce_at(rng, d: int, card: str) -> dict:
     fwd_bound = bound(n * d * 4 + nv * d * 4 + SHARDS * 2 * n * 4, {kind: terms * 2.0 * n * nv * d})
     common = (n * d + nv * d + 3 * n) * 4
     out = {"fwd": dict(max_abs_err=errs["fwd"], ms=t["fwd"], plain_ms=t["fwd_plain"], library_ms=None, **fwd_bound)}
+    log(f"[sharded-ce] forward {tag}: {t['fwd']:.4f} ms over the {SHARDS} shards, bound "
+        f"{fwd_bound['bound_ms']:.4f} ms ({fwd_bound['bound_by']}) [{card}]")
     if route == "merged":
         out["bwd"] = dict(max_abs_err=errs["bwd"], ms=t["bwd"], plain_ms=t["bwd_plain"], library_ms=None,
                           **bound((2 * n * d + 2 * nv * d + 3 * n) * 4, {kind: terms * 6.0 * live * nv * d}))
@@ -2532,42 +2546,71 @@ def phase_sharded_ce(card: str) -> dict:
             "ce_bwd_dx_sharded": wide["dx"], "ce_bwd_dw_sharded": wide["dw"], "ce_fwd_sharded_wide": wide["fwd"]}
 
 
+def _key_bias_mask(name: str, n: int) -> np.ndarray:
+    """The elements of a parameter that are a key-projection bias: all of
+    ``wk.bias``, the k third of a fused QKV bias, none of anything else."""
+    key = np.zeros(n, bool)
+    if name.endswith("wk.bias"):
+        key[:] = True
+    elif name.endswith("wqkv.bias"):
+        key[n // 3 : 2 * (n // 3)] = True
+    return key
+
+
 def _rel_errs(got: dict, want: dict, key_bias_steps: float) -> dict:
-    """Per parameter, |got - want| / |want| (norms). The key bias (the k
-    third of a fused QKV bias) has a zero gradient in exact arithmetic:
-    both sides step on noise, so it is held only to its steps' size
-    (``key_bias_steps``, an absolute bound) and left out of the norm."""
+    """Per parameter, |got - want| / |want| (norms). The key bias has a
+    zero gradient in exact arithmetic: both sides step on noise, so it is
+    held only to its steps' size (``key_bias_steps``, an absolute bound)
+    and left out of the norm (a parameter that is all key bias is left
+    out)."""
     errs = {}
     for name, w in want.items():
-        g, w = torch.as_tensor(got[name]).double(), torch.as_tensor(w).double()
-        if name.endswith("wqkv.bias"):
-            third = w.shape[0] // 3
-            if (g[third : 2 * third] - w[third : 2 * third]).abs().max().item() > key_bias_steps:
-                raise AssertionError(f"{name}: the key bias moved more than its steps allow")
-            g = torch.cat([g[:third], g[2 * third :]])
-            w = torch.cat([w[:third], w[2 * third :]])
-        errs[name] = ((g - w).norm() / w.norm().clamp(min=1e-30)).item()
+        g, w = np.asarray(got[name], np.float64).reshape(-1), np.asarray(w, np.float64).reshape(-1)
+        key = _key_bias_mask(name, w.shape[0])
+        if key.any() and np.abs(g[key] - w[key]).max() > key_bias_steps:
+            raise AssertionError(f"{name}: the key bias moved more than its steps allow")
+        if key.all():
+            continue
+        g, w = g[~key], w[~key]
+        errs[name] = float(np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30))
     return errs
 
 
 def _apart_shares(got: dict, want: dict, threshold: float) -> dict:
     """Per parameter, the share of its elements apart by more than
-    ``threshold``; the key third of a fused QKV bias left out, as in
-    :func:`_rel_errs`."""
+    ``threshold``; the key bias left out, as in :func:`_rel_errs`."""
     out = {}
     for name, w in want.items():
-        apart = np.abs(np.asarray(got[name], dtype=np.float64) - np.asarray(w, dtype=np.float64)) > threshold
-        if name.endswith("wqkv.bias"):
-            third = apart.shape[0] // 3
-            apart = np.concatenate([apart[:third], apart[2 * third :]])
-        out[name] = float(apart.mean())
+        apart = (np.abs(np.asarray(got[name], np.float64) - np.asarray(w, np.float64)) > threshold).reshape(-1)
+        key = _key_bias_mask(name, apart.shape[0])
+        if not key.all():
+            out[name] = float(apart[~key].mean())
     return out
 
 
-def _one_process(cfg, sd, host, ev, num_valid: int, lr: float):
+def _tier_batches() -> tuple:
+    """The tier phases' global batches over the flagship catalog: TIER_STEPS
+    Cloze train batches of B_TRAIN rows and one eval batch."""
+    from bert4clickpath_torch.data.generator import ClickStreamGenerator
+    from bert4clickpath_torch.data.pipeline import ClozeDataset
+
+    gen = ClickStreamGenerator(n_items=N_ITEMS, session_cohesiveness=200, seed=1)
+    items, _ = gen.generate_sessions(B_TRAIN * 8)
+    ds = ClozeDataset(items, gen.item_vocab(), max_items=50)
+    it = ds.train_batches(B_TRAIN, seed=0)
+    return [next(it) for _ in range(TIER_STEPS)], next(ds.eval_batches(B_TRAIN))
+
+
+def _as_np(b) -> dict:
+    return {"features": dict(b.features), "head_positions": b.head_positions, "labels": b.labels}
+
+
+def _one_process(cfg, sd, host, ev, num_valid: int, lr: float, dense: bool = False, negatives=None):
     """The port's one-process train step on the card over the full global
-    batches, and one eval batch: (losses, params, Adam's first moment, eval
-    sums)."""
+    batches (the fused CE; ``dense``: logits and the head's loss;
+    ``negatives``: sampled softmax on one array of them a step), and one
+    eval batch unless ``ev`` is None: (losses, params, Adam's first moment,
+    eval sums)."""
     from bert4clickpath_torch.config import TrainConfig
     from bert4clickpath_torch.data.pipeline import to_device
     from bert4clickpath_torch.models.model import ClickstreamModel
@@ -2577,16 +2620,95 @@ def _one_process(cfg, sd, host, ev, num_valid: int, lr: float):
     model = ClickstreamModel(cfg, device="cuda")
     model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
     tx = make_optimizer(TrainConfig())
-    step = make_train_step(model, tx, schedules.constant(lr), fused_ce_num_valid=num_valid)
+    step = make_train_step(model, tx, schedules.constant(lr), fused_ce_num_valid=None if dense else num_valid,
+                           sampled_softmax_samples=None if negatives is None else len(negatives[0]))
     state = TrainState.create(dict(model.named_parameters()), tx)
     losses = []
-    for b in host:
-        state, loss = step(state, to_device(b, "cuda"))
+    for i, b in enumerate(host):
+        extra = () if negatives is None else (torch.from_numpy(negatives[i]).to("cuda"),)
+        state, loss = step(state, to_device(b, "cuda"), None, *extra)
         losses.append(loss.item())
-    stats = make_eval_step(model, chunked_num_valid=num_valid)(state.params, to_device(ev, "cuda"))
+    stats = {}
+    if ev is not None:
+        stats = make_eval_step(model, chunked_num_valid=num_valid)(state.params, to_device(ev, "cuda"))
     params = {k: v.detach().cpu().numpy() for k, v in state.params.items()}
     mu = {k: v.float().cpu().numpy() for k, v in state.opt_state.mu.items()}
     return losses, params, mu, {k: float(v) for k, v in stats.items()}
+
+
+def _check_tier_runs(tag: str, results: dict, jobs: dict, per_step: dict, per_eval: dict, card: str,
+                     kind_of, falls) -> None:
+    """Each tier run of a phase: exact launches per rank and step
+    (``per_step[kind_of(name)]``) and per eval batch, finite losses, and a
+    falling loss where ``falls(name)``; ms/step printed for information."""
+    for name, per_rank in results.items():
+        kind = kind_of(name)
+        steps = len(jobs[name]["batches"])
+        for r in per_rank:
+            got = {c: v for c, v in r["train_launches"].items() if v}
+            want = {c: v * steps for c, v in per_step[kind].items()}
+            if got != want:
+                raise AssertionError(f"[{tag}] {name} rank {r['coords']}: launches {got}, want {want}")
+            if jobs[name]["eval_batches"]:
+                got = {c: v for c, v in r["eval_launches"].items() if v}
+                if got != per_eval[kind]:
+                    raise AssertionError(f"[{tag}] {name} eval rank {r['coords']}: launches {got}")
+            if not np.all(np.isfinite(r["losses"])):
+                raise AssertionError(f"[{tag}] {name}: a loss is not finite: {r['losses']}")
+        ms = [1e3 * statistics.median(r["step_seconds"][1:] or r["step_seconds"]) for r in per_rank]
+        log(f"[{tag}] {name}: losses {np.round(per_rank[0]['losses'], 5).tolist()}; launches per rank and step "
+            f"{per_step[kind]}; {', '.join(f'{m:.1f}' for m in ms)} ms/step on the two ranks (information only: "
+            f"two ranks share one card over gloo) [{card}]")
+        losses = per_rank[0]["losses"]
+        if falls(name) and not losses[-2:].mean() < losses[:2].mean():
+            raise AssertionError(f"[{tag}] {name}: the loss did not fall: {losses}")
+
+
+def _hold_against_one_process(tag: str, results: dict, refs: dict) -> None:
+    """Each tier run against its one-process reference (losses, params,
+    Adam's first moment, eval sums): one step, the loss 1e-4 and the
+    gradients (Adam's first moment) 1e-3 of each norm; more steps, the
+    criteria of :func:`phase_tiers`."""
+    for name, (losses, params, mu, stats) in refs.items():
+        steps = len(losses)
+        for r in results[name]:
+            loss_err = float(np.max(np.abs(r["losses"] - losses) / np.abs(losses)))
+            if steps == 1:
+                # the gradients, summed over the tier's ranks, against one
+                # process: Adam's first moment after one step
+                errs = _rel_errs(r["mu"], mu, float("inf"))
+                worst = max(errs, key=errs.get)
+                log(f"[{tag}] {name} rank {r['coords']} against one process: loss rel err {loss_err:.2e} (tol 1e-4); "
+                    f"gradients (Adam's first moment after one step) median rel err "
+                    f"{statistics.median(errs.values()):.2e}, worst {errs[worst]:.2e} at {worst} (tol 1e-3)")
+                if loss_err > 1e-4 or errs[worst] > 1e-3:
+                    raise AssertionError(f"[{tag}] {name}: the gradients differ from the one-process step's")
+                continue
+            # after three steps: within 1e-3 of each parameter's norm, or
+            # with at most TIER_FLIP_SHARE of its elements apart by more
+            # than lr / 10 (Adam's sign-like first steps; see the constant);
+            # the first moment within TIER_MU_REL
+            errs = _rel_errs(r["params"], params, 2 * TIER_LR * steps)
+            shares = _apart_shares(r["params"], params, TIER_LR / 10)
+            past = {k: e for k, e in errs.items() if e > 1e-3}
+            mu_errs = _rel_errs(r["mu"], mu, float("inf"))
+            worst, worst_mu = max(errs, key=errs.get), max(mu_errs, key=mu_errs.get)
+            ev_got = r["evals"][0] if stats else {}
+            ev_err = max((abs(ev_got[k] - v) / max(abs(v), 1.0) for k, v in stats.items()), default=0.0)
+            log(f"[{tag}] {name} rank {r['coords']} against one process: loss rel err {loss_err:.2e} (tol 1e-4); "
+                f"parameters median rel err {statistics.median(errs.values()):.2e}, worst {errs[worst]:.2e} at "
+                f"{worst}; {len(past)} of {len(errs)} past 1e-3 of their norm, their shares of elements apart by "
+                f"more than lr/10 {', '.join(f'{k} {shares[k]:.3e}' for k in sorted(past))} (tol "
+                f"{TIER_FLIP_SHARE:.0e}); largest share of any parameter {max(shares.values()):.3e}; Adam's first "
+                f"moment median rel err {statistics.median(mu_errs.values()):.2e}, worst {mu_errs[worst_mu]:.2e} at "
+                f"{worst_mu} (tol {TIER_MU_REL:.0e}); eval sums worst rel diff {ev_err:.2e} "
+                f"({ev_got.get('n', 0):.0f} rows)")
+            if (loss_err > 1e-4 or any(shares[k] > TIER_FLIP_SHARE for k in past) or mu_errs[worst_mu] > TIER_MU_REL
+                    or ev_got.get("n") != stats.get("n") or ev_err > EVAL_TOL["float32"]):
+                raise AssertionError(f"[{tag}] {name} differs from the one-process run")
+            for key in (k for k in stats if "@" in k):
+                if abs(ev_got[key] - stats[key]) > 1.0:
+                    raise AssertionError(f"[{tag}] {name} eval {key}: {ev_got[key]} against {stats[key]}")
 
 
 def phase_tiers(card: str) -> dict:
@@ -2609,8 +2731,6 @@ def phase_tiers(card: str) -> dict:
     launches per rank and step. ms/step is printed for information only:
     two ranks sharing one card over gloo say nothing of a multi-card
     tier."""
-    from bert4clickpath_torch.data.generator import ClickStreamGenerator
-    from bert4clickpath_torch.data.pipeline import ClozeDataset
     from bert4clickpath_torch.data.synthetic import seeded_state_dict
     from bert4clickpath_torch.ops.kernels import _build
     from bert4clickpath_torch.parallel import drive
@@ -2628,20 +2748,14 @@ def phase_tiers(card: str) -> dict:
     wide = dataclasses.replace(
         f32_bias, dtype="bfloat16", features={"items": dataclasses.replace(cfg.features["items"], embedding_dim=WIDE_D)},
         num_heads=WIDE_HEADS, ffn_dim=4 * WIDE_D)
-    gen = ClickStreamGenerator(n_items=N_ITEMS, session_cohesiveness=200, seed=1)
-    items, _ = gen.generate_sessions(B_TRAIN * 8)
-    ds = ClozeDataset(items, gen.item_vocab(), max_items=50)
-    it = ds.train_batches(B_TRAIN, seed=0)
-    host = [next(it) for _ in range(TIER_STEPS)]
-    ev = next(ds.eval_batches(B_TRAIN))
-    as_np = lambda b: {"features": dict(b.features), "head_positions": b.head_positions, "labels": b.labels}  # noqa: E731
+    host, ev = _tier_batches()
     sd, sd_bias, sd_wide = (
         {k: v.numpy() for k, v in seeded_state_dict(c, SEED + 3).items()} for c in (f32, f32_bias, wide))
     common = dict(device="cuda", num_valid=num_valid, lr=TIER_LR)
     jobs = {
-        "dp f32": dict(tier="dp", mesh=(2, 1), config=f32.to_json(), state=sd, eval_batches=[as_np(ev)]),
+        "dp f32": dict(tier="dp", mesh=(2, 1), config=f32.to_json(), state=sd, eval_batches=[_as_np(ev)]),
         "spmd f32": dict(tier="spmd", mesh=(1, 2), config=f32_bias.to_json(), state=sd_bias,
-                         eval_batches=[as_np(ev)]),
+                         eval_batches=[_as_np(ev)]),
         "dp bf16": dict(tier="dp", mesh=(2, 1), config=dataclasses.replace(f32, dtype="bfloat16").to_json(),
                         state=sd, eval_batches=[]),
         "spmd bf16": dict(tier="spmd", mesh=(1, 2), config=dataclasses.replace(f32_bias, dtype="bfloat16").to_json(),
@@ -2654,7 +2768,7 @@ def phase_tiers(card: str) -> dict:
     for name, job in jobs.items():
         batches = (host[:1] if "step 1" in name else host if "f32" in name else host[:2] if "wide" in name
                    else [host[i % 2] for i in range(TIER_BF16_STEPS)])
-        job.update(common, batches=[as_np(b) for b in batches])
+        job.update(common, batches=[_as_np(b) for b in batches])
     log(f"[tiers] flagship f32/bf16 on two ranks sharing the card over gloo, global B={B_TRAIN}; "
         f"set-up {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
@@ -2670,68 +2784,128 @@ def phase_tiers(card: str) -> dict:
                 "spmd": {"attention": 4, "attention_bwd": 4, "ce_fwd": 1, "ce_bwd": 1},
                 "spmd wide": {"attention": 4, "attention_bwd": 4, "ce_fwd": 1, "ce_bwd_dx": 1, "ce_bwd_dw": 1}}
     per_eval = {"dp": {"gather": 1, "attention": 4}, "spmd": {"attention": 4}}
-    for name, per_rank in results.items():
-        kind = "spmd wide" if "wide" in name else name.split()[0]
-        steps = len(jobs[name]["batches"])
-        for r in per_rank:
-            got = {c: v for c, v in r["train_launches"].items() if v}
-            want = {c: v * steps for c, v in per_step[kind].items()}
-            if got != want:
-                raise AssertionError(f"[tiers] {name} rank {r['coords']}: launches {got}, want {want}")
-            if jobs[name]["eval_batches"]:
-                got = {c: v for c, v in r["eval_launches"].items() if v}
-                if got != per_eval[kind]:
-                    raise AssertionError(f"[tiers] {name} eval rank {r['coords']}: launches {got}")
-            if not np.all(np.isfinite(r["losses"])):
-                raise AssertionError(f"[tiers] {name}: a loss is not finite: {r['losses']}")
-        ms = [1e3 * statistics.median(r["step_seconds"][1:] or r["step_seconds"]) for r in per_rank]
-        log(f"[tiers] {name}: losses {np.round(per_rank[0]['losses'], 5).tolist()}; launches per rank and step "
-            f"{per_step[kind]}; {', '.join(f'{m:.1f}' for m in ms)} ms/step on the two ranks (information only: "
-            f"two ranks share one card over gloo) [{card}]")
-        losses = per_rank[0]["losses"]
-        if "bf16" in name and "wide" not in name and not losses[-2:].mean() < losses[:2].mean():
-            raise AssertionError(f"[tiers] {name}: the loss did not fall: {losses}")
-    for name, (losses, params, mu, stats) in refs.items():
-        steps = len(losses)
-        for r in results[name]:
-            loss_err = float(np.max(np.abs(r["losses"] - losses) / np.abs(losses)))
-            if steps == 1:
-                # the gradients, summed over the tier's ranks, against one
-                # process: Adam's first moment after one step
-                errs = _rel_errs(r["mu"], mu, float("inf"))
-                worst = max(errs, key=errs.get)
-                log(f"[tiers] {name} rank {r['coords']} against one process: loss rel err {loss_err:.2e} (tol 1e-4); "
-                    f"gradients (Adam's first moment after one step) median rel err "
-                    f"{statistics.median(errs.values()):.2e}, worst {errs[worst]:.2e} at {worst} (tol 1e-3)")
-                if loss_err > 1e-4 or errs[worst] > 1e-3:
-                    raise AssertionError(f"[tiers] {name}: the gradients differ from the one-process step's")
-                continue
-            # after three steps: within 1e-3 of each parameter's norm, or
-            # with at most TIER_FLIP_SHARE of its elements apart by more
-            # than lr / 10 (Adam's sign-like first steps; see the constant);
-            # the first moment within TIER_MU_REL
-            errs = _rel_errs(r["params"], params, 2 * TIER_LR * steps)
-            shares = _apart_shares(r["params"], params, TIER_LR / 10)
-            past = {k: e for k, e in errs.items() if e > 1e-3}
-            mu_errs = _rel_errs(r["mu"], mu, float("inf"))
-            worst, worst_mu = max(errs, key=errs.get), max(mu_errs, key=mu_errs.get)
-            ev_got = r["evals"][0]
-            ev_err = max(abs(ev_got[k] - v) / max(abs(v), 1.0) for k, v in stats.items())
-            log(f"[tiers] {name} rank {r['coords']} against one process: loss rel err {loss_err:.2e} (tol 1e-4); "
-                f"parameters median rel err {statistics.median(errs.values()):.2e}, worst {errs[worst]:.2e} at "
-                f"{worst}; {len(past)} of {len(errs)} past 1e-3 of their norm, their shares of elements apart by "
-                f"more than lr/10 {', '.join(f'{k} {shares[k]:.3e}' for k in sorted(past))} (tol "
-                f"{TIER_FLIP_SHARE:.0e}); largest share of any parameter {max(shares.values()):.3e}; Adam's first "
-                f"moment median rel err {statistics.median(mu_errs.values()):.2e}, worst {mu_errs[worst_mu]:.2e} at "
-                f"{worst_mu} (tol {TIER_MU_REL:.0e}); eval sums worst rel diff {ev_err:.2e} ({ev_got['n']:.0f} rows)")
-            if (loss_err > 1e-4 or any(shares[k] > TIER_FLIP_SHARE for k in past) or mu_errs[worst_mu] > TIER_MU_REL
-                    or ev_got["n"] != stats["n"] or ev_err > EVAL_TOL["float32"]):
-                raise AssertionError(f"[tiers] {name} differs from the one-process run")
-            for key in (k for k in stats if "@" in k):
-                if abs(ev_got[key] - stats[key]) > 1.0:
-                    raise AssertionError(f"[tiers] {name} eval {key}: {ev_got[key]} against {stats[key]}")
+    _check_tier_runs("tiers", results, jobs, per_step, per_eval, card,
+                     kind_of=lambda name: "spmd wide" if "wide" in name else name.split()[0],
+                     falls=lambda name: "bf16" in name and "wide" not in name)
+    _hold_against_one_process("tiers", results, refs)
     return {"spmd": results["spmd f32"][0]["train_launches"],
             "spmd wide": results["spmd wide bf16"][0]["train_launches"]}
+
+
+def phase_tp_tiers(card: str) -> dict:
+    """The tensor-parallel tier (``parallel/tp.py``), its composition with
+    the vocab-sharded tier (``parallel/tp_spmd.py``) and sampled softmax
+    over the row-sharded table (``spmd.make_sampled_spmd_train_step``),
+    each with two ranks sharing the one card over gloo at (data, model) =
+    (1, 2), global B = 256.
+
+    tp and tp_spmd run the flagship's widths (4L/256d, 4 heads, 2 a rank of
+    head width 64, FFN 1,024, 512 a rank, L=53, sinusoidal positions, tied
+    softmax over 54,542 items: 55,296 rows, 27,648 a shard on tp_spmd, with
+    ``tied_bias`` there) with separate q/k/v: the column split needs
+    separate projections, so both tiers refuse ``qkv_fused`` (in the JAX
+    package too) and the flagship's ``qkv_fused`` is turned off here.
+    sampled_spmd runs the flagship as it is (``qkv_fused``) on SAMPLED
+    negatives.
+
+    In f32 and dropout 0, against the port's one-process step on the same
+    global batches (tp against the dense loss, as the tier's; tp_spmd
+    against the fused CE; sampled_spmd against the sampled step on the same
+    negatives), with the criteria of :func:`phase_tiers`: one step (loss
+    1e-4, Adam's first moment 1e-3 of each norm), three steps and one eval
+    batch (tp, tp_spmd); one tp_spmd step in pre-LN. Eight bf16 steps of
+    each over two batches cycled, with dropout 0.1 (the mask back end on tp
+    and sampled_spmd, the fused dropout kernel on tp_spmd), the last two
+    losses below the first two, the model ranks' encoder output under
+    dropout bit-equal after them, and the sampled tier's negatives, drawn
+    by the step, equal on both ranks. Exact kernel launches per rank and
+    step: attention forward and backward once a layer on every tier, the
+    gather on tp, the CE forward and merged backward (with their
+    row_start) on tp_spmd, no CE kernel on tp or sampled_spmd."""
+    from bert4clickpath_torch.data.synthetic import seeded_state_dict
+    from bert4clickpath_torch.ops.losses import sample_negatives
+    from bert4clickpath_torch.parallel import drive
+    from bert4clickpath_torch.parallel.mesh import spawn
+
+    t0 = time.perf_counter()
+    cfg, vocab = flagship_config()
+    num_valid = vocab.label_vocab_size
+    sampled32 = dataclasses.replace(cfg, dropout_rate=0.0, dtype="float32")
+    tp32 = dataclasses.replace(sampled32, qkv_fused=False)
+    tps32 = dataclasses.replace(tp32, head=dataclasses.replace(tp32.head, tied_bias=True))
+    tps32_pre = dataclasses.replace(tps32, norm_style="pre")
+    bf16 = lambda c: dataclasses.replace(c, dtype="bfloat16", dropout_rate=cfg.dropout_rate)  # noqa: E731
+    host, ev = _tier_batches()
+    weights = {}  # config JSON: seeded weights
+
+    def weights_of(c) -> dict:
+        key = c.to_json()
+        if key not in weights:
+            weights[key] = {k: v.numpy() for k, v in seeded_state_dict(c, SEED + 3).items()}
+        return weights[key]
+
+    negatives = [sample_negatives(num_valid, SAMPLED, g).numpy()
+                 for g in [torch.Generator().manual_seed(SEED + 6)] for _ in range(TIER_STEPS)]
+    # name: (tier, config, f32 steps or 0 for the bf16 run, an eval batch, dropout back end)
+    plan = {
+        "tp f32": ("tp", tp32, TIER_STEPS, True, None),
+        "tp f32 step 1": ("tp", tp32, 1, False, None),
+        "tp_spmd f32": ("tp_spmd", tps32, TIER_STEPS, True, None),
+        "tp_spmd f32 step 1": ("tp_spmd", tps32, 1, False, None),
+        "tp_spmd pre-LN f32 step 1": ("tp_spmd", tps32_pre, 1, False, None),
+        "sampled_spmd f32": ("sampled_spmd", sampled32, TIER_STEPS, False, None),
+        "sampled_spmd f32 step 1": ("sampled_spmd", sampled32, 1, False, None),
+        "tp bf16": ("tp", tp32, 0, False, "mask"),
+        "tp_spmd bf16": ("tp_spmd", tps32, 0, False, "fused"),
+        "sampled_spmd bf16": ("sampled_spmd", sampled32, 0, False, "mask"),
+    }
+    jobs = {}
+    for name, (tier, c, steps, with_eval, dropout) in plan.items():
+        batches = host[:steps] if steps else [host[i % 2] for i in range(TIER_BF16_STEPS)]
+        job = dict(tier=tier, mesh=(1, 2), config=(bf16(c) if dropout else c).to_json(), state=weights_of(c),
+                   device="cuda", num_valid=num_valid, lr=TIER_LR, batches=[_as_np(b) for b in batches],
+                   eval_batches=[_as_np(ev)] if with_eval else [], num_samples=SAMPLED)
+        if tier == "sampled_spmd" and steps:
+            job["negatives"] = negatives[:steps]
+        elif tier == "sampled_spmd":
+            job["negatives_seed"] = SEED
+        if dropout:
+            job.update(dropout_impl=dropout, dropout_seed=SEED, probe_activations=True)
+        jobs[name] = job
+    log(f"[tp-tiers] tp, tp_spmd and sampled_spmd at (1, 2) on two ranks sharing the card over gloo, global "
+        f"B={B_TRAIN}; set-up {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn(drive.run_jobs, 2, os.path.join(tmp, "store"), (list(jobs.values()),), timeout_s=600)
+    log(f"[tp-tiers] the two ranks ran {len(jobs)} jobs in {time.perf_counter() - t0:.2f} s")
+    results = {name: [r[i] for r in ranks] for i, name in enumerate(jobs)}
+    refs = {}
+    for name, (tier, c, steps, with_eval, dropout) in plan.items():
+        if steps:
+            refs[name] = _one_process(c, weights_of(c), host[:steps], ev if with_eval else None, num_valid, TIER_LR,
+                                      dense=tier == "tp", negatives=jobs[name].get("negatives"))
+    attention = {"attention": 4, "attention_bwd": 4}
+    per_step = {"tp": {"gather": 1, **attention}, "tp_spmd": {**attention, "ce_fwd": 1, "ce_bwd": 1},
+                "tp_spmd fused": {**attention, "ce_fwd": 1, "ce_bwd": 1, "dropout": 18}, "sampled_spmd": attention}
+    per_eval = {"tp": {"gather": 1, "attention": 4}, "tp_spmd": {"attention": 4}}
+    _check_tier_runs("tp-tiers", results, jobs, per_step, per_eval, card,
+                     kind_of=lambda name: plan[name][0] + (" fused" if plan[name][4] == "fused" else ""),
+                     falls=lambda name: not plan[name][2])
+    _hold_against_one_process("tp-tiers", results, refs)
+    for name, (tier, _, _, _, dropout) in plan.items():
+        if not dropout:
+            continue
+        a, c = (r["activations"] for r in results[name])
+        if not np.array_equal(a, c):
+            raise AssertionError(f"[tp-tiers] {name}: the model ranks' encoder outputs under dropout differ")
+        log(f"[tp-tiers] {name}: the two model ranks' encoder outputs under dropout ({dropout}) bit-equal, "
+            f"shape {a.shape}")
+    drawn = [r["negatives"] for r in results["sampled_spmd bf16"]]
+    if not all(np.array_equal(a, c) for a, c in zip(*drawn)) or len(drawn[0]) != TIER_BF16_STEPS:
+        raise AssertionError("[tp-tiers] the sampled tier's ranks drew different negatives")
+    log(f"[tp-tiers] sampled_spmd bf16: both ranks drew the same {SAMPLED} negatives in each of "
+        f"{TIER_BF16_STEPS} steps")
+    return {name: results[name][0]["train_launches"] for name in ("tp f32", "tp_spmd f32", "sampled_spmd f32")}
 
 
 def phase_cli_dp(card: str) -> None:
@@ -2848,6 +3022,8 @@ def main() -> None:
     log("[heads] launches per train step: " + json.dumps({tag: run["counts"] for tag, run in heads.items()}))
     kernels.update(timed("sharded-ce", phase_sharded_ce, card))
     tiers = timed("tiers", phase_tiers, card)
+    tp_tiers = timed("tp-tiers", phase_tp_tiers, card)
+    log("[tp-tiers] launches per rank in the f32 runs: " + json.dumps(tp_tiers))
     timed("cli-dp", phase_cli_dp, card)
     timed("sampled", phase_sampled, card)
     # name, source, TPU kernel, counter (= key in `kernels`), the main path

@@ -1204,3 +1204,53 @@ def test_task_head_step_on_card_matches_cpu(cuda, kind):
     for k in cg:
         err = (gg[k] - cg[k]).norm() / cg[k].norm().clamp(min=1e-30)
         assert err <= 1e-3, (k, err.item())
+
+
+@pytest.mark.parametrize("tier", ["tp", "tp_spmd", "sampled_spmd"])
+def test_tp_and_sampled_tiers_on_card_match_cpu(cuda, tier, tmp_path):
+    """Two ranks sharing the card over gloo at (data, model) = (1, 2): one
+    f32 step of the tier on the card against the same tier on the CPU (the
+    plain versions) from the same weights and batch: the loss 1e-4
+    relative, every gradient (Adam's first moment after one step, gathered
+    back) within 1e-3 of its norm (the key bias, whose gradient is rounding
+    noise, left out); exact kernel launches per rank (attention forward and
+    backward once a layer, on each rank's two heads of four; the gather on
+    tp; the CE forward and merged backward with their row_start on tp_spmd;
+    no CE kernel on sampled_spmd, whose card and CPU runs take the same
+    negatives, and whose ranks draw one set of them when left to draw: a
+    CUDA generator's draws are not a CPU one's)."""
+    from bert4clickpath_torch.config import FeatureConfig, HeadConfig, ModelConfig
+    from bert4clickpath_torch.data.synthetic import seeded_state_dict
+    from bert4clickpath_torch.parallel import drive
+    from bert4clickpath_torch.parallel.mesh import spawn
+    from bert4clickpath_torch.parallel.spmd import padded_vocab_rows
+
+    rng = np.random.default_rng(3)
+    num_valid, b, seq = 1500, 16, 24
+    cfg = ModelConfig(features={"items": FeatureConfig(padded_vocab_rows(num_valid + 8, 2), 64)}, num_layers=2,
+                      num_heads=4, ffn_dim=128, dropout_rate=0.0, max_len=seq,
+                      head=HeadConfig("tied_softmax", output_size=num_valid, tied_bias=True))
+    sd = {k: v.numpy() for k, v in seeded_state_dict(cfg, 1).items()}
+    sd["tied_out_bias"] = rng.normal(scale=0.1, size=sd["tied_out_bias"].shape).astype(np.float32)
+    tokens = rng.integers(10, num_valid, size=(b, seq)).astype(np.int32)
+    tokens[:, -3:] = 0
+    batch = {"features": {"items": tokens}, "head_positions": rng.integers(0, seq - 3, size=(b, 4)).astype(np.int32),
+             "labels": rng.integers(0, num_valid, size=(b, 4)).astype(np.int32)}
+    job = dict(kind="tier", tier=tier, mesh=(1, 2), config=cfg.to_json(), state=sd, batches=[batch],
+               eval_batches=[], num_valid=num_valid, lr=1e-3, num_samples=64)
+    jobs = [{**job, "device": "cuda"}, {**job, "device": "cpu"}]
+    if tier == "sampled_spmd":
+        negatives = [rng.integers(0, num_valid, size=64)]
+        jobs = [{**j, "negatives": negatives} for j in jobs] + [{**job, "device": "cuda"}]
+    ranks = spawn(drive.run_jobs, 2, str(tmp_path / "store"), (jobs,))
+    per_step = {"tp": {"gather": 1, "attention": 2, "attention_bwd": 2},
+                "tp_spmd": {"attention": 2, "attention_bwd": 2, "ce_fwd": 1, "ce_bwd": 1},
+                "sampled_spmd": {"attention": 2, "attention_bwd": 2}}[tier]
+    for card, cpu, *_ in ranks:
+        assert {k: v for k, v in card["train_launches"].items() if v} == per_step
+        np.testing.assert_allclose(card["losses"], cpu["losses"], rtol=1e-4)
+        for k, want in cpu["mu"].items():
+            if not k.endswith("wk.bias"):
+                assert np.linalg.norm(card["mu"][k] - want) <= 1e-3 * np.linalg.norm(want), k
+    if tier == "sampled_spmd":
+        np.testing.assert_array_equal(ranks[0][2]["negatives"][0], ranks[1][2]["negatives"][0])

@@ -1,4 +1,5 @@
-"""Worker targets of the port's parallel tests (``tests/test_torch_parallel.py``).
+"""Worker targets of the port's parallel tests (``tests/test_torch_parallel.py``,
+``tests/test_torch_tp.py``).
 
 A spawned child imports the module that defines its target, so the targets
 live here, in a module that imports the port and never JAX. Each world runs
@@ -14,6 +15,7 @@ import torch
 from bert4clickpath_torch.config import MeshConfig
 from bert4clickpath_torch.parallel import drive
 from bert4clickpath_torch.parallel import embedding as emb
+from bert4clickpath_torch.parallel.collectives import psum_bwd, psum_fwd
 from bert4clickpath_torch.parallel.mesh import make_mesh
 
 
@@ -80,6 +82,20 @@ def _sharded_ce(job: dict) -> dict:
     }
 
 
+def _collectives(job: dict) -> dict:
+    """The f/g pair on this rank's rows of ``x`` with the output gradient
+    from ``g``, in f32 and bf16: each output and input gradient."""
+    mesh = make_mesh(MeshConfig(data=job["mesh"][0], model=job["mesh"][1]), "cpu")
+    out = {}
+    for name, fn in (("f", psum_bwd), ("g", psum_fwd)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.from_numpy(job["x"][mesh.rank]).to(dtype).requires_grad_(True)
+            y = fn(x, mesh)
+            y.backward(torch.from_numpy(job["g"][mesh.rank]).to(dtype))
+            out[f"{name} {dtype}"] = (y.detach().float().numpy(), x.grad.float().numpy(), y.dtype == dtype)
+    return {"coords": (mesh.data_index, mesh.model_index), **out}
+
+
 def run_jobs(rank: int, world: int, jobs: list) -> list:
     out = []
     for job in jobs:
@@ -88,6 +104,8 @@ def run_jobs(rank: int, world: int, jobs: list) -> list:
             out.append(_embedding_checks(job))
         elif kind == "sharded_ce":
             out.append(_sharded_ce(job))
+        elif kind == "collectives":
+            out.append(_collectives(job))
         else:
             out.append(drive.run_job(rank, world, job))  # a tier
     return out
