@@ -28,6 +28,10 @@ state_dict (``convert.state_dict_from_flax`` or an exported bundle). The
 compute dtype follows flax's ``dtype=`` convention: :class:`Dense` casts its
 input, weight and bias to it, and :class:`LayerNorm` normalizes in f32 and
 rounds once to it. Module and parameter names mirror the flax tree.
+
+``remat`` (the JAX ``Encoder.remat``, ``nn.remat(EncoderLayer)``) wraps
+each layer in ``torch.utils.checkpoint``: the layer's activations are
+recomputed in the backward instead of kept, with the same dropout masks.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from bert4clickpath_torch.ops.kernels.attention import mha
 from bert4clickpath_torch.ops.kernels.dropout import fused_dropout
@@ -155,11 +160,38 @@ class EncoderLayer(nn.Module):
         return self.ln2(x + drop(self.ffn2(F.relu(self.ffn1(x)))))
 
 
+def _remat_layer(layer: nn.Module, x: torch.Tensor, bias: torch.Tensor,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``layer(x, bias, generator)`` under ``torch.utils.checkpoint``: its
+    activations are dropped after the forward and recomputed in the
+    backward (the attention kernels' autograd Functions run again, nothing
+    of theirs is saved). The recompute draws the same dropout masks: the
+    generator is rewound to where the forward's draws began for it, then
+    put back where the step had taken it, so later draws are unchanged."""
+    if generator is None:
+        return checkpoint(layer, x, bias, None, use_reentrant=False)
+    start = generator.get_state()
+    ran = []
+
+    def run(x, bias):
+        if not ran:  # the forward
+            ran.append(True)
+            return layer(x, bias, generator)
+        now = generator.get_state()  # the recompute, inside the backward
+        generator.set_state(start)
+        try:
+            return layer(x, bias, generator)
+        finally:
+            generator.set_state(now)
+
+    return checkpoint(run, x, bias, use_reentrant=False)
+
+
 class Encoder(nn.Module):
     def __init__(
         self, num_layers: int, d_model: int, num_heads: int, ffn_dim: int,
         dropout_rate: float, dtype: torch.dtype, qkv_fused: bool = False,
-        norm_style: str = "post", dropout_impl: str = "mask", *, device,
+        norm_style: str = "post", dropout_impl: str = "mask", remat: bool = False, *, device,
     ):
         super().__init__()
         if dropout_impl not in DROPOUT_IMPLS:
@@ -167,6 +199,8 @@ class Encoder(nn.Module):
         self.num_layers = num_layers
         self.dropout_rate = dropout_rate
         self.dropout_impl = dropout_impl
+        # recompute each layer's activations in the backward (JAX: nn.remat)
+        self.remat = remat
         for i in range(num_layers):
             self.add_module(
                 f"layer_{i}",
@@ -186,7 +220,11 @@ class Encoder(nn.Module):
     ) -> torch.Tensor:
         x = apply_dropout(x, self.dropout_rate, generator, self.dropout_impl)
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, bias, generator)
+            layer = getattr(self, f"layer_{i}")
+            if self.remat and torch.is_grad_enabled():
+                x = _remat_layer(layer, x, bias, generator)
+            else:
+                x = layer(x, bias, generator)
         if self.ln_final is not None:
             x = self.ln_final(x)
         return x

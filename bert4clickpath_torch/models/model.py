@@ -21,7 +21,8 @@ x sqrt(width) before ``input_proj``, then + pos). Every method takes an
 optional ``torch.Generator``: with one, the encoder's dropout is live
 (training); without, the forward is deterministic. ``dropout_impl``
 (``"mask"``, the default, or ``"fused"``, the dropout kernel) is the JAX
-model's ``dropout_impl`` (``"xla"`` / ``"pallas"``).
+model's ``dropout_impl`` (``"xla"`` / ``"pallas"``); ``remat`` the JAX model's
+``remat`` (each encoder layer recomputed in the backward).
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ def _embedding(rows: int, dim: int, device) -> nn.Embedding:
 
 
 class ClickstreamModel(nn.Module):
-    def __init__(self, config: ModelConfig, device, dropout_impl: str = "mask"):
+    def __init__(self, config: ModelConfig, device, dropout_impl: str = "mask", remat: bool = False):
         super().__init__()
         cfg = config
         self.config = cfg
@@ -77,7 +78,7 @@ class ClickstreamModel(nn.Module):
         )
         self.encoder = Encoder(
             cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.ffn_dim,
-            cfg.dropout_rate, dtype, cfg.qkv_fused, cfg.norm_style, dropout_impl,
+            cfg.dropout_rate, dtype, cfg.qkv_fused, cfg.norm_style, dropout_impl, remat,
             device=device,
         )
         head = cfg.head

@@ -52,7 +52,11 @@ path) they take 54.4 / 56.2 ms against their plain versions' 14.0 / 14.8
 route past that cliff is ``wgmma`` (ROADMAP.md, Queue 2).
 
 ``labels_model`` is the row id of each label in the table (-1 for a padded
-row, whose one-hot never fires): ``ops/fused_ce.py`` builds it.
+row, whose one-hot never fires): ``ops/fused_ce.py`` builds it. Row ids are
+``int`` (a table of up to 2^31 rows); every product of a row by D in the
+four CE entries widens to 64 bits first, so a table of more than 2^31
+elements is addressed right (held at V = 9,000,000, D = 256 by
+``chip_smoke.py``'s large-catalog phase).
 
 ``row_start`` (every entry; default 0) is the global row id of
 ``table[0]``, as the JAX kernels' ``row_start`` operand: a table that is

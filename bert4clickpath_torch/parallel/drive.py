@@ -27,8 +27,17 @@ The job is a dict:
   ``steps_per_call``, ``dropout_impl``, ``dropout_seed`` (None: no
   dropout), ``fused`` (DP: the fused CE; DP and TP: the chunked eval);
   ``num_samples`` and ``negatives_seed`` (the sampled tier's generator) or
-  ``negatives`` (one array a step); ``probe_activations``. Adam's moments
-  are f32.
+  ``negatives`` (one array a step); ``probe_activations``; ``mu_dtype``
+  ("bfloat16": Adam's first moment in bf16; default f32);
+* ``in_place`` (spmd, sampled_spmd): the state built by
+  ``spmd.init_sharded_state`` from ``state`` (only this rank's table rows
+  reach the device) instead of cut from a full one;
+* ``resume_after`` (a sharding tier): after that many steps the state is
+  checkpointed under ``checkpoint_dir`` (``spmd.save_sharded_checkpoint``),
+  restored onto a freshly built model (``spmd.restore_sharded_state`` with
+  the tier's shard function) and the run goes on with steps built anew, as
+  a resumed run would; ``restore_apart`` names the restored tensors that
+  are not bit-equal to the saved ones (none: the route is exact).
 """
 
 from __future__ import annotations
@@ -62,47 +71,80 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _build_tier(tier: str, model, mesh, full: dict, job: dict):
-    """(state, train step, eval step, gather specs or None) of a tier."""
-    tx = make_optimizer(TrainConfig())
+_SHARD = {"spmd": spmd.shard_state, "sampled_spmd": spmd.shard_state, "tp_spmd": tp_spmd.shard_state,
+          "tp": tp.shard_tp_state}
+
+
+def _tx(job: dict):
+    return make_optimizer(TrainConfig(), mu_dtype=torch.bfloat16 if job.get("mu_dtype") == "bfloat16" else None)
+
+
+def _shard(tier: str, model, mesh, state):
+    """This rank's state of the tier from a full single-device state."""
+    if tier == "dp":
+        return spmd.replicate_state(state, mesh)
+    if tier not in _SHARD:
+        raise ValueError(f"unknown tier {tier!r}")
+    return _SHARD[tier](state, model, mesh)
+
+
+def _steps(tier: str, model, mesh, state, job: dict):
+    """(train step, eval step, gather specs or None) of a tier on a model
+    whose state is cut for it."""
+    tx = _tx(job)
     ema_decay = job.get("ema_decay", 0.0)
     spc = job.get("steps_per_call", 1)
     schedule = schedules.constant(job.get("lr", 1e-3))
     nv = job["num_valid"]
-    own = dict(model.named_parameters())
-    with torch.no_grad():
-        for k, p in own.items():
-            p.copy_(full[k])
-    # the full state: a sharding tier cuts it for this rank
-    state = TrainState.create(own, tx, ema=ema_decay > 0)
     if tier == "spmd":
-        state = spmd.shard_state(state, model, mesh)
         step = spmd.make_spmd_train_step(model, mesh, tx, schedule, nv, ema_decay=ema_decay, steps_per_call=spc)
-        return state, step, spmd.make_spmd_eval_step(model, mesh, nv), spmd.param_specs(state.params, model.config)
+        return step, spmd.make_spmd_eval_step(model, mesh, nv), spmd.param_specs(state.params, model.config)
     if tier == "tp_spmd":
-        state = tp_spmd.shard_state(state, model, mesh)
         step = tp_spmd.make_tp_spmd_train_step(model, mesh, tx, schedule, nv, ema_decay=ema_decay, steps_per_call=spc)
-        return (state, step, tp_spmd.make_tp_spmd_eval_step(model, mesh, nv),
-                tp_spmd.param_specs(state.params, model.config))
+        return step, tp_spmd.make_tp_spmd_eval_step(model, mesh, nv), tp_spmd.param_specs(state.params, model.config)
     chunked = nv if job.get("fused", True) else None
     if tier == "tp":
-        state = tp.shard_tp_state(state, model, mesh)
         step = tp.make_tp_train_step(model, tx, schedule, mesh, ema_decay=ema_decay)
-        return (state, step, tp.make_tp_eval_step(model, mesh, chunked_num_valid=chunked),
+        return (step, tp.make_tp_eval_step(model, mesh, chunked_num_valid=chunked),
                 tp.tp_param_specs(state.params, model.config))
     if tier == "sampled_spmd":
-        state = spmd.shard_state(state, model, mesh)
         step = spmd.make_sampled_spmd_train_step(
             model, mesh, tx, schedule, nv, job["num_samples"], ema_decay=ema_decay,
             negatives_from=spmd.negatives_generator(mesh.device, job.get("negatives_seed", 0)),
         )
-        return state, step, None, spmd.param_specs(state.params, model.config)
-    if tier != "dp":
-        raise ValueError(f"unknown tier {tier!r}")
-    state = spmd.replicate_state(state, mesh)
+        return step, None, spmd.param_specs(state.params, model.config)
     step = spmd.make_dp_train_step(model, mesh, tx, schedule, ema_decay=ema_decay, fused_ce_num_valid=chunked,
                                    steps_per_call=spc)
-    return state, step, spmd.make_dp_eval_step(model, mesh, chunked_num_valid=chunked), None
+    return step, spmd.make_dp_eval_step(model, mesh, chunked_num_valid=chunked), None
+
+
+def _state_tensors(state) -> dict:
+    """Every tensor and counter of a state, by name (the restore check)."""
+    out = {"step": torch.tensor(state.step), "count": torch.tensor(state.opt_state.count),
+           "lr_scale": state.lr_scale}
+    for what, d in (("params", state.params), ("mu", state.opt_state.mu), ("nu", state.opt_state.nu),
+                    ("ema", state.ema_params or {})):
+        out.update({f"{what} {k}": t for k, t in d.items()})
+    return out
+
+
+def _resume(tier: str, model, mesh, state, specs, job: dict):
+    """Checkpoint the sharded state, restore it onto a freshly built model
+    and build the tier's steps on that model: (model, state, step, eval
+    step, the names of the restored state's tensors that are not bit-equal
+    to the saved state's: none when the route is exact)."""
+    if tier not in _SHARD:
+        raise ValueError(f"resume_after: tier {tier!r} has no sharded state")
+    saved = {k: t.detach().clone() for k, t in _state_tensors(state).items()}
+    path = spmd.save_sharded_checkpoint(job["checkpoint_dir"], state, mesh, model.config, specs)
+    model = ClickstreamModel(model.config, device=mesh.device, dropout_impl=job.get("dropout_impl", "mask"))
+    state = spmd.restore_sharded_state(path, model, mesh, _tx(job), _SHARD[tier],
+                                       ema=job.get("ema_decay", 0.0) > 0)
+    restored = _state_tensors(state)
+    apart = sorted(k for k, t in saved.items() if k not in restored or not torch.equal(
+        t, restored[k].detach().to(t.device)))
+    step, evaluate, _ = _steps(tier, model, mesh, state, job)
+    return model, state, step, evaluate, apart
 
 
 def run_job(rank: int, world: int, job: dict) -> dict:
@@ -113,10 +155,23 @@ def run_job(rank: int, world: int, job: dict) -> dict:
         torch.cuda.set_device(device)
     mesh = make_mesh(MeshConfig(data=data, model=model_shards), device)
     cfg = ModelConfig.from_json(job["config"])
-    model = ClickstreamModel(cfg, device=device, dropout_impl=job.get("dropout_impl", "mask"))
-    full = {k: torch.from_numpy(np.asarray(v)) for k, v in job["state"].items()}
     tier = job["tier"]
-    state, step, evaluate, specs = _build_tier(tier, model, mesh, full, job)
+    ema = job.get("ema_decay", 0.0) > 0
+    if job.get("in_place"):
+        # the table shard built in place: no rank holds the whole table
+        if tier not in ("spmd", "sampled_spmd"):
+            raise ValueError(f"in_place: tier {tier!r} does not row-shard the table alone")
+        model, state = spmd.init_sharded_state(cfg, mesh, _tx(job), weights=job["state"],
+                                               dropout_impl=job.get("dropout_impl", "mask"), ema=ema)
+    else:
+        model = ClickstreamModel(cfg, device=device, dropout_impl=job.get("dropout_impl", "mask"))
+        own = dict(model.named_parameters())
+        with torch.no_grad():
+            for k, p in own.items():
+                p.copy_(torch.from_numpy(np.asarray(job["state"][k])))
+        # the full state: a sharding tier cuts it for this rank
+        state = _shard(tier, model, mesh, TrainState.create(own, _tx(job), ema=ema))
+    step, evaluate, specs = _steps(tier, model, mesh, state, job)
     seed = job.get("dropout_seed")
     generator = None if seed is None else spmd.tier_generator(mesh, seed)
     shard = spmd.shard_stacked_batch if job.get("steps_per_call", 1) > 1 else spmd.shard_batch
@@ -126,10 +181,13 @@ def run_job(rank: int, world: int, job: dict) -> dict:
     given = job.get("negatives")
     twin = spmd.negatives_generator(device, job.get("negatives_seed", 0)) if tier == "sampled_spmd" else None
     negatives = []
+    restore_apart = None
     _sync(device)
     _build.reset_launch_counts()
     losses, times = [], []
     for i, b in enumerate(batches):
+        if i and i == job.get("resume_after"):
+            model, state, step, evaluate, restore_apart = _resume(tier, model, mesh, state, specs, job)
         extra = ()
         if given is not None:
             extra = (torch.from_numpy(np.asarray(given[i])).to(device),)
@@ -168,6 +226,9 @@ def run_job(rank: int, world: int, job: dict) -> dict:
         "eval_launches": eval_launches,
         "step_seconds": times,
         "coords": (mesh.data_index, mesh.model_index),
+        "step": state.step,
+        "count": state.opt_state.count,
+        "restore_apart": restore_apart,
         "negatives": negatives,
         "activations": activations,
     }

@@ -126,13 +126,15 @@ def backend_for(device) -> str:
     return "nccl" if torch.device(device).type == "cuda" else "gloo"
 
 
-def initialize_distributed(device: str) -> tuple[int, int, torch.device]:
+def initialize_distributed(device: str, share_card: bool = False) -> tuple[int, int, torch.device]:
     """Start the default group from the ``torchrun`` environment (``RANK``,
     ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) on the
     device the caller names: NCCL on the card (each rank on
     ``cuda:LOCAL_RANK``; raises without one), gloo on the CPU. Outside
-    ``torchrun``, a world of one over an in-process store. Returns (rank,
-    world size, device)."""
+    ``torchrun``, a world of one over an in-process store. ``share_card``:
+    every rank on ``cuda:0`` over gloo (NCCL refuses two ranks on one card;
+    a multi-host rehearsal on one card). Returns (rank, world size,
+    device)."""
     under_torchrun = "WORLD_SIZE" in os.environ and "RANK" in os.environ
     rank = int(os.environ["RANK"]) if under_torchrun else 0
     world = int(os.environ["WORLD_SIZE"]) if under_torchrun else 1
@@ -141,13 +143,14 @@ def initialize_distributed(device: str) -> tuple[int, int, torch.device]:
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("initialize_distributed('cuda'): no CUDA card")
-        dev = torch.device("cuda", local)
+        dev = torch.device("cuda", 0 if share_card else local)
         torch.cuda.set_device(dev)
+    backend = "gloo" if share_card else backend_for(dev)
     if not dist.is_initialized():
         if under_torchrun:
-            dist.init_process_group(backend_for(dev), init_method="env://", rank=rank, world_size=world)
+            dist.init_process_group(backend, init_method="env://", rank=rank, world_size=world)
         else:
-            dist.init_process_group(backend_for(dev), store=dist.HashStore(), rank=0, world_size=1)
+            dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
     return rank, world, dev
 
 

@@ -37,25 +37,37 @@ A step is ``(state, batch, generator=None) -> (state, loss)`` with the
 single-device contract (``training/train_state.py``): ``state.params`` are
 this rank's model's parameters, updated in place; the batch is this rank's
 rows (:func:`shard_batch`); the loss is the global loss on every rank.
+
+A state is built from a full single-device state (:func:`shard_state`), or,
+where the table is too large for one, in place (:func:`init_sharded_state`:
+each rank draws its own rows and no rank ever holds the whole table). A
+sharded state is checkpointed as the JAX package does it: gathered to a
+full state on the host, saved by one rank (:func:`save_sharded_checkpoint`),
+restored into a full state on every rank and cut again by the tier's shard
+function (:func:`restore_sharded_state`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
 
+from bert4clickpath_torch.config import FeatureConfig
 from bert4clickpath_torch.constants import LABEL_PAD, NUM_RESERVED_TOKENS
-from bert4clickpath_torch.models.model import head_catalog, tied_bias_model_space
+from bert4clickpath_torch.models.model import ClickstreamModel, head_catalog, init_state_dict, tied_bias_model_space
 from bert4clickpath_torch.ops import losses as losses_lib
 from bert4clickpath_torch.ops import metrics as metrics_lib
 from bert4clickpath_torch.parallel import embedding as emb_ops
 from bert4clickpath_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh, all_gather_stacked, sum_flat
 from bert4clickpath_torch.parallel.support import validate_tier
 from bert4clickpath_torch.parallel.tp_encoder import TPEncoder
+from bert4clickpath_torch.training.checkpoint import latest_checkpoint, restore_state, save_checkpoint
 from bert4clickpath_torch.training.train_state import (
     AdamState,
     TrainState,
@@ -361,8 +373,8 @@ def gather_state(state: TrainState, mesh: Mesh, config, specs: Optional[dict] = 
     """The full single-device state from the shards (on the CPU, the same
     on every rank): each sharded parameter, its moments and its EMA
     assembled from the model group's slices along the dimension of its spec
-    (``specs``: a tier's ``param_specs``; default this tier's). For
-    comparisons; not a checkpoint format."""
+    (``specs``: a tier's ``param_specs``; default this tier's). What
+    :func:`save_sharded_checkpoint` saves, and what runs are compared on."""
     if specs is None:
         specs = param_specs(state.params, config)
 
@@ -385,6 +397,86 @@ def gather_state(state: TrainState, mesh: Mesh, config, specs: Optional[dict] = 
         lr_scale=state.lr_scale.detach().cpu().clone(),
         ema_params=whole(state.ema_params),
     )
+
+
+def save_sharded_checkpoint(directory: str, state: TrainState, mesh: Mesh, config, specs: Optional[dict] = None,
+                            keep: Optional[int] = None) -> str:
+    """Checkpoint a sharded state (every rank calls it): the full state
+    gathered to the host (:func:`gather_state` with the tier's ``specs``:
+    parameters, both Adam moments in their dtypes, Adam's count, ``step``,
+    ``lr_scale``, the EMA), written by rank 0 with
+    ``training/checkpoint.py:save_checkpoint`` while the other ranks wait on
+    a barrier. Returns the checkpoint's path on every rank."""
+    whole = gather_state(state, mesh, config, specs)
+    if mesh.rank == 0:
+        save_checkpoint(directory, whole, whole.step, keep=keep)
+    dist.barrier()
+    return latest_checkpoint(directory)
+
+
+def restore_sharded_state(path: str, model, mesh: Mesh, tx, shard_fn: Callable = None,
+                          ema: bool = False) -> TrainState:
+    """This rank's state from a checkpoint of :func:`save_sharded_checkpoint`:
+    ``restore_state`` fills a full state of the model's configuration on the
+    host (it restores in place, so into the full shapes, never a shard), and
+    the tier's shard function (``shard_fn(state, model, mesh)``, default
+    :func:`shard_state`) cuts it onto ``model``, a freshly built one. Build
+    the tier's steps on ``model`` afterwards."""
+    template = ClickstreamModel(model.config, device="cpu")
+    full = restore_state(path, TrainState.create(dict(template.named_parameters()), tx, ema=ema))
+    return (shard_fn or shard_state)(full, model, mesh)
+
+
+def init_sharded_state(config, mesh: Mesh, tx, seed: int = 0, weights: Optional[dict] = None,
+                       dropout_impl: str = "mask", ema: bool = False) -> tuple:
+    """(model, state) of this rank for the SPMD tier of a tied-softmax
+    config, built without the whole table ever existing (the counterpart of
+    ``examples/large_catalog/stress.py:111-131``, which draws the table
+    shard by shard under ``out_shardings=P("model", None)``).
+
+    The model is built on a throwaway config whose item table has one row
+    past the reserved ones, and its table parameter is then replaced by this
+    rank's rows ``[model_index * V_local, (model_index + 1) * V_local)``:
+    drawn as N(0, 0.02^2) f32 from a generator keyed by (``seed``, model
+    index) on the mesh's device, so the data ranks of one model index hold
+    the same rows. Every other parameter takes the flax-style initial
+    weights of ``models/model.py:init_state_dict`` on the throwaway config
+    (the same on every rank). Adam's moments (and the EMA) are made at the
+    shard's shape. ``weights``: a full state ({name: numpy array}, keyed
+    like ``named_parameters()``, the table padded) to start from instead;
+    only this rank's rows of its table are copied to the device."""
+    if config.head.kind != "tied_softmax":
+        raise ValueError("init_sharded_state builds the tied head's row-sharded table")
+    name = table_name(config)
+    fc = config.features[config.item_feature]
+    if fc.vocab_rows % mesh.model_size:
+        raise ValueError(f"{fc.vocab_rows} table rows do not divide over {mesh.model_size} model ranks "
+                         "(padded_vocab_rows)")
+    v_local = fc.vocab_rows // mesh.model_size
+    lo = mesh.model_index * v_local
+    # the throwaway config keeps the head's label count (tied_out_bias)
+    small = dataclasses.replace(
+        config,
+        features={**config.features, config.item_feature: FeatureConfig(NUM_RESERVED_TOKENS + 1, fc.embedding_dim)},
+        head=dataclasses.replace(config.head,
+                                 output_size=config.head.output_size or fc.vocab_rows - NUM_RESERVED_TOKENS - 1),
+    )
+    model = ClickstreamModel(small, device=mesh.device, dropout_impl=dropout_impl)
+    if weights is None:
+        init = init_state_dict(small, seed)
+        generator = torch.Generator(mesh.device).manual_seed(int(seed) * 1_000_003 + mesh.model_index)
+        shard = torch.randn((v_local, fc.embedding_dim), generator=generator, device=mesh.device).mul_(0.02)
+    else:
+        init = {k: torch.from_numpy(np.asarray(v)) for k, v in weights.items() if k != name}
+        shard = torch.from_numpy(np.ascontiguousarray(weights[name][lo : lo + v_local])).to(mesh.device)
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            if k != name:
+                p.copy_(init[k])
+    owner, _, leaf = name.rpartition(".")
+    setattr(model.get_submodule(owner), leaf, nn.Parameter(shard))
+    model.config = config
+    return model, TrainState.create(dict(model.named_parameters()), tx, ema=ema)
 
 
 def sharded_item_lookup(model, mesh: Mesh, compute_dtype=None) -> Callable:

@@ -132,7 +132,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    table gathered back), one eval batch each against the one-process eval, eight
    bf16 steps each over two batches cycled with falling losses, two bf16
    steps of the SPMD tier on
-   the wide model (the CE pair), exact launches per rank and step.
+   the wide model (the CE pair), exact launches per rank and step; and the
+   sharded checkpoint: the f32 vocab-sharded tier run RESUME_STEPS steps at
+   once and again with a checkpoint after half of them
+   (``spmd.save_sharded_checkpoint``: gathered, saved by rank 0), restored
+   onto a fresh model and re-sharded (``spmd.restore_sharded_state``):
+   the restored state bit-equal to the saved one; the later steps' losses
+   and parameters held as a tier is held against one process (the merged
+   CE backward's dx atomics make two runs of one step differ in the last
+   bits).
 12. tp-tiers — the tensor-parallel tier, the composed tensor-parallel and
    vocab-sharded tier and sampled softmax over the row-sharded table, two
    ranks sharing the card over gloo at (data, model) = (1, 2), global
@@ -150,6 +158,23 @@ Phases, in order; any failure raises and the script exits non-zero:
 14. sampled — sampled softmax with 1,024 negatives: one flagship step at
    B=32 card vs CPU with the same negatives (f32), then one step at B=256
    on the card (launches: gather and attention only).
+15. large-catalog — ``examples/large_catalog/stress_torch.py`` (BASELINE
+   configs[4]) on one rank: its ``main`` at the defaults (10M items, a
+   10,000,384 x 128 f32 table built in place, B=256, bf16, dropout 0.1),
+   STRESS_STEPS steps with exact launches per step (CE forward 1, merged
+   CE backward 1, whole-row attention 2 + 2, no gather), finite losses, the
+   first within 0.5 of ln(10^7), peak memory printed; ``--sampled 8192``
+   (no CE launch); the CE forward and merged backward at the stress shape
+   (N=2,560; f32 x, as the step gives it, and bf16 x) against the plain
+   version over 32 row windows (the sharded-ce phase's tolerances; its
+   (N, V) logits would be 102 GB at once), timed beside it with their
+   bounds, the merged backward's dx atomics timed against a copy built
+   without them; the same checks at V=9,000,000, D=256 (V x D > 2^31);
+   the whole-row attention at the stress model's (256, 53, 128), H=4
+   (dh = 32) against plain and SDPA.
+16. multihost — ``examples/multihost/demo_torch.py --procs 2``: 2 hosts of
+   4 ranks sharing the card over gloo, every rank started with torchrun's
+   environment; all ranks' losses agree and fall.
 
 The line before the last is the card's name and power limit; the line
 before that is the kernels' JSON summary; the last line is the device JSON.
@@ -161,6 +186,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -286,6 +312,7 @@ SHARDS = 4
 # seeded weights the loss sits near log(54,542) for the first steps, and a
 # few distinct batches do not move it)
 TIER_STEPS, TIER_BF16_STEPS, TIER_LR = 3, 8, 1e-3
+RESUME_STEPS = 4  # the sharded-checkpoint run: checkpointed after half of them
 # Adam's first steps are lr * sign(g): a gradient of rounding size (a ReLU
 # unit barely active) steps a whole lr either way, so after three steps a
 # tier's parameter may sit past 1e-3 of its norm from the one-process run's
@@ -299,9 +326,16 @@ TIER_STEPS, TIER_BF16_STEPS, TIER_LR = 3, 8, 1e-3
 TIER_FLIP_SHARE = 1e-2
 TIER_MU_REL = 2e-2
 SAMPLED = 1024  # sampled softmax: negatives a step
-# published peaks of one H100 SXM (dense): device memory bytes/s, bf16 tensor
-# FLOP/s, f32 FLOP/s outside the tensor cores (also used for integer work)
-PEAK = {"bytes": 3.35e12, "bf16": 989e12, "tf32": 495e12, "f32": 67e12}
+# the large-catalog phase: examples/large_catalog/stress_torch.py at its
+# defaults (10M items, D = 128, B = 256), its sampled variant, and the CE
+# kernels at the stress shape held against the plain version taken over row
+# windows of the table (its (N, V) logits would be 102 GB at once)
+STRESS_STEPS, STRESS_SAMPLED, STRESS_SAMPLED_STEPS = 20, 8192, 5
+STRESS_WINDOWS = 32  # 312,512 rows a window: 3.2 GB of f32 logits
+# the V x D > 2^31 case: 9.2 GB of table, every row id x D past int32 beyond
+# row 8,388,608
+BIG_V, BIG_D, BIG_WINDOWS = 9_000_000, 256, 64
+MULTIHOST_PROCS = 2  # examples/multihost/demo_torch.py: hosts of 4 ranks each
 # the numerics of the CE kernels' f32 products (csrc/fused_ce_mma.cuh
 # kDxNumerics, tf32 x3): the operand type their products run at and how many
 # products each product of the function takes
@@ -323,9 +357,14 @@ def card_line() -> str:
 def bound(n_bytes: float, ops: dict) -> dict:
     """The least time the card could take: the larger of the bytes the
     function must move (each input read once, each output written once) over
-    the memory rate, and its operations (by operand type) over their peak."""
-    by_bytes = n_bytes / PEAK["bytes"] * 1e3
-    by_ops = sum(n / PEAK[kind] for kind, n in ops.items()) * 1e3
+    the memory rate, and its operations (by operand type) over their peak:
+    the published peaks of one H100 SXM (dense), ``utils/profiling.py``'s
+    H100_PEAKS (device memory bytes/s; bf16 and TF32 tensor FLOP/s; f32
+    FLOP/s outside the tensor cores, also used for integer work)."""
+    from bert4clickpath_torch.utils.profiling import H100_PEAKS as peak
+
+    by_bytes = n_bytes / peak["bytes"] * 1e3
+    by_ops = sum(n / peak[kind] for kind, n in ops.items()) * 1e3
     return dict(bound_ms=max(by_bytes, by_ops), bound_by="bytes" if by_bytes >= by_ops else "operations")
 
 
@@ -427,11 +466,11 @@ def sdpa_times(q, k, v, bias, do, h, reps: int = 20) -> tuple[float, float]:
     return fwd, bwd
 
 
-def device_time_ms(fn, reps: int = 50) -> float:
-    """Median device time of one call, CUDA events around it. A short GPU
-    sleep before each call keeps the device busy while the host enqueues,
-    so the events bracket device work, not launch gaps."""
-    for _ in range(5):
+def device_time_ms(fn, reps: int = 50, warm: int = 5) -> float:
+    """Median device time of one call, CUDA events around it, after ``warm``
+    calls. A short GPU sleep before each call keeps the device busy while
+    the host enqueues, so the events bracket device work, not launch gaps."""
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     pairs = []
@@ -1417,18 +1456,20 @@ def profile_requests(served, rng, b: int) -> dict:
 def _served_as_on_cpu(served, cpu, requests, tag: str) -> float:
     """Each request's top-K answers from the card against the same bundle
     served on the CPU (the plain path): log-probs within SERVE_TOL, and the
-    same items wherever the CPU's scores are further apart than that.
+    same items wherever the CPU's scores are further apart than that. The
+    CPU answers K+1 items, so that the K-th item counts as separated only
+    when it is also that far above the first item outside the top K.
     Returns the largest log-prob difference."""
     worst = 0.0
     for sessions in requests:
-        got, want = served.recommend(sessions, k=K), cpu.recommend(sessions, k=K)
-        for g, w in zip(got, want):
+        got, want = served.recommend(sessions, k=K), cpu.recommend(sessions, k=K + 1)
+        for g, w_next in zip(got, want):
+            w = w_next[:K]
             gs, ws = np.array([s for _, s in g]), np.array([s for _, s in w])
             worst = max(worst, float(np.abs(gs - ws).max()))
-            gaps = np.diff(ws) < -SERVE_TOL
-            sep = np.ones(K, bool)
-            sep[:-1] &= gaps
-            sep[1:] &= gaps
+            gaps = np.diff([s for _, s in w_next]) < -SERVE_TOL  # K gaps: the last one to the (K+1)-th item
+            sep = gaps.copy()
+            sep[1:] &= gaps[:-1]
             if [n for (n, _), s in zip(g, sep) if s] != [n for (n, _), s in zip(w, sep) if s]:
                 raise AssertionError(f"GPU and CPU rankings differ: {g} vs {w}")
     log(f"{tag}: GPU vs CPU plain path, max |top-{K} log-prob diff| {worst:.3e} (tol {SERVE_TOL})")
@@ -2764,15 +2805,23 @@ def phase_tiers(card: str) -> dict:
         # one step: Adam's first moment is then (1 - b1) x the summed gradient
         "dp f32 step 1": dict(tier="dp", mesh=(2, 1), config=f32.to_json(), state=sd, eval_batches=[]),
         "spmd f32 step 1": dict(tier="spmd", mesh=(1, 2), config=f32_bias.to_json(), state=sd_bias, eval_batches=[]),
+        # the sharded checkpoint: RESUME_STEPS steps at once, and the same
+        # steps checkpointed, restored and re-sharded halfway
+        "spmd f32 uninterrupted": dict(tier="spmd", mesh=(1, 2), config=f32_bias.to_json(), state=sd_bias,
+                                       eval_batches=[]),
+        "spmd f32 resumed": dict(tier="spmd", mesh=(1, 2), config=f32_bias.to_json(), state=sd_bias, eval_batches=[],
+                                 resume_after=RESUME_STEPS // 2),
     }
     for name, job in jobs.items():
-        batches = (host[:1] if "step 1" in name else host if "f32" in name else host[:2] if "wide" in name
-                   else [host[i % 2] for i in range(TIER_BF16_STEPS)])
+        batches = (host[:1] if "step 1" in name else [host[i % len(host)] for i in range(RESUME_STEPS)]
+                   if "uninterrupted" in name or "resumed" in name else host if "f32" in name
+                   else host[:2] if "wide" in name else [host[i % 2] for i in range(TIER_BF16_STEPS)])
         job.update(common, batches=[_as_np(b) for b in batches])
     log(f"[tiers] flagship f32/bf16 on two ranks sharing the card over gloo, global B={B_TRAIN}; "
         f"set-up {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
+        jobs["spmd f32 resumed"]["checkpoint_dir"] = os.path.join(tmp, "ckpts")
         ranks = spawn(drive.run_jobs, 2, os.path.join(tmp, "store"), (list(jobs.values()),), timeout_s=600)
     log(f"[tiers] the two ranks ran {len(jobs)} jobs in {time.perf_counter() - t0:.2f} s")
     results = {name: [r[i] for r in ranks] for i, name in enumerate(jobs)}
@@ -2788,6 +2837,29 @@ def phase_tiers(card: str) -> dict:
                      kind_of=lambda name: "spmd wide" if "wide" in name else name.split()[0],
                      falls=lambda name: "bf16" in name and "wide" not in name)
     _hold_against_one_process("tiers", results, refs)
+    # the resumed run: the restored, re-sharded state bit-equal to the
+    # saved one on every rank (exact); the steps after it held against the
+    # uninterrupted run as a tier against one process (losses 1e-4, the
+    # parameters after the last step within 1e-3 of their norm or
+    # TIER_FLIP_SHARE): the merged CE backward sums dx with atomic adds, so
+    # two runs of the same steps differ in their last bits (CE_DX_REPEAT)
+    # and Adam's first steps turn that into lr-sized steps of noise-sized
+    # gradients; the CPU test holds the same route bit-equal
+    for whole, resumed in zip(results["spmd f32 uninterrupted"], results["spmd f32 resumed"]):
+        errs = _rel_errs(resumed["params"], whole["params"], 2 * TIER_LR * RESUME_STEPS)
+        shares = _apart_shares(resumed["params"], whole["params"], TIER_LR / 10)
+        past = {k: e for k, e in errs.items() if e > 1e-3}
+        loss_err = float(np.max(np.abs(resumed["losses"] - whole["losses"]) / np.abs(whole["losses"])))
+        log(f"[tiers] sharded checkpoint, rank {whole['coords']}: {RESUME_STEPS} steps with a checkpoint, restore "
+            f"and re-shard after {RESUME_STEPS // 2}: restored state apart from the saved one in "
+            f"{resumed['restore_apart']} (want none); losses {resumed['losses'].tolist()} against "
+            f"{whole['losses'].tolist()} uninterrupted, worst rel err {loss_err:.2e} (tol 1e-4; bit-equal: "
+            f"{np.array_equal(whole['losses'], resumed['losses'])}); parameters after the last step: worst rel err "
+            f"{max(errs.values()):.2e}, {len(past)} past 1e-3 of their norm, largest share of elements apart by "
+            f"more than lr/10 {max(shares.values()):.3e} (tol {TIER_FLIP_SHARE:.0e})")
+        if (resumed["restore_apart"] != [] or loss_err > 1e-4
+                or any(shares[k] > TIER_FLIP_SHARE for k in past)):
+            raise AssertionError("[tiers] the resumed run differs from the uninterrupted one")
     return {"spmd": results["spmd f32"][0]["train_launches"],
             "spmd wide": results["spmd wide bf16"][0]["train_launches"]}
 
@@ -3000,6 +3072,243 @@ def phase_sampled(card: str) -> None:
         raise AssertionError(f"sampled softmax step: launches {counts} (want {want}), loss {loss}")
 
 
+def _windowed_plain(x, table, lab, logz, dnll, off: int, nv: int, windows: int):
+    """The plain CE version over row windows of ``table``, each with its
+    row_start, combined as the vocab-sharded tier combines shards. Without
+    ``logz``: the logz of the forward (the windows' (m, l) by the max and
+    the rescaled sum). With it: (dx, dW) of the merged backward, each
+    window's A rounded to x's dtype as the plain version rounds it, dx
+    summed over the windows in f32 and rounded once to x's dtype (as the
+    unwindowed plain version's one f32 product), dW the windows' rows."""
+    from bert4clickpath_torch.ops.kernels import fused_ce as k
+
+    v, d = table.shape
+    per = -(-v // windows)
+    if logz is None:
+        parts = [k.ce_stats_reference(x, table[lo : lo + per], None, off, nv, lo) for lo in range(0, v, per)]
+        m = torch.stack([p[0] for p in parts])
+        gmax = m.max(dim=0).values
+        return gmax + torch.log((torch.stack([p[1] for p in parts]) * torch.exp(m - gmax)).sum(dim=0))
+    dx = torch.zeros((x.shape[0], d), dtype=torch.float32, device=x.device)
+    dw = torch.empty((v, d), dtype=torch.float32, device=x.device)
+    for lo in range(0, v, per):
+        tw = table[lo : lo + per]
+        a = k._adjoint(x, tw, None, lab, logz, dnll, off, nv, lo).to(x.dtype).float()
+        dx += a @ tw.to(x.dtype).float()
+        dw[lo : lo + per] = a.T @ x.float()
+        del a
+    return dx.to(x.dtype), dw
+
+
+def large_ce_at(v_rows: int, d: int, labels_np, windows: int, card: str, dtype, timed: bool) -> dict:
+    """The CE forward and the merged backward at N = labels_np.size rows of
+    x in ``dtype`` over a (v_rows, d) f32 table of N(0, 0.02^2) drawn on the
+    card, the labels those of the stress batch: logz, dx and dW held against
+    the plain version over ``windows`` row windows (logz within 1e-5 of the
+    largest |logz|, dx and dW within CE_GRAD_REL of their largest value:
+    the sharded-ce phase's tolerances; a bf16 dx adds the one bf16 ulp of
+    the value between its neighbours, where the two f32 sums straddle a
+    rounding boundary), the forward run twice bit-equal; with ``timed``,
+    the kernels' and the windowed plain version's times and the bounds (a
+    product rated at the numerics of the kernel that runs it: f32 x three
+    tf32 products, bf16 x one bf16 product), and for f32 x the merged
+    backward's dx atomics measured against a copy of its source built
+    without them (``kMrgDxReduce = false``)."""
+    from bert4clickpath_torch.constants import LABEL_PAD, NUM_RESERVED_TOKENS
+    from bert4clickpath_torch.ops.fused_ce import _labels_model
+    from bert4clickpath_torch.ops.kernels import fused_ce as k
+
+    n, off = labels_np.size, NUM_RESERVED_TOKENS
+    nv = v_rows - off - 1
+    generator = torch.Generator("cuda").manual_seed(SEED + 7)
+    x = torch.randn((n, d), generator=generator, device="cuda").to(dtype)
+    table = torch.randn((v_rows, d), generator=generator, device="cuda").mul_(0.02)
+    labels = torch.from_numpy(np.ascontiguousarray(labels_np.reshape(-1))).cuda()
+    lab = _labels_model(labels, off)
+    mask = (labels != LABEL_PAD).float()
+    dnll = mask / mask.sum()
+    short = "bf16" if dtype == torch.bfloat16 else "f32"
+    tag = (f"N={n} V={v_rows:,} D={d} {short} x (V x D = {v_rows * d:,}"
+           f"{' > 2^31' if v_rows * d >= 2**31 else ''})")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want_logz = _windowed_plain(x, table, None, None, None, off, nv, windows)
+    m, l = k.ce_stats(x, table, None, off, nv)
+    m2, l2 = k.ce_stats(x, table, None, off, nv)
+    logz = m + torch.log(l)
+    scale = want_logz.abs().max().item()
+    e_fwd = (logz - want_logz).abs().max().item()
+    log(f"[large-catalog] CE forward {tag}: grid {k.ce_splits(n, v_rows)} (vocab splits, tiles a split); logz "
+        f"max_abs_err {e_fwd:.3e} against the plain version over {windows} windows (tol {1e-5 * scale:.3e}: 1e-5 "
+        f"of |logz|); two runs bit-equal")
+    if not torch.isfinite(logz).all() or e_fwd > 1e-5 * scale or not (torch.equal(m, m2) and torch.equal(l, l2)):
+        raise AssertionError(f"CE forward {tag}: error {e_fwd}, or two runs differ")
+    del m2, l2
+    want_dx, want_dw = _windowed_plain(x, table, lab, want_logz, dnll, off, nv, windows)
+    got_dx, got_dw, _ = k.ce_backward(x, table, None, lab, want_logz, dnll, off, nv)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, g, w in (("dx", got_dx, want_dx), ("dW", got_dw, want_dw)):
+        diff, w = (g.float() - w.float()).abs(), w.float()
+        e, top = diff.max().item(), w.abs().max().item()
+        tol = CE_GRAD_REL * top
+        if g.dtype == torch.bfloat16:  # one bf16 ulp of the value, as gather_kernel_at computes it
+            tol = tol + torch.ldexp(torch.ones_like(w), torch.frexp(w)[1] - 8)
+        used = (diff / tol).max().item()
+        log(f"[large-catalog] CE backward ({k.ce_backward_route(d)}) {tag} {name}: max_abs_err {e:.3e}, largest "
+            f"|value| {top:.3e}; {used:.3f} of the tolerance ({CE_GRAD_REL:.0e} of the largest"
+            f"{' + one bf16 ulp of the value' if g.dtype == torch.bfloat16 else ''})")
+        if not torch.isfinite(g).all() or used > 1.0:
+            raise AssertionError(f"CE backward {tag} {name}: error {e}, {used} of the tolerance")
+        errs[name] = e
+    blinded = torch.ones(v_rows, dtype=torch.bool, device="cuda")
+    blinded[off : off + nv] = False
+    if not bool((got_dw[blinded] == 0).all()):
+        raise AssertionError(f"CE backward {tag}: a blinded table row got a gradient")
+    del want_dx, want_dw, got_dx, got_dw, diff, tol
+    log(f"[large-catalog] {tag}: checks took {time.perf_counter() - t0:.2f} s")
+    if not timed:
+        return {}
+    bwd = lambda: k.ce_backward(x, table, None, lab, want_logz, dnll, off, nv)  # noqa: E731
+    ms_fwd = device_time_ms(lambda: k.ce_stats(x, table, None, off, nv), 5, warm=1)
+    ms_bwd = device_time_ms(bwd, 5, warm=1)
+    plain_fwd = device_time_ms(lambda: _windowed_plain(x, table, None, None, None, off, nv, windows), 2, warm=1)
+    plain_bwd = device_time_ms(lambda: _windowed_plain(x, table, lab, want_logz, dnll, off, nv, windows), 2,
+                               warm=1)
+    live = int(mask.sum().item())
+    itemsize = x.element_size()
+    kind, terms = ("bf16", 1) if dtype == torch.bfloat16 else DX_RATING
+    fwd = dict(max_abs_err=e_fwd, ms=ms_fwd, plain_ms=plain_fwd, library_ms=None,
+               **log_ce_fwd(tag, n, nv, d, dtype, ms_fwd, plain_fwd, card))
+    # merged backward: x, the window's rows, labels, logz and dnll in; dx
+    # and dW out; three products over the labelled rows (scores, dx, dW)
+    bwd_row = dict(max_abs_err=max(errs.values()), ms=ms_bwd, plain_ms=plain_bwd, library_ms=None,
+                   **bound(2 * n * d * itemsize + 2 * nv * d * 4 + 3 * n * 4, {kind: terms * 6.0 * live * nv * d}))
+    log(f"[large-catalog] CE merged backward {tag}: {ms_bwd:.3f} ms; bound {bwd_row['bound_ms']:.3f} ms "
+        f"({bwd_row['bound_by']}, {terms} {kind} product(s) for each; share {bwd_row['bound_ms'] / ms_bwd:.3f}); plain "
+        f"over {windows} windows {plain_bwd:.3f} ms ({plain_bwd / ms_bwd:.2f}x the kernel); {live} labelled rows "
+        f"[{card}]")
+    if dtype == torch.float32:
+        ce_atomics_share(bwd, ms_bwd, tag, card)
+    return {"ce_fwd_large": fwd, "ce_bwd_large": bwd_row}
+
+
+def ce_atomics_share(bwd, ms_bwd: float, tag: str, card: str) -> None:
+    """The merged backward's dx atomics: the kernel timed in turns with a
+    copy of its source built without them (``kMrgDxReduce = false``: the
+    dx product kept, its atomic adds dropped; a tune variant, whose dx is
+    not the sum), through ``examples/long_context/tune_blockwise_bwd.py``'s
+    ``build_variants``."""
+    from bert4clickpath_torch.ops.kernels import _build
+
+    tune = _tune_module()
+    entry = ["b4cp_ce_bwd"]
+    real = _build.library()
+    variant = tune._Swapped(real, tune.build_variants({"no_dx_atomics": {"kMrgDxReduce": "false"}}, ["fused_ce.cu"],
+                                                      entry)["no_dx_atomics"], entry)
+    times = {"shipped": [ms_bwd], "no_dx_atomics": []}
+    try:
+        for name in ("no_dx_atomics", "no_dx_atomics", "shipped"):
+            _build._lib = variant if name == "no_dx_atomics" else real
+            times[name].append(device_time_ms(bwd, 3, warm=1))
+    finally:
+        _build._lib = real
+    shipped, without = min(times["shipped"]), min(times["no_dx_atomics"])
+    log(f"[large-catalog] CE merged backward {tag}: {shipped:.3f} ms shipped, {without:.3f} ms without the dx "
+        f"atomics (in turns, best of each): the atomics {shipped - without:.3f} ms, {(shipped - without) / shipped:.1%} "
+        f"of the kernel [{card}]")
+
+
+def phase_large_catalog(card: str) -> tuple[dict, dict]:
+    """``examples/large_catalog/stress_torch.py`` (BASELINE configs[4]) on
+    one rank: its ``main`` at the defaults (10M items: 10,000,384 table rows
+    of 128, B = 256, bf16, dropout 0.1), STRESS_STEPS timed steps with exact
+    launches per step (CE forward 1, merged CE backward 1, whole-row
+    attention 2 + 2, no gather: the tier's lookup is the sharded plain one),
+    every loss finite and the first within 0.5 of ln(10^7); then
+    ``--sampled`` (no CE launch). Then the CE kernels at the stress shape
+    against the plain version over row windows, the V x D > 2^31 case, and
+    the whole-row attention at the stress model's head width, dh = 32.
+    Returns (kernel rows, launches per stress step)."""
+    import math
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "large_catalog"))
+    import stress_torch
+
+    from bert4clickpath_torch.data.synthetic import synthetic_batch
+
+    t0 = time.perf_counter()
+    run = stress_torch.main(["--steps", str(STRESS_STEPS)],
+                            profile=lambda steps, fn: _device_profile(fn, steps, "large-catalog", card))
+    want = {"ce_fwd": 1, "ce_bwd": 1, "attention": 2, "attention_bwd": 2}
+    log(f"[large-catalog] stress {run['rows']:,} rows: first loss {run['first_loss']:.4f} (ln 10^7 = "
+        f"{math.log(1e7):.4f}), last {run['loss']:.4f}; {run['ms_per_step']:.1f} ms/step, "
+        f"{run['examples_per_s']:.1f} examples/s (host clock); launches per step {run['launches']}; peak "
+        f"{run['peak_bytes'] / 2**30:.2f} GiB; {time.perf_counter() - t0:.2f} s [{card}]")
+    if (run["launches"] != want or not all(math.isfinite(v) for v in run["losses"])
+            or abs(run["first_loss"] - math.log(1e7)) > 0.5 or run["shard_rows"] != run["rows"]):
+        raise AssertionError(f"stress: launches {run['launches']} (want {want}), losses {run['losses']}")
+    per_step = run["launches"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sampled = stress_torch.main(["--sampled", str(STRESS_SAMPLED), "--steps", str(STRESS_SAMPLED_STEPS)])
+    want = {"attention": 2, "attention_bwd": 2}
+    log(f"[large-catalog] stress --sampled {STRESS_SAMPLED}: first loss {sampled['first_loss']:.4f}, last "
+        f"{sampled['loss']:.4f}; {sampled['ms_per_step']:.1f} ms/step (host clock); launches per step "
+        f"{sampled['launches']}; peak {sampled['peak_bytes'] / 2**30:.2f} GiB; {time.perf_counter() - t0:.2f} s "
+        f"[{card}]")
+    if sampled["launches"] != want or not all(math.isfinite(v) for v in sampled["losses"]):
+        raise AssertionError(f"stress --sampled: launches {sampled['launches']} (want {want})")
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # the CE kernels at the stress shape, on the stress batch's labels: f32
+    # x, as the SPMD step gives them (gather_head_inputs returns f32), for
+    # the summary; bf16 x logged beside
+    host = synthetic_batch(np.random.default_rng(0), 256, 50, 10, 10_000_000)
+    out = large_ce_at(run["rows"], 128, host["labels"], STRESS_WINDOWS, card, torch.float32, timed=True)
+    torch.cuda.empty_cache()
+    large_ce_at(run["rows"], 128, host["labels"], STRESS_WINDOWS, card, torch.bfloat16, timed=True)
+    torch.cuda.empty_cache()
+    for dtype in (torch.float32, torch.bfloat16):
+        large_ce_at(BIG_V, BIG_D, host["labels"], BIG_WINDOWS, card, dtype, timed=False)
+        torch.cuda.empty_cache()
+
+    # whole-row attention at the stress model's shape: (256, 53, 128), H = 4
+    rng = np.random.default_rng(SEED + 8)
+    b, seq, d, h = 256, 53, 128, 4
+    fwd_err, fwd_times = attention_forward_at(rng, b, seq, d, h)
+    bwd_err, bwd_times, (q, k, v, bias, do) = attention_backward_at(rng, b, seq, d, h, card)
+    lib_fwd, lib_bwd = sdpa_times(*(t.to(torch.bfloat16) for t in (q, k, v)), bias, do.to(torch.bfloat16), h)
+    bounds = attention_bounds(b, seq, d, h, 2)
+    out["attention_dh32"] = dict(max_abs_err=fwd_err, ms=fwd_times[0], plain_ms=fwd_times[1], library_ms=lib_fwd,
+                                 **bounds["fwd"])
+    out["attention_bwd_dh32"] = dict(max_abs_err=bwd_err, ms=bwd_times[0], plain_ms=bwd_times[1],
+                                     library_ms=lib_bwd, **bounds["bwd"])
+    for name, row in out.items():
+        log(f"[large-catalog] {name}: kernel {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+            f"(share {row['bound_ms'] / row['ms']:.3f}), plain {row['plain_ms']:.4f} ms, library "
+            f"{row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 4)} ms [{card}]")
+    return out, per_step
+
+
+def phase_multihost(card: str) -> None:
+    """``examples/multihost/demo_torch.py --procs MULTIHOST_PROCS`` on the
+    card: hosts of 4 ranks each, every rank started as torchrun starts it,
+    all sharing the one card over gloo; it asserts that every rank reports
+    the same falling losses and prints ``multihost demo OK``."""
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "multihost", "demo_torch.py")
+    out = subprocess.run([sys.executable, script, "--procs", str(MULTIHOST_PROCS)], capture_output=True, text=True,
+                         timeout=600)
+    for line in out.stdout.splitlines():
+        log(f"[multihost] {line}")
+    if out.returncode != 0 or "multihost demo OK" not in out.stdout:
+        raise AssertionError(f"multihost demo failed ({out.returncode}): {out.stderr[-3000:]}")
+
+
 def main() -> None:
     walls = {}
 
@@ -3026,6 +3335,9 @@ def main() -> None:
     log("[tp-tiers] launches per rank in the f32 runs: " + json.dumps(tp_tiers))
     timed("cli-dp", phase_cli_dp, card)
     timed("sampled", phase_sampled, card)
+    large, stress_counts = timed("large-catalog", phase_large_catalog, card)
+    kernels.update(large)
+    timed("multihost", phase_multihost, card)
     # name, source, TPU kernel, counter (= key in `kernels`), the main path
     # whose launches are reported: the flagship train step's timed window,
     # the long-session train step's, or one step of the wide training run
@@ -3051,6 +3363,12 @@ def main() -> None:
          {"counts": tiers["spmd wide"]}),
         ("fused_ce_bwd_dw_sharded", "fused_ce_mma.cuh", "fused_ce.py:321", "ce_bwd_dw_sharded",
          {"counts": tiers["spmd wide"]}),
+        # the large-catalog path (stress_torch.py, 10,000,384 rows, D = 128,
+        # bf16 x): its timed steps' launches per step
+        ("fused_ce_fwd_large", "fused_ce.cu", "fused_ce.py:134", "ce_fwd_large", {"counts": stress_counts}),
+        ("fused_ce_bwd_large", "fused_ce_mma.cuh", "fused_ce.py:761", "ce_bwd_large", {"counts": stress_counts}),
+        ("fused_mha_fwd_dh32", "attention.cu", "attention.py:54", "attention_dh32", {"counts": stress_counts}),
+        ("fused_mha_bwd_dh32", "attention.cu", "attention.py:76", "attention_bwd_dh32", {"counts": stress_counts}),
     ]
     summary = {"kernels": [
         {
@@ -3058,7 +3376,7 @@ def main() -> None:
             "route": "cuda",
             "source": f"bert4clickpath_torch/csrc/{src}",
             "replaces": pallas + tpu,
-            "launches": path["counts"][counter.replace("_sharded", "")],
+            "launches": path["counts"][re.sub(r"_(sharded|large|dh32)$", "", counter)],
             **{k: kernels[counter][k] for k in
                ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         }

@@ -116,6 +116,7 @@ MHA_FWD_SHAPES = [
     (64, 53, 256, 4),
     (256, 53, 256, 4),  # the flagship's training shape
     (256, 53, 384, 6),  # the wide model's
+    (256, 53, 128, 4),  # the large-catalog stress model's: Dh = 32
     # the edges of the 16-row warps, the query-row blocks and the 64-key passes
     (3, 1, 256, 4),
     (3, 17, 256, 4),
@@ -434,6 +435,7 @@ MHA_BWD_SHAPES = [
     (2, 16, 100, 4),  # Dh = 25 in the 32-wide instance: plain-load fill
     (2, 17, 256, 4),
     (256, 53, 384, 6),  # the wide model's training shape
+    (256, 53, 128, 4),  # the large-catalog stress model's: Dh = 32
     (2, 64, 128, 2),
     (2, 65, 256, 4),  # two passes over the keys: the scores are recomputed
     (2, 116, 256, 4),  # the longest row the dispatch sends here at Dh = 64
@@ -1254,3 +1256,51 @@ def test_tp_and_sampled_tiers_on_card_match_cpu(cuda, tier, tmp_path):
                 assert np.linalg.norm(card["mu"][k] - want) <= 1e-3 * np.linalg.norm(want), k
     if tier == "sampled_spmd":
         np.testing.assert_array_equal(ranks[0][2]["negatives"][0], ranks[1][2]["negatives"][0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v_rows", [1_000_448, 1_000_003])
+def test_ce_kernels_against_plain_over_row_windows(cuda, v_rows, dtype):
+    """The CE forward and the merged backward at a catalog of a million
+    rows (the large-catalog path's shape cut in V: N = 2,560 rows of x (f32,
+    as the SPMD step gives it, and bf16),
+    D = 128, an f32 table of N(0, 0.02^2), a fifth of the labels padding;
+    one V a multiple of the 64-row tile, one not), against the plain version
+    taken over 8 row windows, each with its row_start, combined as the
+    vocab-sharded tier combines shards (logz by log-sum-exp, dx summed in
+    f32 and rounded once, dW the windows' rows). The tolerances of
+    chip_smoke.py's sharded-ce phase: logz within 1e-5 of the largest
+    |logz|, dx and dW within 1e-4 of their largest value; a bf16 dx adds
+    one bf16 ulp of the value (where the two f32 sums straddle a rounding
+    boundary, either neighbour is right)."""
+    n, d, off, windows = 2560, 128, 11, 8
+    nv = v_rows - off - 1
+    g = torch.Generator(cuda).manual_seed(0)
+    x = torch.randn((n, d), generator=g, device=cuda).to(dtype)
+    table = torch.randn((v_rows, d), generator=g, device=cuda).mul_(0.02)
+    labels = torch.randint(0, nv, (n,), generator=g, device=cuda)
+    labels[torch.rand(n, generator=g, device=cuda) < 0.2] = LABEL_PAD
+    lab = torch.where(labels == LABEL_PAD, -1, labels + off).to(torch.int32)
+    mask = (labels != LABEL_PAD).float()
+    dnll = mask / mask.sum()
+    per = -(-v_rows // windows)
+    parts = [ce_stats_reference(x, table[lo : lo + per], None, off, nv, lo) for lo in range(0, v_rows, per)]
+    m = torch.stack([p[0] for p in parts])
+    gmax = m.max(dim=0).values
+    want_logz = gmax + torch.log((torch.stack([p[1] for p in parts]) * torch.exp(m - gmax)).sum(dim=0))
+    got_m, got_l = ce_stats(x, table, None, off, nv)
+    scale = want_logz.abs().max().item()
+    torch.testing.assert_close(got_m + torch.log(got_l), want_logz, atol=1e-5 * scale, rtol=0)
+    want_dx = torch.zeros((n, d), dtype=torch.float32, device=cuda)
+    want_dw = torch.empty((v_rows, d), dtype=torch.float32, device=cuda)
+    for lo in range(0, v_rows, per):
+        tw = table[lo : lo + per]
+        a = ce_kernels._adjoint(x, tw, None, lab, want_logz, dnll, off, nv, lo).to(x.dtype).float()
+        want_dx += a @ tw.to(x.dtype).float()
+        want_dw[lo : lo + per] = a.T @ x.float()
+    dx, dw, db = ce_backward(x, table, None, lab, want_logz, dnll, off, nv)
+    assert db is None and dx.dtype == dtype
+    want_dx = want_dx.to(x.dtype).float()
+    ulp = torch.ldexp(torch.ones_like(want_dx), torch.frexp(want_dx)[1] - 8) if dtype == torch.bfloat16 else 0.0
+    assert bool(((dx.float() - want_dx).abs() <= 1e-4 * want_dx.abs().max() + ulp).all())
+    torch.testing.assert_close(dw, want_dw, atol=1e-4 * want_dw.abs().max().item(), rtol=0)

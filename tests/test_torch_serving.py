@@ -217,8 +217,10 @@ def test_artifacts_load_in_both_packages(tied, tmp_path):
 def test_port_never_imports_jax():
     """Importing the serving and training paths, the trainer, the training
     CLI, the task drivers, the sampled-softmax path, every module of the
-    parallel tiers (and the tests' worker module) and chip_smoke pulls in
-    no jax, flax, optax, orbax or JAX-package module."""
+    parallel tiers (and the tests' worker module), the large-catalog
+    stress, the multi-host demo, the data-prep script, the utility modules
+    and chip_smoke pulls in no jax, flax, optax, orbax or JAX-package
+    module."""
     code = (
         "import sys, bert4clickpath_torch.training.serving, bert4clickpath_torch.convert, chip_smoke\n"
         "import bert4clickpath_torch.training.train_state, bert4clickpath_torch.ops.fused_ce\n"
@@ -238,6 +240,10 @@ def test_port_never_imports_jax():
         "import bert4clickpath_torch.parallel.drive, tests.torch_parallel_workers\n"
         "from bert4clickpath_torch.ops.losses import sampled_softmax_ce, sample_negatives\n"
         "from bert4clickpath_torch.training.train_state import sampled_head_ce_sums\n"
+        "import bert4clickpath_torch.parallel.tp, bert4clickpath_torch.parallel.tp_spmd\n"
+        "import bert4clickpath_torch.utils.profiling, bert4clickpath_torch.utils.debug\n"
+        "import bert4clickpath_torch.utils.cli, examples.large_catalog.stress_torch\n"
+        "import examples.multihost.demo_torch, examples.bert4rec.prepare_data_torch\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'bert4clickpath_tpu'))\n"
         "assert not bad, bad\n"
