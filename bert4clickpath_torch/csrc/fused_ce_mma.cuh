@@ -1,5 +1,6 @@
-// Tensor-core building blocks of the fused-CE kernels (the forward of
-// fused_ce.cu, the dx pass of fused_ce_two_pass.cu and the kernel below),
+// Tensor-core building blocks of the fused-CE backward kernels (the dx
+// pass of fused_ce_two_pass.cu and the kernel below; the forward of
+// fused_ce.cu runs on hopper.cuh and shares only a few definitions here),
 // and the kernel that owns table rows: the dW pass of fused_ce_two_pass.cu
 // and the merged backward of fused_ce.cu are one template
 // (ce_bwd_dw_mma_kernel, the merged backward with DX = true).
@@ -185,27 +186,6 @@ __device__ __forceinline__ void load_rows(unsigned char* planes, int row, int pl
     const bool ok = row0 + r < rows && c0 + c < d;
     const float val = ok ? to_f(src[static_cast<long long>(row0 + r) * d + c0 + c]) : 0.f;
     put_one<MODE>(planes + r * row, plane, c, val);
-  }
-}
-
-// all of D (zero-padded to dpad columns) of rows row0 .. row0 + 64 of x
-// into a resident operand's plane (rows `row` bytes apart) by 16-byte
-// cp.async copies, the caller committing and waiting: for planes that hold
-// x's elements as they are (raw f32, or bf16 x in a bf16 plane), d a
-// multiple of a copy's elements and x 16-byte aligned; zero past n and d
-template <int MODE>
-__device__ __forceinline__ void copy_rows(unsigned char* plane, int row, const typename DxMode<MODE>::X* __restrict__ x,
-                                          int row0, int n, int d, int dpad) {
-  using X = typename DxMode<MODE>::X;
-  static_assert(DxMode<MODE>::kXPlanes == 1 && sizeof(X) == DxMode<MODE>::kElem, "the plane holds x as it is");
-  constexpr int kVec = 16 / static_cast<int>(sizeof(X));
-  const int per_row = dpad / kVec;
-  for (int idx = threadIdx.x; idx < kDxRows * per_row; idx += kDxThreads) {
-    const int r = idx / per_row;
-    const int c = (idx - r * per_row) * kVec;
-    const bool ok = row0 + r < n && c < d;
-    const X* src = ok ? x + static_cast<long long>(row0 + r) * d + c : x;
-    tc::cp_async_16(plane + r * row + c * static_cast<int>(sizeof(X)), src, ok);
   }
 }
 

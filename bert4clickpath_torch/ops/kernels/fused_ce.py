@@ -29,8 +29,10 @@ plain version); for bf16 x exact bf16 products with f32 sums. dx sums in
 f32 over the whole vocabulary and rounds to x's dtype once; the JAX dx
 kernel rounds its bf16 output once per vocab tile, so bf16 dx agrees with it
 to a few bf16 ulps (f32 is unaffected). The CUDA kernels are
-``bert4clickpath_torch/csrc/fused_ce.cu`` (the forward and the merged
-backward's entry), ``fused_ce_two_pass.cu`` and ``fused_ce_mma.cuh``; the
+``bert4clickpath_torch/csrc/fused_ce.cu`` (the forward, on Hopper's TMA
+loads and ``wgmma`` products through ``hopper.cuh``, and the merged
+backward's entry), ``fused_ce_two_pass.cu`` and ``fused_ce_mma.cuh`` (the
+backward kernels, on ``mma.sync``); the
 ``*_reference`` functions are their plain PyTorch versions (dense (N, V)
 f32 logits). CPU tensors take the plain versions, CUDA tensors launch the
 kernels.
@@ -40,16 +42,19 @@ Which backward runs is a function of the shape alone, like
 (64, D) dW tile in registers, so it takes D <= ``MAX_D`` (256); wider rows
 take the two-pass pair, whose blocks own 384 output columns at a time and
 stream the other operand through shared memory. No kernel refuses a row
-width: where a block's own operand (x's rows, or the table's) does not fit
-its shared memory whole, the kernels stream it in chunks too, a route each
-C entry takes by D alone. No flag or environment variable changes a route,
-and a launch that fails raises.
+width: where a backward block's own operand (x's rows, or the table's) does
+not fit its shared memory whole, the kernels stream it in chunks too, a
+route each C entry takes by D alone; the forward loads x's chunk beside the
+table's at every D (one route), after padding D to a multiple of 16 bytes
+where it is not one (:func:`_tma_operands`). No flag or environment
+variable changes a route, and a launch that fails raises.
 
 Where the streamed routes fall off: above D = 384 the dx pass streams x's
 chunks and the dW pass its table rows (f32 x), and at D = 1,024 (no main
 path) they take 54.4 / 56.2 ms against their plain versions' 14.0 / 14.8
 (N = 2,560, V = 55,296, f32, NVIDIA H100 80GB HBM3 at 700 W; PERF.md). The
-route past that cliff is ``wgmma`` (ROADMAP.md, Queue 2).
+route past that cliff is the forward's TMA + ``wgmma`` mainloop (ROADMAP.md,
+Queue 2).
 
 ``labels_model`` is the row id of each label in the table (-1 for a padded
 row, whose one-hot never fires): ``ops/fused_ce.py`` builds it. Row ids are
@@ -84,16 +89,20 @@ import torch
 from bert4clickpath_torch.ops.kernels import _build
 
 NEG_BIG = -1e30
-TILE = 64  # csrc/fused_ce_mma.cuh kTile: rows of x and of the table per tile
-# forward grid: the vocabulary is split until row tiles x vocab splits
-# reaches FWD_TARGET_BLOCKS blocks (one resident per SM: ~15 waves of 132,
-# whose last, partly empty wave costs little), each split walking at least
-# FWD_MIN_TILES vocab tiles (a block's x copy and pipeline fill cost about
-# as much as a tile, which a short N would otherwise pay once a tile). Timed
-# at N=2,560, V=55,296 and at N=160, V=20,480 on an H100 (700 W) by
-# chip_smoke.py's sweeps of both (PERF.md)
-FWD_TARGET_BLOCKS = 2112
-FWD_MIN_TILES = 4
+TILE = 64  # csrc/fused_ce_mma.cuh kTile: rows of x and of the table per backward tile
+# the forward's tiles (csrc/fused_ce.cu kCeFwdRows, kCeFwdVocab): 128 rows of
+# x a block (two wgmma warpgroups of 64), 128 table rows a vocab tile
+FWD_ROWS = 128
+FWD_VOCAB = 128
+# forward schedule: units of (row tile, vocab split), the vocabulary split
+# until row tiles x splits reaches FWD_TARGET_UNITS units, each split
+# walking at least FWD_MIN_TILES vocab tiles; one persistent block an SM
+# walks every gridDim-th unit (row tiles fastest), so the card idles at
+# most one unit a block at the end, and a split's (m, l) partial costs the
+# combine 8 bytes a row. Timed at N=2,560, V=55,296 and at N=160, V=20,480
+# on an H100 by chip_smoke.py's sweeps of both (PERF.md)
+FWD_TARGET_UNITS = 16896
+FWD_MIN_TILES = 1
 MAX_D = 256  # the merged backward holds a (64, D) dW tile in registers
 TWO_PASS_OUT_COLS = 384  # kOutCols: output columns one two-pass block owns
 # dx grid: one block is resident per SM (its shared memory), so the grid runs
@@ -212,21 +221,40 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _vocab_splits(base: int, v: int, target: int, min_tiles: int = 1) -> tuple[int, int]:
-    """(splits, vocab tiles per split): the vocabulary split until ``base``
-    blocks x splits reaches ``target``, with at least ``min_tiles`` tiles
-    a split, then evened out; every vocab tile in exactly one split."""
-    n_vtiles = max(1, -(-v // TILE))
+def _vocab_splits(base: int, v: int, target: int, min_tiles: int = 1, tile: int = TILE) -> tuple[int, int]:
+    """(splits, vocab tiles per split): the vocabulary, in tiles of ``tile``
+    rows, split until ``base`` blocks x splits reaches ``target``, with at
+    least ``min_tiles`` tiles a split, then evened out; every vocab tile in
+    exactly one split."""
+    n_vtiles = max(1, -(-v // tile))
     splits = min(n_vtiles, max(1, -(-target // base)))
     per_split = max(min_tiles, -(-n_vtiles // splits))
     return -(-n_vtiles // per_split), per_split
 
 
 def ce_splits(n: int, v: int) -> tuple[int, int]:
-    """(splits, vocab tiles per split) of the forward grid: row tiles x
-    vocab splits aimed at ``FWD_TARGET_BLOCKS``, a split at least
-    ``FWD_MIN_TILES`` tiles."""
-    return _vocab_splits(max(1, -(-n // TILE)), v, FWD_TARGET_BLOCKS, FWD_MIN_TILES)
+    """(splits, vocab tiles per split) of the forward's units: ``FWD_ROWS``-row
+    tiles of x x vocab splits of ``FWD_VOCAB``-row tiles, aimed at
+    ``FWD_TARGET_UNITS`` units, a split at least ``FWD_MIN_TILES`` tiles."""
+    return _vocab_splits(max(1, -(-n // FWD_ROWS)), v, FWD_TARGET_UNITS, FWD_MIN_TILES, FWD_VOCAB)
+
+
+def _tma_operands(x: torch.Tensor, table: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x and the table as the forward's TMA loads take them: 16-byte
+    aligned, rows a multiple of 16 bytes. Other widths are padded with zero
+    columns (which add nothing to the products) through a copy of both; a
+    misaligned view is copied."""
+    d = x.shape[1]
+    unit = 16 // x.element_size()  # 4 f32 or 8 bf16 columns; the f32 table needs 4
+    width = max(unit, -(-d // unit) * unit)
+    if width != d:
+        pad = (0, width - d)
+        return torch.nn.functional.pad(x, pad), torch.nn.functional.pad(table, pad)
+    if x.data_ptr() % 16:
+        x = x.clone()
+    if table.data_ptr() % 16:
+        table = table.clone()
+    return x, table
 
 
 def ce_stats(
@@ -241,9 +269,10 @@ def ce_stats(
     _check(x, table, bias)
     if x.device.type == "cpu":
         return ce_stats_reference(x, table, bias, row_offset, num_valid, row_start)
-    n, d = x.shape
+    n = x.shape[0]
     v = table.shape[0]
-    x, table = x.contiguous(), table.contiguous()
+    x, table = _tma_operands(x.contiguous(), table.contiguous())
+    d = x.shape[1]
     bias = None if bias is None else bias.contiguous()
     splits, per_split = ce_splits(n, v)
     part = torch.empty((2, splits, n), dtype=torch.float32, device=x.device)

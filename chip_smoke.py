@@ -14,7 +14,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    products with f32 sums).
 2. build   — builds the port's CUDA kernels from ``bert4clickpath_torch/csrc``
    with nvcc for sm_90a (one compile per source, in parallel) and prints the
-   build time and ptxas' report.
+   build time and ptxas' report, and the counts of warpgroup products
+   (HGMMA) and TMA loads (UTMALDG) in ``cuobjdump -sass`` of the CE
+   forward's two instances (f32 and bf16 x; raises unless each has both).
 3. kernels — holds each of the eleven kernels against its plain PyTorch version
    on the card at the shapes its main path gives it, with the tolerance
    stated, and times both (CUDA events; median device time of warm calls):
@@ -23,8 +25,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    bit-equal; the bf16 backward on the tensor cores, two runs bit-equal, its dv from p kept as
    two bf16 terms measured against p rounded once and against a dense f64
    dv; the f32 backward the scalar kernel), the fused CE
-   at its training shape (the forward on the tensor cores, f32 and bf16 x,
-   two runs bit-equal, its grid's two constants swept; the
+   at its training shape (the forward on TMA loads and wgmma products, f32
+   and bf16 x, two runs bit-equal, its schedule's two constants swept; the
    merged backward on the tensor cores, run twice: dW and db bit-equal, dx
    within the tolerance each time and the two within 1e-5 of the largest
    |dx| of each other; both rated at tf32 x3 with the f32 rating beside;
@@ -264,9 +266,10 @@ WIDE_D, WIDE_HEADS, WIDE_LAYERS = 384, 6, 4
 WIDE_STEPS, WIDE_EPOCHS, WIDE_EVAL_BATCHES, WIDE_SESSIONS = 40, 2, 8, 20_000
 WIDE_TIMED = 20  # train steps in the timed window after the run
 DX_TARGETS = (132, 264, 528, 1056, 2112)  # dx grid sizes timed at the wide shapes (1 to 16 waves of blocks)
-# the CE forward's grid, timed at the flagship's and long-session shapes:
-# the blocks it aims at, and the fewest vocab tiles a split walks
-FWD_GRID_SWEEPS = {"FWD_TARGET_BLOCKS": (528, 1056, 2112, 4224, 8448), "FWD_MIN_TILES": (1, 2, 4, 8, 16)}
+# the CE forward's schedule, timed at the flagship's and long-session shapes:
+# the units (row tile, vocab split) it aims at, and the fewest vocab tiles a
+# split walks
+FWD_GRID_SWEEPS = {"FWD_TARGET_UNITS": (2112, 4224, 8448, 16896, 33792), "FWD_MIN_TILES": (1, 2, 4, 8, 16)}
 # heads phase: the task heads and their example scripts (examples/chained/train_torch.py,
 # examples/tasks/multilabel_torch.py, examples/bert4rec/transfer_torch.py and
 # multivariable_torch.py) at the flagship's width and depth, B=256, max_len 53
@@ -510,6 +513,29 @@ def phase_build() -> None:
     for line in _build.build_log.splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             log(f"[build] {line.strip()}")
+    forward_sass(_build)
+
+
+def forward_sass(_build) -> None:
+    """Counts, in ``cuobjdump -sass`` of the built library, of the CE
+    forward's warpgroup products (HGMMA) and TMA loads (UTMALDG) per
+    instance of ``ce_fwd_wgmma_kernel``; raises unless each has both."""
+    tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", _build.library()._name], capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            if "ce_fwd_wgmma_kernel" in fn:
+                counts[fn] = {"HGMMA": 0, "UTMALDG": 0}
+        elif fn in counts:
+            for op in counts[fn]:
+                counts[fn][op] += op in line
+    log("[build] CE forward SASS (cuobjdump -sass): " + "; ".join(
+        f"{'bf16' if 'ILi3E' in fn else 'f32'} x ({fn[-50:]}): HGMMA {c['HGMMA']}, UTMALDG {c['UTMALDG']}"
+        for fn, c in counts.items()))
+    if len(counts) != 2 or any(min(c.values()) == 0 for c in counts.values()):
+        raise AssertionError(f"the CE forward is not built on wgmma and TMA: {counts}")
 
 
 def _qkv_bias(b, seq, d, rng, full_pad_row: bool, tokens=None):
@@ -995,15 +1021,15 @@ def ce_kernels_at(rng, n: int, v_rows: int, nv: int, d: int, off: int = 10, card
 
 
 def ce_fwd_grid(x, table, want_logz, off: int, nv: int, card: str) -> None:
-    """The CE forward with each of its grid's constants (FWD_GRID_SWEEPS:
-    the blocks the vocab split aims at, the fewest tiles a split walks) set
+    """The CE forward with each of its schedule's constants (FWD_GRID_SWEEPS:
+    the units the vocab split aims at, the fewest tiles a split walks) set
     to each value in turn, the other shipped (the wrapper's constant set for
     the call and put back), logz held to CE_LOGZ_TOL at each, timed in
     turns: best of two windows of median device time per value."""
     from bert4clickpath_torch.ops.kernels import fused_ce as k
 
     n, v_rows = x.shape[0], table.shape[0]
-    row_tiles = -(-n // k.TILE)
+    row_tiles = -(-n // k.FWD_ROWS)
     for name, values in FWD_GRID_SWEEPS.items():
         shipped, sweep = getattr(k, name), {}
         for _ in range(2):  # in turns
@@ -1019,7 +1045,7 @@ def ce_fwd_grid(x, table, want_logz, off: int, nv: int, card: str) -> None:
                 finally:
                     setattr(k, name, shipped)
                 sweep[value] = (splits, min(ms, sweep.get(value, (0, ms))[1]))
-        log(f"[kernels] CE forward N={n} V={v_rows} D={x.shape[1]} f32, grid by {name} (splits, blocks, ms): "
+        log(f"[kernels] CE forward N={n} V={v_rows} D={x.shape[1]} f32, schedule by {name} (splits, units, ms): "
             + ", ".join(f"{value}: ({s}, {row_tiles * s}, {ms:.4f})" for value, (s, ms) in sweep.items())
             + f"; shipped {shipped} (best of two windows of median device time) [{card}]")
 
@@ -3138,7 +3164,7 @@ def large_ce_at(v_rows: int, d: int, labels_np, windows: int, card: str, dtype, 
     logz = m + torch.log(l)
     scale = want_logz.abs().max().item()
     e_fwd = (logz - want_logz).abs().max().item()
-    log(f"[large-catalog] CE forward {tag}: grid {k.ce_splits(n, v_rows)} (vocab splits, tiles a split); logz "
+    log(f"[large-catalog] CE forward {tag}: schedule {k.ce_splits(n, v_rows)} (vocab splits, tiles a split); logz "
         f"max_abs_err {e_fwd:.3e} against the plain version over {windows} windows (tol {1e-5 * scale:.3e}: 1e-5 "
         f"of |logz|); two runs bit-equal")
     if not torch.isfinite(logz).all() or e_fwd > 1e-5 * scale or not (torch.equal(m, m2) and torch.equal(l, l2)):

@@ -10,7 +10,7 @@ other tile constants than the ones ``csrc/attention_blockwise.cu``,
     python3 examples/long_context/tune_blockwise_bwd.py --kernel mha_fwd \\
         --shape 1,53,256,4 --shape 256,53,256,4 --variant shipped: --variant one:kMhaFwdWarps=1
     python3 examples/long_context/tune_blockwise_bwd.py --kernel ce_fwd \\
-        --shape 2560,55296,384 --variant shipped: --variant flush4:kCeFwdFlush=4
+        --shape 2560,55296,384 --variant shipped: --variant stages3:kCeFwdStages=3
     python3 examples/long_context/tune_blockwise_bwd.py --kernel ce_dw \\
         --variant shipped: --variant flush4:kDwFlush=4 --variant stream:kDwResident=false
     python3 examples/long_context/tune_blockwise_bwd.py --kernel ce_bwd \\
@@ -28,9 +28,10 @@ given expressions:
 ``kFwdWarps``, ``kFwdPass``, ``kFwdStages``, ``kFwdMinBlocks``;
 ``kMhaWarps``, ``kMhaPassQ``, ``kMhaPassK``, ``kMhaMinBlocks``,
 ``kMhaFragmentsResident``, ``kMhaDvSplit``; ``kMhaFwdWarps``,
-``kMhaFwdPass``; ``kCeFwdStages``, ``kCeFwdFlush``, ``kCeFwdMinBlocks``,
-``kCeFwdResident`` (false: x streamed beside the table at every D, whose
-smaller shared memory lets two blocks share an SM); ``kDxNumerics`` (``kDxTf32``,
+``kMhaFwdPass``; ``kCeFwdStages`` (the TMA ring of the CE forward: four
+48 KB stages for f32 x), ``kCeFwdProducerRegs`` and ``kCeFwdConsumerRegs``
+(its setmaxnreg split, 128 x producer + 256 x consumer <= 65,536);
+``kDxNumerics`` (``kDxTf32``,
 ``kDxTf32x3``, ``kDxBf16x3``), ``kDxStages``, ``kDxFlush``, ``kDxColWarps``;
 ``kDwStages``, ``kDwFlush``, ``kDwResident``, ``kMrgDxReduce`` (false: the
 merged backward's dx product kept but its atomic adds dropped, which prices
@@ -114,9 +115,9 @@ def build_variants(variants: dict[str, dict[str, str]], sources: list[str], entr
         for line in log.splitlines():
             if "Compiling entry" in line:
                 entry = re.search(r"mha_\w+?_kernelILi\d+E|mha_\w+?_kernelI\w+?Li\d+E"
-                                  r"|(?:d[xw]|fwd)_mma_kernelILi\dE(?:Lb\dE)+", line)
+                                  r"|(?:d[xw]|fwd)_mma_kernelILi\dE(?:Lb\dE)+|fwd_wgmma_kernelILi\dE", line)
                 entry = entry.group(0) if entry else ""
-            elif ("_mma_kernelILi64E" in entry or entry.startswith("fwd_mma_kernel") or "dx_mma_kernel" in entry
+            elif ("_mma_kernelILi64E" in entry or entry.startswith("fwd_") or "dx_mma_kernel" in entry
                   or "dw_mma_kernel" in entry) and ("registers" in line or "spill" in line):
                 print(f"[{name}] {entry}: {line.strip()}", flush=True)
         lib = ctypes.CDLL(os.path.join(out_dir, name, "lib.so"))

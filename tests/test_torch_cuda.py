@@ -649,17 +649,17 @@ def _check_fwd(x, table, bias, off, nv):
     [
         (2560, 55_296, 256),  # the flagship's CE shape
         (2560, 55_296, 384),  # the wide model's
-        (160, 20_480, 256),  # the long-session path's: 3 row tiles, the grid split by V
-        (130, 1000, 6),  # N off the 64-row tile, ragged V, D not a multiple of 4: element-wise copies
-        (77, 700, 512),  # the widest x that stays resident in f32
-        (77, 700, 513),  # one column past it: x streamed in f32, resident in bf16
-        (64, 300, 1344),  # past bf16's widest resident x (1,280): streamed in both
+        (160, 20_480, 256),  # the long-session path's: 2 row tiles, the units split by V
+        (130, 1000, 6),  # N off the 128-row tile, ragged V, D not a multiple of 4: padded through a copy
+        (77, 700, 512),  # D a whole number of 32-column stages
+        (77, 700, 513),  # one column past it: the last stage zero-filled but one column
+        (64, 300, 1344),  # a wide row: 42 stages a vocab tile
     ],
 )
 def test_ce_forward_tensor_cores(cuda, n, v, d, dtype, with_bias):
-    """The tensor-core forward at the three main paths' CE shapes and
-    around its tile and resident-width edges, f32 and bf16 x, with and
-    without a bias: see _check_fwd."""
+    """The TMA + wgmma forward at the three main paths' CE shapes and
+    around its tile and stage edges, f32 and bf16 x, with and without a
+    bias: see _check_fwd."""
     x, table, bias, _, _, off, nv = _ce_case(n, v, d, dtype, with_bias, seed=d + n)
     _check_fwd(x, table, bias, off, nv)
 
@@ -667,8 +667,7 @@ def test_ce_forward_tensor_cores(cuda, n, v, d, dtype, with_bias):
 @pytest.mark.parametrize("with_bias", [False, True])
 def test_ce_forward_at_wide_logits(cuda, with_bias):
     """f32 x at D = 1,024 over a table of N(0, 0.5^2): logits of ~16 (the
-    spread at which three bf16 products missed 1e-4, PERF.md), x streamed
-    chunk by chunk: see _check_fwd (the f64 oracle; the plain version's own
+    spread at which three bf16 products missed 1e-4, PERF.md): see _check_fwd (the f64 oracle; the plain version's own
     f32 sums move logz by ~1e-4 here)."""
     x, table, bias, _, _, off, nv = _ce_case(130, 700, 1024, torch.float32, with_bias, seed=41)
     _check_fwd(x, table, bias, off, nv)
@@ -683,7 +682,7 @@ def test_ce_forward_split_all_blinded(cuda, dtype):
     n, v, off = 130, 2560, 10
     splits, per = ce_kernels.ce_splits(n, v)
     assert splits > 1
-    nv = (splits - 1) * per * ce_kernels.TILE - off - 10
+    nv = (splits - 1) * per * ce_kernels.FWD_VOCAB - off - 10
     x, table, bias, _, _, _, _ = _ce_case(n, v, 64, dtype, True, seed=17)
     _check_fwd(x, table, bias, off, nv)
 

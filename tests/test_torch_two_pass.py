@@ -188,24 +188,25 @@ def test_forward_stats_match_jax_fwd_stats(n, v, dtype, with_bias):
 
 
 def test_forward_split_rule_covers_every_tile_once():
-    """The forward's grid: its vocabulary splits cover every 64-row vocab
-    tile exactly once (each split non-empty) at a spread of (N, V), aim at
-    ``FWD_TARGET_BLOCKS`` blocks with at least ``FWD_MIN_TILES`` tiles a
-    split (short of the vocabulary's end), and the long-session shape (N =
-    160, V = 20,480: 3 row tiles) fills at least one wave of the H100's 132
-    SMs."""
+    """The forward's schedule: its vocabulary splits cover every
+    ``FWD_VOCAB``-row vocab tile exactly once (each split non-empty) at a
+    spread of (N, V), aim at ``FWD_TARGET_UNITS`` units of (row tile,
+    split) with at least ``FWD_MIN_TILES`` tiles a split (short of the
+    vocabulary's end), and the long-session shape (N = 160, V = 20,480: 2
+    row tiles of ``FWD_ROWS``) has units for at least one wave of the
+    H100's 132 SMs."""
     for n, v in ((2560, 55296), (160, 20480), (1, 1), (1, 64), (70000, 64), (5, 100000), (130, 700), (64, 65)):
         splits, per = k.ce_splits(n, v)
-        tiles = -(-v // k.TILE)
+        tiles = -(-v // k.FWD_VOCAB)
         covered = [j for s in range(splits) for j in range(s * per, min((s + 1) * per, tiles))]
         assert covered == list(range(tiles)), (n, v)
         assert all(s * per < tiles for s in range(splits)), (n, v)  # no empty split
         assert per >= min(k.FWD_MIN_TILES, tiles), (n, v)
-        row_tiles = -(-n // k.TILE)
-        most = row_tiles * -(-tiles // min(k.FWD_MIN_TILES, tiles))  # blocks at the fewest tiles a split
-        assert row_tiles * splits >= min(k.FWD_TARGET_BLOCKS, most) // 2, (n, v)
+        row_tiles = -(-n // k.FWD_ROWS)
+        most = row_tiles * -(-tiles // min(k.FWD_MIN_TILES, tiles))  # units at the fewest tiles a split
+        assert row_tiles * splits >= min(k.FWD_TARGET_UNITS, most) // 2, (n, v)
     splits, _ = k.ce_splits(160, 20480)
-    assert 3 * splits >= 132
+    assert -(-160 // k.FWD_ROWS) * splits >= 132
 
 
 def test_backward_route_is_a_function_of_d_alone():
