@@ -34,10 +34,13 @@
 //
 // What bounds all three on the H100: operations. At the long-session shape
 // (B=16, L=1024, D=256, H=4) one product over all heads is 2 B L^2 D = 8.6
-// GFLOP over ~34 MB of q/k/v/out: the forward is two products, dq three and
-// dk/dv four, 60 GFLOP per layer in the backward.
+// GFLOP over ~34 MB of q/k/v/out: the forward is two products (17.2 GFLOP,
+// 0.0174 ms at the bf16 peak), dq three and dk/dv four, 60 GFLOP per layer
+// in the backward. In the forward the exponentials come close behind: one
+// per score, 16 a cycle an SM, take about as long as the two products at
+// Dh = 64.
 //
-// Two designs live here, chosen by the input type alone: f32 inputs take
+// Three designs live here, chosen by the input type alone: f32 inputs take
 // (1), bf16 inputs (2) and (3).
 //
 // (1) The f32 kernels: scalar f32 FMA out of
@@ -88,34 +91,58 @@
 // each chain, 128-byte-swizzled B tiles behind descriptors) is what a later
 // version would add for the last factor towards the tensor cores' peak.
 //
-// (3) The bf16 forward (bmha_fwd_mma_kernel), on the same building blocks. A
-// warp owns 16 query rows of one (b, h) (8 warps, 128 rows a block: 512
-// blocks at the long-session shape); its q fragments are loaded once and, for
-// Dh' <= 64, stay in registers. K and V tiles of 64 keys come with their bias
-// through two stages of cp.async copies, tile j + 1 in flight while tile j
-// multiplies, one barrier per tile; a warp takes a tile through the online
-// softmax 32 keys at a time. s = q k^T lands in the accumulator
-// layout; the row maximum and the rescale factor alpha = exp(m_prev - m_new)
-// are taken over the four lanes that share a row by shuffles, alpha rescales
-// the 16 x Dh' f32 output accumulators of both rows a lane holds (g and
-// g + 8, each with its own m), and the un-normalised p = exp(s - m_new) is
-// summed unrounded into l and rounded to bf16 straight into the A fragments
-// of p . v (V read down its rows with ldmatrix.trans): p never touches
-// shared memory. l is kept as each lane's share and summed over the four
-// lanes once, at the end; out is divided by l and rounded once; lse = m +
-// log l. Keys past L carry a bias of -inf, so p is exactly 0 there; query
-// rows past L are computed on zeros and never stored; the finite -1e9
-// padding bias keeps its meaning (a first tile that is all padding is
-// rescaled away by alpha = 0). exp is the fast one (ex2.approx): p moves by
-// ~1e-6 relative, which the tolerance of lse (1e-5 relative) holds. Where
-// the head width, a stride or a base address does not allow 16-byte copies,
-// plain loads fill the same tiles. At Dh = 64 (ptxas, sm_90a): 128
-// registers, no spill, 55 KB of shared memory, two blocks (16 warps) per SM.
+// (3) The bf16 forward (bmha_fwd_wgmma_kernel) on Hopper's own tools
+// (hopper.cuh): TMA loads into a ring of mbarrier-guarded stages and
+// warpgroup wgmma products for both S = Q K^T and O += P V. A block of two
+// consumer warpgroups (64 query rows each) and one producer warpgroup is
+// persistent, one an SM, and walks units of (128-row query tile, head,
+// batch row); one producer thread keeps the loads in flight:
+// the unit's Q tile (two Q buffers, so that the next unit's Q lands while
+// this one runs) and, through kFwdStages stages, 128-key K and V tiles with
+// their bias, the ring running on across units. q, k and v are read through
+// rank-4 tensor maps over (head column, head, row, batch) with their own
+// strides, so columns past dh and rows past seq_len arrive as zeros: no tile
+// reads the next head's columns or the next batch row's rows. A box is at
+// most 64 columns (one row of the 128-byte swizzle; 64- and 32-byte at
+// Dh' = 32, 16), so a head of 128 comes as two boxes. The bias comes as a
+// box of a rank-1 map over its B L values, from the 16-byte boundary at or
+// below the stage's first key (a box start must lie on one).
+//
+// A consumer warpgroup takes a stage: S = Q K^T on wgmma m64n128k16 with
+// both operands K-major in shared memory, the stage's bias read from its
+// box while that product runs. The online softmax runs on S in registers,
+// one step of 128 keys, in log2 units (scale and bias carry log2 e, so each
+// p is one ex2): row maxima over the four lanes of a row (quad_max), alpha =
+// 2^(m_prev - m_new) rescales the O accumulators (a warp none of whose
+// rows' maxima moved skips that: alpha = 1), the un-normalised
+// p = 2^(s - m_new) is summed unrounded into the lane's share of l and
+// rounded to bf16 in place into the A fragments of O += P V (wgmma
+// m64n{Dh'}k16, A from registers): S's accumulator layout is the A layout
+// of the next product, two n8 blocks a k-step, so p never touches shared
+// memory. B of that product is the V tile as it lies, [key][head column]:
+// MN-major, read through the transposed-B descriptor (make_desc_mn), so no
+// transposed copy of V is made. Each consumer arrives on the stage's
+// "empty" barrier once its P V product has completed, and on the Q
+// buffer's once its last Q K^T has. At the end of a unit l is summed over
+// the quad, out = O / l is rounded once and stored from registers row by
+// row (rows past seq_len are not stored), lse = m ln 2 + log l. The finite
+// -1e9 padding bias keeps its meaning (a fully padded row: uniform p; a
+// first tile that is all padding is rescaled away by alpha = 0 once a real
+// key arrives). ex2 is the fast one (ex2.approx): p moves by ~1e-6
+// relative, which lse's tolerance (1e-5 relative) holds. The products are
+// not what bounds it: with both removed it still takes 0.96 of its time at
+// the long-session shape, which the softmax's instruction stream sets
+// (PERF.md).
+// The wrapper hands over a contiguous copy of an input whose base or
+// strides a tensor map cannot describe (ops/kernels/attention.py,
+// _tma_operands); the main paths make none.
 
+#include <climits>
 #include <type_traits>
 
 #include "attention_mma.cuh"
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -801,184 +828,339 @@ __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
   tc::store_acc<DHP>(dk + base, acc_k, k0 + warp * 16, seq_len, d, dh, lane, vec);
 }
 
-// The bf16 forward on the tensor cores (design (3) of the header).
+// The bf16 forward on Hopper's TMA and wgmma (design (3) of the header).
 
-constexpr int kFwdWalk = 64;  // keys of a walked tile: one barrier and one stage each
+constexpr int kFwdRows = 128;  // query rows of a unit: two consumer warpgroups of 64
+constexpr int kFwdKeys = 128;  // keys of a stage: the N of S = Q K^T (wgmma m64n128)
+// a stage's bias box: its keys and up to 3 before them, so that the box
+// starts on a 16-byte boundary of the bias row (a TMA box start must)
+constexpr int kFwdBiasBox = kFwdKeys + 4;
+constexpr int kFwdBiasSlot = 640;  // bytes a stage: the box, rounded up to 128
 
-// The shape of the forward, found on the card at the long-session shape
-// (examples/long_context/tune_blockwise_bwd.py --kernel fwd). Warps: 16 query
-// rows each. Pass: the keys of a walked tile that go through one step of the
-// online softmax (its scores are 16 x pass f32 in registers). Stages: walked
-// tiles in shared memory, all but one of them in flight. MinBlocks as above.
+// Found on the card at the long-session shape (PERF.md; copies of this
+// source with other values: examples/long_context/tune_blockwise_bwd.py
+// --kernel fwd). Stages: K/V stages in the ring (two at Dh' = 128, where a
+// stage is 64 KB). QBuffers: Q tiles, so that the next unit's Q loads while
+// this one runs. Regs: the setmaxnreg split, 128 x producer + 256 x
+// consumer <= 65,536.
 template <int DHP>
-constexpr int kFwdWarps = 8;
-template <int DHP>
-constexpr int kFwdPass = 32;  // 128 registers without a spill; 64 spills 72 bytes there
-template <int DHP>
-constexpr int kFwdStages = 2;
-template <int DHP>
-constexpr int kFwdMinBlocks = DHP <= 64 ? 2 : 1;  // 128 registers; 16 warps per SM
+constexpr int kFwdStages = DHP == 128 ? 2 : 4;
+constexpr int kFwdQBuffers = 2;
+constexpr int kFwdProducerRegs = 40;
+constexpr int kFwdConsumerRegs = 232;
 
-// bytes of dynamic shared memory: the block's q tile, `stages` stages of a
-// k and a v tile, and of the tile's bias row
+// Shared memory of one block: kFwdQBuffers Q tiles, then kFwdStages stages
+// of a K and a V tile, each stage's bias box, then the barriers. A tile is
+// rows x Dh' bf16 as TMA writes it: column boxes of kBoxCols (one swizzled
+// row of 128, 64 or 32 bytes), every box on a 1,024-byte boundary.
 template <int DHP>
-constexpr size_t fwd_mma_smem_bytes(int warps, int stages) {
-  return sizeof(__nv_bfloat16) * (16 * warps + 2 * stages * kFwdWalk) * (DHP + tc::kSkew) +
-         sizeof(float) * stages * kFwdWalk;
+struct FwdLayout {
+  static constexpr int kConsumers = 256;
+  static constexpr int kThreads = kConsumers + 128;  // and the producer warpgroup
+  static constexpr int kBoxCols = DHP < 64 ? DHP : 64;
+  static constexpr int kRowBytes = kBoxCols * 2;
+  static constexpr int kBoxes = DHP / kBoxCols;
+  static constexpr int kQBox = kFwdRows * kRowBytes;    // one column box of Q
+  static constexpr int kBoxBytes = kFwdKeys * kRowBytes;  // one column box of K or V
+  static constexpr int kQTile = kBoxes * kQBox;
+  static constexpr int kTile = kBoxes * kBoxBytes;
+  static constexpr int kStages = kFwdStages<DHP>;
+  static constexpr int kQ = kFwdQBuffers * kQTile;
+  static constexpr int kBias = kQ + kStages * 2 * kTile;  // each stage's bias box
+  static constexpr int kRing = kBias + kStages * kFwdBiasSlot;
+  static constexpr int kStageBytes = 2 * kTile + kFwdBiasBox * 4;  // what TMA completes on a stage's barrier
+  static constexpr size_t kSmem = kRing + (2 * kFwdQBuffers + 2 * kStages) * sizeof(uint64_t) + 1024;  // + alignment
+  static constexpr hopper::Swizzle kSwizzle = hopper::swizzle_of<kRowBytes>();
+  static constexpr uint32_t kGroup = 8 * kRowBytes;  // 8 rows of a box: the descriptors' stride
+  static_assert(kQBox % 1024 == 0 && kBoxBytes % 1024 == 0, "boxes on 1,024-byte boundaries");
+};
+
+// A block's units, in the order both roles walk them: unit u = (query tile
+// u % q_tiles, head, batch row), the block taking u = blockIdx.x,
+// blockIdx.x + gridDim.x, ... (query tiles fastest: the blocks that run side
+// by side read the same K and V and share them through L2).
+struct FwdUnit {
+  int q0, h, b;
+  __device__ FwdUnit(int u, int q_tiles, int heads)
+      : q0((u % q_tiles) * kFwdRows), h((u / q_tiles) % heads), b(u / q_tiles / heads) {}
+};
+
+// keeps the compiler from moving the writes of A fragments past the
+// wgmma.fence that must follow them
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[kFwdKeys / 16][4]) {
+#pragma unroll
+  for (int i = 0; i < kFwdKeys / 16; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
-// One block per (query tile of 16 rows a warp, h, b): q stays, k and v tiles
-// walk with their bias.
-template <int DHP, int WARPS, int NP, int STAGES, bool RESIDENT, int MIN_BLOCKS>
-__global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
-    bmha_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
-                        __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int seq_len,
-                        int d, int dh, int heads, Strides st, float scale, int vec) {
-  extern __shared__ __align__(16) unsigned char smem_mma[];
-  static_assert(STAGES >= 2 && kFwdWalk % NP == 0 && NP % 16 == 0, "stages and pass");
-  constexpr int RS = DHP + tc::kSkew;
-  constexpr int kMmaThreads = WARPS * 32;
-  constexpr int kMmaRows = WARPS * 16;  // rows the block owns
-  constexpr int NT = NP / 8;  // n8 tiles of a pass
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_mma);
-  __nv_bfloat16* ks = qs + kMmaRows * RS;          // STAGES stages
-  __nv_bfloat16* vs = ks + STAGES * kFwdWalk * RS;  // STAGES stages
-  float* bs = reinterpret_cast<float*>(vs + STAGES * kFwdWalk * RS);  // STAGES stages of kFwdWalk
-  const int q0 = blockIdx.x * kMmaRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const long long base = static_cast<long long>(b) * seq_len * d + h * dh;
-  const __nv_bfloat16* kb = k + b * st.k_sb + h * dh;
-  const __nv_bfloat16* vb = v + b * st.v_sb + h * dh;
-  const float* bias_b = bias + static_cast<long long>(b) * seq_len;
-  const int n_tiles = (seq_len + kFwdWalk - 1) / kFwdWalk;
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  // tile `tile` into its stage, as one group of copies (an empty group past
-  // the last tile, so that the count of groups in flight stays the same)
-  auto fill_walked = [&](int tile) {
-    if (tile < n_tiles) {
-      const int stage = tile % STAGES;
-      const int k0 = tile * kFwdWalk;
-      tc::fill_tile<kFwdWalk, DHP, kMmaThreads>(ks + stage * kFwdWalk * RS, kb, st.k_sl, k0, seq_len, dh, vec);
-      tc::fill_tile<kFwdWalk, DHP, kMmaThreads>(vs + stage * kFwdWalk * RS, vb, st.v_sl, k0, seq_len, dh, vec);
-      // a key past seq_len: p = exp(-inf) = 0
-      tc::fill_rows_f32<kMmaThreads>(bs + stage * kFwdWalk, bias_b, 1, k0, kFwdWalk, seq_len, -INFINITY);
-    }
-    tc::cp_async_commit();
-  };
-
-  tc::fill_tile<kMmaRows, DHP, kMmaThreads>(qs, q + b * st.q_sb + h * dh, st.q_sl, q0, seq_len, dh, vec);
-  tc::cp_async_commit();
+// S = Q K^T of a stage (the warpgroup's 64 rows against 128 keys), started
+// and committed: 16 head columns (32 bytes) a k-step, both operands K-major
+// in their column boxes. q_desc and k_desc describe the tiles' first k-step;
+// a later one adds its byte offset / 16 (the offsets are constants).
+template <int DHP>
+__device__ __forceinline__ void start_scores(float (&s)[64], uint64_t q_desc, uint64_t k_desc) {
+  using S = FwdLayout<DHP>;
+  hopper::wgmma_bf16_m64n128k16_ss_first(s, q_desc, k_desc);
 #pragma unroll
-  for (int i = 0; i < STAGES - 1; ++i) fill_walked(i);
-
-  const int rows_first = tc::lane_offset_rows_first<RS>(lane) * 2;
-  const int cols_first = tc::lane_offset_cols_first<RS>(lane) * 2;
-  const uint32_t q_addr = tc::shared_addr(qs + warp * 16 * RS) + rows_first;
-  const uint32_t k_addr = tc::shared_addr(ks);
-  const uint32_t v_addr = tc::shared_addr(vs);
-  constexpr uint32_t kStageBytes = kFwdWalk * RS * 2;
-  constexpr uint32_t kPassBytes = NP * RS * 2;
-
-  uint32_t qf[DHP / 16][4];
-  if constexpr (RESIDENT) {
-    tc::cp_async_wait<STAGES - 1>();  // q has arrived
-    __syncthreads();
-    tc::load_a<DHP>(qf, q_addr);
+  for (int ks = 1; ks < DHP / 16; ++ks) {
+    constexpr int kRow = S::kRowBytes;
+    const int col = ks * 32;  // bytes into a row
+    hopper::wgmma_bf16_m64n128k16_ss(s, q_desc + (((col / kRow) * S::kQBox + col % kRow) >> 4),
+                                     k_desc + (((col / kRow) * S::kBoxBytes + col % kRow) >> 4));
   }
+  hopper::wgmma_commit();
+}
 
-  // the thread's two rows, g and g + 8 of the warp's 16 (a row past seq_len
-  // is computed on zeros and never stored). l_run is the lane's share of the
-  // row sum (its columns 2t, 2t + 1 of every n8 tile), summed over the four
-  // lanes of the row at the end: alpha is the same in all four.
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};
-  float acc[DHP / 8][4] = {};
+// O += P V, started and committed: V as it lies ([key][head column],
+// MN-major, v_desc from make_desc_mn), 16 keys a k-step; the next column
+// box (Dh' = 128) is the descriptor's next N group
+template <int DHP>
+__device__ __forceinline__ void start_pv(float (&o)[DHP / 2], const uint32_t (&pf)[kFwdKeys / 16][4],
+                                         uint64_t v_desc) {
+  using S = FwdLayout<DHP>;
+#pragma unroll
+  for (int kk = 0; kk < kFwdKeys / 16; ++kk)
+    hopper::wgmma_bf16_tb<DHP>(o, pf[kk], v_desc + ((kk * 16 * S::kRowBytes) >> 4), 1);
+  hopper::wgmma_commit();
+}
 
-  for (int j = 0; j < n_tiles; ++j) {
-    const int stage = j % STAGES;
-    tc::cp_async_wait<STAGES - 2>();
-    __syncthreads();  // tile j is visible; tile j - 1's readers are done
-    fill_walked(j + STAGES - 1);
+constexpr float kLog2e = 1.4426950408889634f;
 
+// the thread's keys' bias (8 nb + 2t + e of the stage at k0) times log2(e)
+// from the stage's box, whose first `shift` values precede the stage (one
+// address across a quad's rows); in the ragged last stage a key past
+// seq_len (the box holds the next batch row's bias there) gets -inf, so
+// p = 0
+__device__ __forceinline__ void load_bias(float (&bj)[kFwdKeys / 4], const float* bias_s, int shift, int k0,
+                                          int seq_len, int t) {
+  const float* at = bias_s + shift + 2 * t;
 #pragma unroll
-    for (int c = 0; c < kFwdWalk / NP; ++c) {
-      if (j * kFwdWalk + c * NP >= seq_len) break;  // a pass with no key (NP < kFwdWalk)
-      const uint32_t k_at = k_addr + stage * kStageBytes + c * kPassBytes;
-      const uint32_t v_at = v_addr + stage * kStageBytes + c * kPassBytes;
-      float s[NT][4] = {};
-      if constexpr (RESIDENT) {
-        tc::product_abt<DHP, NT>(s, qf, k_at + cols_first);
-      } else {
-        tc::product_abt<DHP, NT>(s, q_addr, k_at + cols_first);
-      }
-      // s * scale + bias, and the pass's row maxima. The pass holds a key
-      // below seq_len with a finite bias, or m_run is finite already: m_new
-      // is finite, and -inf - (-inf) is never formed.
-      const float* bj = bs + stage * kFwdWalk + c * NP + 2 * t;
-      float mx[2] = {-INFINITY, -INFINITY};
+  for (int nb = 0; nb < kFwdKeys / 8; ++nb)
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const float2 b2 = *reinterpret_cast<const float2*>(bj + nt * 8);
+    for (int e = 0; e < 2; ++e) bj[2 * nb + e] = at[nb * 8 + e] * kLog2e;
+  if (k0 + kFwdKeys > seq_len) {
+    const int past = seq_len - k0 - 2 * t;  // the thread's keys 8 nb + e at or past it lie past seq_len
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[nt][e] = fmaf(s[nt][e], scale, (e & 1) ? b2.y : b2.x);
-          mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-        }
-      }
-      float m_new[2], alpha[2], sum[2] = {0.f, 0.f};
+    for (int nb = 0; nb < kFwdKeys / 8; ++nb)
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        m_new[r] = fmaxf(m_run[r], tc::quad_max(mx[r]));
-        alpha[r] = __expf(m_run[r] - m_new[r]);  // exp(-inf) = 0 on the first pass
-      }
-      // the un-normalised p: summed unrounded into l, rounded to bf16 into
-      // the A fragments of p . v
-      uint32_t pf[NP / 16][4];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        float p[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          p[e] = __expf(s[nt][e] - m_new[e >> 1]);
-          sum[e >> 1] += p[e];
-        }
-        pf[nt >> 1][(nt & 1) * 2] = tc::pack_bf16(p[0], p[1]);
-        pf[nt >> 1][(nt & 1) * 2 + 1] = tc::pack_bf16(p[2], p[3]);
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        l_run[r] = l_run[r] * alpha[r] + sum[r];
-        m_run[r] = m_new[r];
-      }
-#pragma unroll
-      for (int nt = 0; nt < DHP / 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[nt][e] *= alpha[e >> 1];
-      }
-      tc::product_ab<DHP, NP / 16>(acc, pf, v_at + rows_first);
-    }
+      for (int e = 0; e < 2; ++e)
+        if (nb * 8 + e >= past) bj[2 * nb + e] = -INFINITY;
   }
+}
 
+// max and sum over a row's 16 values, as pairwise trees (chains of four
+// instead of one of 16)
+template <typename Op>
+__device__ __forceinline__ float tree16(const float (&x)[16], Op op) {
+  float a[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) a[i] = op(x[2 * i], x[2 * i + 1]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a[i] = op(a[2 * i], a[2 * i + 1]);
+  return op(op(a[0], a[1]), op(a[2], a[3]));
+}
+
+// One step of the online softmax on a stage's scores, in registers, in
+// log2 units (scale and bias carry log2(e), so p = 2^(s - m) is one ex2 an
+// element): s = s * scale + bias, the row maxima over the quad, alpha =
+// 2^(m_prev - m_new) (0 on the first stage), and the un-normalised
+// p = 2^(s - m_new), summed unrounded into the lane's share of l and
+// rounded to bf16 into the A fragments of P V (n8 blocks 2kk and 2kk + 1 are
+// k-step kk: row g's pair in registers 0 and 2, row g + 8's in 1 and 3).
+// s - m_new is exact where s is the maximum (a fully padded row, all of
+// whose s absorb into the -1e9 bias, gets p = 1 at every key). The stage
+// holds a key below seq_len with a finite bias, so m_new is finite and
+// -inf - (-inf) is never formed.
+__device__ __forceinline__ void softmax_step(float (&s)[64], const float (&bj)[kFwdKeys / 4], float scale,
+                                             float (&m_run)[2], float (&l_run)[2], float (&alpha)[2],
+                                             uint32_t (&pf)[kFwdKeys / 16][4]) {
+  const float sc = scale * kLog2e;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const float l = tc::quad_sum(l_run[r]);
+    float mx[16];
 #pragma unroll
-    for (int nt = 0; nt < DHP / 8; ++nt) {
-      acc[nt][2 * r] /= l;
-      acc[nt][2 * r + 1] /= l;
+    for (int nb = 0; nb < kFwdKeys / 8; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) s[4 * nb + 2 * r + e] = fmaf(s[4 * nb + 2 * r + e], sc, bj[2 * nb + e]);
+      mx[nb] = fmaxf(s[4 * nb + 2 * r], s[4 * nb + 2 * r + 1]);
     }
-    const int row = q0 + warp * 16 + g + 8 * r;
-    if (t == 0 && row < seq_len) {
-      lse[(static_cast<long long>(b) * seq_len + row) * heads + h] = m_run[r] + logf(l);
+    const float m_new = fmaxf(m_run[r], tc::quad_max(tree16(mx, [](float a, float b) { return fmaxf(a, b); })));
+    alpha[r] = ex2(m_run[r] - m_new);
+    float ps[16];
+#pragma unroll
+    for (int nb = 0; nb < kFwdKeys / 8; ++nb) {
+      const float p0 = ex2(s[4 * nb + 2 * r] - m_new);
+      const float p1 = ex2(s[4 * nb + 2 * r + 1] - m_new);
+      ps[nb] = p0 + p1;
+      pf[nb >> 1][(nb & 1) * 2 + r] = tc::pack_bf16(p0, p1);
+    }
+    l_run[r] = l_run[r] * alpha[r] + tree16(ps, [](float a, float b) { return a + b; });
+    m_run[r] = m_new;
+  }
+}
+
+template <int DHP>
+__global__ void __launch_bounds__(FwdLayout<DHP>::kThreads, 1)
+    bmha_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap bias_map,
+                          __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int seq_len, int d, int dh,
+                          int heads, int units, float scale, int paired) {
+  using S = FwdLayout<DHP>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + S::kRing);  // Q landed
+  uint64_t* q_empty = q_full + kFwdQBuffers;                          // Q read by every consumer
+  uint64_t* full = q_empty + kFwdQBuffers;                            // K, V and bias landed
+  uint64_t* empty = full + S::kStages;                                // K and V read by every consumer
+  const int q_tiles = (seq_len + kFwdRows - 1) / kFwdRows;
+  const int n_tiles = (seq_len + kFwdKeys - 1) / kFwdKeys;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kFwdQBuffers; ++i) {
+      hopper::mbar_init(q_full + i, 1);
+      hopper::mbar_init(q_empty + i, S::kConsumers);
+    }
+    for (int i = 0; i < S::kStages; ++i) {
+      hopper::mbar_init(full + i, 1);
+      hopper::mbar_init(empty + i, S::kConsumers);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ------------------------------------------------ producer warpgroup
+    hopper::reg_dealloc<kFwdProducerRegs>();
+    if (threadIdx.x == S::kConsumers) {
+      hopper::prefetch_map(&q_map);
+      hopper::prefetch_map(&k_map);
+      hopper::prefetch_map(&v_map);
+      hopper::prefetch_map(&bias_map);
+      int i = 0, n = 0;  // the block's stages and units so far
+      for (int u = blockIdx.x; u < units; u += gridDim.x, ++n) {
+        const FwdUnit unit(u, q_tiles, heads);
+        const int qb = n % kFwdQBuffers;
+        hopper::mbar_wait(q_empty + qb, ((n / kFwdQBuffers) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(q_full + qb, S::kQTile);
+        unsigned char* qs = smem + qb * S::kQTile;
+#pragma unroll
+        for (int c = 0; c < S::kBoxes; ++c)
+          hopper::tma_load_4d(qs + c * S::kQBox, &q_map, q_full + qb, c * S::kBoxCols, unit.h, unit.q0, unit.b);
+        for (int j = 0; j < n_tiles; ++j, ++i) {
+          const int st = i % S::kStages;
+          hopper::mbar_wait(empty + st, ((i / S::kStages) & 1) ^ 1);
+          unsigned char* stage = smem + S::kQ + st * 2 * S::kTile;
+          hopper::mbar_arrive_expect_tx(full + st, S::kStageBytes);
+          hopper::tma_load_1d(smem + S::kBias + st * kFwdBiasSlot, &bias_map, full + st,
+                              (unit.b * seq_len + j * kFwdKeys) & ~3);
+#pragma unroll
+          for (int c = 0; c < S::kBoxes; ++c) {
+            hopper::tma_load_4d(stage + c * S::kBoxBytes, &k_map, full + st, c * S::kBoxCols, unit.h, j * kFwdKeys,
+                                unit.b);
+            hopper::tma_load_4d(stage + S::kTile + c * S::kBoxBytes, &v_map, full + st, c * S::kBoxCols, unit.h,
+                                j * kFwdKeys, unit.b);
+          }
+        }
+      }
+    }
+  } else {
+    // ----------------------------------------------- consumer warpgroups
+    hopper::reg_alloc<kFwdConsumerRegs>();
+    const int warp = (threadIdx.x / 32) & 3;
+    const int lane = threadIdx.x % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    // S of a stage: rows 16 warp + g (s[4j], s[4j + 1]) and + 8 (s[4j + 2],
+    // s[4j + 3]) of the warpgroup's 64, keys 8j + 2t, 8j + 2t + 1
+    float s[64];
+    float o[DHP / 2];  // O, the same layout over head columns
+    // the descriptors of stage 0's K and V; stage st is 2 st kTile bytes on
+    // (a descriptor's address field is the address / 16: no carry out of it
+    // below 256 KB)
+    const uint32_t ring = hopper::smem_addr(smem + S::kQ);
+    const uint64_t k_desc0 = hopper::make_desc(ring, S::kSwizzle, S::kGroup);
+    const uint64_t v_desc0 = hopper::make_desc_mn(ring + S::kTile, S::kSwizzle, S::kBoxBytes, S::kGroup);
+    int i = 0, n = 0;  // the block's stages and units so far
+    for (int u = blockIdx.x; u < units; u += gridDim.x, ++n) {
+      const FwdUnit unit(u, q_tiles, heads);
+      const int qb = n % kFwdQBuffers;
+      const int shift = (unit.b * seq_len) & 3;  // the bias boxes' values before each stage
+#pragma unroll
+      for (int e = 0; e < DHP / 2; ++e) o[e] = 0.f;
+      // the thread's two rows. l_run is the lane's share of the row sum
+      // (its keys 8j + 2t, + 1), summed over the quad at the end: alpha is
+      // the same in all four lanes.
+      float m_run[2] = {-INFINITY, -INFINITY};
+      float l_run[2] = {0.f, 0.f};
+      hopper::mbar_wait(q_full + qb, (n / kFwdQBuffers) & 1);
+      const uint64_t q_desc = hopper::make_desc(hopper::smem_addr(smem + qb * S::kQTile) + wg * 64 * S::kRowBytes,
+                                                S::kSwizzle, S::kGroup);
+      for (int j = 0; j < n_tiles; ++j, ++i) {
+        const int st = i % S::kStages;
+        const uint32_t stage_off = (st * 2 * S::kTile) >> 4;
+        hopper::mbar_wait(full + st, (i / S::kStages) & 1);
+        hopper::wgmma_fence();
+        start_scores<DHP>(s, q_desc, k_desc0 + stage_off);
+        float bj[kFwdKeys / 4];  // read while the product runs
+        load_bias(bj, reinterpret_cast<const float*>(smem + S::kBias + st * kFwdBiasSlot), shift, j * kFwdKeys,
+                  seq_len, t);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(s);
+        if (j == n_tiles - 1) hopper::mbar_arrive(q_empty + qb);  // the unit's last read of Q
+        float alpha[2];
+        uint32_t pf[kFwdKeys / 16][4];
+        softmax_step(s, bj, scale, m_run, l_run, alpha, pf);
+        // alpha = 1 in every row of the warp (no row's maximum moved, as in
+        // most late stages): O stays as it is, bit for bit
+        if (!__all_sync(0xffffffffu, alpha[0] == 1.f && alpha[1] == 1.f)) {
+#pragma unroll
+          for (int e = 0; e < DHP / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
+        }
+        fence_frags(pf);
+        hopper::fence_regs(o);
+        hopper::wgmma_fence();
+        start_pv<DHP>(o, pf, v_desc0 + stage_off);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(o);
+        hopper::mbar_arrive(empty + st);
+      }
+
+      // out = O / l, rounded once; lse = m ln 2 + log l. Rows past seq_len (zero
+      // rows of Q, by the load's fill) are never stored.
+      const int row0 = unit.q0 + wg * 64 + warp * 16 + g;
+      __nv_bfloat16* out_b = out + static_cast<long long>(unit.b) * seq_len * d + unit.h * dh;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float l = tc::quad_sum(l_run[r]);
+        const int row = row0 + 8 * r;
+        if (row >= seq_len) continue;
+        if (t == 0) {  // m back in natural units
+          lse[(static_cast<long long>(unit.b) * seq_len + row) * heads + unit.h] = m_run[r] / kLog2e + logf(l);
+        }
+        __nv_bfloat16* orow = out_b + static_cast<long long>(row) * d;
+#pragma unroll
+        for (int nt = 0; nt < DHP / 8; ++nt) {
+          const int col = nt * 8 + 2 * t;
+          const float lo = o[4 * nt + 2 * r] / l;
+          const float hi = o[4 * nt + 2 * r + 1] / l;
+          if (paired) {
+            if (col < dh) *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(lo, hi);
+          } else {
+            if (col < dh) orow[col] = __float2bfloat16_rn(lo);
+            if (col + 1 < dh) orow[col + 1] = __float2bfloat16_rn(hi);
+          }
+        }
+      }
     }
   }
-  tc::store_acc<DHP>(out + base, acc, q0 + warp * 16, seq_len, d, dh, lane, vec);
 }
 
 // bytes of dynamic shared memory of the scalar kernels: `tiles` 64-row
@@ -1000,10 +1182,65 @@ struct Args {
   const void *q, *k, *v, *bias, *lse_in, *dout, *delta;
   void *out, *lse_out, *dq, *dk, *dv;
   int batch, seq_len, d, heads, vec;
+  int head_stride;  // elements between the heads of q, k and v (the bf16 forward's maps)
   Strides st;
   float scale;
   cudaStream_t stream;
 };
+
+// The bf16 forward: a rank-4 tensor map of q, k and v each over (head
+// column, head, row, batch), boxes of kBoxCols x 1 x 128 x 1 with the
+// 128-, 64- or 32-byte swizzle, zero past dh and past seq_len; one
+// persistent block an SM over the units. Every base and stride must be a
+// multiple of 16 bytes (the wrapper hands over a copy where one is not).
+template <int DHP>
+cudaError_t launch_fwd_wgmma(const Args& a) {
+  using S = FwdLayout<DHP>;
+  const int dh = a.d / a.heads;
+  const void* bases[3] = {a.q, a.k, a.v};
+  const long long batch_strides[3] = {a.st.q_sb, a.st.k_sb, a.st.v_sb};
+  const long long row_strides[3] = {a.st.q_sl, a.st.k_sl, a.st.v_sl};
+  CUtensorMap maps[3];
+  for (int i = 0; i < 3; ++i) {
+    const uint64_t dims[4] = {static_cast<uint64_t>(dh), static_cast<uint64_t>(a.heads),
+                              static_cast<uint64_t>(a.seq_len), static_cast<uint64_t>(a.batch)};
+    const uint64_t strides[3] = {static_cast<uint64_t>(a.head_stride) * 2, static_cast<uint64_t>(row_strides[i]) * 2,
+                                 static_cast<uint64_t>(batch_strides[i]) * 2};
+    const uint32_t box[4] = {S::kBoxCols, 1, static_cast<uint32_t>(i == 0 ? kFwdRows : kFwdKeys), 1};
+    if (reinterpret_cast<uintptr_t>(bases[i]) % 16 != 0 || strides[0] % 16 != 0 || strides[1] % 16 != 0 ||
+        strides[2] % 16 != 0 || a.head_stride < dh)
+      return cudaErrorInvalidValue;
+    const cudaError_t err = hopper::encode_4d(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, bases[i], dims, strides, box,
+                                              hopper::tma_swizzle_of<S::kRowBytes>());
+    if (err != cudaSuccess) return err;
+  }
+  // the bias as one row of B L f32: a stage's box starts at b L + k0
+  // rounded down to a multiple of 4 (past the batch row's end it holds the
+  // next row's bias, masked by the consumers)
+  CUtensorMap bias_map;
+  if (reinterpret_cast<uintptr_t>(a.bias) % 16 != 0) return cudaErrorInvalidValue;
+  {
+    const uint64_t dims[1] = {static_cast<uint64_t>(a.batch) * a.seq_len};
+    const uint32_t box[1] = {kFwdBiasBox};
+    const cudaError_t err = hopper::encode_1d(&bias_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a.bias, dims, box);
+    if (err != cudaSuccess) return err;
+  }
+  auto kernel = bmha_fwd_wgmma_kernel<DHP>;
+  cudaError_t err = allow_smem(kernel, S::kSmem);
+  int device = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const long long units = static_cast<long long>((a.seq_len + kFwdRows - 1) / kFwdRows) * a.heads * a.batch;
+  if (units > INT_MAX) return cudaErrorInvalidValue;
+  // persistent: one block an SM (the ring takes most of its shared memory)
+  const int grid = static_cast<int>(min(units, static_cast<long long>(sms)));
+  kernel<<<grid, S::kThreads, S::kSmem, a.stream>>>(
+      maps[0], maps[1], maps[2], bias_map, static_cast<__nv_bfloat16*>(a.out),
+      static_cast<float*>(a.lse_out), a.seq_len, a.d, dh, a.heads, static_cast<int>(units), a.scale,
+      dh % 2 == 0 && a.d % 2 == 0);
+  return cudaGetLastError();
+}
 
 enum Which { kFwd, kDq, kDkv };
 
@@ -1044,15 +1281,7 @@ cudaError_t launch_one(Which which, const Args& a) {
     }
   } else {
     if (which == kFwd) {
-      constexpr int warps = kFwdWarps<DHP>;
-      constexpr int stages = kFwdStages<DHP>;
-      auto kernel = bmha_fwd_mma_kernel<DHP, warps, kFwdPass<DHP>, stages, kFragmentsResident<DHP>, kFwdMinBlocks<DHP>>;
-      constexpr size_t smem = fwd_mma_smem_bytes<DHP>(warps, stages);
-      if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
-      const dim3 tiles((a.seq_len + 16 * warps - 1) / (16 * warps), a.heads, a.batch);
-      kernel<<<tiles, warps * 32, smem, a.stream>>>(
-          q, k, v, bias, static_cast<T*>(a.out), static_cast<float*>(a.lse_out), a.seq_len,
-          a.d, dh, a.heads, a.st, a.scale, a.vec);
+      return launch_fwd_wgmma<DHP>(a);
     } else if (which == kDq) {
       constexpr int warps = kDqWarps<DHP>;
       auto kernel = bmha_dq_mma_kernel<DHP, warps, kDqPass<DHP>, kFragmentsResident<DHP>, kDqMinBlocks<DHP>>;
@@ -1103,6 +1332,7 @@ Args common_args(const void* q, const void* k, const void* v, const void* bias,
   Args a = {};
   a.q = q, a.k = k, a.v = v, a.bias = bias;
   a.batch = batch, a.seq_len = seq_len, a.d = d, a.heads = heads, a.vec = vec;
+  a.head_stride = heads > 0 ? d / heads : 0;
   a.st = {q_sb, q_sl, k_sb, k_sl, v_sb, v_sl};
   a.scale = scale, a.stream = static_cast<cudaStream_t>(stream);
   return a;
@@ -1112,18 +1342,20 @@ Args common_args(const void* q, const void* k, const void* v, const void* bias,
 
 // q, k, v: (B, L, D) through their batch and row strides (elements); bias
 // (B, 1, 1, L) f32; out (B, L, D) and lse (B, L, H) f32 are written.
-// vec: f32: 4-element loads are allowed (see load_tile); bf16: 8-element
-// (16-byte) copies and paired stores (see tc::fill_tile)
+// vec (f32): 4-element loads are allowed (see load_tile). head_stride (bf16):
+// the elements between two heads' first columns in q, k and v (D / H, or
+// more in a padded copy); bf16 needs every base and stride (bytes) a
+// multiple of 16 (tensor maps)
 extern "C" int b4cp_bmha_fwd(const void* q, const void* k, const void* v,
                              const void* bias, void* out, void* lse,
                              int is_bf16, int batch, int seq_len, int d,
                              int heads, long long q_sb, long long q_sl,
                              long long k_sb, long long k_sl, long long v_sb,
-                             long long v_sl, float scale, int vec, int device,
-                             void* stream) {
+                             long long v_sl, int head_stride, float scale, int vec,
+                             int device, void* stream) {
   Args a = common_args(q, k, v, bias, batch, seq_len, d, heads, q_sb, q_sl, k_sb,
                        k_sl, v_sb, v_sl, scale, vec, stream);
-  a.out = out, a.lse_out = lse;
+  a.out = out, a.lse_out = lse, a.head_stride = head_stride;
   return run(kFwd, is_bf16, device, a);
 }
 

@@ -15,8 +15,13 @@
 // with fence_proxy_async before wgmma, which reads through the async proxy,
 // sees it.
 //
-// First used by the CE forward (fused_ce.cu); the CE backward kernels are
-// meant to take the same mainloop (ROADMAP.md, Queue 2).
+// Users: the CE forward (fused_ce.cu: 2-D maps, K-major tf32 and bf16 B
+// tiles, A in registers) and the bf16 blockwise attention forward
+// (attention_blockwise.cu: rank-4 maps over (head column, head, row, batch),
+// both operands of S = Q K^T from shared memory, and O += P V with P in
+// registers and V read MN-major, transposed by the product itself). The
+// blockwise backward and the CE backward kernels are meant to take the same
+// pieces (ROADMAP.md, Queue 2).
 
 #pragma once
 
@@ -79,6 +84,23 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
+// the box of a rank-1 map at c0, as tma_load_2d
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0)
+      : "memory");
+}
+// the box of a rank-4 map at (c0 innermost, c1, c2, c3), as tma_load_2d
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
+      "[%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
 // orders this thread's generic-proxy shared-memory writes before later
 // async-proxy accesses (wgmma's operand reads, TMA's writes)
 __device__ __forceinline__ void fence_proxy_async() {
@@ -98,10 +120,23 @@ __device__ __forceinline__ void reg_alloc() {
 
 // ---------------------------------------------------------------- wgmma
 
-enum Swizzle : int { kSwizzle128 = 1, kSwizzle64 = 2 };  // the descriptor's layout field
+enum Swizzle : int { kSwizzle128 = 1, kSwizzle64 = 2, kSwizzle32 = 3 };  // the descriptor's layout field
+
+// the swizzle that rows of `row_bytes` (128, 64 or 32) take, in TMA's and
+// in the descriptor's terms
+template <int ROW_BYTES>
+constexpr Swizzle swizzle_of() {
+  static_assert(ROW_BYTES == 128 || ROW_BYTES == 64 || ROW_BYTES == 32, "a swizzled row is 32, 64 or 128 bytes");
+  return ROW_BYTES == 128 ? kSwizzle128 : ROW_BYTES == 64 ? kSwizzle64 : kSwizzle32;
+}
+template <int ROW_BYTES>
+constexpr CUtensorMapSwizzle tma_swizzle_of() {
+  return ROW_BYTES == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                          : ROW_BYTES == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+}
 
 // The descriptor of a K-major operand tile in shared memory: rows of 128
-// (kSwizzle128) or 64 (kSwizzle64) bytes, as TMA writes them with the same
+// (kSwizzle128), 64 (kSwizzle64) or 32 (kSwizzle32) bytes, as TMA writes them with the same
 // swizzle, 8-row groups `group_bytes` apart; the tile must start on a
 // 1,024-byte boundary (the swizzle is a function of the address bits). A
 // k-step further along the row adds its byte offset / 16 to the descriptor.
@@ -109,6 +144,22 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, Swizzle swizzle, ui
   uint64_t desc = (addr & 0x3FFFF) >> 4;             // start address
   desc |= static_cast<uint64_t>(1) << 16;             // leading offset: unused for swizzled K-major
   desc |= static_cast<uint64_t>(group_bytes >> 4) << 32;  // stride between 8-row groups
+  desc |= static_cast<uint64_t>(swizzle) << 62;
+  return desc;
+}
+
+// The descriptor of an MN-major operand tile (B of O += P V: V as it lies,
+// [key][head column], the product's N running along the rows): groups of 8
+// K-rows of `row_bytes` (128, 64 or 32, as TMA writes them with that
+// swizzle; one row holds 64, 32 or 16 bf16 of N), `k_group_bytes` apart;
+// N beyond one row's width continues in the next column box,
+// `mn_group_bytes` further. The wgmma that reads it sets its transpose bit
+// for B. A k-step of 16 K-rows further adds 16 row_bytes / 16.
+__device__ __forceinline__ uint64_t make_desc_mn(uint32_t addr, Swizzle swizzle, uint32_t mn_group_bytes,
+                                                 uint32_t k_group_bytes) {
+  uint64_t desc = (addr & 0x3FFFF) >> 4;                      // start address
+  desc |= static_cast<uint64_t>(mn_group_bytes >> 4) << 16;  // leading offset: the next N group
+  desc |= static_cast<uint64_t>(k_group_bytes >> 4) << 32;   // stride: the next 8 K-rows
   desc |= static_cast<uint64_t>(swizzle) << 62;
   return desc;
 }
@@ -130,8 +181,20 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #define B4CP_ACC8(i)                                                                                \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
+#define B4CP_OUT8(i)                                                                                \
+  "=f"(d[i]), "=f"(d[i + 1]), "=f"(d[i + 2]), "=f"(d[i + 3]), "=f"(d[i + 4]), "=f"(d[i + 5]), \
+      "=f"(d[i + 6]), "=f"(d[i + 7])
+#define B4CP_OUT64 \
+  B4CP_OUT8(0), B4CP_OUT8(8), B4CP_OUT8(16), B4CP_OUT8(24), B4CP_OUT8(32), B4CP_OUT8(40), B4CP_OUT8(48), B4CP_OUT8(56)
+#define B4CP_ACC16 B4CP_ACC8(0), B4CP_ACC8(8)
+#define B4CP_ACC32 B4CP_ACC16, B4CP_ACC8(16), B4CP_ACC8(24)
 #define B4CP_ACC64 \
   B4CP_ACC8(0), B4CP_ACC8(8), B4CP_ACC8(16), B4CP_ACC8(24), B4CP_ACC8(32), B4CP_ACC8(40), B4CP_ACC8(48), B4CP_ACC8(56)
+#define B4CP_D8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define B4CP_D16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define B4CP_D32                                                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, " \
+  "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
 #define B4CP_D64                                                                                         \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, " \
   "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "   \
@@ -172,9 +235,77 @@ __device__ __forceinline__ void wgmma_bf16_m64n128k16(float (&d)[64], const uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+// d (64 x 128, f32) += A (64 x 16 bf16) . B^T with both operands in
+// shared memory, K-major (desc_a: 64 rows; desc_b: 128 rows), as make_desc
+// describes them
+__device__ __forceinline__ void wgmma_bf16_m64n128k16_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " B4CP_D64 ", %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : B4CP_ACC64
+      : "l"(desc_a), "l"(desc_b));
+}
+
+// d = A . B^T, the same with d written, not read: the first k-step of a
+// product, so that no instruction that writes d before it counts as
+// defining one of its inputs while an earlier product is in flight
+__device__ __forceinline__ void wgmma_bf16_m64n128k16_ss_first(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 0, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " B4CP_D64 ", %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : B4CP_OUT64
+      : "l"(desc_a), "l"(desc_b));
+}
+
+// d (64 x N, f32) = d * (scale_d != 0) + A (64 x 16 bf16, registers, laid
+// out as for wgmma_bf16_m64n128k16) . B, B (16 x N) MN-major through desc_b
+// (make_desc_mn): the transpose bit set. N = 16, 32, 64 or 128; d holds
+// N / 2 values a thread in the layout of the other products.
+#define B4CP_WGMMA_TB(N, ACC, DLIST, A0, A1, A2, A3, DESC, SCALE)                                          \
+  __device__ __forceinline__ void wgmma_bf16_m64n##N##k16_tb(float (&d)[N / 2], const uint32_t (&a)[4],    \
+                                                             uint64_t desc_b, int scale_d) {             \
+    asm volatile(                                                                                        \
+        "{\n"                                                                                            \
+        ".reg .pred p;\n"                                                                                \
+        "setp.ne.b32 p, %" #SCALE ", 0;\n"                                                               \
+        "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 " DLIST ", {%" #A0 ", %" #A1 ", %" #A2  \
+        ", %" #A3 "}, %" #DESC ", p, 1, 1, 1;\n"                                                          \
+        "}\n"                                                                                            \
+        : ACC                                                                                            \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));                        \
+  }
+B4CP_WGMMA_TB(16, B4CP_ACC8(0), B4CP_D8, 8, 9, 10, 11, 12, 13)
+B4CP_WGMMA_TB(32, B4CP_ACC16, B4CP_D16, 16, 17, 18, 19, 20, 21)
+B4CP_WGMMA_TB(64, B4CP_ACC32, B4CP_D32, 32, 33, 34, 35, 36, 37)
+B4CP_WGMMA_TB(128, B4CP_ACC64, B4CP_D64, 64, 65, 66, 67, 68, 69)
+#undef B4CP_WGMMA_TB
+
+template <int N>
+__device__ __forceinline__ void wgmma_bf16_tb(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b,
+                                              int scale_d) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128, "N is 16, 32, 64 or 128");
+  if constexpr (N == 16) wgmma_bf16_m64n16k16_tb(d, a, desc_b, scale_d);
+  if constexpr (N == 32) wgmma_bf16_m64n32k16_tb(d, a, desc_b, scale_d);
+  if constexpr (N == 64) wgmma_bf16_m64n64k16_tb(d, a, desc_b, scale_d);
+  if constexpr (N == 128) wgmma_bf16_m64n128k16_tb(d, a, desc_b, scale_d);
+}
+
 #undef B4CP_D64
+#undef B4CP_D32
+#undef B4CP_D16
+#undef B4CP_D8
 #undef B4CP_ACC64
+#undef B4CP_ACC32
+#undef B4CP_ACC16
 #undef B4CP_ACC8
+#undef B4CP_OUT64
+#undef B4CP_OUT8
 
 // The part of an f32 (as its bits) below its tf32 truncation, as an f32. A
 // wgmma reads a .tf32 operand's top 19 bits and ignores the other 13, so
@@ -234,6 +365,40 @@ inline cudaError_t encode_2d(CUtensorMap* map, CUtensorMapDataType type, const v
   const CUresult res = encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
                               CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The map of a vector of dims[0] elements of `type` at base (16-byte
+// aligned), boxes of box[0] (any start), unswizzled; zero past its end.
+inline cudaError_t encode_1d(CUtensorMap* map, CUtensorMapDataType type, const void* base, const uint64_t (&dims)[1],
+                             const uint32_t (&box)[1]) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t d[1] = {dims[0]};
+  const cuuint64_t unused[1] = {16};  // a rank-1 map has no stride
+  const cuuint32_t b[1] = {box[0]};
+  const cuuint32_t elem[1] = {1};
+  const CUresult res = encode(map, type, 1, const_cast<void*>(base), d, unused, b, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The map of a rank-4 tensor of `type` at base (16-byte aligned): dims[0]
+// innermost and contiguous, dims[i] `strides[i - 1]` bytes apart (each a
+// multiple of 16), cut into boxes of box[0] x ... x box[3], loaded with
+// `swizzle`; zero past every edge (a box may be wider than its dimension).
+inline cudaError_t encode_4d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                             const uint64_t (&dims)[4], const uint64_t (&strides)[3], const uint32_t (&box)[4],
+                             CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t d[4] = {dims[0], dims[1], dims[2], dims[3]};
+  const cuuint64_t s[3] = {strides[0], strides[1], strides[2]};
+  const cuuint32_t b[4] = {box[0], box[1], box[2], box[3]};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult res = encode(map, type, 4, const_cast<void*>(base), d, s, b, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

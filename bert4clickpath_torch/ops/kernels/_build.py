@@ -68,9 +68,10 @@ SIGNATURES = {
     "b4cp_ce_bwd_dw": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _I, _P]),
     # q, k, v, bias, out, lse, is_bf16, B, L, D, H,
-    # q/k/v batch and row strides (elements), scale, vec, device, stream
+    # q/k/v batch and row strides (elements), head stride (elements), scale,
+    # vec, device, stream
     "b4cp_bmha_fwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _LL, _LL, _LL, _LL, _LL, _LL, _F, _I, _I, _P]),
+                           _LL, _LL, _LL, _LL, _LL, _LL, _I, _F, _I, _I, _P]),
     # q, k, v, bias, lse, dout, delta, dq, is_bf16, B, L, D, H, strides,
     # scale, vec, device, stream
     "b4cp_bmha_dq": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -95,6 +96,13 @@ _launches = {
     "ce_bwd_dx": 0, "ce_bwd_dw": 0,
     "blockwise_fwd": 0, "blockwise_dq": 0, "blockwise_dkv": 0, "dropout": 0,
 }
+
+
+# copies a wrapper made of an input its kernel cannot read as it lies (the
+# bf16 blockwise forward's tensor maps: ops/kernels/attention.py
+# _tma_operands); not reset with the launch counters, so a run can show that
+# it made none anywhere
+_copies = {"blockwise_fwd": 0}
 
 
 def sources() -> list[Path]:
@@ -179,6 +187,14 @@ def count(name: str) -> None:
 
 def launch_counts() -> dict[str, int]:
     return dict(_launches)
+
+
+def count_copy(name: str) -> None:
+    _copies[name] += 1
+
+
+def copy_counts() -> dict[str, int]:
+    return dict(_copies)
 
 
 def reset_launch_counts() -> None:

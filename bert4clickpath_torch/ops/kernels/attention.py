@@ -16,8 +16,9 @@ as there:
   (L, L) tile; in the backward p enters the dv product as two bf16 terms,
   hi + lo, which keeps the unrounded p: PERF.md, "the whole-row dv
   decision"); f32 inputs keep the scalar kernels.
-* **blockwise** (``blockwise_mha``): K and V are streamed in 64-row tiles
-  with an online softmax, so any L runs, also one that no tile divides. The
+* **blockwise** (``blockwise_mha``): K and V are streamed in tiles (128
+  keys in the bf16 forward, 64 elsewhere) with an online softmax, so any L
+  runs, also one that no tile divides. The
   forward rounds the *un-normalised* p = exp(s - m_running) to v's dtype
   before the PV product and divides by l once at the end; it keeps
   lse = m + log(l) per (row, head) as the residual. The backward (a dq
@@ -36,8 +37,10 @@ as there:
   (m = -1e9), there as here. On the card the input dtype alone picks the
   kernels, the forward's too: f32 inputs take scalar f32 FMA kernels (the
   exactness route), bf16 inputs take kernels whose products all run on the
-  tensor cores (``mma.sync`` on bf16 tiles, asynchronous double-buffered
-  copies).
+  tensor cores: the forward on Hopper's TMA loads and ``wgmma`` products
+  (128-key steps of the online softmax; q, k and v read through rank-4
+  tensor maps, :func:`_tma_operands`), the backward on ``mma.sync`` with
+  asynchronous double-buffered copies.
 
 :func:`mha` is what the model calls. :func:`attention_family` picks the
 family, the port's counterpart of ``fused_mha_supported`` (a VMEM rule
@@ -57,7 +60,8 @@ or raise.
 
 q, k and v may be column slices of one (B, L, 3D) projection: the kernels
 read them through their strides (only the last dimension must be
-contiguous), so no copy is made.
+contiguous), so no copy is made; the bf16 forward copies only an input
+whose base or strides are not multiples of 16 bytes (:func:`_tma_operands`).
 """
 
 from __future__ import annotations
@@ -329,24 +333,29 @@ def blockwise_mha_backward_reference(
 
 
 def _vector_chunk(dtype: torch.dtype) -> int:
-    """Elements per vector access of the blockwise kernels: 4-element loads
-    in the scalar f32 kernels, 8-element (16-byte) asynchronous copies in the
-    bf16 tensor-core kernels."""
+    """Elements per vector access of the blockwise kernels that copy their
+    own tiles: 4-element loads in the scalar f32 kernels, 8-element (16-byte)
+    asynchronous copies in the bf16 backward kernels."""
     return 8 if dtype == torch.bfloat16 else 4
 
 
-def _blockwise_args(q, k, v, bias, num_heads, *others, chunk: int):
-    """What every blockwise C entry takes after its pointers, and whether
-    ``chunk``-element vector accesses are allowed (head width, strides and
-    base addresses); the kernels fill their tiles by plain loads otherwise."""
-    b, l, d = q.shape
-    dh = d // num_heads
+def _check_blockwise(q, k, v, num_heads):
+    dh = q.shape[-1] // num_heads
     if dh > BLOCKWISE_MAX_HEAD_DIM:
         raise ValueError(
             f"the blockwise kernels take a head width up to {BLOCKWISE_MAX_HEAD_DIM}, got {dh}"
         )
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("q, k, v need a contiguous last dimension")
+
+
+def _blockwise_args(q, k, v, bias, num_heads, *others, chunk: int):
+    """What every blockwise C entry takes after its pointers, and whether
+    ``chunk``-element vector accesses are allowed (head width, strides and
+    base addresses); the kernels fill their tiles by plain loads otherwise."""
+    _check_blockwise(q, k, v, num_heads)
+    b, l, d = q.shape
+    dh = d // num_heads
     width = chunk * q.element_size()
     vec = dh % chunk == 0 and d % chunk == 0 and all(
         t.stride(0) % chunk == 0 and t.stride(1) % chunk == 0 and t.data_ptr() % width == 0
@@ -359,12 +368,66 @@ def _blockwise_args(q, k, v, bias, num_heads, *others, chunk: int):
     )
 
 
+TMA_ALIGN = 16  # bytes: a tensor map's base address and each of its strides
+
+
+def tma_describable(data_ptr: int, strides_bytes) -> bool:
+    """Whether a tensor map can describe an operand: its base address and
+    every stride (bytes) a positive multiple of 16."""
+    return data_ptr % TMA_ALIGN == 0 and all(s > 0 and s % TMA_ALIGN == 0 for s in strides_bytes)
+
+
+def _tma_operands(q, k, v, bias, num_heads):
+    """(q, k, v, bias, head stride in elements) as the bf16 forward's tensor
+    maps take them. A map describes one input over (head column, head, row,
+    batch): its base and its head, row and batch strides (bytes) must be
+    multiples of 16 (:func:`tma_describable`); the contiguous bias is one
+    row of B L values, which needs only its base aligned. Strided slices of
+    one (B, L, 3D) projection pass as they are. An input that fails gets a
+    copy, counted on the copy counter (``_build.copy_counts``; every main
+    path reads 0 there): a contiguous (B, L, D) copy where the head width
+    is a multiple of 16 bytes, else all three become zero-padded
+    (B, L, H, dh') copies with dh' the head width rounded up to 16 bytes,
+    whose pad columns lie past the map's dh and are never read."""
+    b, l, d = q.shape
+    dh = d // num_heads
+    size = q.element_size()
+    bias = bias.contiguous()
+    if not tma_describable(bias.data_ptr(), ()):
+        bias = bias.clone()
+        _build.count_copy("blockwise_fwd")
+    if (dh * size) % TMA_ALIGN:
+        dhp = -(-dh * size // TMA_ALIGN) * TMA_ALIGN // size
+        padded = []
+        for t in (q, k, v):
+            c = t.new_zeros((b, l, num_heads, dhp))
+            c[..., :dh] = t.unflatten(-1, (num_heads, dh))
+            padded.append(c.flatten(2))
+            _build.count_copy("blockwise_fwd")
+        return (*padded, bias, dhp)
+    out = []
+    for t in (q, k, v):
+        if not tma_describable(t.data_ptr(), (dh * size, t.stride(1) * size, t.stride(0) * size)):
+            t = torch.empty((b, l, d), dtype=t.dtype, device=t.device).copy_(t)
+            _build.count_copy("blockwise_fwd")
+        out.append(t)
+    return (*out, bias, dh)
+
+
 def _launch_blockwise_fwd(q, k, v, bias, num_heads):
     b, l, d = q.shape
     bias = bias.contiguous()
     out = torch.empty((b, l, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, l, num_heads), dtype=torch.float32, device=q.device)
-    args = _blockwise_args(q, k, v, bias, num_heads, out, chunk=_vector_chunk(q.dtype))
+    if q.dtype == torch.bfloat16:
+        # tensor maps: the head stride is the map's, the vector flag unused
+        _check_blockwise(q, k, v, num_heads)
+        q, k, v, bias, head_stride = _tma_operands(q, k, v, bias, num_heads)
+        args = (1, b, l, d, num_heads, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                v.stride(0), v.stride(1), head_stride, 1.0 / ((d // num_heads) ** 0.5), 0, q.device.index)
+    else:
+        *head, scale, vec, device = _blockwise_args(q, k, v, bias, num_heads, out, chunk=_vector_chunk(q.dtype))
+        args = (*head, d // num_heads, scale, vec, device)
     lib = _build.library()
     with torch.cuda.device(q.device):
         code = lib.b4cp_bmha_fwd(

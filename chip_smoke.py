@@ -16,7 +16,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    with nvcc for sm_90a (one compile per source, in parallel) and prints the
    build time and ptxas' report, and the counts of warpgroup products
    (HGMMA) and TMA loads (UTMALDG) in ``cuobjdump -sass`` of the CE
-   forward's two instances (f32 and bf16 x; raises unless each has both).
+   forward's two instances (f32 and bf16 x) and the bf16 blockwise
+   attention forward's four (head-width tiles 16, 32, 64 and 128); raises
+   unless each has both.
 3. kernels — holds each of the eleven kernels against its plain PyTorch version
    on the card at the shapes its main path gives it, with the tolerance
    stated, and times both (CUDA events; median device time of warm calls):
@@ -32,9 +34,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    |dx| of each other; both rated at tf32 x3 with the f32 rating beside;
    the backward also timed with bf16 x), the three blockwise attention kernels at
    (16, 1024, 256) and at L=1000 in bf16 (all three on the tensor cores,
-   two runs bit-equal, the dk/dv kernel's dv from p rounded to bf16 measured
-   against p kept as two bf16 terms and against a dense f64 dv) and f32 (the
-   scalar kernels), the fused dropout at
+   the forward on TMA loads and wgmma products, two runs bit-equal, the
+   dk/dv kernel's dv from p rounded to bf16 measured against p kept as two
+   bf16 terms and against a dense f64 dv) and f32 (the scalar kernels), the
+   bf16 forward again at batch 8, L=100 (below one 128-key stage) with
+   head widths 32 and 128 (H=8 and 2; two runs bit-equal), none of them
+   copying an input for its tensor maps (the copy counter stays 0 here, in
+   the long-session phases and over the whole run), the fused dropout at
    (16384, 256) (bit-equal to its plain Philox version), the gather and
    the fused CE once more at the long-session path's shapes, and the
    two-pass CE backward (dx and dW kernels) with the forward at N=2,560,
@@ -260,6 +266,7 @@ LONG_TIMED = 20  # timed steps per dropout back end
 LONG_STEPS = 60  # steps in all with the fused back end
 LONG_B_CHECK = 2  # card vs CPU step
 LONG_B_SERVE, LONG_REQUESTS = 8, 5
+FWD_SHORT_L = 100  # the bf16 blockwise forward below one 128-key stage
 # wide training run: examples/bert4rec/train_torch.py --preset tpu --d_model 384
 # --heads 6 --layers 4 --qkv_fused on simulated sessions at Beauty's catalog size
 WIDE_D, WIDE_HEADS, WIDE_LAYERS = 384, 6, 4
@@ -511,31 +518,40 @@ def phase_build() -> None:
     log(f"[build] kernels ready in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'} s)")
     for line in _build.build_log.splitlines():
-        if "registers" in line or "Compiling entry" in line or "spill" in line:
+        if "registers" in line or "Compiling entry" in line or "spill" in line or "Performance" in line:
             log(f"[build] {line.strip()}")
     forward_sass(_build)
 
 
 def forward_sass(_build) -> None:
-    """Counts, in ``cuobjdump -sass`` of the built library, of the CE
-    forward's warpgroup products (HGMMA) and TMA loads (UTMALDG) per
-    instance of ``ce_fwd_wgmma_kernel``; raises unless each has both."""
+    """Counts, in ``cuobjdump -sass`` of the built library, of the warpgroup
+    products (HGMMA) and TMA loads (UTMALDG) per instance of the two kernels
+    built on them: the CE forward (``ce_fwd_wgmma_kernel``, f32 and bf16 x)
+    and the bf16 blockwise attention forward (``bmha_fwd_wgmma_kernel``, one
+    instance per head-width tile); raises unless each instance has both."""
     tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", _build.library()._name], capture_output=True, text=True, check=True).stdout
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            if "ce_fwd_wgmma_kernel" in fn:
+            if "ce_fwd_wgmma_kernel" in fn or "bmha_fwd_wgmma_kernel" in fn:
                 counts[fn] = {"HGMMA": 0, "UTMALDG": 0}
         elif fn in counts:
             for op in counts[fn]:
                 counts[fn][op] += op in line
-    log("[build] CE forward SASS (cuobjdump -sass): " + "; ".join(
-        f"{'bf16' if 'ILi3E' in fn else 'f32'} x ({fn[-50:]}): HGMMA {c['HGMMA']}, UTMALDG {c['UTMALDG']}"
-        for fn, c in counts.items()))
-    if len(counts) != 2 or any(min(c.values()) == 0 for c in counts.values()):
-        raise AssertionError(f"the CE forward is not built on wgmma and TMA: {counts}")
+
+    def name(fn):
+        args = re.search(r"kernelI(\w+?)EEv", fn)
+        kind = "CE forward" if "ce_fwd" in fn else "blockwise forward"
+        return f"{kind} <{args.group(1) if args else fn[-40:]}>"
+
+    log("[build] SASS (cuobjdump -sass): " + "; ".join(
+        f"{name(fn)}: HGMMA {c['HGMMA']}, UTMALDG {c['UTMALDG']}" for fn, c in sorted(counts.items())))
+    ce = [c for fn, c in counts.items() if "ce_fwd" in fn]
+    attn = [c for fn, c in counts.items() if "bmha_fwd" in fn]
+    if len(ce) != 2 or len(attn) != 4 or any(min(c.values()) == 0 for c in counts.values()):
+        raise AssertionError(f"the CE and blockwise forwards are not built on wgmma and TMA: {counts}")
 
 
 def _qkv_bias(b, seq, d, rng, full_pad_row: bool, tokens=None):
@@ -1225,9 +1241,12 @@ def long_context_kernels(rng, card: str) -> dict:
     )
     from bert4clickpath_torch.ops.kernels.dropout import fused_dropout, fused_dropout_reference
 
+    from bert4clickpath_torch.ops.kernels import _build
+
     out = {}
     b, d, h = LONG_B, 256, 4
     errs = {}
+    copies = _build.copy_counts()["blockwise_fwd"]
     with torch.no_grad():
         for seq in (LONG_L, 1000):
             for dtype in (torch.bfloat16, torch.float32):
@@ -1293,6 +1312,31 @@ def long_context_kernels(rng, card: str) -> dict:
                     if dv_errs["kernel"][0] > 1.5 * dv_errs["output"][0]:
                         raise AssertionError(f"{tag}: the kernel's dv is {dv_errs['kernel'][0] / dv_errs['output'][0]} "
                                              "times the output rounding's error")
+        # the bf16 forward at the serving batch, below one 128-key stage, at
+        # the other head widths of D = 256: dh = 32 and 128 (H = 8 and 2)
+        for heads in (8, 2):
+            qkv, bias = _qkv_bias(LONG_B_SERVE, FWD_SHORT_L, d, rng, full_pad_row=True)
+            qkv = qkv.bfloat16()
+            q_, k_, v_ = qkv[..., :d], qkv[..., d : 2 * d], qkv[..., 2 * d :]
+            got, lse = blockwise_mha_forward(q_, k_, v_, bias, heads)
+            got2, lse2 = blockwise_mha_forward(q_, k_, v_, bias, heads)
+            want, want_lse = blockwise_mha_reference(q_, k_, v_, bias, heads)
+            torch.cuda.synchronize()
+            tag = f"blockwise forward B={LONG_B_SERVE} L={FWD_SHORT_L} D={d} H={heads} (dh = {d // heads}) bf16"
+            if not torch.isfinite(got).all() or not torch.equal(got, got2) or not torch.equal(lse, lse2):
+                raise AssertionError(f"{tag}: non-finite, or two runs differ")
+            atol, rtol = BLOCKWISE_TOL[torch.bfloat16]
+            diff = (got.float() - want.float()).abs()
+            used = (diff / (atol + rtol * want.float().abs())).max().item()
+            lse_err = ((lse - want_lse).abs() / want_lse.abs().clamp(min=1.0)).max().item()
+            log(f"[kernels] {tag}: max_abs_err {diff.max().item():.3e}, {used:.3f} of the tolerance; lse max relative "
+                f"error {lse_err:.3e} (tol 1e-5); two runs bit-equal")
+            if used > 1.0 or lse_err > 1e-5:
+                raise AssertionError(f"{tag}: error {used} of the tolerance, lse {lse_err}")
+        made = _build.copy_counts()["blockwise_fwd"] - copies
+        log(f"[kernels] the bf16 blockwise forward's input copies (tensor maps) in this phase: {made}")
+        if made:
+            raise AssertionError(f"the blockwise forward copied {made} inputs: strided q/k/v must need no copy")
         # times at the long-session shape, bf16; the plain versions hold
         # (B, H, L, L) f32 scores (268 MB), so they are timed a few times only
         q, k, v, bias, do, args = kept
@@ -1855,6 +1899,7 @@ def phase_long_train(card: str) -> dict:
                 "blockwise_dkv": cfg.num_layers, "dropout": 2 * (1 + 2 * cfg.num_layers), "ce_fwd": 1, "ce_bwd": 1,
                 "attention": 0, "attention_bwd": 0}  # dropout: 9 sites, forward and backward
     expected = {**dict.fromkeys(_build.launch_counts(), 0), **{k: v * LONG_TIMED for k, v in per_step.items()}}
+    copies = _build.copy_counts()  # the forward's input copies: none on this path
 
     def warm_up(impl, state, step, rng):
         t0 = time.perf_counter()
@@ -1878,6 +1923,8 @@ def phase_long_train(card: str) -> dict:
         log(f"[long-train] dropout={impl}: launches during {LONG_TIMED} timed steps: {counts} (expected {want})")
         if counts != want:
             raise AssertionError(f"kernel launches {counts} != {want}")
+        if _build.copy_counts() != copies:
+            raise AssertionError(f"the blockwise forward copied inputs: {_build.copy_counts()} (before {copies})")
         log(f"[long-train] dropout={impl}: {dt * 1e3:.3f} ms/step, {LONG_B / dt:.1f} examples/s, "
             f"peak device memory {peak / 2**20:.1f} MiB [{card}]")
         return state, got, dict(ms_per_step=dt * 1e3, examples_per_s=LONG_B / dt, peak_bytes=peak), counts
@@ -1945,6 +1992,7 @@ def phase_long_serve(card: str) -> dict:
         served = ServingModel(tmp, device="cuda", warmup_batches=(LONG_B_SERVE,), warmup_k=K)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        copies = _build.copy_counts()
         lat = []
         for _ in range(LONG_REQUESTS):
             batch = sessions()
@@ -1957,6 +2005,8 @@ def phase_long_serve(card: str) -> dict:
             expected = {"gather": 1, "blockwise_fwd": cfg.num_layers}
             if counts != expected:
                 raise AssertionError(f"kernel launches of one request {counts} != {expected}")
+            if _build.copy_counts() != copies:
+                raise AssertionError(f"the blockwise forward copied inputs: {_build.copy_counts()} (before {copies})")
         peak = torch.cuda.max_memory_allocated()
         log(f"[long-serve] {LONG_REQUESTS} requests of batch {LONG_B_SERVE}, ~1,000 items per session: launches per "
             f"request {counts}; latency ms {[round(x, 3) for x in lat]}, median {statistics.median(lat):.3f} ms; "
@@ -3411,6 +3461,11 @@ def main() -> None:
     for row in summary["kernels"]:
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} was not launched on its main path")
+    from bert4clickpath_torch.ops.kernels import _build
+
+    log(f"[summary] input copies the kernels' wrappers made in the whole run: {_build.copy_counts()}")
+    if any(_build.copy_counts().values()):
+        raise AssertionError(f"a wrapper copied inputs on a main path: {_build.copy_counts()}")
     print(json.dumps(summary))
     print(card)
     print(json.dumps({"ok": True, "device": {

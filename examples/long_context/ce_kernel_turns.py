@@ -1,5 +1,6 @@
-"""Time the CE kernels of two (or more) checkouts of the port in turns, on one
-card, and hold their outputs bit for bit across the checkouts.
+"""Time the CE kernels and the bf16 blockwise attention forward of two (or
+more) checkouts of the port in turns, on one card, and hold their outputs
+across the checkouts.
 
     python3 examples/long_context/ce_kernel_turns.py --checkouts OLD,NEW \
         --order 0,1,1,0
@@ -12,8 +13,16 @@ V = 55,296, D = 256, the forward, the dx pass and the dW pass at D = 384,
 and the forward at the large catalog's shape (N = 2,560, V = 10,000,384,
 D = 128: ``examples/large_catalog/stress_torch.py``), f32 x, no bias
 (median device time of 20 warm calls, 5 at the large catalog, CUDA
-events; the large table is drawn on the card from a seeded generator).
-Every entry is called without ``row_start``, so a checkout from before the
+events; the large table is drawn on the card from a seeded generator),
+then the bf16 blockwise attention forward (``blockwise_mha_forward``) at
+the long-session train shape (B, L, D, H) = (16, 1024, 256, 4) and its
+serving batch (8, 1024, 256, 4), q, k and v strided slices of one seeded
+projection, ragged padding and one fully padded row, with
+``F.scaled_dot_product_attention`` on the same inputs beside each (the
+padding bias as its mask; a yardstick, used nowhere in the port), and the
+host's cost of one forward call at a shape whose kernel takes a few
+microseconds (wall time of 500 calls, ``bmha_fwd_host_us``). Every CE
+entry is called without ``row_start``, so a checkout from before the
 argument existed takes the same calls. The first process of each checkout
 pays its build; the parent prints the table of runs in order, and each
 kernel's spread over the runs of one checkout beside the gap between the
@@ -33,8 +42,14 @@ held to the repeat bound of ``ce_backward_merged`` (1e-5 of the largest
 forward's (m, l) must be bit-equal between runs of one checkout (nothing
 in it is atomic); two checkouts whose forwards sum in different orders (a
 redesigned kernel) are held to each other on logz = m + log(l) within
-1e-4, the forward's tolerance. The script exits non-zero otherwise. A card
-is required.
+1e-4, the forward's tolerance. The blockwise forward's (out, lse) must be
+bit-equal between runs of one checkout and, in every run, within the bound
+``chip_smoke.py`` holds the kernel to against its plain version (computed
+in the run: abs 2e-3 + 2^-6 of the plain value, lse 1e-5 relative); across
+checkouts whose kernels step through the keys differently (a redesigned
+forward) they are not bit-equal, and the gap, printed in units of that
+bound taken about run 1's output, is held to 2 (each side within 1 of the
+plain version). The script exits non-zero otherwise. A card is required.
 """
 
 from __future__ import annotations
@@ -57,17 +72,26 @@ LOGZ_TOL = 1e-4  # the forward's tolerance, between checkouts whose sums run in 
 # entry at (table rows, D)
 SHAPES = {"fwd_256": (V, 256), "bwd_merged_256": (V, 256), "fwd_384": (V, 384), "dx_384": (V, 384),
           "dw_384": (V, 384), "fwd_large_128": (V_LARGE, 128)}
+# the blockwise forward at (B, L, D, H), and the library's forward beside it
+ATTN = {"bmha_fwd_16": (16, 1024, 256, 4), "bmha_fwd_8": (8, 1024, 256, 4)}
+# the host's cost of one forward call (the wrapper and its C entry, whose
+# kernel is a few microseconds here): wall time of HOST_CALLS calls
+HOST_SHAPE, HOST_CALLS = (1, 128, 256, 4), 500
+TIMED = [*SHAPES, *ATTN, *(name.replace("bmha", "sdpa") for name in ATTN), "bmha_fwd_host_us"]
+ATTN_TOL, LSE_REL = (2e-3, 2.0**-6), 1e-5  # chip_smoke.py BLOCKWISE_TOL (bf16) and its lse bound
+ATTN_ACROSS = 2.0  # the gap between two checkouts' forwards, in units of that bound
 
 
 def _ce_registers(build_log: str) -> list:
-    """ptxas' registers and spills of each CE kernel instance, from a build
-    made in this process (empty when the library was already built)."""
+    """ptxas' registers and spills of each CE kernel instance and of the
+    blockwise forward's, from a build made in this process (empty when the
+    library was already built)."""
     out, entry = [], None
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-            entry = next((k for k in ("ce_fwd_wgmma", "ce_fwd_mma", "ce_bwd_dx_mma", "ce_bwd_dw_mma") if k in name),
-                         None)
+            entry = next((k for k in ("ce_fwd_wgmma", "ce_fwd_mma", "ce_bwd_dx_mma", "ce_bwd_dw_mma", "bmha_fwd_wgmma",
+                                      "bmha_fwd_mma") if k in name), None)
             entry = entry and f"{entry}:{name[-40:]}"
         elif entry and ("registers" in line or "spill" in line):
             out.append(f"{entry} {line.split(':', 1)[-1].strip()}")
@@ -144,6 +168,44 @@ def _time_in(checkout: str, out_dir: str) -> dict:
                 for i, t in enumerate(got):
                     if t is not None:
                         outputs[f"{name}{tag}.{i}"] = t.detach().cpu().numpy()
+    # the blockwise forward and the library's beside it
+    import time
+
+    import torch.nn.functional as F
+
+    from bert4clickpath_torch.ops.kernels import attention as attn
+
+    arng = np.random.default_rng(1)
+    for name, (b, l, d, h) in ATTN.items():
+        qkv = torch.from_numpy(arng.standard_normal((b, l, 3 * d), dtype=np.float32)).cuda().bfloat16()
+        q, k, v = qkv[..., :d], qkv[..., d : 2 * d], qkv[..., 2 * d :]
+        bias = torch.zeros(b, 1, 1, l, device="cuda")
+        for i, n in enumerate(arng.integers(1, l + 1, size=b)):  # ragged padding, row 0 all padding
+            bias[i, ..., 0 if i == 0 else n :] = -1e9
+        out[name] = median_ms(lambda: attn.blockwise_mha_forward(q, k, v, bias, h))
+        heads = lambda t: t.unflatten(-1, (h, d // h)).transpose(1, 2)  # noqa: E731
+        mask = bias.bfloat16()
+        out[name.replace("bmha", "sdpa")] = median_ms(
+            lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v), attn_mask=mask))
+        got, lse = attn.blockwise_mha_forward(q, k, v, bias, h)
+        want, want_lse = attn.blockwise_mha_reference(q, k, v, bias, h)
+        diff = (got.float() - want.float()).abs()
+        out[f"{name}_used"] = float((diff / (ATTN_TOL[0] + ATTN_TOL[1] * want.float().abs())).max())
+        out[f"{name}_lse"] = float(((lse - want_lse).abs() / want_lse.abs().clamp(min=1.0)).max())
+        outputs[f"{name}.0"] = got.float().cpu().numpy()
+        outputs[f"{name}.1"] = lse.cpu().numpy()
+    b, l, d, h = HOST_SHAPE
+    qkv = torch.from_numpy(arng.standard_normal((b, l, 3 * d), dtype=np.float32)).cuda().bfloat16()
+    q, k, v = qkv[..., :d], qkv[..., d : 2 * d], qkv[..., 2 * d :]
+    bias = torch.zeros(b, 1, 1, l, device="cuda")
+    for _ in range(20):
+        attn.blockwise_mha_forward(q, k, v, bias, h)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        attn.blockwise_mha_forward(q, k, v, bias, h)
+    torch.cuda.synchronize()
+    out["bmha_fwd_host_us"] = (time.perf_counter() - t0) / HOST_CALLS * 1e6
     torch.cuda.synchronize()
     np.savez(os.path.join(out_dir, "outputs.npz"), **outputs)
     out["card"] = torch.cuda.get_device_name(0)
@@ -153,7 +215,9 @@ def _time_in(checkout: str, out_dir: str) -> dict:
 def _compare_outputs(dirs: list, runs: list) -> bool:
     """Every run's outputs against the first run's: bit-equal, except the
     merged backward's dx (atomic adds), whose gap across checkouts is held
-    to its repeat bound, DX_REPEAT of its largest |value|. Prints one line
+    to its repeat bound, DX_REPEAT of its largest |value|, the forward's
+    logz across checkouts (LOGZ_TOL) and the blockwise forward's (out, lse)
+    across checkouts (ATTN_ACROSS of its bound, LSE_REL). Prints one line
     an output."""
     import numpy as np
 
@@ -175,6 +239,21 @@ def _compare_outputs(dirs: list, runs: list) -> bool:
             ok &= within and across <= LOGZ_TOL
         elif key.startswith("fwd"):
             continue  # l: with m above
+        elif key.startswith("bmha"):
+            pairs = [(i, j) for i in range(len(runs)) for j in range(i + 1, len(runs))]
+            within = all(np.array_equal(arrays[i], arrays[j]) for i, j in pairs if runs[i][0] == runs[j][0])
+            if key.endswith(".0"):
+                bound = ATTN_TOL[0] + ATTN_TOL[1] * np.abs(arrays[0])
+                across = max((float((np.abs(arrays[i] - arrays[j]) / bound).max())
+                              for i, j in pairs if runs[i][0] != runs[j][0]), default=0.0)
+                limit, unit = ATTN_ACROSS, "of the bound"
+            else:
+                across = max((float((np.abs(arrays[i] - arrays[j]) / np.maximum(np.abs(arrays[0]), 1.0)).max())
+                              for i, j in pairs if runs[i][0] != runs[j][0]), default=0.0)
+                limit, unit = LSE_REL, "relative"
+            print(f"output {key}: bit-equal between runs of one checkout: {within}; across checkouts apart by "
+                  f"{across:.3e} {unit} at most (held to {limit})", flush=True)
+            ok &= within and across <= limit
         elif key.startswith("bwd_merged") and key.endswith(".0"):
             gap = lambda i, j: float(np.abs(arrays[i] - arrays[j]).max())  # noqa: E731
             pairs = [(i, j) for i in range(len(runs)) for j in range(i + 1, len(runs))]
@@ -215,22 +294,29 @@ def main(argv=None) -> None:
             runs.append((i, json.loads(res.stdout.strip().splitlines()[-1])))
             _print_run(len(runs), i, roots[i], runs[-1][1])
         same = _compare_outputs(dirs, runs)
+        for n, (i, row) in enumerate(runs, 1):
+            for name in ATTN:
+                fine = row[f"{name}_used"] <= 1.0 and row[f"{name}_lse"] <= LSE_REL
+                print(f"run {n} checkout {i}: {name} against its plain version: {row[f'{name}_used']:.3f} of the "
+                      f"bound, lse {row[f'{name}_lse']:.2e} relative", flush=True)
+                same &= fine
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
-    for name in SHAPES:
+    for name in TIMED:
         per = {i: [row[name] for j, row in runs if j == i] for i in range(len(roots))}
         spread = {i: (max(v) - min(v)) / min(v) for i, v in per.items() if len(v) > 1}
         means = {i: statistics.mean(v) for i, v in per.items()}
-        print(f"{name}: " + ", ".join(f"checkout {i} {means[i]:.4f} ms (spread {spread.get(i, 0):.2%})"
+        unit = "us" if name.endswith("_us") else "ms"
+        print(f"{name}: " + ", ".join(f"checkout {i} {means[i]:.4f} {unit} (spread {spread.get(i, 0):.2%})"
                                       for i in means)
               + "".join(f"; checkout {i} / checkout 0 = {means[i] / means[0]:.4f}" for i in means if i), flush=True)
     print(json.dumps({"runs": runs, "outputs_equal": same}), flush=True)
     if not same:
-        raise SystemExit("the checkouts' CE outputs differ")
+        raise SystemExit("the checkouts' outputs differ, or a forward misses its plain version's bound")
 
 
 def _print_run(n: int, i: int, root: str, row: dict) -> None:
-    print(f"run {n} checkout {i} ({root}): " + ", ".join(f"{name} {row[name]:.4f}" for name in SHAPES)
+    print(f"run {n} checkout {i} ({root}): " + ", ".join(f"{name} {row[name]:.4f}" for name in TIMED)
           + f" ms; build {row['build_seconds']} s", flush=True)
     for line in row["ptxas"]:
         print(f"  ptxas checkout {i}: {line}", flush=True)

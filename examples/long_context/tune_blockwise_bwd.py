@@ -4,7 +4,7 @@ other tile constants than the ones ``csrc/attention_blockwise.cu``,
 ``csrc/fused_ce_mma.cuh`` ship with.
 
     python3 examples/long_context/tune_blockwise_bwd.py --kernel fwd \\
-        --variant shipped: --variant wide:kFwdWarps=8,kFwdMinBlocks=2
+        --variant shipped: --variant stages2:kFwdStages=2
     python3 examples/long_context/tune_blockwise_bwd.py --kernel mha_bwd \\
         --variant shipped: --variant one_term:kMhaDvSplit=false
     python3 examples/long_context/tune_blockwise_bwd.py --kernel mha_fwd \\
@@ -24,8 +24,10 @@ the blockwise forward (``fwd``), dq, dk/dv, the whole-row forward
 copy of the sources with the named ``constexpr`` constants set to the
 given expressions:
 ``kWalk``, ``kFragmentsResident``; ``kDqWarps``, ``kDqPass``,
-``kDqMinBlocks`` and the same three for ``kDkv``; ``kFwdWalk``,
-``kFwdWarps``, ``kFwdPass``, ``kFwdStages``, ``kFwdMinBlocks``;
+``kDqMinBlocks`` and the same three for ``kDkv``; the bf16 forward's
+``kFwdStages`` (its TMA ring of K and V stages), ``kFwdQBuffers`` and
+``kFwdProducerRegs`` and ``kFwdConsumerRegs`` (its setmaxnreg split, 128 x
+producer + 256 x consumer <= 65,536);
 ``kMhaWarps``, ``kMhaPassQ``, ``kMhaPassK``, ``kMhaMinBlocks``,
 ``kMhaFragmentsResident``, ``kMhaDvSplit``; ``kMhaFwdWarps``,
 ``kMhaFwdPass``; ``kCeFwdStages`` (the TMA ring of the CE forward: four
@@ -117,8 +119,8 @@ def build_variants(variants: dict[str, dict[str, str]], sources: list[str], entr
                 entry = re.search(r"mha_\w+?_kernelILi\d+E|mha_\w+?_kernelI\w+?Li\d+E"
                                   r"|(?:d[xw]|fwd)_mma_kernelILi\dE(?:Lb\dE)+|fwd_wgmma_kernelILi\dE", line)
                 entry = entry.group(0) if entry else ""
-            elif ("_mma_kernelILi64E" in entry or entry.startswith("fwd_") or "dx_mma_kernel" in entry
-                  or "dw_mma_kernel" in entry) and ("registers" in line or "spill" in line):
+            elif ("_mma_kernelILi64E" in entry or "wgmma_kernelILi64E" in entry or entry.startswith("fwd_")
+                  or "dx_mma_kernel" in entry or "dw_mma_kernel" in entry) and ("registers" in line or "spill" in line):
                 print(f"[{name}] {entry}: {line.strip()}", flush=True)
         lib = ctypes.CDLL(os.path.join(out_dir, name, "lib.so"))
         for fn in entries:

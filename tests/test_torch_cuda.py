@@ -219,6 +219,10 @@ BLOCKWISE_SHAPES = [
     (2, 65, 256, 4),  # a second tile with one key, a second block with one row
     (3, 130, 384, 6),  # six heads
     (2, 200, 128, 1),  # one head of 128
+    # the bf16 forward's persistent grid over more units than SMs: Dh = 32
+    # with a ragged last stage, Dh = 16
+    (16, 1000, 256, 8),
+    (24, 300, 64, 4),
 ]
 
 
