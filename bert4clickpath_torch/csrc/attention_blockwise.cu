@@ -41,7 +41,8 @@
 // Dh = 64.
 //
 // Three designs live here, chosen by the input type alone: f32 inputs take
-// (1), bf16 inputs (2) and (3).
+// (1), bf16 inputs (2) (the backward) and (3) (the forward, whose pieces (2)
+// shares, so its code comes first).
 //
 // (1) The f32 kernels: scalar f32 FMA out of
 // shared memory, so that f32 inputs keep f32 accuracy (the exactness route).
@@ -58,38 +59,48 @@
 // the Dh'/16 head columns it owns. Shared memory at Dh = 64: forward 68 KB,
 // dq 85 KB, dk/dv 103 KB per block; at Dh = 128: 116, 149 and 167 KB.
 //
-// (2) The bf16 backward (bmha_dq_mma_kernel, bmha_dkv_mma_kernel): every
-// product on the tensor cores, mma.sync.m16n8k16 (bf16 x bf16, f32 sums)
-// with ldmatrix fragment loads; the building blocks are in attention_mma.cuh.
-// A warp owns 16 rows of one (b, h): query rows in dq (8 warps, 128 rows a
-// block), key rows in dk/dv (4 warps, 64 rows a block), so one block owns
-// its output rows. Its own operands (q and do; k and v) are loaded once into
-// bf16 tiles (row stride Dh' + 8: no bank conflicts) and, for Dh' <= 64,
-// their A fragments then stay in registers. The walked operand (k and v
-// tiles of 64 keys with their bias; q and do tiles of 64 rows with their lse
-// and delta) comes through two stages of shared memory by cp.async: tile
-// j + 1 is in flight while tile j multiplies, with one barrier per tile. dq
-// computes s = q k^T and dp = do v^T; dk/dv computes the transposed tiles
-// s^T = k q^T and dp^T = v do^T, so that p^T and ds^T arrive in the
-// accumulator layout of the key rows the warp owns. exp(s - lse),
-// (dp - delta), the scale and the rounding to bf16 happen on the accumulator
-// fragments, which are repacked in registers as the A operand of the next
-// product (dq += ds k; dv += p^T do, dk += ds^T q, the B operand read down
-// its rows with ldmatrix.trans): p and ds never touch shared memory. A warp
-// takes a walked tile through this chain a few columns at a time (16 in dq,
-// 64 or 32 in dk/dv), which bounds its score registers. Keys past L carry a
-// bias of -inf and query rows past L an lse of +inf, so their p is exactly 0
-// before any product; rows past L are never stored. Where the head width, a
-// stride or a base address does not allow 16-byte copies, plain loads fill
-// the same tiles. At Dh = 64 (ptxas, sm_90a): dq 128 registers, 74 KB of
-// shared memory, two blocks (16 warps) per SM; dk/dv 168 registers, 56 KB,
-// three blocks (12 warps); at Dh = 128: 140 and 105 KB, one block each. The
-// gradients stay in f32 registers over all tiles and are rounded once.
-// mma.sync, not wgmma: its fragment layouts are explicit, which the
-// register-level chaining of p and ds needs to be sure of without a compiler
-// at hand while writing; wgmma (A from registers for the second product of
-// each chain, 128-byte-swizzled B tiles behind descriptors) is what a later
-// version would add for the last factor towards the tensor cores' peak.
+// (2) The bf16 backward (bmha_dq_wgmma_kernel, bmha_dkv_wgmma_kernel),
+// built as the forward (3) is and on its pieces: persistent blocks, one an
+// SM, of one producer warpgroup and two consumer warpgroups of 64 rows; one
+// producer thread keeps TMA loads in flight into a ring of mbarrier-guarded
+// stages; every product is a wgmma. A unit is 128 rows of one (head, batch
+// row), walked as the forward walks its units (FwdUnit): query rows in dq,
+// keys in dk/dv, so one block owns its output rows (no atomics; two runs
+// give the same bits). Both kernels read q, k, v and do through one set of
+// rank-4 tensor maps with boxes of 64 rows, encoded once a backward call
+// (a 128-row tile is two boxes), so rows past seq_len and columns past dh
+// arrive as zeros.
+//   dq: Q and dO of the unit stay (kDqQBuffers buffers, so that the next
+// unit's land while this one runs); the forward's stages of 128 keys walk
+// past, K and V with their bias box. Per stage a consumer warpgroup starts
+// S = Q K^T and dP = dO V^T (m64n128k16, both operands K-major in shared
+// memory, each product's first k-step write-only) as one group, reads the
+// stage's bias while they run (keys past seq_len: -inf, so p = 0; the box
+// holds the next batch row's bias there), then on the accumulator
+// fragments p = exp(fma(s, scale, bias) - lse) and ds = p (dp - delta)
+// scale in f32, ds rounded to bf16 in place into the A fragments of dQ +=
+// dS K (m64n{Dh'}k16, A from registers; B the K tile as it lies, MN-major
+// through make_desc_mn, as the forward reads V). lse and delta of the
+// thread's two rows are read once a unit with plain loads.
+//   dk/dv: K, V and the keys' bias of the unit stay; Q and dO walk past in
+// stages of kDkvWalk rows (128; 64 at Dh' = 128, where dK and dV alone hold
+// 128 registers a thread). The products are transposed: S^T = K Q^T and
+// dP^T = V dO^T (m64n{kDkvWalk}k16, both from shared memory), so that p^T
+// (rounded to bf16) and ds^T are the A fragments of dV += P^T dO and dK +=
+// dS^T Q, dO and Q read MN-major as they lie. lse and delta are (B, L, H):
+// one head's rows are H floats apart, which no TMA box describes (its inner
+// extent is a multiple of 16 bytes), so one warp of the producer warpgroup
+// copies each stage's with plain loads and arrives on the stage's barrier
+// with the TMA thread; a row past seq_len gets lse = +inf and delta = 0, so
+// its p is exactly 0 (its Q and dO rows are zeros).
+// In both, a stage's last products (dQ; dV and dK) run on while the
+// warpgroup waits for the next stage and starts its score products, which
+// are waited for with them; the stage is released then. s - lse stays a
+// subtraction after s = fma(q.k, scale, bias): a
+// fully padded row (bias and lse -1e9) gets p = 1 at every key, as in the
+// plain version. The gradients are summed in f32 registers over all stages
+// and rounded once. The bf16 products' operands are bf16, the p, ds and
+// their exponentials f32 (__expf, the fast one).
 //
 // (3) The bf16 forward (bmha_fwd_wgmma_kernel) on Hopper's own tools
 // (hopper.cuh): TMA loads into a ring of mbarrier-guarded stages and
@@ -135,7 +146,7 @@
 // (PERF.md).
 // The wrapper hands over a contiguous copy of an input whose base or
 // strides a tensor map cannot describe (ops/kernels/attention.py,
-// _tma_operands); the main paths make none.
+// _tma_operands, for (2) and (3) alike); the main paths make none.
 
 #include <climits>
 #include <type_traits>
@@ -554,280 +565,6 @@ __global__ void __launch_bounds__(kThreads, DHP <= 64 ? 2 : 1)
   store_rows<float, NC>(dk, acc_k, base, k0, seq_len, d, dh, ty, tx);
 }
 
-// The bf16 backward on the tensor cores (design (2) of the header).
-
-constexpr int kWalk = 64;  // rows of a walked tile: one barrier and one stage each
-
-// The shape of each kernel, found on the card at the long-session shape
-// (examples/long_context/tune_blockwise_bwd.py). Warps: 16 rows of the
-// block's own tile each. Pass: the columns of a walked tile that a warp takes
-// through its chain of products at a time (its two score tiles are 16 x pass
-// f32 in registers). MinBlocks: the blocks per SM that the register
-// allocation leaves room for; ptxas otherwise takes all 255 registers to
-// hoist loads, and the fewer warps in flight cost more than the hoisting
-// gains. kFragmentsResident: the A fragments of the block's own operands
-// stay in registers (else they are read from shared memory at every k-step).
-template <int DHP>
-constexpr bool kFragmentsResident = DHP <= 64;
-template <int DHP>
-constexpr int kDqWarps = 8;
-template <int DHP>
-constexpr int kDqPass = 16;
-template <int DHP>
-constexpr int kDqMinBlocks = DHP <= 64 ? 2 : 1;  // 128 registers; at Dh' = 128 shared memory holds one block
-template <int DHP>
-constexpr int kDkvWarps = 4;
-template <int DHP>
-constexpr int kDkvPass = DHP <= 64 ? 64 : 32;  // dk and dv alone are 128 registers at Dh' = 128
-template <int DHP>
-constexpr int kDkvMinBlocks = DHP <= 64 ? 3 : 1;  // 168 registers
-
-// bytes of dynamic shared memory of the mma kernels: two resident tiles of
-// 16 rows a warp, two stages of two walked tiles, and two stages of
-// `rows_f32` f32 rows of kWalk values
-template <int DHP>
-constexpr size_t mma_smem_bytes(int warps, int rows_f32) {
-  return sizeof(__nv_bfloat16) * (2 * 16 * warps + 4 * kWalk) * (DHP + tc::kSkew) +
-         sizeof(float) * 2 * rows_f32 * kWalk;
-}
-
-// One block per (query tile of 16 rows a warp, h, b): q and do stay, k and v
-// tiles walk.
-template <int DHP, int WARPS, int NP, bool RESIDENT, int MIN_BLOCKS>
-__global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
-    bmha_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
-                       const float* __restrict__ lse, const __nv_bfloat16* __restrict__ dout,
-                       const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
-                       int seq_len, int d, int dh, int heads, Strides st, float scale,
-                       int vec) {
-  extern __shared__ __align__(16) unsigned char smem_mma[];
-  constexpr int RS = DHP + tc::kSkew;
-  constexpr int kMmaThreads = WARPS * 32;
-  constexpr int kMmaRows = WARPS * 16;  // rows the block owns
-  constexpr int NT = NP / 8;  // n8 tiles of a pass
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_mma);
-  __nv_bfloat16* dos = qs + kMmaRows * RS;
-  __nv_bfloat16* ks = dos + kMmaRows * RS;  // two stages
-  __nv_bfloat16* vs = ks + 2 * kWalk * RS;  // two stages
-  float* bs = reinterpret_cast<float*>(vs + 2 * kWalk * RS);  // two stages of kWalk
-  const int q0 = blockIdx.x * kMmaRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const long long base = static_cast<long long>(b) * seq_len * d + h * dh;
-  const __nv_bfloat16* kb = k + b * st.k_sb + h * dh;
-  const __nv_bfloat16* vb = v + b * st.v_sb + h * dh;
-  const float* bias_b = bias + static_cast<long long>(b) * seq_len;
-
-  auto fill_walked = [&](int stage, int k0) {
-    tc::fill_tile<kWalk, DHP, kMmaThreads>(ks + stage * kWalk * RS, kb, st.k_sl, k0, seq_len, dh, vec);
-    tc::fill_tile<kWalk, DHP, kMmaThreads>(vs + stage * kWalk * RS, vb, st.v_sl, k0, seq_len, dh, vec);
-    // a key past seq_len: p = exp(-inf) = 0
-    tc::fill_rows_f32<kMmaThreads>(bs + stage * kWalk, bias_b, 1, k0, kWalk, seq_len, -INFINITY);
-    tc::cp_async_commit();
-  };
-
-  tc::fill_tile<kMmaRows, DHP, kMmaThreads>(qs, q + b * st.q_sb + h * dh, st.q_sl, q0, seq_len, dh, vec);
-  tc::fill_tile<kMmaRows, DHP, kMmaThreads>(dos, dout + base, d, q0, seq_len, dh, vec);
-  tc::cp_async_commit();
-  fill_walked(0, 0);
-
-  // the thread's two rows: g and g + 8 of the warp's 16 (a row past seq_len
-  // is computed on zeros and never stored)
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + warp * 16 + g + 8 * i;
-    const long long at = (static_cast<long long>(b) * seq_len + row) * heads + h;
-    lse_r[i] = row < seq_len ? lse[at] : 0.f;
-    delta_r[i] = row < seq_len ? delta[at] : 0.f;
-  }
-  float acc[DHP / 8][4] = {};
-
-  const int rows_first = tc::lane_offset_rows_first<RS>(lane) * 2;
-  const int cols_first = tc::lane_offset_cols_first<RS>(lane) * 2;
-  const uint32_t q_addr = tc::shared_addr(qs + warp * 16 * RS) + rows_first;
-  const uint32_t do_addr = tc::shared_addr(dos + warp * 16 * RS) + rows_first;
-  const uint32_t k_addr = tc::shared_addr(ks);
-  const uint32_t v_addr = tc::shared_addr(vs);
-  constexpr uint32_t kStageBytes = kWalk * RS * 2;
-  constexpr uint32_t kPassBytes = NP * RS * 2;
-
-  uint32_t qf[DHP / 16][4], dof[DHP / 16][4];
-  if constexpr (RESIDENT) {
-    tc::cp_async_wait<1>();  // q and do have arrived
-    __syncthreads();
-    tc::load_a<DHP>(qf, q_addr);
-    tc::load_a<DHP>(dof, do_addr);
-  }
-
-  const int n_tiles = (seq_len + kWalk - 1) / kWalk;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int stage = j & 1;
-    tc::cp_async_wait<0>();
-    __syncthreads();  // tile j is visible; tile j - 1's readers are done
-    if (j + 1 < n_tiles) fill_walked(stage ^ 1, (j + 1) * kWalk);
-
-#pragma unroll
-    for (int c = 0; c < kWalk / NP; ++c) {
-      const uint32_t k_at = k_addr + stage * kStageBytes + c * kPassBytes;
-      const uint32_t v_at = v_addr + stage * kStageBytes + c * kPassBytes;
-      float s[NT][4] = {}, dp[NT][4] = {};
-      if constexpr (RESIDENT) {
-        tc::product_abt<DHP, NT>(s, qf, k_at + cols_first);
-        tc::product_abt<DHP, NT>(dp, dof, v_at + cols_first);
-      } else {
-        tc::product_abt<DHP, NT>(s, q_addr, k_at + cols_first);
-        tc::product_abt<DHP, NT>(dp, do_addr, v_at + cols_first);
-      }
-      // ds on the accumulator fragments, rounded and repacked as A fragments
-      uint32_t dsf[NP / 16][4];
-      const float* bj = bs + stage * kWalk + c * NP + 2 * t;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const float2 b2 = *reinterpret_cast<const float2*>(bj + nt * 8);
-        float ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          const float p = __expf(fmaf(s[nt][e], scale, (e & 1) ? b2.y : b2.x) - lse_r[r]);
-          ds[e] = p * (dp[nt][e] - delta_r[r]) * scale;
-        }
-        dsf[nt >> 1][(nt & 1) * 2] = tc::pack_bf16(ds[0], ds[1]);
-        dsf[nt >> 1][(nt & 1) * 2 + 1] = tc::pack_bf16(ds[2], ds[3]);
-      }
-      tc::product_ab<DHP, NP / 16>(acc, dsf, k_at + rows_first);
-    }
-  }
-  tc::store_acc<DHP>(dq + base, acc, q0 + warp * 16, seq_len, d, dh, lane, vec);
-}
-
-// One block per (key tile of 16 rows a warp, h, b): k and v stay, q and do
-// tiles walk with their lse and delta; the scores are computed transposed
-// (rows = keys).
-template <int DHP, int WARPS, int NP, bool RESIDENT, int MIN_BLOCKS>
-__global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
-    bmha_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
-                        const float* __restrict__ lse, const __nv_bfloat16* __restrict__ dout,
-                        const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-                        __nv_bfloat16* __restrict__ dv, int seq_len, int d, int dh, int heads,
-                        Strides st, float scale, int vec) {
-  extern __shared__ __align__(16) unsigned char smem_mma[];
-  constexpr int RS = DHP + tc::kSkew;
-  constexpr int kMmaThreads = WARPS * 32;
-  constexpr int kMmaRows = WARPS * 16;  // rows the block owns
-  constexpr int NT = NP / 8;  // n8 tiles of a pass
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_mma);
-  __nv_bfloat16* vs = ks + kMmaRows * RS;
-  __nv_bfloat16* qs = vs + kMmaRows * RS;   // two stages
-  __nv_bfloat16* dos = qs + 2 * kWalk * RS;  // two stages
-  float* lses = reinterpret_cast<float*>(dos + 2 * kWalk * RS);  // two stages of kWalk
-  float* deltas = lses + 2 * kWalk;                              // two stages of kWalk
-  const int k0 = blockIdx.x * kMmaRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const long long base = static_cast<long long>(b) * seq_len * d + h * dh;
-  const __nv_bfloat16* qb = q + b * st.q_sb + h * dh;
-  const float* lse_b = lse + static_cast<long long>(b) * seq_len * heads + h;
-  const float* delta_b = delta + static_cast<long long>(b) * seq_len * heads + h;
-
-  auto fill_walked = [&](int stage, int q0) {
-    tc::fill_tile<kWalk, DHP, kMmaThreads>(qs + stage * kWalk * RS, qb, st.q_sl, q0, seq_len, dh, vec);
-    tc::fill_tile<kWalk, DHP, kMmaThreads>(dos + stage * kWalk * RS, dout + base, d, q0, seq_len, dh, vec);
-    // a query row past seq_len: lse = +inf gives p = exp(-inf) = 0, so it
-    // adds nothing to dk and dv
-    tc::fill_rows_f32<kMmaThreads>(lses + stage * kWalk, lse_b, heads, q0, kWalk, seq_len, INFINITY);
-    tc::fill_rows_f32<kMmaThreads>(deltas + stage * kWalk, delta_b, heads, q0, kWalk, seq_len, 0.f);
-    tc::cp_async_commit();
-  };
-
-  tc::fill_tile<kMmaRows, DHP, kMmaThreads>(ks, k + b * st.k_sb + h * dh, st.k_sl, k0, seq_len, dh, vec);
-  tc::fill_tile<kMmaRows, DHP, kMmaThreads>(vs, v + b * st.v_sb + h * dh, st.v_sl, k0, seq_len, dh, vec);
-  tc::cp_async_commit();
-  fill_walked(0, 0);
-
-  // the thread's two key rows (a key past seq_len: p = 0, never stored)
-  float bias_r[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = k0 + warp * 16 + g + 8 * i;
-    bias_r[i] = key < seq_len ? bias[static_cast<long long>(b) * seq_len + key] : -INFINITY;
-  }
-  float acc_k[DHP / 8][4] = {}, acc_v[DHP / 8][4] = {};
-
-  const int rows_first = tc::lane_offset_rows_first<RS>(lane) * 2;
-  const int cols_first = tc::lane_offset_cols_first<RS>(lane) * 2;
-  const uint32_t k_addr = tc::shared_addr(ks + warp * 16 * RS) + rows_first;
-  const uint32_t v_addr = tc::shared_addr(vs + warp * 16 * RS) + rows_first;
-  const uint32_t q_addr = tc::shared_addr(qs);
-  const uint32_t do_addr = tc::shared_addr(dos);
-  constexpr uint32_t kStageBytes = kWalk * RS * 2;
-  constexpr uint32_t kPassBytes = NP * RS * 2;
-
-  uint32_t kf[DHP / 16][4], vf[DHP / 16][4];
-  if constexpr (RESIDENT) {
-    tc::cp_async_wait<1>();  // k and v have arrived
-    __syncthreads();
-    tc::load_a<DHP>(kf, k_addr);
-    tc::load_a<DHP>(vf, v_addr);
-  }
-
-  const int n_tiles = (seq_len + kWalk - 1) / kWalk;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int stage = j & 1;
-    tc::cp_async_wait<0>();
-    __syncthreads();  // tile j is visible; tile j - 1's readers are done
-    if (j + 1 < n_tiles) fill_walked(stage ^ 1, (j + 1) * kWalk);
-
-#pragma unroll
-    for (int c = 0; c < kWalk / NP; ++c) {
-      const uint32_t q_at = q_addr + stage * kStageBytes + c * kPassBytes;
-      const uint32_t do_at = do_addr + stage * kStageBytes + c * kPassBytes;
-      float sT[NT][4] = {}, dpT[NT][4] = {};  // s^T and dp^T: rows = keys
-      if constexpr (RESIDENT) {
-        tc::product_abt<DHP, NT>(sT, kf, q_at + cols_first);
-        tc::product_abt<DHP, NT>(dpT, vf, do_at + cols_first);
-      } else {
-        tc::product_abt<DHP, NT>(sT, k_addr, q_at + cols_first);
-        tc::product_abt<DHP, NT>(dpT, v_addr, do_at + cols_first);
-      }
-      // p^T and ds^T on the accumulator fragments, rounded and repacked
-      uint32_t pf[NP / 16][4], dsf[NP / 16][4];
-      const float* lj = lses + stage * kWalk + c * NP + 2 * t;
-      const float* dj = deltas + stage * kWalk + c * NP + 2 * t;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const float2 l2 = *reinterpret_cast<const float2*>(lj + nt * 8);
-        const float2 d2 = *reinterpret_cast<const float2*>(dj + nt * 8);
-        float p[4], ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          p[e] = __expf(fmaf(sT[nt][e], scale, bias_r[r]) - ((e & 1) ? l2.y : l2.x));
-          ds[e] = p[e] * (dpT[nt][e] - ((e & 1) ? d2.y : d2.x)) * scale;
-        }
-        pf[nt >> 1][(nt & 1) * 2] = tc::pack_bf16(p[0], p[1]);
-        pf[nt >> 1][(nt & 1) * 2 + 1] = tc::pack_bf16(p[2], p[3]);
-        dsf[nt >> 1][(nt & 1) * 2] = tc::pack_bf16(ds[0], ds[1]);
-        dsf[nt >> 1][(nt & 1) * 2 + 1] = tc::pack_bf16(ds[2], ds[3]);
-      }
-      tc::product_ab<DHP, NP / 16>(acc_v, pf, do_at + rows_first);
-      tc::product_ab<DHP, NP / 16>(acc_k, dsf, q_at + rows_first);
-    }
-  }
-  tc::store_acc<DHP>(dv + base, acc_v, k0 + warp * 16, seq_len, d, dh, lane, vec);
-  tc::store_acc<DHP>(dk + base, acc_k, k0 + warp * 16, seq_len, d, dh, lane, vec);
-}
-
 // The bf16 forward on Hopper's TMA and wgmma (design (3) of the header).
 
 constexpr int kFwdRows = 128;  // query rows of a unit: two consumer warpgroups of 64
@@ -849,29 +586,42 @@ constexpr int kFwdQBuffers = 2;
 constexpr int kFwdProducerRegs = 40;
 constexpr int kFwdConsumerRegs = 232;
 
-// Shared memory of one block: kFwdQBuffers Q tiles, then kFwdStages stages
-// of a K and a V tile, each stage's bias box, then the barriers. A tile is
-// rows x Dh' bf16 as TMA writes it: column boxes of kBoxCols (one swizzled
-// row of 128, 64 or 32 bytes), every box on a 1,024-byte boundary.
+// The block of the TMA + wgmma kernels (two consumer warpgroups, one
+// producer warpgroup) and their tiles: a tile of ROWS rows of one head is
+// ROWS x Dh' bf16 as TMA writes it, column boxes of kBoxCols (one swizzled
+// row of 128, 64 or 32 bytes), each box ROWS x kRowBytes on a 1,024-byte
+// boundary.
 template <int DHP>
-struct FwdLayout {
+struct HeadTile {
   static constexpr int kConsumers = 256;
   static constexpr int kThreads = kConsumers + 128;  // and the producer warpgroup
   static constexpr int kBoxCols = DHP < 64 ? DHP : 64;
   static constexpr int kRowBytes = kBoxCols * 2;
   static constexpr int kBoxes = DHP / kBoxCols;
-  static constexpr int kQBox = kFwdRows * kRowBytes;    // one column box of Q
-  static constexpr int kBoxBytes = kFwdKeys * kRowBytes;  // one column box of K or V
-  static constexpr int kQTile = kBoxes * kQBox;
-  static constexpr int kTile = kBoxes * kBoxBytes;
+  static constexpr hopper::Swizzle kSwizzle = hopper::swizzle_of<kRowBytes>();
+  static constexpr uint32_t kGroup = 8 * kRowBytes;  // 8 rows of a box: the descriptors' stride
+  template <int ROWS>
+  static constexpr int box() { return ROWS * kRowBytes; }
+  template <int ROWS>
+  static constexpr int tile() { return kBoxes * ROWS * kRowBytes; }
+};
+
+// Shared memory of one block of the forward: kFwdQBuffers Q tiles, then
+// kFwdStages stages of a K and a V tile, each stage's bias box, then the
+// barriers.
+template <int DHP>
+struct FwdLayout : HeadTile<DHP> {
+  using T = HeadTile<DHP>;
+  static constexpr int kQBox = T::template box<kFwdRows>();      // one column box of Q
+  static constexpr int kBoxBytes = T::template box<kFwdKeys>();  // one column box of K or V
+  static constexpr int kQTile = T::template tile<kFwdRows>();
+  static constexpr int kTile = T::template tile<kFwdKeys>();
   static constexpr int kStages = kFwdStages<DHP>;
   static constexpr int kQ = kFwdQBuffers * kQTile;
   static constexpr int kBias = kQ + kStages * 2 * kTile;  // each stage's bias box
   static constexpr int kRing = kBias + kStages * kFwdBiasSlot;
   static constexpr int kStageBytes = 2 * kTile + kFwdBiasBox * 4;  // what TMA completes on a stage's barrier
   static constexpr size_t kSmem = kRing + (2 * kFwdQBuffers + 2 * kStages) * sizeof(uint64_t) + 1024;  // + alignment
-  static constexpr hopper::Swizzle kSwizzle = hopper::swizzle_of<kRowBytes>();
-  static constexpr uint32_t kGroup = 8 * kRowBytes;  // 8 rows of a box: the descriptors' stride
   static_assert(kQBox % 1024 == 0 && kBoxBytes % 1024 == 0, "boxes on 1,024-byte boundaries");
 };
 
@@ -887,9 +637,10 @@ struct FwdUnit {
 
 // keeps the compiler from moving the writes of A fragments past the
 // wgmma.fence that must follow them
-__device__ __forceinline__ void fence_frags(uint32_t (&a)[kFwdKeys / 16][4]) {
+template <int K>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[K][4]) {
 #pragma unroll
-  for (int i = 0; i < kFwdKeys / 16; ++i)
+  for (int i = 0; i < K; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
@@ -933,18 +684,18 @@ __device__ __forceinline__ void start_pv(float (&o)[DHP / 2], const uint32_t (&p
 
 constexpr float kLog2e = 1.4426950408889634f;
 
-// the thread's keys' bias (8 nb + 2t + e of the stage at k0) times log2(e)
-// from the stage's box, whose first `shift` values precede the stage (one
-// address across a quad's rows); in the ragged last stage a key past
-// seq_len (the box holds the next batch row's bias there) gets -inf, so
-// p = 0
+// the thread's keys' bias (8 nb + 2t + e of the stage at k0) times `unit`
+// (the forward's log2(e); 1 in the backward) from the stage's box, whose
+// first `shift` values precede the stage (one address across a quad's
+// rows); in the ragged last stage a key past seq_len (the box holds the
+// next batch row's bias there) gets -inf, so p = 0
 __device__ __forceinline__ void load_bias(float (&bj)[kFwdKeys / 4], const float* bias_s, int shift, int k0,
-                                          int seq_len, int t) {
+                                          int seq_len, int t, float unit) {
   const float* at = bias_s + shift + 2 * t;
 #pragma unroll
   for (int nb = 0; nb < kFwdKeys / 8; ++nb)
 #pragma unroll
-    for (int e = 0; e < 2; ++e) bj[2 * nb + e] = at[nb * 8 + e] * kLog2e;
+    for (int e = 0; e < 2; ++e) bj[2 * nb + e] = at[nb * 8 + e] * unit;
   if (k0 + kFwdKeys > seq_len) {
     const int past = seq_len - k0 - 2 * t;  // the thread's keys 8 nb + e at or past it lie past seq_len
 #pragma unroll
@@ -1111,7 +862,7 @@ __global__ void __launch_bounds__(FwdLayout<DHP>::kThreads, 1)
         start_scores<DHP>(s, q_desc, k_desc0 + stage_off);
         float bj[kFwdKeys / 4];  // read while the product runs
         load_bias(bj, reinterpret_cast<const float*>(smem + S::kBias + st * kFwdBiasSlot), shift, j * kFwdKeys,
-                  seq_len, t);
+                  seq_len, t, kLog2e);
         hopper::wgmma_wait<0>();
         hopper::fence_regs(s);
         if (j == n_tiles - 1) hopper::mbar_arrive(q_empty + qb);  // the unit's last read of Q
@@ -1163,6 +914,480 @@ __global__ void __launch_bounds__(FwdLayout<DHP>::kThreads, 1)
   }
 }
 
+// The bf16 backward on Hopper's TMA and wgmma (design (2) of the header),
+// on the forward's pieces: its unit walk (FwdUnit), its stage of 128 keys
+// with the bias box (dq), load_bias, fence_frags.
+
+constexpr int kBwdRows = 128;    // rows a unit owns: query rows (dq) or keys (dk/dv), two warpgroups of 64
+constexpr int kBwdBoxRows = 64;  // rows of a box of the backward's tensor maps: one set of maps serves both kernels
+
+// Found on the card at the long-session shape (PERF.md; copies of this
+// source with other values: examples/long_context/tune_blockwise_bwd.py
+// --kernel dq|dkv). Dq: the K/V stages of 128 keys in the ring and the
+// Q + dO buffers (a 128-row Q tile and a dO tile each). Dkv: the query rows
+// of a walked Q/dO stage (the N of S^T = K Q^T; 64 at Dh' = 128, where dK
+// and dV alone hold 128 registers a thread), its stages, and the K + V
+// buffers. Regs: the setmaxnreg split, 128 x producer + 256 x consumer <=
+// 65,536.
+template <int DHP>
+constexpr int kDqStages = DHP == 128 ? 2 : 4;
+template <int DHP>
+constexpr int kDqQBuffers = DHP == 128 ? 1 : 2;
+template <int DHP>
+constexpr int kDkvWalk = DHP == 128 ? 64 : 128;
+template <int DHP>
+constexpr int kDkvStages = 4;
+template <int DHP>
+constexpr int kDkvKvBuffers = DHP == 128 ? 1 : 2;
+constexpr int kBwdProducerRegs = 40;
+constexpr int kBwdConsumerRegs = 232;
+
+// dq's shared memory: kDqQBuffers x (Q tile, dO tile) of 128 rows, then
+// kDqStages stages of a K and a V tile of 128 keys, each stage's bias box,
+// then the barriers
+template <int DHP>
+struct DqLayout : HeadTile<DHP> {
+  using T = HeadTile<DHP>;
+  static constexpr int kStages = kDqStages<DHP>;
+  static constexpr int kQBuffers = kDqQBuffers<DHP>;
+  static constexpr int kBox = T::template box<kBwdRows>();
+  static constexpr int kTile = T::template tile<kBwdRows>();
+  static constexpr int kRing = kQBuffers * 2 * kTile;
+  static constexpr int kBias = kRing + kStages * 2 * kTile;
+  static constexpr int kBars = kBias + kStages * kFwdBiasSlot;
+  static constexpr int kStageBytes = 2 * kTile + kFwdBiasBox * 4;  // what TMA completes on a stage's barrier
+  static constexpr size_t kSmem = kBars + (2 * kQBuffers + 2 * kStages) * sizeof(uint64_t) + 1024;
+  static_assert(kFwdKeys == kBwdRows, "a dq stage is the forward's 128 keys");
+  static_assert(T::template box<kBwdBoxRows>() % 1024 == 0, "boxes on 1,024-byte boundaries");
+};
+
+// dk/dv's shared memory: kDkvKvBuffers x (K tile, V tile) of 128 keys, then
+// kDkvStages stages of a Q and a dO tile of kDkvWalk rows, each stage's lse
+// and delta rows (f32, kDkvWalk each), then the barriers
+template <int DHP>
+struct DkvLayout : HeadTile<DHP> {
+  using T = HeadTile<DHP>;
+  static constexpr int kWalk = kDkvWalk<DHP>;
+  static constexpr int kStages = kDkvStages<DHP>;
+  static constexpr int kKvBuffers = kDkvKvBuffers<DHP>;
+  static constexpr int kKvBox = T::template box<kBwdRows>();
+  static constexpr int kKvTile = T::template tile<kBwdRows>();
+  static constexpr int kWBox = T::template box<kWalk>();
+  static constexpr int kWTile = T::template tile<kWalk>();
+  static constexpr int kRing = kKvBuffers * 2 * kKvTile;
+  static constexpr int kRows = kRing + kStages * 2 * kWTile;
+  static constexpr int kBars = kRows + kStages * 2 * kWalk * 4;
+  static constexpr int kStageBytes = 2 * kWTile;  // what TMA completes on a stage's barrier
+  static constexpr size_t kSmem = kBars + (2 * kKvBuffers + 2 * kStages) * sizeof(uint64_t) + 1024;
+  static_assert(kWalk % kBwdBoxRows == 0 && kWalk % 32 == 0, "a stage is whole boxes; one lane copies W / 32 rows");
+};
+
+// rows [row0, row0 + ROWS) of head h of batch row b through a map of the
+// backward (boxes of kBwdBoxRows rows x kBoxCols columns) into a tile whose
+// column boxes are ROWS x kRowBytes apart, completing on bar; zero past
+// seq_len and dh
+template <int DHP, int ROWS>
+__device__ __forceinline__ void load_rows(unsigned char* dst, const CUtensorMap* map, uint64_t* bar, int h, int row0,
+                                          int b) {
+  using T = HeadTile<DHP>;
+#pragma unroll
+  for (int c = 0; c < T::kBoxes; ++c)
+#pragma unroll
+    for (int r = 0; r < ROWS; r += kBwdBoxRows)
+      hopper::tma_load_4d(dst + (c * ROWS + r) * T::kRowBytes, map, bar, c * T::kBoxCols, h, row0 + r, b);
+}
+
+// the warpgroup's rows of a 64 x Dh' accumulator (the thread's: row0 and
+// row0 + 8), rounded once to bf16, into a contiguous (B, L, D) tensor at
+// out_bh (batch row and head applied); rows past seq_len are not stored
+template <int DHP>
+__device__ __forceinline__ void store_rows_bf16(__nv_bfloat16* __restrict__ out_bh, const float (&acc)[DHP / 2],
+                                                int row0, int seq_len, int d, int dh, int t, int paired) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= seq_len) continue;
+    __nv_bfloat16* orow = out_bh + static_cast<long long>(row) * d;
+#pragma unroll
+    for (int nt = 0; nt < DHP / 8; ++nt) {
+      const int col = nt * 8 + 2 * t;
+      const float lo = acc[4 * nt + 2 * r], hi = acc[4 * nt + 2 * r + 1];
+      if (paired) {
+        if (col < dh) *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(lo, hi);
+      } else {
+        if (col < dh) orow[col] = __float2bfloat16_rn(lo);
+        if (col + 1 < dh) orow[col + 1] = __float2bfloat16_rn(hi);
+      }
+    }
+  }
+}
+
+// acc (64 x N) = A . B^T over Dh', both operands K-major in column boxes
+// A_BOX and B_BOX bytes apart (a_desc: the warpgroup's 64 rows; b_desc: N
+// rows), started, not committed; the first k-step writes acc without
+// reading it (no instruction before it defines an input of the product)
+template <int DHP, int N, int A_BOX, int B_BOX>
+__device__ __forceinline__ void ss_product(float (&acc)[N / 2], uint64_t a_desc, uint64_t b_desc) {
+  constexpr int kRow = HeadTile<DHP>::kRowBytes;
+  hopper::wgmma_bf16_ss<N, true>(acc, a_desc, b_desc);
+#pragma unroll
+  for (int ks = 1; ks < DHP / 16; ++ks) {
+    constexpr int kStep = 32;  // bytes of 16 head columns
+    const int col = ks * kStep;
+    hopper::wgmma_bf16_ss<N, false>(acc, a_desc + (((col / kRow) * A_BOX + col % kRow) >> 4),
+                                    b_desc + (((col / kRow) * B_BOX + col % kRow) >> 4));
+  }
+}
+
+// acc (64 x Dh') += A . B, A (64 x K bf16) in registers, K / 16 k-steps,
+// B (K x Dh') a tile as it lies, [row][head column]: MN-major through b_desc
+// (make_desc_mn), 16 rows a k-step; started, not committed
+template <int DHP, int K>
+__device__ __forceinline__ void rs_product(float (&acc)[DHP / 2], const uint32_t (&af)[K / 16][4], uint64_t b_desc) {
+  constexpr int kRow = HeadTile<DHP>::kRowBytes;
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) hopper::wgmma_bf16_tb<DHP>(acc, af[kk], b_desc + ((kk * 16 * kRow) >> 4), 1);
+}
+
+// One unit = (128 query rows, head, batch row): Q and dO stay, the K and V
+// stages of the forward walk past with their bias.
+template <int DHP>
+__global__ void __launch_bounds__(HeadTile<DHP>::kThreads, 1)
+    bmha_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+                         const __grid_constant__ CUtensorMap bias_map, const float* __restrict__ lse,
+                         const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int seq_len, int d, int dh,
+                         int heads, int units, float scale, int paired) {
+  using S = DqLayout<DHP>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + S::kBars);  // Q and dO landed
+  uint64_t* q_empty = q_full + S::kQBuffers;                          // Q and dO read by every consumer
+  uint64_t* full = q_empty + S::kQBuffers;                            // K, V and bias landed
+  uint64_t* empty = full + S::kStages;                                // K and V read by every consumer
+  const int q_tiles = (seq_len + kBwdRows - 1) / kBwdRows;
+  const int n_tiles = (seq_len + kFwdKeys - 1) / kFwdKeys;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S::kQBuffers; ++i) {
+      hopper::mbar_init(q_full + i, 1);
+      hopper::mbar_init(q_empty + i, S::kConsumers);
+    }
+    for (int i = 0; i < S::kStages; ++i) {
+      hopper::mbar_init(full + i, 1);
+      hopper::mbar_init(empty + i, S::kConsumers);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ------------------------------------------------ producer warpgroup
+    hopper::reg_dealloc<kBwdProducerRegs>();
+    if (threadIdx.x == S::kConsumers) {
+      hopper::prefetch_map(&q_map);
+      hopper::prefetch_map(&k_map);
+      hopper::prefetch_map(&v_map);
+      hopper::prefetch_map(&do_map);
+      hopper::prefetch_map(&bias_map);
+      int i = 0, n = 0;  // the block's stages and units so far
+      for (int u = blockIdx.x; u < units; u += gridDim.x, ++n) {
+        const FwdUnit unit(u, q_tiles, heads);
+        const int qb = n % S::kQBuffers;
+        hopper::mbar_wait(q_empty + qb, ((n / S::kQBuffers) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(q_full + qb, 2 * S::kTile);
+        unsigned char* qs = smem + qb * 2 * S::kTile;
+        load_rows<DHP, kBwdRows>(qs, &q_map, q_full + qb, unit.h, unit.q0, unit.b);
+        load_rows<DHP, kBwdRows>(qs + S::kTile, &do_map, q_full + qb, unit.h, unit.q0, unit.b);
+        for (int j = 0; j < n_tiles; ++j, ++i) {
+          const int st = i % S::kStages;
+          hopper::mbar_wait(empty + st, ((i / S::kStages) & 1) ^ 1);
+          unsigned char* stage = smem + S::kRing + st * 2 * S::kTile;
+          hopper::mbar_arrive_expect_tx(full + st, S::kStageBytes);
+          hopper::tma_load_1d(smem + S::kBias + st * kFwdBiasSlot, &bias_map, full + st,
+                              (unit.b * seq_len + j * kFwdKeys) & ~3);
+          load_rows<DHP, kFwdKeys>(stage, &k_map, full + st, unit.h, j * kFwdKeys, unit.b);
+          load_rows<DHP, kFwdKeys>(stage + S::kTile, &v_map, full + st, unit.h, j * kFwdKeys, unit.b);
+        }
+      }
+    }
+  } else {
+    // ----------------------------------------------- consumer warpgroups
+    hopper::reg_alloc<kBwdConsumerRegs>();
+    const int warp = (threadIdx.x / 32) & 3;
+    const int lane = threadIdx.x % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    // S and dP of a stage: rows 16 warp + g (s[4j], s[4j + 1]) and + 8
+    // (s[4j + 2], s[4j + 3]) of the warpgroup's 64, keys 8j + 2t, + 1; dQ the
+    // same layout over head columns
+    float s[64], dp[64];
+    float acc[DHP / 2];
+    // stage 0's K (K-major for S, MN-major for dQ += dS K) and V (K-major
+    // for dP); stage st is 2 st kTile bytes on
+    const uint32_t ring = hopper::smem_addr(smem + S::kRing);
+    const uint64_t k_desc0 = hopper::make_desc(ring, S::kSwizzle, S::kGroup);
+    const uint64_t v_desc0 = hopper::make_desc(ring + S::kTile, S::kSwizzle, S::kGroup);
+    const uint64_t k_mn_desc0 = hopper::make_desc_mn(ring, S::kSwizzle, S::kBox, S::kGroup);
+    int i = 0, n = 0;  // the block's stages and units so far
+    for (int u = blockIdx.x; u < units; u += gridDim.x, ++n) {
+      const FwdUnit unit(u, q_tiles, heads);
+      const int qb = n % S::kQBuffers;
+      const int shift = (unit.b * seq_len) & 3;  // the bias boxes' values before each stage
+      // the thread's two rows' lse and delta (a row past seq_len is computed
+      // on zero Q and dO rows, so its ds is 0, and never stored)
+      const int row0 = unit.q0 + wg * 64 + warp * 16 + g;
+      float lse_r[2], delta_r[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        const long long at = (static_cast<long long>(unit.b) * seq_len + row) * heads + unit.h;
+        lse_r[r] = row < seq_len ? lse[at] : 0.f;
+        delta_r[r] = row < seq_len ? delta[at] : 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < DHP / 2; ++e) acc[e] = 0.f;
+      hopper::mbar_wait(q_full + qb, (n / S::kQBuffers) & 1);
+      const uint32_t qs = hopper::smem_addr(smem + qb * 2 * S::kTile) + wg * 64 * S::kRowBytes;
+      const uint64_t q_desc = hopper::make_desc(qs, S::kSwizzle, S::kGroup);
+      const uint64_t do_desc = hopper::make_desc(qs + S::kTile, S::kSwizzle, S::kGroup);
+      for (int j = 0; j < n_tiles; ++j, ++i) {
+        const int st = i % S::kStages;
+        const uint32_t stage_off = (st * 2 * S::kTile) >> 4;
+        hopper::mbar_wait(full + st, (i / S::kStages) & 1);
+        hopper::wgmma_fence();
+        ss_product<DHP, kFwdKeys, S::kBox, S::kBox>(s, q_desc, k_desc0 + stage_off);
+        ss_product<DHP, kFwdKeys, S::kBox, S::kBox>(dp, do_desc, v_desc0 + stage_off);
+        hopper::wgmma_commit();
+        float bj[kFwdKeys / 4];  // read while the products run
+        load_bias(bj, reinterpret_cast<const float*>(smem + S::kBias + st * kFwdBiasSlot), shift, j * kFwdKeys,
+                  seq_len, t, 1.f);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(s);
+        hopper::fence_regs(dp);
+        if (j > 0) hopper::mbar_arrive(empty + (i - 1) % S::kStages);  // its dQ product is done
+        if (j == n_tiles - 1) hopper::mbar_arrive(q_empty + qb);  // the unit's last read of Q and dO
+        // p = exp(s * scale + bias - lse) and ds = p (dp - delta) scale in
+        // f32, ds rounded to bf16 into the A fragments of dQ += dS K (n8
+        // blocks 2kk and 2kk + 1 are k-step kk, as the forward packs P)
+        uint32_t dsf[kFwdKeys / 16][4];
+#pragma unroll
+        for (int nb = 0; nb < kFwdKeys / 8; ++nb) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float ds[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int x = 4 * nb + 2 * r + e;
+              const float p = __expf(fmaf(s[x], scale, bj[2 * nb + e]) - lse_r[r]);
+              ds[e] = p * (dp[x] - delta_r[r]) * scale;
+            }
+            dsf[nb >> 1][(nb & 1) * 2 + r] = tc::pack_bf16(ds[0], ds[1]);
+          }
+        }
+        fence_frags(dsf);
+        hopper::fence_regs(acc);
+        hopper::wgmma_fence();
+        rs_product<DHP, kFwdKeys>(acc, dsf, k_mn_desc0 + stage_off);
+        hopper::wgmma_commit();
+        if (j == n_tiles - 1) {  // else it runs on while the next stage's products start
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(acc);
+          hopper::mbar_arrive(empty + st);
+        }
+      }
+      store_rows_bf16<DHP>(dq + static_cast<long long>(unit.b) * seq_len * d + unit.h * dh, acc, row0, seq_len, d,
+                           dh, t, paired);
+    }
+  }
+}
+
+// One unit = (128 keys, head, batch row): K, V and the keys' bias stay, the
+// Q and dO stages walk past with their rows' lse and delta; the scores are
+// computed transposed (rows = keys), so that p^T and ds^T arrive in the
+// layout of the A operand of dV += P^T dO and dK += dS^T Q.
+template <int DHP>
+__global__ void __launch_bounds__(HeadTile<DHP>::kThreads, 1)
+    bmha_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+                          const float* __restrict__ bias, const float* __restrict__ lse,
+                          const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv, int seq_len, int d, int dh, int heads, int units,
+                          float scale, int paired) {
+  using S = DkvLayout<DHP>;
+  constexpr int W = S::kWalk;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + S::kBars);  // K and V landed
+  uint64_t* kv_empty = kv_full + S::kKvBuffers;                       // K and V read by every consumer
+  uint64_t* full = kv_empty + S::kKvBuffers;                          // Q, dO, lse and delta landed
+  uint64_t* empty = full + S::kStages;                                // Q and dO read by every consumer
+  const int k_tiles = (seq_len + kBwdRows - 1) / kBwdRows;
+  const int n_walk = (seq_len + W - 1) / W;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S::kKvBuffers; ++i) {
+      hopper::mbar_init(kv_full + i, 1);
+      hopper::mbar_init(kv_empty + i, S::kConsumers);
+    }
+    for (int i = 0; i < S::kStages; ++i) {
+      hopper::mbar_init(full + i, 1 + 32);  // the TMA thread and the warp that copies lse and delta
+      hopper::mbar_init(empty + i, S::kConsumers);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ------------------------------------------------ producer warpgroup
+    hopper::reg_dealloc<kBwdProducerRegs>();
+    const int pwarp = (threadIdx.x - S::kConsumers) / 32;
+    if (threadIdx.x == S::kConsumers) {
+      hopper::prefetch_map(&q_map);
+      hopper::prefetch_map(&k_map);
+      hopper::prefetch_map(&v_map);
+      hopper::prefetch_map(&do_map);
+      int i = 0, n = 0;  // the block's stages and units so far
+      for (int u = blockIdx.x; u < units; u += gridDim.x, ++n) {
+        const FwdUnit unit(u, k_tiles, heads);
+        const int kb = n % S::kKvBuffers;
+        hopper::mbar_wait(kv_empty + kb, ((n / S::kKvBuffers) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(kv_full + kb, 2 * S::kKvTile);
+        unsigned char* kvs = smem + kb * 2 * S::kKvTile;
+        load_rows<DHP, kBwdRows>(kvs, &k_map, kv_full + kb, unit.h, unit.q0, unit.b);
+        load_rows<DHP, kBwdRows>(kvs + S::kKvTile, &v_map, kv_full + kb, unit.h, unit.q0, unit.b);
+        for (int j = 0; j < n_walk; ++j, ++i) {
+          const int st = i % S::kStages;
+          hopper::mbar_wait(empty + st, ((i / S::kStages) & 1) ^ 1);
+          unsigned char* stage = smem + S::kRing + st * 2 * S::kWTile;
+          hopper::mbar_arrive_expect_tx(full + st, S::kStageBytes);
+          load_rows<DHP, W>(stage, &q_map, full + st, unit.h, j * W, unit.b);
+          load_rows<DHP, W>(stage + S::kWTile, &do_map, full + st, unit.h, j * W, unit.b);
+        }
+      }
+    } else if (pwarp == 1) {
+      // lse and delta are (B, L, H): one head's rows are H floats apart,
+      // which no TMA box describes (its inner extent is a multiple of 16
+      // bytes), so this warp copies them with plain loads. A row past
+      // seq_len gets lse = +inf and delta = 0, so its p is exactly 0 (its Q
+      // and dO rows are zeros): nothing of the next batch row is read.
+      const int lane = threadIdx.x % 32;
+      int i = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const FwdUnit unit(u, k_tiles, heads);
+        const long long at = static_cast<long long>(unit.b) * seq_len * heads + unit.h;
+        for (int j = 0; j < n_walk; ++j, ++i) {
+          const int st = i % S::kStages;
+          hopper::mbar_wait(empty + st, ((i / S::kStages) & 1) ^ 1);
+          float* rows = reinterpret_cast<float*>(smem + S::kRows) + st * 2 * W;
+#pragma unroll
+          for (int r = lane; r < W; r += 32) {
+            const int row = j * W + r;
+            const bool in = row < seq_len;
+            rows[r] = in ? lse[at + static_cast<long long>(row) * heads] : INFINITY;
+            rows[W + r] = in ? delta[at + static_cast<long long>(row) * heads] : 0.f;
+          }
+          hopper::mbar_arrive(full + st);  // release: the stores are seen by whoever waits on the phase
+        }
+      }
+    }
+  } else {
+    // ----------------------------------------------- consumer warpgroups
+    hopper::reg_alloc<kBwdConsumerRegs>();
+    const int warp = (threadIdx.x / 32) & 3;
+    const int lane = threadIdx.x % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    // S^T and dP^T of a stage: key rows 16 warp + g and + 8 of the
+    // warpgroup's 64, query rows 8j + 2t, + 1 of the stage; dK and dV the
+    // same rows over head columns
+    float sT[W / 2], dpT[W / 2];
+    float acc_k[DHP / 2], acc_v[DHP / 2];
+    // stage 0's Q and dO (K-major for S^T and dP^T, MN-major for dK and dV);
+    // stage st is 2 st kWTile bytes on
+    const uint32_t ring = hopper::smem_addr(smem + S::kRing);
+    const uint64_t q_desc0 = hopper::make_desc(ring, S::kSwizzle, S::kGroup);
+    const uint64_t do_desc0 = hopper::make_desc(ring + S::kWTile, S::kSwizzle, S::kGroup);
+    const uint64_t q_mn_desc0 = hopper::make_desc_mn(ring, S::kSwizzle, S::kWBox, S::kGroup);
+    const uint64_t do_mn_desc0 = hopper::make_desc_mn(ring + S::kWTile, S::kSwizzle, S::kWBox, S::kGroup);
+    int i = 0, n = 0;  // the block's stages and units so far
+    for (int u = blockIdx.x; u < units; u += gridDim.x, ++n) {
+      const FwdUnit unit(u, k_tiles, heads);
+      const int kb = n % S::kKvBuffers;
+      // the thread's two keys' bias (a key past seq_len: -inf, so p = 0;
+      // never stored)
+      const int key0 = unit.q0 + wg * 64 + warp * 16 + g;
+      float bias_r[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = key0 + 8 * r;
+        bias_r[r] = key < seq_len ? bias[static_cast<long long>(unit.b) * seq_len + key] : -INFINITY;
+      }
+#pragma unroll
+      for (int e = 0; e < DHP / 2; ++e) acc_k[e] = acc_v[e] = 0.f;
+      hopper::mbar_wait(kv_full + kb, (n / S::kKvBuffers) & 1);
+      const uint32_t kvs = hopper::smem_addr(smem + kb * 2 * S::kKvTile) + wg * 64 * S::kRowBytes;
+      const uint64_t k_desc = hopper::make_desc(kvs, S::kSwizzle, S::kGroup);
+      const uint64_t v_desc = hopper::make_desc(kvs + S::kKvTile, S::kSwizzle, S::kGroup);
+      for (int j = 0; j < n_walk; ++j, ++i) {
+        const int st = i % S::kStages;
+        const uint32_t stage_off = (st * 2 * S::kWTile) >> 4;
+        hopper::mbar_wait(full + st, (i / S::kStages) & 1);
+        hopper::wgmma_fence();
+        ss_product<DHP, W, S::kKvBox, S::kWBox>(sT, k_desc, q_desc0 + stage_off);
+        ss_product<DHP, W, S::kKvBox, S::kWBox>(dpT, v_desc, do_desc0 + stage_off);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(sT);
+        hopper::fence_regs(dpT);
+        if (j > 0) hopper::mbar_arrive(empty + (i - 1) % S::kStages);  // its dV, dK products are done
+        if (j == n_walk - 1) hopper::mbar_arrive(kv_empty + kb);  // the unit's last read of K and V
+        // p^T and ds^T on the accumulator fragments: p rounded to bf16 for
+        // dV, ds from the f32 p rounded for dK; the stage's lse and delta
+        // read per query-row pair
+        const float* ls = reinterpret_cast<const float*>(smem + S::kRows) + st * 2 * W;
+        uint32_t pf[W / 16][4], dsf[W / 16][4];
+#pragma unroll
+        for (int nb = 0; nb < W / 8; ++nb) {
+          const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * nb + 2 * t);
+          const float2 d2 = *reinterpret_cast<const float2*>(ls + W + 8 * nb + 2 * t);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float p[2], ds[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int x = 4 * nb + 2 * r + e;
+              p[e] = __expf(fmaf(sT[x], scale, bias_r[r]) - (e ? l2.y : l2.x));
+              ds[e] = p[e] * (dpT[x] - (e ? d2.y : d2.x)) * scale;
+            }
+            pf[nb >> 1][(nb & 1) * 2 + r] = tc::pack_bf16(p[0], p[1]);
+            dsf[nb >> 1][(nb & 1) * 2 + r] = tc::pack_bf16(ds[0], ds[1]);
+          }
+        }
+        fence_frags(pf);
+        fence_frags(dsf);
+        hopper::fence_regs(acc_v);
+        hopper::fence_regs(acc_k);
+        hopper::wgmma_fence();
+        rs_product<DHP, W>(acc_v, pf, do_mn_desc0 + stage_off);
+        rs_product<DHP, W>(acc_k, dsf, q_mn_desc0 + stage_off);
+        hopper::wgmma_commit();
+        if (j == n_walk - 1) {  // else they run on while the next stage's products start
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(acc_v);
+          hopper::fence_regs(acc_k);
+          hopper::mbar_arrive(empty + st);
+        }
+      }
+      const long long base = static_cast<long long>(unit.b) * seq_len * d + unit.h * dh;
+      store_rows_bf16<DHP>(dv + base, acc_v, key0, seq_len, d, dh, t, paired);
+      store_rows_bf16<DHP>(dk + base, acc_k, key0, seq_len, d, dh, t, paired);
+    }
+  }
+}
+
 // bytes of dynamic shared memory of the scalar kernels: `tiles` 64-row
 // operand tiles, `scores` 64 x 64 score tiles, `extra` floats
 template <int DHP>
@@ -1178,76 +1403,133 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// what an entry asks for: the forward, or a mask of the backward's kernels
+enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
+
 struct Args {
   const void *q, *k, *v, *bias, *lse_in, *dout, *delta;
   void *out, *lse_out, *dq, *dk, *dv;
   int batch, seq_len, d, heads, vec;
-  int head_stride;  // elements between the heads of q, k and v (the bf16 forward's maps)
+  int head_stride;  // elements between the heads of q, k, v and dout (the bf16 kernels' maps)
   Strides st;
+  long long do_sb, do_sl;  // dout's batch and row strides (the bf16 backward's map)
   float scale;
   cudaStream_t stream;
 };
 
-// The bf16 forward: a rank-4 tensor map of q, k and v each over (head
-// column, head, row, batch), boxes of kBoxCols x 1 x 128 x 1 with the
-// 128-, 64- or 32-byte swizzle, zero past dh and past seq_len; one
-// persistent block an SM over the units. Every base and stride must be a
-// multiple of 16 bytes (the wrapper hands over a copy where one is not).
+// A rank-4 tensor map of a bf16 (B, L, H x head_stride) operand at base
+// over (head column, head, row, batch), boxes of box_cols x 1 x box_rows x
+// 1 with the swizzle of box_cols' rows, zero past dh and past seq_len.
+// Every base and stride must be a multiple of 16 bytes (the wrapper hands
+// over a copy where one is not).
+template <int ROW_BYTES>
+cudaError_t encode_head_map(CUtensorMap* map, const void* base, const Args& a, long long batch_stride,
+                            long long row_stride, uint32_t box_rows) {
+  const int dh = a.d / a.heads;
+  const uint64_t dims[4] = {static_cast<uint64_t>(dh), static_cast<uint64_t>(a.heads),
+                            static_cast<uint64_t>(a.seq_len), static_cast<uint64_t>(a.batch)};
+  const uint64_t strides[3] = {static_cast<uint64_t>(a.head_stride) * 2, static_cast<uint64_t>(row_stride) * 2,
+                               static_cast<uint64_t>(batch_stride) * 2};
+  const uint32_t box[4] = {ROW_BYTES / 2, 1, box_rows, 1};
+  if (reinterpret_cast<uintptr_t>(base) % 16 != 0 || strides[0] % 16 != 0 || strides[1] % 16 != 0 ||
+      strides[2] % 16 != 0 || a.head_stride < dh)
+    return cudaErrorInvalidValue;
+  return hopper::encode_4d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, dims, strides, box,
+                           hopper::tma_swizzle_of<ROW_BYTES>());
+}
+
+// The bias as one row of B L f32: a stage's box starts at b L + k0 rounded
+// down to a multiple of 4 (past the batch row's end it holds the next row's
+// bias, masked by the consumers)
+cudaError_t encode_bias_map(CUtensorMap* map, const Args& a) {
+  if (reinterpret_cast<uintptr_t>(a.bias) % 16 != 0) return cudaErrorInvalidValue;
+  const uint64_t dims[1] = {static_cast<uint64_t>(a.batch) * a.seq_len};
+  const uint32_t box[1] = {kFwdBiasBox};
+  return hopper::encode_1d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a.bias, dims, box);
+}
+
+// one persistent block an SM (the ring takes most of its shared memory),
+// over `units`
+cudaError_t persistent_grid(long long units, int* grid) {
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  if (units > INT_MAX) return cudaErrorInvalidValue;
+  *grid = static_cast<int>(min(units, static_cast<long long>(sms)));
+  return cudaSuccess;
+}
+
+// The bf16 forward: maps of q, k and v with boxes of 128 rows (a Q tile or
+// a stage's keys) and of the bias; one persistent block an SM over the
+// units.
 template <int DHP>
 cudaError_t launch_fwd_wgmma(const Args& a) {
   using S = FwdLayout<DHP>;
   const int dh = a.d / a.heads;
-  const void* bases[3] = {a.q, a.k, a.v};
-  const long long batch_strides[3] = {a.st.q_sb, a.st.k_sb, a.st.v_sb};
-  const long long row_strides[3] = {a.st.q_sl, a.st.k_sl, a.st.v_sl};
-  CUtensorMap maps[3];
-  for (int i = 0; i < 3; ++i) {
-    const uint64_t dims[4] = {static_cast<uint64_t>(dh), static_cast<uint64_t>(a.heads),
-                              static_cast<uint64_t>(a.seq_len), static_cast<uint64_t>(a.batch)};
-    const uint64_t strides[3] = {static_cast<uint64_t>(a.head_stride) * 2, static_cast<uint64_t>(row_strides[i]) * 2,
-                                 static_cast<uint64_t>(batch_strides[i]) * 2};
-    const uint32_t box[4] = {S::kBoxCols, 1, static_cast<uint32_t>(i == 0 ? kFwdRows : kFwdKeys), 1};
-    if (reinterpret_cast<uintptr_t>(bases[i]) % 16 != 0 || strides[0] % 16 != 0 || strides[1] % 16 != 0 ||
-        strides[2] % 16 != 0 || a.head_stride < dh)
-      return cudaErrorInvalidValue;
-    const cudaError_t err = hopper::encode_4d(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, bases[i], dims, strides, box,
-                                              hopper::tma_swizzle_of<S::kRowBytes>());
-    if (err != cudaSuccess) return err;
-  }
-  // the bias as one row of B L f32: a stage's box starts at b L + k0
-  // rounded down to a multiple of 4 (past the batch row's end it holds the
-  // next row's bias, masked by the consumers)
-  CUtensorMap bias_map;
-  if (reinterpret_cast<uintptr_t>(a.bias) % 16 != 0) return cudaErrorInvalidValue;
-  {
-    const uint64_t dims[1] = {static_cast<uint64_t>(a.batch) * a.seq_len};
-    const uint32_t box[1] = {kFwdBiasBox};
-    const cudaError_t err = hopper::encode_1d(&bias_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a.bias, dims, box);
-    if (err != cudaSuccess) return err;
-  }
+  CUtensorMap q_map, k_map, v_map, bias_map;
+  cudaError_t err = encode_head_map<S::kRowBytes>(&q_map, a.q, a, a.st.q_sb, a.st.q_sl, kFwdRows);
+  if (err == cudaSuccess) err = encode_head_map<S::kRowBytes>(&k_map, a.k, a, a.st.k_sb, a.st.k_sl, kFwdKeys);
+  if (err == cudaSuccess) err = encode_head_map<S::kRowBytes>(&v_map, a.v, a, a.st.v_sb, a.st.v_sl, kFwdKeys);
+  if (err == cudaSuccess) err = encode_bias_map(&bias_map, a);
   auto kernel = bmha_fwd_wgmma_kernel<DHP>;
-  cudaError_t err = allow_smem(kernel, S::kSmem);
-  int device = 0, sms = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
+  if (err == cudaSuccess) err = allow_smem(kernel, S::kSmem);
   const long long units = static_cast<long long>((a.seq_len + kFwdRows - 1) / kFwdRows) * a.heads * a.batch;
-  if (units > INT_MAX) return cudaErrorInvalidValue;
-  // persistent: one block an SM (the ring takes most of its shared memory)
-  const int grid = static_cast<int>(min(units, static_cast<long long>(sms)));
+  int grid = 0;
+  if (err == cudaSuccess) err = persistent_grid(units, &grid);
+  if (err != cudaSuccess) return err;
   kernel<<<grid, S::kThreads, S::kSmem, a.stream>>>(
-      maps[0], maps[1], maps[2], bias_map, static_cast<__nv_bfloat16*>(a.out),
+      q_map, k_map, v_map, bias_map, static_cast<__nv_bfloat16*>(a.out),
       static_cast<float*>(a.lse_out), a.seq_len, a.d, dh, a.heads, static_cast<int>(units), a.scale,
       dh % 2 == 0 && a.d % 2 == 0);
   return cudaGetLastError();
 }
 
-enum Which { kFwd, kDq, kDkv };
+// The bf16 backward: maps of q, k, v and dout with boxes of kBwdBoxRows
+// rows (both kernels load whole boxes: 128-row tiles and stages, or 64-row
+// stages), encoded once for both kernels, and of the bias (dq); dq (which &
+// kDq) then dk/dv (which & kDkv), each on one persistent block an SM over
+// its units of 128 rows.
+template <int DHP>
+cudaError_t launch_bwd_wgmma(const Args& a, int which) {
+  using T = HeadTile<DHP>;
+  const int dh = a.d / a.heads;
+  const int paired = dh % 2 == 0 && a.d % 2 == 0;
+  CUtensorMap q_map, k_map, v_map, do_map, bias_map;
+  cudaError_t err = encode_head_map<T::kRowBytes>(&q_map, a.q, a, a.st.q_sb, a.st.q_sl, kBwdBoxRows);
+  if (err == cudaSuccess) err = encode_head_map<T::kRowBytes>(&k_map, a.k, a, a.st.k_sb, a.st.k_sl, kBwdBoxRows);
+  if (err == cudaSuccess) err = encode_head_map<T::kRowBytes>(&v_map, a.v, a, a.st.v_sb, a.st.v_sl, kBwdBoxRows);
+  if (err == cudaSuccess) err = encode_head_map<T::kRowBytes>(&do_map, a.dout, a, a.do_sb, a.do_sl, kBwdBoxRows);
+  if (err == cudaSuccess && (which & kDq)) err = encode_bias_map(&bias_map, a);
+  const long long units = static_cast<long long>((a.seq_len + kBwdRows - 1) / kBwdRows) * a.heads * a.batch;
+  int grid = 0;
+  if (err == cudaSuccess) err = persistent_grid(units, &grid);
+  if (err != cudaSuccess) return err;
+  const float* lse = static_cast<const float*>(a.lse_in);
+  const float* delta = static_cast<const float*>(a.delta);
+  if (which & kDq) {
+    auto kernel = bmha_dq_wgmma_kernel<DHP>;
+    if ((err = allow_smem(kernel, DqLayout<DHP>::kSmem)) != cudaSuccess) return err;
+    kernel<<<grid, T::kThreads, DqLayout<DHP>::kSmem, a.stream>>>(
+        q_map, k_map, v_map, do_map, bias_map, lse, delta, static_cast<__nv_bfloat16*>(a.dq), a.seq_len, a.d, dh,
+        a.heads, static_cast<int>(units), a.scale, paired);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (which & kDkv) {
+    auto kernel = bmha_dkv_wgmma_kernel<DHP>;
+    if ((err = allow_smem(kernel, DkvLayout<DHP>::kSmem)) != cudaSuccess) return err;
+    kernel<<<grid, T::kThreads, DkvLayout<DHP>::kSmem, a.stream>>>(
+        q_map, k_map, v_map, do_map, static_cast<const float*>(a.bias), lse, delta,
+        static_cast<__nv_bfloat16*>(a.dk), static_cast<__nv_bfloat16*>(a.dv), a.seq_len, a.d, dh, a.heads,
+        static_cast<int>(units), a.scale, paired);
+  }
+  return cudaGetLastError();
+}
 
 // The input type alone picks the kernels: the scalar f32 ones for float, the
-// tensor-core ones for bf16.
+// TMA + wgmma ones for bf16. `which`: kFwd, or a mask of kDq and kDkv.
 template <typename T, int DHP>
-cudaError_t launch_one(Which which, const Args& a) {
+cudaError_t launch_one(int which, const Args& a) {
   const int dh = a.d / a.heads;
   const dim3 grid((a.seq_len + kTile - 1) / kTile, a.heads, a.batch);
   const T* q = static_cast<const T*>(a.q);
@@ -1265,13 +1547,17 @@ cudaError_t launch_one(Which which, const Args& a) {
       bmha_fwd_f32_kernel<DHP><<<grid, kThreads, smem, a.stream>>>(
           q, k, v, bias, static_cast<T*>(a.out), static_cast<float*>(a.lse_out),
           a.seq_len, a.d, dh, a.heads, a.st, a.scale, a.vec);
-    } else if (which == kDq) {
+      return cudaGetLastError();
+    }
+    if (which & kDq) {
       constexpr size_t smem = smem_bytes<DHP>(4, 1, kTile);
       if ((err = allow_smem(bmha_dq_f32_kernel<DHP>, smem)) != cudaSuccess) return err;
       bmha_dq_f32_kernel<DHP><<<grid, kThreads, smem, a.stream>>>(
           q, k, v, bias, lse, dout, delta, static_cast<float*>(a.dq), a.seq_len, a.d,
           dh, a.heads, a.st, a.scale, a.vec);
-    } else {
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
+    if (which & kDkv) {
       constexpr size_t smem = smem_bytes<DHP>(4, 2, 2 * kTile);
       if ((err = allow_smem(bmha_dkv_f32_kernel<DHP>, smem)) != cudaSuccess) return err;
       bmha_dkv_f32_kernel<DHP><<<grid, kThreads, smem, a.stream>>>(
@@ -1279,34 +1565,14 @@ cudaError_t launch_one(Which which, const Args& a) {
           static_cast<float*>(a.dv), a.seq_len, a.d, dh, a.heads, a.st, a.scale,
           a.vec);
     }
+    return cudaGetLastError();
   } else {
-    if (which == kFwd) {
-      return launch_fwd_wgmma<DHP>(a);
-    } else if (which == kDq) {
-      constexpr int warps = kDqWarps<DHP>;
-      auto kernel = bmha_dq_mma_kernel<DHP, warps, kDqPass<DHP>, kFragmentsResident<DHP>, kDqMinBlocks<DHP>>;
-      constexpr size_t smem = mma_smem_bytes<DHP>(warps, 1);
-      if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
-      const dim3 tiles((a.seq_len + 16 * warps - 1) / (16 * warps), a.heads, a.batch);
-      kernel<<<tiles, warps * 32, smem, a.stream>>>(
-          q, k, v, bias, lse, dout, delta, static_cast<T*>(a.dq), a.seq_len, a.d, dh,
-          a.heads, a.st, a.scale, a.vec);
-    } else {
-      constexpr int warps = kDkvWarps<DHP>;
-      auto kernel = bmha_dkv_mma_kernel<DHP, warps, kDkvPass<DHP>, kFragmentsResident<DHP>, kDkvMinBlocks<DHP>>;
-      constexpr size_t smem = mma_smem_bytes<DHP>(warps, 2);
-      if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
-      const dim3 tiles((a.seq_len + 16 * warps - 1) / (16 * warps), a.heads, a.batch);
-      kernel<<<tiles, warps * 32, smem, a.stream>>>(
-          q, k, v, bias, lse, dout, delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
-          a.seq_len, a.d, dh, a.heads, a.st, a.scale, a.vec);
-    }
+    return which == kFwd ? launch_fwd_wgmma<DHP>(a) : launch_bwd_wgmma<DHP>(a, which);
   }
-  return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_dh(Which which, const Args& a) {
+cudaError_t launch_dh(int which, const Args& a) {
   const int dh = a.d / a.heads;
   if (dh <= 16) return launch_one<T, 16>(which, a);
   if (dh <= 32) return launch_one<T, 32>(which, a);
@@ -1315,7 +1581,7 @@ cudaError_t launch_dh(Which which, const Args& a) {
   return cudaErrorInvalidValue;  // the wrapper refuses Dh > 128 first
 }
 
-int run(Which which, int is_bf16, int device, const Args& a) {
+int run(int which, int is_bf16, int device, const Args& a) {
   // this library links its own CUDA runtime: select the caller's device in it
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
@@ -1359,33 +1625,24 @@ extern "C" int b4cp_bmha_fwd(const void* q, const void* k, const void* v,
   return run(kFwd, is_bf16, device, a);
 }
 
-// lse, delta: (B, L, H) f32; dout and dq: contiguous (B, L, D). vec: as
-// above
-extern "C" int b4cp_bmha_dq(const void* q, const void* k, const void* v,
-                            const void* bias, const void* lse,
-                            const void* dout, const void* delta, void* dq,
-                            int is_bf16, int batch, int seq_len, int d,
-                            int heads, long long q_sb, long long q_sl,
-                            long long k_sb, long long k_sl, long long v_sb,
-                            long long v_sl, float scale, int vec, int device,
-                            void* stream) {
-  Args a = common_args(q, k, v, bias, batch, seq_len, d, heads, q_sb, q_sl, k_sb,
-                       k_sl, v_sb, v_sl, scale, vec, stream);
-  a.lse_in = lse, a.dout = dout, a.delta = delta, a.dq = dq;
-  return run(kDq, is_bf16, device, a);
-}
-
-// as b4cp_bmha_dq; dk and dv: contiguous (B, L, D)
-extern "C" int b4cp_bmha_dkv(const void* q, const void* k, const void* v,
+// The backward's kernels: dq (which & 1) and dk/dv (which & 2), the bf16
+// ones on one set of tensor maps. lse, delta: (B, L, H) f32; dq, dk, dv:
+// contiguous (B, L, D) (null where not asked for). dout: (B, L, D) through
+// its batch and row strides (elements; f32: contiguous); head_stride (bf16):
+// as above, for q, k, v and dout alike. vec: as above
+extern "C" int b4cp_bmha_bwd(const void* q, const void* k, const void* v,
                              const void* bias, const void* lse,
-                             const void* dout, const void* delta, void* dk,
-                             void* dv, int is_bf16, int batch, int seq_len,
-                             int d, int heads, long long q_sb, long long q_sl,
-                             long long k_sb, long long k_sl, long long v_sb,
-                             long long v_sl, float scale, int vec, int device,
-                             void* stream) {
+                             const void* dout, const void* delta, void* dq,
+                             void* dk, void* dv, int is_bf16, int batch,
+                             int seq_len, int d, int heads, long long q_sb,
+                             long long q_sl, long long k_sb, long long k_sl,
+                             long long v_sb, long long v_sl, long long do_sb,
+                             long long do_sl, int head_stride, float scale,
+                             int vec, int which, int device, void* stream) {
+  if (which < 1 || which > (kDq | kDkv)) return static_cast<int>(cudaErrorInvalidValue);
   Args a = common_args(q, k, v, bias, batch, seq_len, d, heads, q_sb, q_sl, k_sb,
                        k_sl, v_sb, v_sl, scale, vec, stream);
-  a.lse_in = lse, a.dout = dout, a.delta = delta, a.dk = dk, a.dv = dv;
-  return run(kDkv, is_bf16, device, a);
+  a.lse_in = lse, a.dout = dout, a.delta = delta, a.dq = dq, a.dk = dk, a.dv = dv;
+  a.do_sb = do_sb, a.do_sl = do_sl, a.head_stride = head_stride;
+  return run(which, is_bf16, device, a);
 }

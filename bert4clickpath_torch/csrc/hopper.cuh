@@ -16,11 +16,13 @@
 // sees it.
 //
 // Users: the CE forward (fused_ce.cu: 2-D maps, K-major tf32 and bf16 B
-// tiles, A in registers) and the bf16 blockwise attention forward
-// (attention_blockwise.cu: rank-4 maps over (head column, head, row, batch),
-// both operands of S = Q K^T from shared memory, and O += P V with P in
-// registers and V read MN-major, transposed by the product itself). The
-// blockwise backward and the CE backward kernels are meant to take the same
+// tiles, A in registers) and the bf16 blockwise attention forward, dq and
+// dk/dv (attention_blockwise.cu: rank-4 maps over (head column, head, row,
+// batch), both operands of the score products (S = Q K^T, dP = dO V^T, and
+// transposed in dk/dv, at N = 128 or 64) from shared memory, and the
+// products that take P or dS (O += P V, dQ += dS K, dV += P^T dO, dK +=
+// dS^T Q) with them in registers and their B read MN-major, transposed by
+// the product itself). The CE backward kernels are meant to take the same
 // pieces (ROADMAP.md, Queue 2).
 
 #pragma once
@@ -184,6 +186,7 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #define B4CP_OUT8(i)                                                                                \
   "=f"(d[i]), "=f"(d[i + 1]), "=f"(d[i + 2]), "=f"(d[i + 3]), "=f"(d[i + 4]), "=f"(d[i + 5]), \
       "=f"(d[i + 6]), "=f"(d[i + 7])
+#define B4CP_OUT32 B4CP_OUT8(0), B4CP_OUT8(8), B4CP_OUT8(16), B4CP_OUT8(24)
 #define B4CP_OUT64 \
   B4CP_OUT8(0), B4CP_OUT8(8), B4CP_OUT8(16), B4CP_OUT8(24), B4CP_OUT8(32), B4CP_OUT8(40), B4CP_OUT8(48), B4CP_OUT8(56)
 #define B4CP_ACC16 B4CP_ACC8(0), B4CP_ACC8(8)
@@ -263,6 +266,39 @@ __device__ __forceinline__ void wgmma_bf16_m64n128k16_ss_first(float (&d)[64], u
       : "l"(desc_a), "l"(desc_b));
 }
 
+// the same two at N = 64 (d: 32 values a thread)
+__device__ __forceinline__ void wgmma_bf16_m64n64k16_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " B4CP_D32 ", %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : B4CP_ACC32
+      : "l"(desc_a), "l"(desc_b));
+}
+__device__ __forceinline__ void wgmma_bf16_m64n64k16_ss_first(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 0, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " B4CP_D32 ", %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : B4CP_OUT32
+      : "l"(desc_a), "l"(desc_b));
+}
+
+// d (64 x N) (+)= A . B^T with both operands K-major in shared memory, N =
+// 64 or 128; FIRST: d written, not read (a product's first k-step)
+template <int N, bool FIRST>
+__device__ __forceinline__ void wgmma_bf16_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b) {
+  static_assert(N == 64 || N == 128, "N is 64 or 128");
+  if constexpr (N == 64 && FIRST) wgmma_bf16_m64n64k16_ss_first(d, desc_a, desc_b);
+  if constexpr (N == 64 && !FIRST) wgmma_bf16_m64n64k16_ss(d, desc_a, desc_b);
+  if constexpr (N == 128 && FIRST) wgmma_bf16_m64n128k16_ss_first(d, desc_a, desc_b);
+  if constexpr (N == 128 && !FIRST) wgmma_bf16_m64n128k16_ss(d, desc_a, desc_b);
+}
+
 // d (64 x N, f32) = d * (scale_d != 0) + A (64 x 16 bf16, registers, laid
 // out as for wgmma_bf16_m64n128k16) . B, B (16 x N) MN-major through desc_b
 // (make_desc_mn): the transpose bit set. N = 16, 32, 64 or 128; d holds
@@ -305,6 +341,7 @@ __device__ __forceinline__ void wgmma_bf16_tb(float (&d)[N / 2], const uint32_t 
 #undef B4CP_ACC16
 #undef B4CP_ACC8
 #undef B4CP_OUT64
+#undef B4CP_OUT32
 #undef B4CP_OUT8
 
 // The part of an f32 (as its bits) below its tf32 truncation, as an f32. A

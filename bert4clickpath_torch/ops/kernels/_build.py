@@ -72,14 +72,12 @@ SIGNATURES = {
     # vec, device, stream
     "b4cp_bmha_fwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _LL, _LL, _LL, _LL, _LL, _LL, _I, _F, _I, _I, _P]),
-    # q, k, v, bias, lse, dout, delta, dq, is_bf16, B, L, D, H, strides,
-    # scale, vec, device, stream
-    "b4cp_bmha_dq": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _LL, _LL, _LL, _LL, _LL, _LL, _F, _I, _I, _P]),
-    # q, k, v, bias, lse, dout, delta, dk, dv, is_bf16, B, L, D, H, strides,
-    # scale, vec, device, stream
-    "b4cp_bmha_dkv": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _LL, _LL, _LL, _LL, _LL, _LL, _F, _I, _I, _P]),
+    # q, k, v, bias, lse, dout, delta, dq|NULL, dk|NULL, dv|NULL, is_bf16,
+    # B, L, D, H, q/k/v batch and row strides, dout batch and row strides
+    # (elements), head stride (elements), scale, vec, which (1 dq, 2 dk/dv,
+    # 3 both), device, stream
+    "b4cp_bmha_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _I, _F, _I, _I, _I, _P]),
     # x, seed (int32 on the device), out, is_bf16, n, threshold, inv_keep,
     # aligned, device, stream
     "b4cp_dropout": (_I, [_P, _P, _P, _I, _LL, ctypes.c_uint, _F, _I, _I, _P]),
@@ -99,10 +97,10 @@ _launches = {
 
 
 # copies a wrapper made of an input its kernel cannot read as it lies (the
-# bf16 blockwise forward's tensor maps: ops/kernels/attention.py
-# _tma_operands); not reset with the launch counters, so a run can show that
-# it made none anywhere
-_copies = {"blockwise_fwd": 0}
+# bf16 blockwise forward's and backward's tensor maps:
+# ops/kernels/attention.py _tma_operands); not reset with the launch
+# counters, so a run can show that it made none anywhere
+_copies = {"blockwise_fwd": 0, "blockwise_bwd": 0}
 
 
 def sources() -> list[Path]:

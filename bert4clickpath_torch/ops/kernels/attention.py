@@ -37,10 +37,10 @@ as there:
   (m = -1e9), there as here. On the card the input dtype alone picks the
   kernels, the forward's too: f32 inputs take scalar f32 FMA kernels (the
   exactness route), bf16 inputs take kernels whose products all run on the
-  tensor cores: the forward on Hopper's TMA loads and ``wgmma`` products
-  (128-key steps of the online softmax; q, k and v read through rank-4
-  tensor maps, :func:`_tma_operands`), the backward on ``mma.sync`` with
-  asynchronous double-buffered copies.
+  tensor cores, on Hopper's TMA loads and ``wgmma`` products: the forward
+  in 128-key steps of the online softmax, the backward's dq and dk/dv
+  kernels from one C call on one set of tensor maps (q, k, v and do read
+  through rank-4 tensor maps, :func:`_tma_operands`).
 
 :func:`mha` is what the model calls. :func:`attention_family` picks the
 family, the port's counterpart of ``fused_mha_supported`` (a VMEM rule
@@ -60,7 +60,7 @@ or raise.
 
 q, k and v may be column slices of one (B, L, 3D) projection: the kernels
 read them through their strides (only the last dimension must be
-contiguous), so no copy is made; the bf16 forward copies only an input
+contiguous), so no copy is made; the bf16 kernels copy only an input
 whose base or strides are not multiples of 16 bytes (:func:`_tma_operands`).
 """
 
@@ -332,13 +332,6 @@ def blockwise_mha_backward_reference(
     return (blockwise_dq_reference(*args), *blockwise_dkv_reference(*args))
 
 
-def _vector_chunk(dtype: torch.dtype) -> int:
-    """Elements per vector access of the blockwise kernels that copy their
-    own tiles: 4-element loads in the scalar f32 kernels, 8-element (16-byte)
-    asynchronous copies in the bf16 backward kernels."""
-    return 8 if dtype == torch.bfloat16 else 4
-
-
 def _check_blockwise(q, k, v, num_heads):
     dh = q.shape[-1] // num_heads
     if dh > BLOCKWISE_MAX_HEAD_DIM:
@@ -349,13 +342,15 @@ def _check_blockwise(q, k, v, num_heads):
         raise ValueError("q, k, v need a contiguous last dimension")
 
 
-def _blockwise_args(q, k, v, bias, num_heads, *others, chunk: int):
-    """What every blockwise C entry takes after its pointers, and whether
-    ``chunk``-element vector accesses are allowed (head width, strides and
-    base addresses); the kernels fill their tiles by plain loads otherwise."""
+def _blockwise_args(q, k, v, bias, num_heads, *others):
+    """What the blockwise C entries take after their pointers for f32
+    inputs (the scalar kernels), and whether 4-element vector loads are
+    allowed (head width, strides and base addresses); the kernels fill
+    their tiles by plain loads otherwise."""
     _check_blockwise(q, k, v, num_heads)
     b, l, d = q.shape
     dh = d // num_heads
+    chunk = 4  # elements of a vector load
     width = chunk * q.element_size()
     vec = dh % chunk == 0 and d % chunk == 0 and all(
         t.stride(0) % chunk == 0 and t.stride(1) % chunk == 0 and t.data_ptr() % width == 0
@@ -377,39 +372,41 @@ def tma_describable(data_ptr: int, strides_bytes) -> bool:
     return data_ptr % TMA_ALIGN == 0 and all(s > 0 and s % TMA_ALIGN == 0 for s in strides_bytes)
 
 
-def _tma_operands(q, k, v, bias, num_heads):
-    """(q, k, v, bias, head stride in elements) as the bf16 forward's tensor
-    maps take them. A map describes one input over (head column, head, row,
-    batch): its base and its head, row and batch strides (bytes) must be
-    multiples of 16 (:func:`tma_describable`); the contiguous bias is one
-    row of B L values, which needs only its base aligned. Strided slices of
-    one (B, L, 3D) projection pass as they are. An input that fails gets a
-    copy, counted on the copy counter (``_build.copy_counts``; every main
-    path reads 0 there): a contiguous (B, L, D) copy where the head width
-    is a multiple of 16 bytes, else all three become zero-padded
-    (B, L, H, dh') copies with dh' the head width rounded up to 16 bytes,
-    whose pad columns lie past the map's dh and are never read."""
+def _tma_operands(q, k, v, bias, num_heads, *others, counter: str = "blockwise_fwd"):
+    """(q, k, v, *others, bias, head stride in elements) as the bf16
+    kernels' tensor maps take them: the forward's q, k and v, the
+    backward's also do (``others``). A map describes one input over (head
+    column, head, row, batch): its base and its head, row and batch strides
+    (bytes) must be multiples of 16 (:func:`tma_describable`); the
+    contiguous bias is one row of B L values, which needs only its base
+    aligned. Strided slices of one (B, L, 3D) projection pass as they are.
+    An input that fails gets a copy, counted on the copy counter under
+    ``counter`` (``_build.copy_counts``; every main path reads 0 there): a
+    contiguous (B, L, D) copy where the head width is a multiple of 16
+    bytes, else every input becomes a zero-padded (B, L, H, dh') copy with
+    dh' the head width rounded up to 16 bytes, whose pad columns lie past
+    the map's dh and are never read."""
     b, l, d = q.shape
     dh = d // num_heads
     size = q.element_size()
     bias = bias.contiguous()
     if not tma_describable(bias.data_ptr(), ()):
         bias = bias.clone()
-        _build.count_copy("blockwise_fwd")
+        _build.count_copy(counter)
     if (dh * size) % TMA_ALIGN:
         dhp = -(-dh * size // TMA_ALIGN) * TMA_ALIGN // size
         padded = []
-        for t in (q, k, v):
+        for t in (q, k, v, *others):
             c = t.new_zeros((b, l, num_heads, dhp))
             c[..., :dh] = t.unflatten(-1, (num_heads, dh))
             padded.append(c.flatten(2))
-            _build.count_copy("blockwise_fwd")
+            _build.count_copy(counter)
         return (*padded, bias, dhp)
     out = []
-    for t in (q, k, v):
+    for t in (q, k, v, *others):
         if not tma_describable(t.data_ptr(), (dh * size, t.stride(1) * size, t.stride(0) * size)):
             t = torch.empty((b, l, d), dtype=t.dtype, device=t.device).copy_(t)
-            _build.count_copy("blockwise_fwd")
+            _build.count_copy(counter)
         out.append(t)
     return (*out, bias, dh)
 
@@ -426,7 +423,7 @@ def _launch_blockwise_fwd(q, k, v, bias, num_heads):
         args = (1, b, l, d, num_heads, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                 v.stride(0), v.stride(1), head_stride, 1.0 / ((d // num_heads) ** 0.5), 0, q.device.index)
     else:
-        *head, scale, vec, device = _blockwise_args(q, k, v, bias, num_heads, out, chunk=_vector_chunk(q.dtype))
+        *head, scale, vec, device = _blockwise_args(q, k, v, bias, num_heads, out)
         args = (*head, d // num_heads, scale, vec, device)
     lib = _build.library()
     with torch.cuda.device(q.device):
@@ -439,21 +436,41 @@ def _launch_blockwise_fwd(q, k, v, bias, num_heads):
     return out, lse
 
 
-def _launch_blockwise_bwd(entry, counter, n_out, q, k, v, bias, lse, do, delta, num_heads):
-    """One backward kernel (``entry``) into ``n_out`` fresh (B, L, D) tensors."""
+BWD_DQ, BWD_DKV = 1, 2  # the backward C entry's mask of kernels
+
+
+def _launch_blockwise_bwd(which, q, k, v, bias, lse, do, delta, num_heads):
+    """The backward kernels ``which`` names (a mask of BWD_DQ and BWD_DKV)
+    in one C call, into fresh (B, L, D) tensors: (dq or None, dk or None,
+    dv or None). In bf16 one set of tensor maps serves both kernels."""
     bias, lse, delta = bias.contiguous(), lse.contiguous(), delta.contiguous()
     do = do.to(q.dtype).contiguous()
-    outs = [torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(n_out)]
-    args = _blockwise_args(q, k, v, bias, num_heads, do, *outs, chunk=_vector_chunk(q.dtype))
+    b, l, d = q.shape
+    new = lambda wanted: torch.empty(q.shape, dtype=q.dtype, device=q.device) if wanted else None  # noqa: E731
+    dq, dk, dv = new(which & BWD_DQ), new(which & BWD_DKV), new(which & BWD_DKV)
+    outs = [t for t in (dq, dk, dv) if t is not None]
+    if q.dtype == torch.bfloat16:
+        # tensor maps: the head stride is the maps', the vector flag unused
+        _check_blockwise(q, k, v, num_heads)
+        q, k, v, do, bias, head_stride = _tma_operands(q, k, v, bias, num_heads, do, counter="blockwise_bwd")
+        args = (1, b, l, d, num_heads, q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+                do.stride(0), do.stride(1), head_stride, 1.0 / ((d // num_heads) ** 0.5), 0, which, q.device.index)
+    else:
+        *head, scale, vec, device = _blockwise_args(q, k, v, bias, num_heads, do, *outs)
+        args = (*head, do.stride(0), do.stride(1), d // num_heads, scale, vec, which, device)
     lib = _build.library()
     with torch.cuda.device(q.device):
-        code = getattr(lib, entry)(
-            *(t.data_ptr() for t in (q, k, v, bias, lse, do, delta, *outs)),
+        code = lib.b4cp_bmha_bwd(
+            *(t.data_ptr() for t in (q, k, v, bias, lse, do, delta)),
+            *(None if t is None else t.data_ptr() for t in (dq, dk, dv)),
             *args, torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(code, entry)
-    _build.count(counter)
-    return outs
+    _build.check(code, "blockwise mha backward")
+    if which & BWD_DQ:
+        _build.count("blockwise_dq")
+    if which & BWD_DKV:
+        _build.count("blockwise_dkv")
+    return dq, dk, dv
 
 
 def _check_bwd(q, k, v, bias, lse, do, delta, num_heads):
@@ -475,7 +492,7 @@ def blockwise_mha_dq(q, k, v, bias, lse, do, delta, num_heads) -> torch.Tensor:
     _check_bwd(q, k, v, bias, lse, do, delta, num_heads)
     if q.device.type == "cpu":
         return blockwise_dq_reference(q, k, v, bias, lse, do, delta, num_heads)
-    return _launch_blockwise_bwd("b4cp_bmha_dq", "blockwise_dq", 1, q, k, v, bias, lse, do, delta, num_heads)[0]
+    return _launch_blockwise_bwd(BWD_DQ, q, k, v, bias, lse, do, delta, num_heads)[0]
 
 
 def blockwise_mha_dkv(q, k, v, bias, lse, do, delta, num_heads) -> tuple[torch.Tensor, torch.Tensor]:
@@ -483,7 +500,7 @@ def blockwise_mha_dkv(q, k, v, bias, lse, do, delta, num_heads) -> tuple[torch.T
     _check_bwd(q, k, v, bias, lse, do, delta, num_heads)
     if q.device.type == "cpu":
         return blockwise_dkv_reference(q, k, v, bias, lse, do, delta, num_heads)
-    dk, dv = _launch_blockwise_bwd("b4cp_bmha_dkv", "blockwise_dkv", 2, q, k, v, bias, lse, do, delta, num_heads)
+    _, dk, dv = _launch_blockwise_bwd(BWD_DKV, q, k, v, bias, lse, do, delta, num_heads)
     return dk, dv
 
 
@@ -499,11 +516,15 @@ def blockwise_mha_forward(q, k, v, bias, num_heads):
 def blockwise_mha_backward(q, k, v, bias, out, lse, do, num_heads):
     """(dq, dk, dv) for the output gradient ``do``, from the forward's
     ``out`` and ``lse``: delta in plain PyTorch, then the dq and the dk/dv
-    kernel (their plain versions on CPU tensors)."""
+    kernel from one C call (one set of tensor maps for both; their plain
+    versions on CPU tensors)."""
     if do.shape != out.shape:
         raise ValueError(f"do must be {tuple(out.shape)}, got {tuple(do.shape)}")
     args = (q, k, v, bias, lse, do, attention_delta(do, out, num_heads), num_heads)
-    return (blockwise_mha_dq(*args), *blockwise_mha_dkv(*args))
+    _check_bwd(*args)
+    if q.device.type == "cpu":
+        return (blockwise_dq_reference(*args), *blockwise_dkv_reference(*args))
+    return _launch_blockwise_bwd(BWD_DQ | BWD_DKV, *args)
 
 
 class _BlockwiseMHA(torch.autograd.Function):

@@ -525,33 +525,39 @@ def phase_build() -> None:
 
 def forward_sass(_build) -> None:
     """Counts, in ``cuobjdump -sass`` of the built library, of the warpgroup
-    products (HGMMA) and TMA loads (UTMALDG) per instance of the two kernels
+    products (HGMMA) and TMA loads (UTMALDG) per instance of the kernels
     built on them: the CE forward (``ce_fwd_wgmma_kernel``, f32 and bf16 x)
-    and the bf16 blockwise attention forward (``bmha_fwd_wgmma_kernel``, one
-    instance per head-width tile); raises unless each instance has both."""
+    and the bf16 blockwise attention forward, dq and dk/dv
+    (``bmha_fwd_wgmma_kernel``, ``bmha_dq_wgmma_kernel``,
+    ``bmha_dkv_wgmma_kernel``, one instance per head-width tile each);
+    raises unless each instance has both."""
     tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", _build.library()._name], capture_output=True, text=True, check=True).stdout
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            if "ce_fwd_wgmma_kernel" in fn or "bmha_fwd_wgmma_kernel" in fn:
+            if any(k in fn for k in ("ce_fwd_wgmma_kernel", "bmha_fwd_wgmma_kernel", "bmha_dq_wgmma_kernel",
+                                     "bmha_dkv_wgmma_kernel")):
                 counts[fn] = {"HGMMA": 0, "UTMALDG": 0}
         elif fn in counts:
             for op in counts[fn]:
                 counts[fn][op] += op in line
 
+    kinds = {"ce_fwd": "CE forward", "bmha_fwd": "blockwise forward", "bmha_dq": "blockwise dq",
+             "bmha_dkv": "blockwise dk/dv"}
+
     def name(fn):
         args = re.search(r"kernelI(\w+?)EEv", fn)
-        kind = "CE forward" if "ce_fwd" in fn else "blockwise forward"
+        kind = next(v for k, v in kinds.items() if f"{k}_wgmma" in fn)
         return f"{kind} <{args.group(1) if args else fn[-40:]}>"
 
     log("[build] SASS (cuobjdump -sass): " + "; ".join(
         f"{name(fn)}: HGMMA {c['HGMMA']}, UTMALDG {c['UTMALDG']}" for fn, c in sorted(counts.items())))
-    ce = [c for fn, c in counts.items() if "ce_fwd" in fn]
-    attn = [c for fn, c in counts.items() if "bmha_fwd" in fn]
-    if len(ce) != 2 or len(attn) != 4 or any(min(c.values()) == 0 for c in counts.values()):
-        raise AssertionError(f"the CE and blockwise forwards are not built on wgmma and TMA: {counts}")
+    per_kind = {k: sum(f"{k}_wgmma" in fn for fn in counts) for k in kinds}
+    if per_kind != {"ce_fwd": 2, "bmha_fwd": 4, "bmha_dq": 4, "bmha_dkv": 4} or any(
+            min(c.values()) == 0 for c in counts.values()):
+        raise AssertionError(f"the CE forward and the blockwise kernels are not built on wgmma and TMA: {counts}")
 
 
 def _qkv_bias(b, seq, d, rng, full_pad_row: bool, tokens=None):
@@ -1219,6 +1225,53 @@ def ce_two_pass_at(rng, n: int, v_rows: int, nv: int, d: int, card: str, off: in
     }
 
 
+def bwd_share(got, want, tol: dict) -> float:
+    """The largest share of its tolerance (BLOCKWISE_BWD_TOL[dtype]) that a
+    gradient uses about its plain version; batch row 0 (fully padded: p = 1
+    at every key, much larger gradients) against its own largest
+    magnitude."""
+    diff = (got.float() - want.float()).abs()
+    used = 0.0
+    for part in (slice(0, 1), slice(1, None)):
+        wp = want[part].float().abs()
+        atol = tol["atol"] if "atol" in tol else tol["share"] * max(wp.max().item(), tol["floor"])
+        used = max(used, (diff[part] / (atol + tol["rtol"] * wp)).max().item())
+    return used
+
+
+def bwd_other_width(rng, b: int, seq: int, d: int, heads: int, card: str) -> None:
+    """The bf16 blockwise backward (dq and dk/dv from one call) at a head
+    width other than the long-session path's, against its plain version
+    within BLOCKWISE_BWD_TOL (the fully padded batch row 0 against its own
+    largest magnitude), two runs bit-equal."""
+    from bert4clickpath_torch.ops.kernels.attention import (
+        attention_delta,
+        blockwise_mha_backward,
+        blockwise_mha_backward_reference,
+        blockwise_mha_reference,
+    )
+
+    qkv, bias = _qkv_bias(b, seq, d, rng, full_pad_row=True)
+    qkv = qkv.bfloat16()
+    q, k, v = qkv[..., :d], qkv[..., d : 2 * d], qkv[..., 2 * d :]
+    do = torch.from_numpy(rng.standard_normal((b, seq, d), dtype=np.float32)).cuda().bfloat16()
+    out, lse = blockwise_mha_reference(q, k, v, bias, heads)
+    got = blockwise_mha_backward(q, k, v, bias, out, lse, do, heads)
+    again = blockwise_mha_backward(q, k, v, bias, out, lse, do, heads)
+    want = blockwise_mha_backward_reference(q, k, v, bias, lse, do, attention_delta(do, out, heads), heads)
+    torch.cuda.synchronize()
+    tag = f"blockwise backward B={b} L={seq} D={d} H={heads} (dh = {d // heads}) bf16"
+    used = {}
+    for name, g, g2, w in zip(("dq", "dk", "dv"), got, again, want):
+        if not torch.isfinite(g).all() or not torch.equal(g, g2):
+            raise AssertionError(f"{tag}: {name} non-finite, or two runs differ")
+        used[name] = bwd_share(g, w, BLOCKWISE_BWD_TOL[torch.bfloat16])
+    log(f"[kernels] {tag}: dq / dk / dv {used['dq']:.3f} / {used['dk']:.3f} / {used['dv']:.3f} of the tolerance; "
+        f"two runs bit-equal [{card}]")
+    if max(used.values()) > 1.0:
+        raise AssertionError(f"{tag}: {used} of the tolerance")
+
+
 def long_context_kernels(rng, card: str) -> dict:
     """The long-session path's kernels at its shapes: the three blockwise
     attention kernels at (16, L, 256), 4 heads, L = 1024 and 1000 (no tile
@@ -1246,7 +1299,7 @@ def long_context_kernels(rng, card: str) -> dict:
     out = {}
     b, d, h = LONG_B, 256, 4
     errs = {}
-    copies = _build.copy_counts()["blockwise_fwd"]
+    copies = _build.copy_counts()
     with torch.no_grad():
         for seq in (LONG_L, 1000):
             for dtype in (torch.bfloat16, torch.float32):
@@ -1287,13 +1340,8 @@ def long_context_kernels(rng, card: str) -> dict:
                         raise AssertionError(f"{tag}: non-finite {name}")
                     if not torch.equal(g, g2):
                         raise AssertionError(f"{tag}: two runs of {name} differ")
-                    diff = (g.float() - w.float()).abs()
-                    worst[name] = diff.max().item()
-                    # batch row 0 is fully padded: held against its own magnitude
-                    for part in (slice(0, 1), slice(1, None)):
-                        wp = w[part].float().abs()
-                        atol = tol["atol"] if "atol" in tol else tol["share"] * max(wp.max().item(), tol["floor"])
-                        used[name] = max(used.get(name, 0.0), (diff[part] / (atol + tol["rtol"] * wp)).max().item())
+                    worst[name] = (g.float() - w.float()).abs().max().item()
+                    used[name] = bwd_share(g, w, tol)
                     if used[name] > 1.0:
                         raise AssertionError(f"{tag}: {name} max error {worst[name]}, {used[name]} of the tolerance")
                 log(f"[kernels] {tag}: dq / dk / dv max_abs_err {worst['dq']:.3e} / {worst['dk']:.3e} / "
@@ -1313,7 +1361,12 @@ def long_context_kernels(rng, card: str) -> dict:
                         raise AssertionError(f"{tag}: the kernel's dv is {dv_errs['kernel'][0] / dv_errs['output'][0]} "
                                              "times the output rounding's error")
         # the bf16 forward at the serving batch, below one 128-key stage, at
-        # the other head widths of D = 256: dh = 32 and 128 (H = 8 and 2)
+        # the other head widths of D = 256: dh = 32 and 128 (H = 8 and 2);
+        # the backward there and at L = 1000 (several stages: dk/dv walks 64
+        # query rows a stage at dh = 128, 128 at dh = 32)
+        for heads in (8, 2):
+            for seq in (FWD_SHORT_L, 1000):
+                bwd_other_width(rng, LONG_B_SERVE, seq, d, heads, card)
         for heads in (8, 2):
             qkv, bias = _qkv_bias(LONG_B_SERVE, FWD_SHORT_L, d, rng, full_pad_row=True)
             qkv = qkv.bfloat16()
@@ -1333,10 +1386,10 @@ def long_context_kernels(rng, card: str) -> dict:
                 f"error {lse_err:.3e} (tol 1e-5); two runs bit-equal")
             if used > 1.0 or lse_err > 1e-5:
                 raise AssertionError(f"{tag}: error {used} of the tolerance, lse {lse_err}")
-        made = _build.copy_counts()["blockwise_fwd"] - copies
-        log(f"[kernels] the bf16 blockwise forward's input copies (tensor maps) in this phase: {made}")
-        if made:
-            raise AssertionError(f"the blockwise forward copied {made} inputs: strided q/k/v must need no copy")
+        made = {key: n - copies[key] for key, n in _build.copy_counts().items() if key.startswith("blockwise")}
+        log(f"[kernels] the bf16 blockwise kernels' input copies (tensor maps) in this phase: {made}")
+        if any(made.values()):
+            raise AssertionError(f"the blockwise kernels copied inputs: {made}: strided q/k/v must need no copy")
         # times at the long-session shape, bf16; the plain versions hold
         # (B, H, L, L) f32 scores (268 MB), so they are timed a few times only
         q, k, v, bias, do, args = kept
@@ -1348,9 +1401,16 @@ def long_context_kernels(rng, card: str) -> dict:
             "dkv": (device_time_ms(lambda: blockwise_mha_dkv(*args), 20),
                     device_time_ms(lambda: blockwise_dkv_reference(*args), 3)),
         }
+        # delta = rowsum(do * out), plain PyTorch before the pair (SDPA's
+        # backward computes its own inside the one call)
+        out_bf16 = blockwise_mha_forward(q, k, v, bias, h)[0]
+        delta_ms = device_time_ms(lambda: attention_delta(do, out_bf16, h), 20)
     lib_fwd, lib_bwd = sdpa_times(q, k, v, bias, do, h)
+    pair = t["dq"][0] + t["dkv"][0]
     log(f"[kernels] F.scaled_dot_product_attention B={b} L={LONG_L} bf16 (a yardstick, not used by the port): "
-        f"forward {lib_fwd:.4f} ms, backward (dq, dk and dv together) {lib_bwd:.4f} ms [{card}]")
+        f"forward {lib_fwd:.4f} ms, backward (dq, dk and dv together) {lib_bwd:.4f} ms; the port's dq + dk/dv "
+        f"{pair:.4f} ms ({pair / lib_bwd:.3f}x), attention_delta {delta_ms:.4f} ms, pair + delta "
+        f"{pair + delta_ms:.4f} ms ({(pair + delta_ms) / lib_bwd:.3f}x) [{card}]")
     bounds = attention_bounds(b, LONG_L, d, h, 2)
     flops = {"fwd": 4, "dq": 6, "dkv": 8}
     for key, name in (("fwd", "blockwise_fwd"), ("dq", "blockwise_dq"), ("dkv", "blockwise_dkv")):
@@ -1899,7 +1959,7 @@ def phase_long_train(card: str) -> dict:
                 "blockwise_dkv": cfg.num_layers, "dropout": 2 * (1 + 2 * cfg.num_layers), "ce_fwd": 1, "ce_bwd": 1,
                 "attention": 0, "attention_bwd": 0}  # dropout: 9 sites, forward and backward
     expected = {**dict.fromkeys(_build.launch_counts(), 0), **{k: v * LONG_TIMED for k, v in per_step.items()}}
-    copies = _build.copy_counts()  # the forward's input copies: none on this path
+    copies = _build.copy_counts()  # the blockwise kernels' input copies: none on this path
 
     def warm_up(impl, state, step, rng):
         t0 = time.perf_counter()
@@ -1924,7 +1984,7 @@ def phase_long_train(card: str) -> dict:
         if counts != want:
             raise AssertionError(f"kernel launches {counts} != {want}")
         if _build.copy_counts() != copies:
-            raise AssertionError(f"the blockwise forward copied inputs: {_build.copy_counts()} (before {copies})")
+            raise AssertionError(f"the blockwise kernels copied inputs: {_build.copy_counts()} (before {copies})")
         log(f"[long-train] dropout={impl}: {dt * 1e3:.3f} ms/step, {LONG_B / dt:.1f} examples/s, "
             f"peak device memory {peak / 2**20:.1f} MiB [{card}]")
         return state, got, dict(ms_per_step=dt * 1e3, examples_per_s=LONG_B / dt, peak_bytes=peak), counts
@@ -2006,7 +2066,7 @@ def phase_long_serve(card: str) -> dict:
             if counts != expected:
                 raise AssertionError(f"kernel launches of one request {counts} != {expected}")
             if _build.copy_counts() != copies:
-                raise AssertionError(f"the blockwise forward copied inputs: {_build.copy_counts()} (before {copies})")
+                raise AssertionError(f"the blockwise kernels copied inputs: {_build.copy_counts()} (before {copies})")
         peak = torch.cuda.max_memory_allocated()
         log(f"[long-serve] {LONG_REQUESTS} requests of batch {LONG_B_SERVE}, ~1,000 items per session: launches per "
             f"request {counts}; latency ms {[round(x, 3) for x in lat]}, median {statistics.median(lat):.3f} ms; "

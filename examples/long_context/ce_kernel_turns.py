@@ -1,4 +1,4 @@
-"""Time the CE kernels and the bf16 blockwise attention forward of two (or
+"""Time the CE kernels and the bf16 blockwise attention kernels of two (or
 more) checkouts of the port in turns, on one card, and hold their outputs
 across the checkouts.
 
@@ -21,7 +21,13 @@ projection, ragged padding and one fully padded row, with
 ``F.scaled_dot_product_attention`` on the same inputs beside each (the
 padding bias as its mask; a yardstick, used nowhere in the port), and the
 host's cost of one forward call at a shape whose kernel takes a few
-microseconds (wall time of 500 calls, ``bmha_fwd_host_us``). Every CE
+microseconds (wall time of 500 calls, ``bmha_fwd_host_us``); then the
+backward's dq and dk/dv kernels (``blockwise_mha_dq``,
+``blockwise_mha_dkv``) at the same two shapes, on the plain forward's out
+and lse and a seeded output gradient, their sum beside SDPA's backward on
+the same inputs (dq, dk and dv from one call), and the host's cost of one
+backward call (``blockwise_mha_backward``: delta and both kernels) at the
+small shape (``bmha_bwd_host_us``). Every CE
 entry is called without ``row_start``, so a checkout from before the
 argument existed takes the same calls. The first process of each checkout
 pays its build; the parent prints the table of runs in order, and each
@@ -49,7 +55,13 @@ in the run: abs 2e-3 + 2^-6 of the plain value, lse 1e-5 relative); across
 checkouts whose kernels step through the keys differently (a redesigned
 forward) they are not bit-equal, and the gap, printed in units of that
 bound taken about run 1's output, is held to 2 (each side within 1 of the
-plain version). The script exits non-zero otherwise. A card is required.
+plain version). The backward's dq, dk and dv likewise: bit-equal between
+runs of one checkout, within ``chip_smoke.py``'s BLOCKWISE_BWD_TOL of the
+plain version in every run (2e-3 of the largest gradient, floored at
+1e-2, + 2^-6 of the plain value; the fully padded batch row 0 against its
+own largest magnitude), and across checkouts (sums in other orders) within
+that bound taken about run 1's output. The script exits non-zero
+otherwise. A card is required.
 """
 
 from __future__ import annotations
@@ -77,21 +89,43 @@ ATTN = {"bmha_fwd_16": (16, 1024, 256, 4), "bmha_fwd_8": (8, 1024, 256, 4)}
 # the host's cost of one forward call (the wrapper and its C entry, whose
 # kernel is a few microseconds here): wall time of HOST_CALLS calls
 HOST_SHAPE, HOST_CALLS = (1, 128, 256, 4), 500
-TIMED = [*SHAPES, *ATTN, *(name.replace("bmha", "sdpa") for name in ATTN), "bmha_fwd_host_us"]
+# the backward pair at the same shapes (dq, dk/dv, their sum), SDPA's backward beside
+BWD = {name.replace("fwd", "bwd"): shape for name, shape in ATTN.items()}
+TIMED = [*SHAPES, *ATTN, *(name.replace("bmha", "sdpa") for name in ATTN), "bmha_fwd_host_us",
+         *(f"{name.replace('bwd', kind)}" for name in BWD for kind in ("dq", "dkv", "pair")),
+         *(name.replace("bmha", "sdpa") for name in BWD), "bmha_bwd_host_us"]
 ATTN_TOL, LSE_REL = (2e-3, 2.0**-6), 1e-5  # chip_smoke.py BLOCKWISE_TOL (bf16) and its lse bound
 ATTN_ACROSS = 2.0  # the gap between two checkouts' forwards, in units of that bound
+# chip_smoke.py BLOCKWISE_BWD_TOL (bf16): share of the largest gradient, its floor, rtol
+BWD_SHARE, BWD_FLOOR, BWD_RTOL = 2e-3, 1e-2, 2.0**-6
+
+
+def bwd_used(got, want) -> float:
+    """The largest share of BLOCKWISE_BWD_TOL that ``got`` uses about
+    ``want`` (numpy or torch, (B, L, D)); batch row 0 (fully padded) held
+    against its own largest magnitude."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    used = 0.0
+    for part in (slice(0, 1), slice(1, None)):
+        w = np.abs(want[part])
+        atol = BWD_SHARE * max(float(w.max()), BWD_FLOOR)
+        used = max(used, float((np.abs(got[part] - want[part]) / (atol + BWD_RTOL * w)).max()))
+    return used
 
 
 def _ce_registers(build_log: str) -> list:
     """ptxas' registers and spills of each CE kernel instance and of the
-    blockwise forward's, from a build made in this process (empty when the
-    library was already built)."""
+    blockwise attention kernels', from a build made in this process (empty
+    when the library was already built)."""
     out, entry = [], None
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
             entry = next((k for k in ("ce_fwd_wgmma", "ce_fwd_mma", "ce_bwd_dx_mma", "ce_bwd_dw_mma", "bmha_fwd_wgmma",
-                                      "bmha_fwd_mma") if k in name), None)
+                                      "bmha_fwd_mma", "bmha_dq_wgmma", "bmha_dkv_wgmma", "bmha_dq_mma",
+                                      "bmha_dkv_mma") if k in name), None)
             entry = entry and f"{entry}:{name[-40:]}"
         elif entry and ("registers" in line or "spill" in line):
             out.append(f"{entry} {line.split(':', 1)[-1].strip()}")
@@ -206,6 +240,45 @@ def _time_in(checkout: str, out_dir: str) -> dict:
         attn.blockwise_mha_forward(q, k, v, bias, h)
     torch.cuda.synchronize()
     out["bmha_fwd_host_us"] = (time.perf_counter() - t0) / HOST_CALLS * 1e6
+    # the backward pair on the plain forward's out and lse
+    for name, (b, l, d, h) in BWD.items():
+        qkv = torch.from_numpy(arng.standard_normal((b, l, 3 * d), dtype=np.float32)).cuda().bfloat16()
+        q, k, v = qkv[..., :d], qkv[..., d : 2 * d], qkv[..., 2 * d :]
+        bias = torch.zeros(b, 1, 1, l, device="cuda")
+        for i, n in enumerate(arng.integers(1, l + 1, size=b)):  # ragged padding, row 0 all padding
+            bias[i, ..., 0 if i == 0 else n :] = -1e9
+        do = torch.from_numpy(arng.standard_normal((b, l, d), dtype=np.float32)).cuda().bfloat16()
+        fwd_out, lse = attn.blockwise_mha_reference(q, k, v, bias, h)
+        args = (q, k, v, bias, lse, do, attn.attention_delta(do, fwd_out, h), h)
+        out[name.replace("bwd", "dq")] = median_ms(lambda: attn.blockwise_mha_dq(*args))
+        out[name.replace("bwd", "dkv")] = median_ms(lambda: attn.blockwise_mha_dkv(*args))
+        out[name.replace("bwd", "pair")] = out[name.replace("bwd", "dq")] + out[name.replace("bwd", "dkv")]
+        heads = lambda t: t.detach().unflatten(-1, (h, d // h)).transpose(1, 2)  # noqa: E731
+        qh, kh, vh = (heads(t).requires_grad_() for t in (q, k, v))
+        with torch.enable_grad():
+            o = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias.bfloat16())
+        out[name.replace("bmha", "sdpa")] = median_ms(
+            lambda: torch.autograd.grad(o, (qh, kh, vh), heads(do), retain_graph=True))
+        got = (attn.blockwise_mha_dq(*args), *attn.blockwise_mha_dkv(*args))
+        want = (attn.blockwise_dq_reference(*args), *attn.blockwise_dkv_reference(*args))
+        for i, (g, w) in enumerate(zip(got, want)):
+            key = f"attn{name}.{i}"
+            outputs[key] = g.float().cpu().numpy()
+            out[f"{key}_used"] = bwd_used(outputs[key], w.float().cpu().numpy())
+    b, l, d, h = HOST_SHAPE
+    qkv = torch.from_numpy(arng.standard_normal((b, l, 3 * d), dtype=np.float32)).cuda().bfloat16()
+    q, k, v = qkv[..., :d], qkv[..., d : 2 * d], qkv[..., 2 * d :]
+    bias = torch.zeros(b, 1, 1, l, device="cuda")
+    do = torch.from_numpy(arng.standard_normal((b, l, d), dtype=np.float32)).cuda().bfloat16()
+    fwd_out, lse = attn.blockwise_mha_reference(q, k, v, bias, h)
+    for _ in range(20):
+        attn.blockwise_mha_backward(q, k, v, bias, fwd_out, lse, do, h)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        attn.blockwise_mha_backward(q, k, v, bias, fwd_out, lse, do, h)
+    torch.cuda.synchronize()
+    out["bmha_bwd_host_us"] = (time.perf_counter() - t0) / HOST_CALLS * 1e6
     torch.cuda.synchronize()
     np.savez(os.path.join(out_dir, "outputs.npz"), **outputs)
     out["card"] = torch.cuda.get_device_name(0)
@@ -254,6 +327,14 @@ def _compare_outputs(dirs: list, runs: list) -> bool:
             print(f"output {key}: bit-equal between runs of one checkout: {within}; across checkouts apart by "
                   f"{across:.3e} {unit} at most (held to {limit})", flush=True)
             ok &= within and across <= limit
+        elif key.startswith("attnbmha_bwd"):
+            pairs = [(i, j) for i in range(len(runs)) for j in range(i + 1, len(runs))]
+            within = all(np.array_equal(arrays[i], arrays[j]) for i, j in pairs if runs[i][0] == runs[j][0])
+            across = max((bwd_used(arrays[j], arrays[i]) for i, j in pairs if runs[i][0] != runs[j][0]), default=0.0)
+            print(f"output {key} (backward {'dq dk dv'.split()[int(key[-1])]}): bit-equal between runs of one "
+                  f"checkout: {within}; across checkouts apart by {across:.3f} of BLOCKWISE_BWD_TOL at most "
+                  "(held to 1)", flush=True)
+            ok &= within and across <= 1.0
         elif key.startswith("bwd_merged") and key.endswith(".0"):
             gap = lambda i, j: float(np.abs(arrays[i] - arrays[j]).max())  # noqa: E731
             pairs = [(i, j) for i in range(len(runs)) for j in range(i + 1, len(runs))]
@@ -300,6 +381,11 @@ def main(argv=None) -> None:
                 print(f"run {n} checkout {i}: {name} against its plain version: {row[f'{name}_used']:.3f} of the "
                       f"bound, lse {row[f'{name}_lse']:.2e} relative", flush=True)
                 same &= fine
+            for name in BWD:
+                used = [row[f"attn{name}.{j}_used"] for j in range(3)]
+                print(f"run {n} checkout {i}: {name} dq / dk / dv against their plain versions: "
+                      + " / ".join(f"{u:.3f}" for u in used) + " of BLOCKWISE_BWD_TOL", flush=True)
+                same &= max(used) <= 1.0
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     for name in TIMED:

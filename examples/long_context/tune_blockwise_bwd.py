@@ -23,8 +23,12 @@ the blockwise forward (``fwd``), dq, dk/dv, the whole-row forward
 (``ce_bwd``), the last three in the numerics ``kDxNumerics`` names, f32 x. Each ``--variant name:CONST=value,...`` is a
 copy of the sources with the named ``constexpr`` constants set to the
 given expressions:
-``kWalk``, ``kFragmentsResident``; ``kDqWarps``, ``kDqPass``,
-``kDqMinBlocks`` and the same three for ``kDkv``; the bf16 forward's
+the bf16 backward's ``kDqStages`` and ``kDqQBuffers`` (dq's TMA ring of K
+and V stages of 128 keys, and its Q + dO buffers), ``kDkvWalk`` (the query
+rows of a dk/dv stage: 128, or 64; a multiple of 64), ``kDkvStages`` and
+``kDkvKvBuffers`` (dk/dv's ring of Q and dO stages, and its K + V
+buffers), ``kBwdProducerRegs`` and ``kBwdConsumerRegs`` (their setmaxnreg
+split, 128 x producer + 256 x consumer <= 65,536); the bf16 forward's
 ``kFwdStages`` (its TMA ring of K and V stages), ``kFwdQBuffers`` and
 ``kFwdProducerRegs`` and ``kFwdConsumerRegs`` (its setmaxnreg split, 128 x
 producer + 256 x consumer <= 65,536);
@@ -73,8 +77,8 @@ from bert4clickpath_torch.ops.kernels import attention as attn  # noqa: E402
 # kernel -> (source that holds it and its constants, C entry, main-path shape)
 KERNELS = {
     "fwd": ("attention_blockwise.cu", "b4cp_bmha_fwd", "16,1024,256,4"),
-    "dq": ("attention_blockwise.cu", "b4cp_bmha_dq", "16,1024,256,4"),
-    "dkv": ("attention_blockwise.cu", "b4cp_bmha_dkv", "16,1024,256,4"),
+    "dq": ("attention_blockwise.cu", "b4cp_bmha_bwd", "16,1024,256,4"),
+    "dkv": ("attention_blockwise.cu", "b4cp_bmha_bwd", "16,1024,256,4"),
     "mha_fwd": ("attention.cu", "b4cp_mha_fwd", "256,53,256,4"),
     "mha_bwd": ("attention.cu", "b4cp_mha_bwd", "256,53,256,4"),
     "ce_fwd": ("fused_ce.cu", "b4cp_ce_fwd", "2560,55296,384"),
@@ -117,7 +121,7 @@ def build_variants(variants: dict[str, dict[str, str]], sources: list[str], entr
         for line in log.splitlines():
             if "Compiling entry" in line:
                 entry = re.search(r"mha_\w+?_kernelILi\d+E|mha_\w+?_kernelI\w+?Li\d+E"
-                                  r"|(?:d[xw]|fwd)_mma_kernelILi\dE(?:Lb\dE)+|fwd_wgmma_kernelILi\dE", line)
+                                  r"|(?:d[xw]|fwd)_mma_kernelILi\dE(?:Lb\dE)+|(?:fwd|dq|dkv)_wgmma_kernelILi\d+E", line)
                 entry = entry.group(0) if entry else ""
             elif ("_mma_kernelILi64E" in entry or "wgmma_kernelILi64E" in entry or entry.startswith("fwd_")
                   or "dx_mma_kernel" in entry or "dw_mma_kernel" in entry) and ("registers" in line or "spill" in line):
