@@ -1,9 +1,8 @@
-// Tensor-core building blocks of the fused-CE backward kernels (the dx
-// pass of fused_ce_two_pass.cu and the kernel below; the forward of
-// fused_ce.cu runs on hopper.cuh and shares only a few definitions here),
-// and the kernel that owns table rows: the dW pass of fused_ce_two_pass.cu
-// and the merged backward of fused_ce.cu are one template
-// (ce_bwd_dw_mma_kernel, the merged backward with DX = true).
+// Tensor-core building blocks of the two-pass CE backward kernels (the dx
+// pass of fused_ce_two_pass.cu and the kernel below; the forward and the
+// merged backward of fused_ce.cu run on hopper.cuh and share only a few
+// definitions here), and the kernel that owns table rows: the dW pass of
+// fused_ce_two_pass.cu (ce_bwd_dw_mma_kernel).
 //
 // Every product runs on the tensor cores with f32 sums:
 //
@@ -71,8 +70,8 @@ constexpr int kDxStageRow = (kDxChunk + 4) * 4;  // bytes of a row of a raw stag
 constexpr int kDxStage = kDxVocab * kDxStageRow;
 
 // The names below are the dx pass's: x is the operand a block keeps
-// resident, W the one it streams. The dW pass and the merged backward swap
-// the roles (the table resident, x streamed) and use the same planes.
+// resident, W the one it streams. The dW pass swaps the roles (the table
+// resident, x streamed) and uses the same planes.
 template <int MODE>
 struct DxMode {
   static constexpr bool kBf16 = MODE == kDxBf16x3 || MODE == kDxBf16;  // bf16 planes, m16n8k16
@@ -161,19 +160,6 @@ __device__ __forceinline__ void put_one(unsigned char* row, int plane_bytes, int
     reinterpret_cast<float*>(row)[col] = a;  // raw f32: see kXPlanes
   }
 }
-// one value, as the numerics' terms, into the planes at row, column col
-template <int MODE>
-__device__ __forceinline__ void put_terms(unsigned char* row, int plane_bytes, int col, float a) {
-  if constexpr (DxMode<MODE>::kBf16) {
-    put_one<MODE>(row, plane_bytes, col, a);
-  } else {
-    uint32_t hi = __float_as_uint(a), lo;
-    raw_terms<MODE>(hi, lo);
-    reinterpret_cast<uint32_t*>(row)[col] = hi;
-    if constexpr (DxMode<MODE>::kSplit) reinterpret_cast<uint32_t*>(row + plane_bytes)[col] = lo;
-  }
-}
-
 // columns [c0, c0 + ncols) of rows row0 .. row0 + 64 of a (rows, d) matrix
 // into a resident operand's planes (rows `row` bytes apart, terms `plane`
 // bytes apart): bf16 terms, or raw f32; zero past `rows` and d
@@ -369,66 +355,7 @@ __device__ __forceinline__ void dx_product(float (&acc)[kDxNT][4], uint32_t aa, 
   }
 }
 
-// The merged backward's third product: acc (2 m16 tiles x 2 n8 tiles: 32
-// rows x 16 columns) = A (32 rows of x x the 64 table rows) . W_tile (64
-// table rows x 16 columns of D). aa: the warp's first row of A's planes
-// (rows kChunkRow bytes apart, terms kChunkPlane apart) plus the lane's
-// rows-first offset. W is the resident table (rows kRow bytes apart): raw
-// f32 read element by element down its rows and split into the numerics'
-// terms here, or bf16 planes (kRow, kPlane) read with ldmatrix.trans; col:
-// the warp's first column. A warp takes 32 x 16 rather than the other
-// products' 16 x 32 so that each table element it splits feeds two m16
-// tiles. The 64 table rows are one flush period (8 tf32 k-steps): the
-// products go into acc, zero on entry, and leave in one piece.
-template <int MODE, int kRow, int kPlane>
-__device__ __forceinline__ void mrg_dx_product(float (&acc)[2][2][4], uint32_t aa, uint32_t wt,
-                                               const unsigned char* wp, int col, int lane) {
-  using M = DxMode<MODE>;
-  const int rf_row = (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int rf_col = (lane >> 4) * 16;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-#pragma unroll
-  for (int kb = 0; kb < M::kKsteps; ++kb) {
-    uint32_t a[2][2][4], b[2][2][2];  // a: [m16 tile][term]; b: [term][n8 tile][b0, b1]
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int p = 0; p < M::kPlanes; ++p) tc::ldmatrix_x4(a[m][p], aa + m * 16 * M::kChunkRow + p * M::kChunkPlane + kb * 32);
-    if constexpr (M::kBf16) {
-#pragma unroll
-      for (int p = 0; p < M::kPlanes; ++p) {
-        uint32_t r[4];
-        tc::ldmatrix_x4_trans(r, wt + p * kPlane + (kb * 16 + rf_row) * kRow + col * 2 + rf_col);
-        b[p][0][0] = r[0];
-        b[p][0][1] = r[1];
-        b[p][1][0] = r[2];
-        b[p][1][1] = r[3];
-      }
-    } else {
-      const uint32_t* plane = reinterpret_cast<const uint32_t*>(wp);
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        b[0][n][0] = plane[(kb * 8 + t) * (kRow / 4) + col + n * 8 + g];
-        b[0][n][1] = plane[(kb * 8 + t + 4) * (kRow / 4) + col + n * 8 + g];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) raw_terms<MODE>(b[0][n][e], b[1][n][e]);
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        if constexpr (M::kSplit) {
-          dx_mma<MODE>(acc[m][n], a[m][1], b[0][n][0], b[0][n][1]);
-          dx_mma<MODE>(acc[m][n], a[m][0], b[1][n][0], b[1][n][1]);
-        }
-        dx_mma<MODE>(acc[m][n], a[m][0], b[0][n][0], b[0][n][1]);
-      }
-  }
-}
-
-// ------------------------------------------- dW (and the merged backward)
+// ------------------------------------------------------------------ dW
 //
 // The dW pass is the dx pass mirrored: a block of 8 warps owns 64 table rows
 // and walks every row tile of x. Per tile of 64 rows of x it computes the
@@ -459,54 +386,16 @@ __device__ __forceinline__ void mrg_dx_product(float (&acc)[2][2][4], uint32_t a
 // warp order; the blocks of the first D split write it. Every block writes
 // its dW rows once: no atomics, two runs give the same bits.
 //
-// The merged backward (DX, D <= 256: the whole table row resident, its rows
-// 256 + 4 floats apart whatever D, 64 dW accumulators a thread) adds a third
-// product from the same A, and walks only the rows of x whose dnll is
-// nonzero:
-// * A row with dnll = 0 (a LABEL_PAD row) has A = 0 and adds nothing. The
-//   launcher first lists the other rows (ce_live_rows_kernel, one block);
-//   the kernel reads their count and walks them in tiles of 64 (a fifth
-//   fewer at the flagship's inputs). The source rows of the two tiles in
-//   flight sit in shared memory (`ring`), each thread's copy rows in
-//   registers, read once a tile: looked up on the path of every copy they
-//   cost 10% (PERF.md, the merged backward's tune).
-// * The epilogue also writes A itself (rows of x by table rows) in the
-//   numerics' terms, beside A^T's planes, and per output chunk, after dW's,
-//   each warp computes 32 rows of x x 16 columns of dx = A . W_tile from
-//   those planes and the resident table (mrg_dx_product: the table read
-//   down its rows element by element and split there, each split feeding
-//   two m16 tiles; bf16 by ldmatrix.trans).
-// * It adds them into the f32 (N, D) dx at dx32 with 16-byte atomic adds
-//   (red.global.add.v4.f32: lanes t and t ^ 1 trade halves so each holds
-//   four neighbouring columns). dx sums over every vocab tile and no block
-//   sees more than one, so the atomics are the reduction across blocks,
-//   2.6 MB of scratch that stays in L2; their order varies from run to
-//   run, so dx repeats to rounding, dW and db bit for bit. Blocks start
-//   their walk at different row tiles (blockIdx.x mod the tile count), and
-//   blocks that start at the same one take dx's column chunks in another
-//   turn, so that the blocks in flight add into different parts of dx.
-//   kMrgDxReduce = false (the product kept, the atomics dropped) is a tune
-//   variant that prices the reduction: 0.24 of 6.08 ms (4%) on an H100.
-//   They are kept on purpose: a fixed-order reduction (per-split partials
-//   and a combine, as the dx pass has) would cost at least that, for bits
-//   that no tolerance needs. Two runs of dx are held within 1e-5 of the
-//   largest |dx| of each other (2.3e-7 measured; tests/test_torch_cuda.py
-//   and chip_smoke.py's CE_DX_REPEAT), a tenth of dx's tolerance against
-//   its plain version.
-//
 // What bounds it: as the dx pass, the mma.sync issue rate (the same 318 M
-// m16n8k8 instructions at N = 2,560, V = 55,296, D = 384; the merged
-// backward's three products at D = 256 as many, 256 M over the rows with a
-// label). Its grid is ceil(V / 64) x ceil(D / 384) blocks, one per SM: 864
-// at that shape, 6.5 waves of 132. The constants (kDwStages, kDwFlush,
-// kDwResident) were timed with examples/long_context/tune_blockwise_bwd.py
-// --kernel ce_dw, and the merged backward's with --kernel ce_bwd (PERF.md).
+// m16n8k8 instructions at N = 2,560, V = 55,296, D = 384). Its grid is
+// ceil(V / 64) x ceil(D / 384) blocks, one per SM: 864 at that shape, 6.5
+// waves of 132. The constants (kDwStages, kDwFlush, kDwResident) were
+// timed with examples/long_context/tune_blockwise_bwd.py --kernel ce_dw
+// (PERF.md).
 
 constexpr int kDwStages = 3;        // cp.async stages of x: two chunks in flight
 constexpr int kDwFlush = 8;         // k-steps whose products share fresh sums (kstep_sum): a chunk's
 constexpr bool kDwResident = true;  // false: stream the table rows beside x's at every D
-constexpr int kMrgOutChunks = 4;    // the merged backward's 64-column chunks: D <= 256
-constexpr bool kMrgDxReduce = true; // false (tune only): dx's atomics dropped, its product kept
 
 // two neighbouring elements of a stage as f32
 __device__ __forceinline__ float2 pair_at(const float* p) { return *reinterpret_cast<const float2*>(p); }
@@ -514,103 +403,38 @@ __device__ __forceinline__ float2 pair_at(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-// The layout of the kernel's dynamic shared memory: DxSmem, at D = 256 for
-// the merged backward (its table rows a fixed stride apart), then its A
-// planes and the source rows of two row tiles; and their bytes.
+// The layout of the kernel's dynamic shared memory, and its bytes.
 template <int MODE>
-__host__ __device__ DxSmem<MODE> dw_layout(int d, bool resident, bool with_dx) {
-  return DxSmem<MODE>(with_dx ? kDxChunk * kMrgOutChunks : d, resident, kDwStages);
+__host__ __device__ DxSmem<MODE> dw_layout(int d, bool resident) {
+  return DxSmem<MODE>(d, resident, kDwStages);
 }
 template <int MODE>
-size_t dw_smem(int d, bool resident, bool with_dx) {
-  using M = DxMode<MODE>;
-  return dw_layout<MODE>(d, resident, with_dx).total +
-         (with_dx ? M::kPlanes * M::kChunkPlane + 2 * kDxRows * sizeof(int32_t) : 0);
+size_t dw_smem(int d, bool resident) {
+  return dw_layout<MODE>(d, resident).total;
 }
 
-// a warp's 16 rows x 8 NT columns of a dx chunk (accumulator fragments at
-// rows row0 + g, + 8 of a tile whose first n rows are rows[0 .. n) of dx,
-// and columns col + nt * 8 + 2t, + 1) added into the f32 dx; vec: d % 4 ==
-// 0 (and dx 16-byte aligned), four columns per add
-template <int NT>
-__device__ __forceinline__ void add_dx(float* __restrict__ dx32, const int32_t* rows,
-                                       const float (&acc)[NT][4], int row0, int col, int n, int d,
-                                       int lane, bool vec) {
-  const int g = lane >> 2;
-  const int t = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int c = col + nt * 8 + 2 * t;
-    if (vec) {
-      // lane t even keeps row g and takes its neighbour's two columns of it;
-      // lane t odd keeps row g + 8 and takes its neighbour's two of that
-      const bool odd = t & 1;
-      const float s0 = __shfl_xor_sync(0xffffffffu, odd ? acc[nt][0] : acc[nt][2], 1);
-      const float s1 = __shfl_xor_sync(0xffffffffu, odd ? acc[nt][1] : acc[nt][3], 1);
-      const int row = row0 + g + (odd ? 8 : 0);
-      const int c4 = odd ? c - 2 : c;
-      const float4 val = odd ? make_float4(s0, s1, acc[nt][2], acc[nt][3])
-                             : make_float4(acc[nt][0], acc[nt][1], s0, s1);
-      if (row < n && c4 < d) {
-        float4* at = reinterpret_cast<float4*>(dx32 + static_cast<long long>(rows[row]) * d + c4);
-        if constexpr (kMrgDxReduce) {
-          atomicAdd(at, val);  // sm_90: red.global.add.v4.f32
-        } else if (__float_as_uint(val.x) == 0x7fc00001u) {  // never: keeps the product alive
-          *at = val;
-        }
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = row0 + g + 8 * (e >> 1);
-        const int cc = c + (e & 1);
-        if (row < n && cc < d) {
-          float* at = dx32 + static_cast<long long>(rows[row]) * d + cc;
-          if constexpr (kMrgDxReduce) {
-            atomicAdd(at, acc[nt][e]);
-          } else if (__float_as_uint(acc[nt][e]) == 0x7fc00001u) {
-            *at = acc[nt][e];
-          }
-        }
-      }
-    }
-  }
-}
-
-template <int MODE, bool WRES, bool DX>
+template <int MODE, bool WRES>
 __global__ void __launch_bounds__(kDxThreads, 1)
     ce_bwd_dw_mma_kernel(const typename DxMode<MODE>::X* __restrict__ x,
                          const float* __restrict__ w, const float* __restrict__ bias,
                          const int32_t* __restrict__ lab, const float* __restrict__ logz,
-                         const float* __restrict__ dnll, const int32_t* __restrict__ listed,
-                         float* __restrict__ dw, float* __restrict__ db, float* __restrict__ dx32,
-                         int n_all, int v, int d, int row_offset, int num_valid, int x_vec) {
+                         const float* __restrict__ dnll, float* __restrict__ dw, float* __restrict__ db,
+                         int n, int v, int d, int row_offset, int num_valid, int x_vec) {
   using M = DxMode<MODE>;
   using X = typename M::X;
-  static_assert(!DX || WRES, "the merged backward keeps its table rows resident");
-  // DX walks the rows of x in `listed` (their count, then the rows: those
-  // with a nonzero dnll, in order); the dW pass walks them all
-  const int n = DX ? __ldg(listed) : n_all;
-  auto src_row = [&](int i) { return DX ? __ldg(listed + 1 + i) : i; };
-  constexpr int kOut = DX ? kMrgOutChunks : kDxOutChunks;  // 64-column output chunks in registers
+  constexpr int kOut = kDxOutChunks;  // 64-column output chunks in registers
   constexpr int kVec = 16 / static_cast<int>(sizeof(X));                // elements of one 16-byte copy
   constexpr int kStageRow = kDxStageRow / static_cast<int>(sizeof(X));  // elements of a stage row
   extern __shared__ __align__(16) unsigned char smem_dw[];
-  const DxSmem<MODE> L = dw_layout<MODE>(d, WRES, DX);
-  const int a2_at = static_cast<int>(L.total);  // DX: A's planes, rows of x by table rows
+  const DxSmem<MODE> L = dw_layout<MODE>(d, WRES);
   const int vrow0 = blockIdx.x * kDxVocab;
   const int d_lo = blockIdx.y * kOutCols;
   const int d_hi = min(d, d_lo + kOutCols);
   const int n_rtiles = (n + kDxRows - 1) / kDxRows;
-  const int start = DX && n_rtiles > 0 ? blockIdx.x % n_rtiles : 0;  // the first row tile walked
-  // DX: the first of dx's output chunks taken, so that blocks whose walks
-  // start together add into different columns
-  const int turn = DX && n_rtiles > 0 ? blockIdx.x / n_rtiles : 0;
   const int nk = (d + kDxChunk - 1) / kDxChunk;            // chunks of the score product
   const int no = (d_hi - d_lo + kDxChunk - 1) / kDxChunk;  // and of the block's output columns
   const int steps = nk + no;                               // chunks of x per row tile
   const int total = n_rtiles * steps;
-  const bool dx_vec = d % 4 == 0;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2;
@@ -623,42 +447,21 @@ __global__ void __launch_bounds__(kDxThreads, 1)
   const int cf_col = ((lane >> 3) & 1) * 16;
   const uint32_t base = tc::shared_addr(smem_dw);
   const uint32_t x_addr = base + L.chunk_at;  // x's converted chunk
-  // the first row of x of the walk's tile-th row tile
-  auto tile_row0 = [&](int tile) {
-    const int r = start + tile;
-    return (r < n_rtiles ? r : r - n_rtiles) * kDxRows;
-  };
+  // the first row of x of the tile-th row tile
+  auto tile_row0 = [&](int tile) { return tile * kDxRows; };
 
   // columns [c0, c0 + ncols) of the block's table rows into their planes
   auto load_w = [&](int c0, int ncols) {
     load_rows<MODE>(smem_dw + L.res_at, L.res_row, L.res_plane, w, vrow0, v, d, c0, ncols);
   };
   // the chunk of x of step `step` (row tile, then its columns) into its stage
-  // DX: the source rows of the two row tiles in flight (the one whose chunks
-  // are being copied and the one being computed), tile by tile of the walk,
-  // and those of this thread's copies of the tile being copied. Read once a
-  // tile, off the path of each copy: with this much shared memory the L1
-  // cache is small, and a lookup of `listed` on that path goes to L2.
-  int32_t* ring = reinterpret_cast<int32_t*>(smem_dw + a2_at + M::kPlanes * M::kChunkPlane);
   constexpr int kCopies = kDxRows * kDxChunk / kVec / kDxThreads;  // 16-byte copies a thread issues per chunk
-  int copy_row[kCopies];
   auto issue = [&](int step) {
     const int tile = step / steps;
     const int r = step - tile * steps;
     const int col = r < nk ? r * kDxChunk : d_lo + (r - nk) * kDxChunk;
     const int xrow0 = tile_row0(tile);
     X* dst = reinterpret_cast<X*>(smem_dw + (step % kDwStages) * kDxStage);
-    if constexpr (DX) {
-      if (r == 0) {  // the first chunk of a tile: its rows
-        const int i = xrow0 + threadIdx.x;
-        if (threadIdx.x < kDxRows) ring[(tile & 1) * kDxRows + threadIdx.x] = i < n ? src_row(i) : 0;
-#pragma unroll
-        for (int k = 0; k < kCopies; ++k) {
-          const int rr = (threadIdx.x + k * kDxThreads) / (kDxChunk / kVec);
-          copy_row[k] = xrow0 + rr < n ? src_row(xrow0 + rr) : 0;
-        }
-      }
-    }
     if (x_vec) {
 #pragma unroll
       for (int k = 0; k < kCopies; ++k) {
@@ -666,8 +469,7 @@ __global__ void __launch_bounds__(kDxThreads, 1)
         const int rr = idx / (kDxChunk / kVec);
         const int c = (idx % (kDxChunk / kVec)) * kVec;
         const bool ok = xrow0 + rr < n && col + c < d;
-        const long long row = DX ? copy_row[k] : xrow0 + rr;
-        const X* src = ok ? x + row * d + col + c : x;
+        const X* src = ok ? x + static_cast<long long>(xrow0 + rr) * d + col + c : x;
         tc::cp_async_16(dst + rr * kStageRow + c, src, ok);
       }
     } else {
@@ -675,7 +477,7 @@ __global__ void __launch_bounds__(kDxThreads, 1)
         const int rr = idx / kDxChunk;
         const int c = idx % kDxChunk;
         const bool ok = xrow0 + rr < n && col + c < d;
-        dst[rr * kStageRow + c] = ok ? x[static_cast<long long>(src_row(xrow0 + rr)) * d + col + c] : from_f<X>(0.f);
+        dst[rr * kStageRow + c] = ok ? x[static_cast<long long>(xrow0 + rr) * d + col + c] : from_f<X>(0.f);
       }
     }
   };
@@ -730,10 +532,6 @@ __global__ void __launch_bounds__(kDxThreads, 1)
   }
 
   const uint32_t a_at = base + L.a_at + (rg + rf_row) * M::kChunkRow + rf_col;
-  // DX: the warp's 32 rows of x and 16 columns of each dx chunk
-  const int xr = (warp & 1) * 32;
-  const int xc = (warp >> 1) * 16;
-  const uint32_t a2_addr = base + a2_at + (xr + rf_row) * M::kChunkRow + rf_col;
   for (int it = 0; it < n_rtiles; ++it) {
     float s[kDxNT][4];
 #pragma unroll
@@ -750,7 +548,6 @@ __global__ void __launch_bounds__(kDxThreads, 1)
     // A^T = dnll (exp(s^T (+ b) - logz) - onehot), blinded outside the
     // window; 0 past n and v. Its columns are rows of x: logz, dnll, label.
     const int row0 = tile_row0(it);
-    const int32_t* tile_rows = ring + (it & 1) * kDxRows;  // DX: the tile's source rows
     float lz[kDxNT][2], gr[kDxNT][2];
     int lb[kDxNT][2];
 #pragma unroll
@@ -759,7 +556,7 @@ __global__ void __launch_bounds__(kDxThreads, 1)
       for (int e = 0; e < 2; ++e) {
         const int row = row0 + cg + nt * 8 + 2 * t + e;
         const bool ok = row < n;
-        const int src = !ok ? 0 : DX ? tile_rows[row - row0] : row;
+        const int src = ok ? row : 0;
         lz[nt][e] = ok ? logz[src] : 0.f;
         gr[nt][e] = ok ? dnll[src] : 0.f;
         lb[nt][e] = ok ? lab[src] : -1;
@@ -784,7 +581,6 @@ __global__ void __launch_bounds__(kDxThreads, 1)
           }
           nonzero |= a[e] != 0.f;
           db_sum[half] += a[e];
-          if constexpr (DX) put_terms<MODE>(smem_dw + a2_at + (cl + e) * M::kChunkRow, M::kChunkPlane, r, a[e]);
         }
         put_pair<MODE>(smem_dw + L.a_at + r * M::kChunkRow, M::kChunkPlane, cl, a[0], a[1]);
       }
@@ -797,22 +593,6 @@ __global__ void __launch_bounds__(kDxThreads, 1)
         advance(-1, M::kOutRow);
         if (nonzero) {
           dx_product<MODE, kDwFlush>(acc[o], a_at, x_addr, smem_dw + L.chunk_at, cg, lane);
-          if constexpr (DX) {
-            // dx (the warp's 32 rows of x, 16 columns of chunk o) = A . W_tile
-            constexpr int kRow = (kDxChunk * kMrgOutChunks + M::kSkew) * M::kElem;  // = L.res_row
-            float dxa[2][2][4];
-#pragma unroll
-            for (int m = 0; m < 2; ++m)
-#pragma unroll
-              for (int nn = 0; nn < 2; ++nn)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) dxa[m][nn][e] = 0.f;
-            const int col = (o + turn) % no * kDxChunk + xc;
-            mrg_dx_product<MODE, kRow, kDxRows * kRow>(dxa, a2_addr, base + L.res_at, smem_dw + L.res_at, col,
-                                                          lane);
-#pragma unroll
-            for (int m = 0; m < 2; ++m) add_dx(dx32, tile_rows, dxa[m], xr + 16 * m, col, n - row0, d, lane, dx_vec);
-          }
         }
       }
     }
@@ -851,61 +631,23 @@ __global__ void __launch_bounds__(kDxThreads, 1)
   }
 }
 
-// The merged backward's list of the rows it walks: live[0] = how many rows
-// have a nonzero dnll, live[1 ..] = those rows in order. A row whose dnll is
-// 0 (a LABEL_PAD row) has A = 0: it adds nothing to dW or db, and its dx
-// row is 0, which the zeroed dx scratch already holds. One block, the rows
-// in turns of kLiveThreads: a ballot and the warps' counts place each row.
-constexpr int kLiveThreads = 1024;
-__global__ void __launch_bounds__(kLiveThreads)
-    ce_live_rows_kernel(const float* __restrict__ dnll, int n, int32_t* __restrict__ live) {
-  __shared__ int counts[kLiveThreads / 32];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  int base = 0;
-  for (int i0 = 0; i0 < n; i0 += kLiveThreads) {
-    const int i = i0 + threadIdx.x;
-    const bool keep = i < n && dnll[i] != 0.f;
-    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-    if (lane == 0) counts[warp] = __popc(ballot);
-    __syncthreads();
-    int before = base, total = base;
-    for (int w = 0; w < kLiveThreads / 32; ++w) {
-      before += w < warp ? counts[w] : 0;
-      total += counts[w];
-    }
-    if (keep) live[1 + before + __popc(ballot & ((1u << lane) - 1u))] = i;
-    base = total;
-    __syncthreads();  // counts is rewritten by the next turn
-  }
-  if (threadIdx.x == 0) live[0] = base;
-}
-
-// bias and db may be null; without DX live and dx32 too. DX: live is
-// (n + 1) int32 scratch, dx32 (n, d) f32 is added into.
-template <int MODE, bool WRES, bool DX>
+// bias and db may be null.
+template <int MODE, bool WRES>
 cudaError_t launch_dw_mma(const void* x, const void* w, const void* bias, const void* lab,
-                          const void* logz, const void* dnll, void* live, void* dw, void* db,
-                          void* dx32, int n, int v, int d, int row_offset, int num_valid,
-                          cudaStream_t stream) {
+                          const void* logz, const void* dnll, void* dw, void* db, int n, int v, int d,
+                          int row_offset, int num_valid, cudaStream_t stream) {
   using X = typename DxMode<MODE>::X;
-  auto kernel = ce_bwd_dw_mma_kernel<MODE, WRES, DX>;
-  const size_t smem = dw_smem<MODE>(d, WRES, DX);
+  auto kernel = ce_bwd_dw_mma_kernel<MODE, WRES>;
+  const size_t smem = dw_smem<MODE>(d, WRES);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  if (DX) {
-    ce_live_rows_kernel<<<1, kLiveThreads, 0, stream>>>(static_cast<const float*>(dnll), n,
-                                                         static_cast<int32_t*>(live));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
   const int x_vec = d % (16 / sizeof(X)) == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const dim3 grid((v + kDxVocab - 1) / kDxVocab, (d + kOutCols - 1) / kOutCols);
   kernel<<<grid, kDxThreads, smem, stream>>>(
       static_cast<const X*>(x), static_cast<const float*>(w), static_cast<const float*>(bias),
       static_cast<const int32_t*>(lab), static_cast<const float*>(logz),
-      static_cast<const float*>(dnll), static_cast<const int32_t*>(live), static_cast<float*>(dw),
-      static_cast<float*>(db), static_cast<float*>(dx32), n, v, d, row_offset, num_valid, x_vec);
+      static_cast<const float*>(dnll), static_cast<float*>(dw), static_cast<float*>(db), n, v, d, row_offset,
+      num_valid, x_vec);
   return cudaGetLastError();
 }
 

@@ -29,8 +29,8 @@
 // numerics measured in PERF.md, "the dx numerics decision"; bf16 x in one
 // bf16 product. The dx kernel (ce_bwd_dx_mma_kernel) keeps 64 rows of x in
 // shared memory and streams the table; the dW kernel (ce_bwd_dw_mma_kernel,
-// in fused_ce_mma.cuh with its design notes, as the merged backward shares
-// it) is its mirror, 64 table rows resident and x streamed. Any N, V and D
+// in fused_ce_mma.cuh with its design notes) is its mirror, 64 table rows
+// resident and x streamed. Any N, V and D
 // work, with the ragged edges masked; neither uses atomics, so two runs give
 // the same bits.
 
@@ -293,11 +293,11 @@ template <int MODE>
 cudaError_t launch_dw_tc(const void* x, const void* w, const void* bias, const void* lab,
                          const void* logz, const void* dnll, void* dw, void* db, int n, int v,
                          int d, int row_offset, int num_valid, cudaStream_t stream) {
-  const bool resident = kDwResident && dw_smem<MODE>(d, true, false) <= kMaxSmem;
-  return resident ? launch_dw_mma<MODE, true, false>(x, w, bias, lab, logz, dnll, nullptr, dw, db, nullptr,
-                                                     n, v, d, row_offset, num_valid, stream)
-                  : launch_dw_mma<MODE, false, false>(x, w, bias, lab, logz, dnll, nullptr, dw, db, nullptr,
-                                                      n, v, d, row_offset, num_valid, stream);
+  const bool resident = kDwResident && dw_smem<MODE>(d, true) <= kMaxSmem;
+  return resident ? launch_dw_mma<MODE, true>(x, w, bias, lab, logz, dnll, dw, db, n, v, d, row_offset,
+                                              num_valid, stream)
+                  : launch_dw_mma<MODE, false>(x, w, bias, lab, logz, dnll, dw, db, n, v, d, row_offset,
+                                               num_valid, stream);
 }
 
 }  // namespace

@@ -15,15 +15,17 @@
 // with fence_proxy_async before wgmma, which reads through the async proxy,
 // sees it.
 //
-// Users: the CE forward (fused_ce.cu: 2-D maps, K-major tf32 and bf16 B
-// tiles, A in registers) and the bf16 blockwise attention forward, dq and
-// dk/dv (attention_blockwise.cu: rank-4 maps over (head column, head, row,
-// batch), both operands of the score products (S = Q K^T, dP = dO V^T, and
-// transposed in dk/dv, at N = 128 or 64) from shared memory, and the
-// products that take P or dS (O += P V, dQ += dS K, dV += P^T dO, dK +=
-// dS^T Q) with them in registers and their B read MN-major, transposed by
-// the product itself). The CE backward kernels are meant to take the same
-// pieces (ROADMAP.md, Queue 2).
+// Users: the CE forward and the merged CE backward (fused_ce.cu: 2-D maps,
+// K-major tf32 and bf16 B tiles, A in registers; the backward also adds
+// its dx into device memory with TMA reduce-adds and meets its two
+// consumer warpgroups at named barriers) and the bf16 blockwise attention
+// forward, dq and dk/dv (attention_blockwise.cu: rank-4 maps over (head
+// column, head, row, batch), both operands of the score products (S = Q
+// K^T, dP = dO V^T, and transposed in dk/dv, at N = 128 or 64) from shared
+// memory, and the products that take P or dS (O += P V, dQ += dS K, dV +=
+// P^T dO, dK += dS^T Q) with them in registers and their B read MN-major,
+// transposed by the product itself). The two-pass CE backward is meant to
+// take the same pieces (ROADMAP.md, Queue 2).
 
 #pragma once
 
@@ -107,6 +109,30 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
 // async-proxy accesses (wgmma's operand reads, TMA's writes)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// the box of `map` at (c0 inner, c1 outer) added element by element (f32
+// atomic adds in L2) from shared memory at src, laid out as tma_load_2d
+// writes it; one bulk group per commit_bulk. The writers of src fence
+// with fence_proxy_async and meet at a barrier before one thread issues it.
+__device__ __forceinline__ void tma_reduce_add_2d(const CUtensorMap* map, const void* src, int c0, int c1) {
+  asm volatile("cp.reduce.async.bulk.tensor.2d.global.shared::cta.add.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_addr(src)), "r"(c0), "r"(c1)
+               : "memory");
+}
+__device__ __forceinline__ void commit_bulk() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+// until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void wait_bulk_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// until this thread's bulk groups have completed (their writes done)
+__device__ __forceinline__ void wait_bulk() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+
+// a barrier of `count` threads (a multiple of 32) on named barrier `id`
+// (1-15; 0 is __syncthreads')
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // -------------------------------------------------- warpgroup registers
@@ -321,6 +347,41 @@ B4CP_WGMMA_TB(32, B4CP_ACC16, B4CP_D16, 16, 17, 18, 19, 20, 21)
 B4CP_WGMMA_TB(64, B4CP_ACC32, B4CP_D32, 32, 33, 34, 35, 36, 37)
 B4CP_WGMMA_TB(128, B4CP_ACC64, B4CP_D64, 64, 65, 66, 67, 68, 69)
 #undef B4CP_WGMMA_TB
+
+// d (64 x N, f32) = d * (scale_d != 0) + A (registers) . B^T, B (N rows)
+// K-major through desc_b: tf32 (k = 8, A laid out as for
+// wgmma_tf32_m64n128k8) or bf16 (k = 16, as for wgmma_bf16_m64n128k16),
+// N = 16 (tf32), 32 or 64; d holds N / 2 values a thread in the same layout
+#define B4CP_WGMMA_RS(TYPE, K, N, ACC, DLIST, A0, A1, A2, A3, DESC, SCALE, TAIL)                             \
+  __device__ __forceinline__ void wgmma_##TYPE##_m64n##N##k##K(float (&d)[N / 2], const uint32_t (&a)[4],    \
+                                                              uint64_t desc_b, int scale_d) {              \
+    asm volatile(                                                                                          \
+        "{\n"                                                                                              \
+        ".reg .pred p;\n"                                                                                  \
+        "setp.ne.b32 p, %" #SCALE ", 0;\n"                                                                 \
+        "wgmma.mma_async.sync.aligned.m64n" #N "k" #K ".f32." #TYPE "." #TYPE " " DLIST ", {%" #A0         \
+        ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #DESC ", p, 1, 1" TAIL ";\n"                                  \
+        "}\n"                                                                                              \
+        : ACC                                                                                              \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));                          \
+  }
+B4CP_WGMMA_RS(tf32, 8, 16, B4CP_ACC8(0), B4CP_D8, 8, 9, 10, 11, 12, 13, "")
+B4CP_WGMMA_RS(tf32, 8, 32, B4CP_ACC16, B4CP_D16, 16, 17, 18, 19, 20, 21, "")
+B4CP_WGMMA_RS(tf32, 8, 64, B4CP_ACC32, B4CP_D32, 32, 33, 34, 35, 36, 37, "")
+B4CP_WGMMA_RS(bf16, 16, 32, B4CP_ACC16, B4CP_D16, 16, 17, 18, 19, 20, 21, ", 0")
+B4CP_WGMMA_RS(bf16, 16, 64, B4CP_ACC32, B4CP_D32, 32, 33, 34, 35, 36, 37, ", 0")
+#undef B4CP_WGMMA_RS
+
+// the same by N, for either type (bf16: N = 32 or 64)
+template <int N, bool BF16>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  static_assert(N == 32 || N == 64 || (N == 16 && !BF16), "N is 16 (tf32), 32 or 64");
+  if constexpr (!BF16 && N == 16) wgmma_tf32_m64n16k8(d, a, desc_b, scale_d);
+  if constexpr (!BF16 && N == 32) wgmma_tf32_m64n32k8(d, a, desc_b, scale_d);
+  if constexpr (!BF16 && N == 64) wgmma_tf32_m64n64k8(d, a, desc_b, scale_d);
+  if constexpr (BF16 && N == 32) wgmma_bf16_m64n32k16(d, a, desc_b, scale_d);
+  if constexpr (BF16 && N == 64) wgmma_bf16_m64n64k16(d, a, desc_b, scale_d);
+}
 
 template <int N>
 __device__ __forceinline__ void wgmma_bf16_tb(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b,

@@ -29,17 +29,20 @@ plain version); for bf16 x exact bf16 products with f32 sums. dx sums in
 f32 over the whole vocabulary and rounds to x's dtype once; the JAX dx
 kernel rounds its bf16 output once per vocab tile, so bf16 dx agrees with it
 to a few bf16 ulps (f32 is unaffected). The CUDA kernels are
-``bert4clickpath_torch/csrc/fused_ce.cu`` (the forward, on Hopper's TMA
-loads and ``wgmma`` products through ``hopper.cuh``, and the merged
-backward's entry), ``fused_ce_two_pass.cu`` and ``fused_ce_mma.cuh`` (the
-backward kernels, on ``mma.sync``); the
+``bert4clickpath_torch/csrc/fused_ce.cu`` (the forward and the merged
+backward, on Hopper's TMA loads and ``wgmma`` products through
+``hopper.cuh``: the merged backward walks the live rows packed into
+scratch on the device, and adds dx across its units with TMA reduce-adds),
+``fused_ce_two_pass.cu`` and ``fused_ce_mma.cuh`` (the two-pass kernels,
+on ``mma.sync``); the
 ``*_reference`` functions are their plain PyTorch versions (dense (N, V)
 f32 logits). CPU tensors take the plain versions, CUDA tensors launch the
 kernels.
 
 Which backward runs is a function of the shape alone, like
-``ops.kernels.attention.attention_family``: the merged kernel keeps a
-(64, D) dW tile in registers, so it takes D <= ``MAX_D`` (256); wider rows
+``ops.kernels.attention.attention_family``: the merged kernel keeps its
+table rows' dW in registers (f32 x: 64 rows a unit at D <= 128, 32 up to
+256; bf16 x: 64), so it takes D <= ``MAX_D`` (256); wider rows
 take the two-pass pair, whose blocks own 384 output columns at a time and
 stream the other operand through shared memory. No kernel refuses a row
 width: where a backward block's own operand (x's rows, or the table's) does
@@ -103,7 +106,7 @@ FWD_VOCAB = 128
 # on an H100 by chip_smoke.py's sweeps of both (PERF.md)
 FWD_TARGET_UNITS = 16896
 FWD_MIN_TILES = 1
-MAX_D = 256  # the merged backward holds a (64, D) dW tile in registers
+MAX_D = 256  # the merged backward holds its table rows' dW in registers
 TWO_PASS_OUT_COLS = 384  # kOutCols: output columns one two-pass block owns
 # dx grid: one block is resident per SM (its shared memory), so the grid runs
 # in waves of 132 and the last, partly empty wave costs less the shorter a
@@ -201,7 +204,7 @@ def _check(x, table, bias, max_d: Optional[int] = None):
         raise ValueError(f"unsupported device {x.device}")
     d = x.shape[1]
     if x.device.type == "cuda" and max_d is not None and d > max_d:
-        raise ValueError(f"D={d}: the merged CE backward holds a (64, D) tile in registers and takes D <= {max_d}")
+        raise ValueError(f"D={d}: the merged CE backward holds its dW rows in registers and takes D <= {max_d}")
 
 
 def _check_rows(x, labels_model, logz, dnll):
@@ -305,12 +308,16 @@ def ce_backward_merged(
 ) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """(dx in x's dtype, dW (V, D) f32, db (V,) f32 or None) from the
     single-recompute kernel. On the card it walks only the rows whose dnll
-    is nonzero (the others add nothing, and their dx rows are 0); dW and db
-    are summed in a fixed order (two runs give the same bits); dx sums
-    across vocab tiles with f32 atomic adds into a zeroed (N, D) f32
-    scratch, so it repeats to rounding, not bit for bit: two runs within
-    1e-5 of the largest |dx| of each other (kept on purpose: the atomics
-    cost 4% of the kernel's time, a fixed order at least as much)."""
+    is nonzero (the others add nothing, and their dx rows are 0): they are
+    listed and packed into scratch on the device (no host read of their
+    count), and a width off 16 bytes is padded
+    (:func:`_tma_operands`) for the tensor maps. dW and db are summed in a
+    fixed order (two runs give the same bits); dx sums across vocab tiles
+    with f32 atomic adds (TMA reduce-adds into the packed scratch,
+    scattered back after), so it repeats to rounding, not bit for bit: two
+    runs within 1e-5 of the largest |dx| of each other (kept on purpose: a
+    fixed order would cost at least as much, for bits no tolerance
+    needs)."""
     _check(x, table, bias, MAX_D)
     _check_rows(x, labels_model, logz, dnll)
     if x.device.type == "cpu":
@@ -319,26 +326,34 @@ def ce_backward_merged(
         )
     n, d = x.shape
     v = table.shape[0]
-    x, table = x.contiguous(), table.contiguous()
+    # the live rows are packed for the tensor maps, which need 16-byte rows
+    x, table = _tma_operands(x.contiguous(), table.contiguous())
+    width = x.shape[1]
     bias = None if bias is None else bias.contiguous()
     lab = _local_labels(labels_model, row_start)
     logz = logz.float().contiguous()
     dnll = dnll.float().contiguous()
-    live = torch.empty(n + 1, dtype=torch.int32, device=x.device)  # the rows the kernel walks
-    dx32 = torch.zeros((n, d), dtype=torch.float32, device=x.device)
-    dw = torch.empty((v, d), dtype=torch.float32, device=x.device)
+    # the rows the kernel walks (count, rows, each row's place among them)
+    # and the packed rows: x, dx (width f32 each) and (logz, dnll, label) a row
+    live = torch.empty(2 * n + 1, dtype=torch.int32, device=x.device)
+    rows = max(n, 1)
+    work = torch.empty(rows * (2 * width + 4), dtype=torch.float32, device=x.device)
+    dx32 = torch.empty((n, width), dtype=torch.float32, device=x.device)
+    dw = torch.empty((v, width), dtype=torch.float32, device=x.device)
     db = None if bias is None else torch.empty(v, dtype=torch.float32, device=x.device)
     lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.b4cp_ce_bwd(
             x.data_ptr(), table.data_ptr(), _ptr(bias), lab.data_ptr(),
-            logz.data_ptr(), dnll.data_ptr(), live.data_ptr(), dx32.data_ptr(),
-            dw.data_ptr(), _ptr(db), int(x.dtype == torch.bfloat16), n, v, d,
+            logz.data_ptr(), dnll.data_ptr(), live.data_ptr(), work.data_ptr(), dx32.data_ptr(),
+            dw.data_ptr(), _ptr(db), int(x.dtype == torch.bfloat16), n, v, width,
             row_offset, num_valid, row_start, x.device.index, stream,
         )
     _build.check(code, "fused CE backward")
     _build.count("ce_bwd")
+    if width != d:
+        dx32, dw = dx32[:, :d].contiguous(), dw[:, :d].contiguous()
     return dx32.to(x.dtype), dw, db
 
 

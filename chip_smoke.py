@@ -16,9 +16,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    with nvcc for sm_90a (one compile per source, in parallel) and prints the
    build time and ptxas' report, and the counts of warpgroup products
    (HGMMA) and TMA loads (UTMALDG) in ``cuobjdump -sass`` of the CE
-   forward's two instances (f32 and bf16 x) and the bf16 blockwise
-   attention forward's four (head-width tiles 16, 32, 64 and 128); raises
-   unless each has both.
+   forward's two instances (f32 and bf16 x), the merged CE backward's four
+   (D <= 128 and 256, f32 and bf16 x; with its TMA reduce-adds, UTMAREDG)
+   and the bf16 blockwise attention forward's, dq's and dk/dv's four each
+   (head-width tiles 16, 32, 64 and 128); raises unless each has them.
 3. kernels — holds each of the eleven kernels against its plain PyTorch version
    on the card at the shapes its main path gives it, with the tolerance
    stated, and times both (CUDA events; median device time of warm calls):
@@ -29,10 +30,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    dv; the f32 backward the scalar kernel), the fused CE
    at its training shape (the forward on TMA loads and wgmma products, f32
    and bf16 x, two runs bit-equal, its schedule's two constants swept; the
-   merged backward on the tensor cores, run twice: dW and db bit-equal, dx
-   within the tolerance each time and the two within 1e-5 of the largest
-   |dx| of each other; both rated at tf32 x3 with the f32 rating beside;
-   the backward also timed with bf16 x), the three blockwise attention kernels at
+   merged backward on TMA loads, wgmma products and TMA reduce-adds, run
+   twice: dW and db bit-equal, dx within the tolerance each time and the
+   two within 1e-5 of the largest |dx| of each other; both rated at tf32 x3
+   with the f32 rating beside; the backward also held and timed with bf16
+   x, and held again at D=128, its other instance, on the same rows and
+   table), the three blockwise attention kernels at
    (16, 1024, 256) and at L=1000 in bf16 (all three on the tensor cores,
    the forward on TMA loads and wgmma products, two runs bit-equal, the
    dk/dv kernel's dv from p rounded to bf16 measured against p kept as two
@@ -526,8 +529,11 @@ def phase_build() -> None:
 def forward_sass(_build) -> None:
     """Counts, in ``cuobjdump -sass`` of the built library, of the warpgroup
     products (HGMMA) and TMA loads (UTMALDG) per instance of the kernels
-    built on them: the CE forward (``ce_fwd_wgmma_kernel``, f32 and bf16 x)
-    and the bf16 blockwise attention forward, dq and dk/dv
+    built on them: the CE forward (``ce_fwd_wgmma_kernel``, f32 and bf16 x),
+    the merged CE backward (``ce_bwd_merged_wgmma_kernel``, D <= 128 and D
+    <= 256, f32 and bf16 x; it adds with TMA reduce-adds, UTMAREDG, counted
+    beside) and the
+    bf16 blockwise attention forward, dq and dk/dv
     (``bmha_fwd_wgmma_kernel``, ``bmha_dq_wgmma_kernel``,
     ``bmha_dkv_wgmma_kernel``, one instance per head-width tile each);
     raises unless each instance has both."""
@@ -538,14 +544,14 @@ def forward_sass(_build) -> None:
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
             if any(k in fn for k in ("ce_fwd_wgmma_kernel", "bmha_fwd_wgmma_kernel", "bmha_dq_wgmma_kernel",
-                                     "bmha_dkv_wgmma_kernel")):
-                counts[fn] = {"HGMMA": 0, "UTMALDG": 0}
+                                     "bmha_dkv_wgmma_kernel", "ce_bwd_merged_wgmma_kernel")):
+                counts[fn] = {"HGMMA": 0, "UTMALDG": 0, **({"UTMAREDG": 0} if "ce_bwd_merged" in fn else {})}
         elif fn in counts:
             for op in counts[fn]:
                 counts[fn][op] += op in line
 
-    kinds = {"ce_fwd": "CE forward", "bmha_fwd": "blockwise forward", "bmha_dq": "blockwise dq",
-             "bmha_dkv": "blockwise dk/dv"}
+    kinds = {"ce_fwd": "CE forward", "ce_bwd_merged": "CE merged backward", "bmha_fwd": "blockwise forward",
+             "bmha_dq": "blockwise dq", "bmha_dkv": "blockwise dk/dv"}
 
     def name(fn):
         args = re.search(r"kernelI(\w+?)EEv", fn)
@@ -553,11 +559,12 @@ def forward_sass(_build) -> None:
         return f"{kind} <{args.group(1) if args else fn[-40:]}>"
 
     log("[build] SASS (cuobjdump -sass): " + "; ".join(
-        f"{name(fn)}: HGMMA {c['HGMMA']}, UTMALDG {c['UTMALDG']}" for fn, c in sorted(counts.items())))
+        f"{name(fn)}: " + ", ".join(f"{op} {n}" for op, n in c.items()) for fn, c in sorted(counts.items())))
     per_kind = {k: sum(f"{k}_wgmma" in fn for fn in counts) for k in kinds}
-    if per_kind != {"ce_fwd": 2, "bmha_fwd": 4, "bmha_dq": 4, "bmha_dkv": 4} or any(
+    if per_kind != {"ce_fwd": 2, "ce_bwd_merged": 4, "bmha_fwd": 4, "bmha_dq": 4, "bmha_dkv": 4} or any(
             min(c.values()) == 0 for c in counts.values()):
-        raise AssertionError(f"the CE forward and the blockwise kernels are not built on wgmma and TMA: {counts}")
+        raise AssertionError(f"the CE forward and backward and the blockwise kernels are not built on wgmma and "
+                             f"TMA: {counts}")
 
 
 def _qkv_bias(b, seq, d, rng, full_pad_row: bool, tokens=None):
@@ -756,6 +763,9 @@ def training_kernels(rng, card: str) -> dict:
 
     # fused CE: N = B * P rows, the padded Beauty-sized table, f32 x
     out.update(ce_kernels_at(rng, B_TRAIN * 10, 55_296, N_ITEMS, d, card=card))
+    # the merged backward's other instance (D <= 128: 64 table rows a unit,
+    # the large catalog's width) on the flagship's rows and table
+    ce_kernels_at(rng, B_TRAIN * 10, 55_296, N_ITEMS, 128, card=card, sweep=False)
     # the wide model's shapes: its gather and whole-row attention (the
     # summary rows stay on the flagship's), then the two-pass backward and
     # the forward at its D = 384, the dx grid's vocab split at three targets
@@ -918,15 +928,18 @@ def ce_wide_row_at(rng, card: str, d: int = 1024) -> None:
         _held(f"fused_softmax_ce D={d} {name}", g, w, CE_GRAD_REL)
 
 
-def ce_kernels_at(rng, n: int, v_rows: int, nv: int, d: int, off: int = 10, card: str = "") -> dict:
+def ce_kernels_at(rng, n: int, v_rows: int, nv: int, d: int, off: int = 10, card: str = "",
+                  sweep: bool = True) -> dict:
     """The fused CE kernels against their plain versions at n rows of f32 x
     over a (v_rows, d) f32 table whose valid window is rows off .. off + nv,
     without and with a bias, a fifth of the labels LABEL_PAD; times and
     bounds of the case without a bias. The backward is run twice: dW and db
     must repeat bit for bit (the merged kernel writes them once), dx is
     held to the tolerance in each run (it sums across vocab tiles with
-    atomic adds). Where the merged kernel takes d, it is also timed on the
-    same inputs in bf16 (logged)."""
+    atomic adds). Where the merged kernel takes d, it is also held and timed
+    on the same inputs in bf16 (within 2e-2 of the largest magnitude, dx
+    + one bf16 ulp of the value; dW and db bit-equal over two runs). With
+    ``sweep``, the forward's schedule constants are swept too."""
     from bert4clickpath_torch.constants import LABEL_PAD
     from bert4clickpath_torch.ops.fused_ce import _labels_model
     from bert4clickpath_torch.ops.kernels.fused_ce import (
@@ -997,6 +1010,8 @@ def ce_kernels_at(rng, n: int, v_rows: int, nv: int, d: int, off: int = 10, card
         blinded[off : off + nv] = False
         if not bool((got[1][blinded] == 0).all()):
             raise AssertionError("CE backward: a blinded table row got a gradient")
+        if ce_backward_route(d) == "merged":
+            merged_bf16_at(xb, table, bias, lab, want_logz, dnll, off, nv, blinded)
         log(f"[kernels] CE forward N={n} V={v_rows} D={d} f32 (bias={with_bias}): logz max_abs_err {err:.3e} "
             f"(tol {CE_LOGZ_TOL:.0e}), two runs bit-equal; LABEL_PAD rows {int((labels == LABEL_PAD).sum())}")
         if not with_bias:
@@ -1012,7 +1027,8 @@ def ce_kernels_at(rng, n: int, v_rows: int, nv: int, d: int, off: int = 10, card
                 tflops = flop * n * v_rows * d / (tk * 1e-3) / 1e12
                 log(f"[kernels] CE {name} N={n} V={v_rows} D={d} f32: kernel {tk:.3f} ms "
                     f"({tflops:.1f} TFLOP/s of f32 products), plain {tp:.3f} ms (median device time)")
-            ce_fwd_grid(x, table, want_logz, off, nv, card)
+            if sweep:
+                ce_fwd_grid(x, table, want_logz, off, nv, card)
             if ce_backward_route(d) == "merged":
                 xb = x.to(torch.bfloat16)
                 tb = (device_time_ms(lambda: ce_backward(xb, table, None, lab, want_logz, dnll, off, nv), reps=20),
@@ -1040,6 +1056,36 @@ def ce_kernels_at(rng, n: int, v_rows: int, nv: int, d: int, off: int = 10, card
         f"{rated['bound_ms'] / t_bwd[0]:.3f}), {at_f32['bound_ms']:.4f} ms rated at f32 (share "
         f"{at_f32['bound_ms'] / t_bwd[0]:.3f}); plain {t_bwd[1]:.4f} ms [{card}]")
     return out
+
+
+def merged_bf16_at(xb, table, bias, lab, logz, dnll, off: int, nv: int, blinded) -> None:
+    """The merged backward on bf16 x against its plain version: dx, dW and
+    db within 2e-2 of the largest magnitude (A rounds to bf16 before the
+    products and may round an entry the other way), dx besides one bf16 ulp
+    of the value; dW and db bit-equal over two runs; blinded rows 0."""
+    from bert4clickpath_torch.ops.kernels.fused_ce import ce_backward_merged, ce_backward_reference
+
+    n, d = xb.shape
+    got = ce_backward_merged(xb, table, bias, lab, logz, dnll, off, nv)
+    again = ce_backward_merged(xb, table, bias, lab, logz, dnll, off, nv)
+    want = ce_backward_reference(xb, table, bias, lab, logz, dnll, off, nv)
+    torch.cuda.synchronize()
+    if not torch.equal(got[1], again[1]) or (bias is not None and not torch.equal(got[2], again[2])):
+        raise AssertionError(f"CE merged backward bf16 x D={d}: two runs of dW or db differ")
+    used = []
+    for name, g, w in zip(("dx", "dW", "db"), got, want):
+        if w is None:
+            continue
+        w = w.float()
+        tol = 2e-2 * w.abs().max().item() + (2.0**-7 * w.abs() if name == "dx" else 0.0)
+        used.append(((g.float() - w).abs() / tol).max().item())
+        if not torch.isfinite(g).all() or used[-1] > 1.0:
+            raise AssertionError(f"CE merged backward bf16 x D={d} {name}: {used[-1]} of its tolerance")
+    if not bool((got[1][blinded] == 0).all()):
+        raise AssertionError("CE merged backward bf16 x: a blinded table row got a gradient")
+    log(f"[kernels] CE merged backward N={n} V={table.shape[0]} D={d} bf16 x (bias={bias is not None}): dx / dW"
+        f"{' / db' if bias is not None else ''} use " + " / ".join(f"{u:.3f}" for u in used)
+        + " of 2e-2 of the largest (dx + one bf16 ulp); dW and db bit-equal over two runs")
 
 
 def ce_fwd_grid(x, table, want_logz, off: int, nv: int, card: str) -> None:
@@ -3248,8 +3294,8 @@ def large_ce_at(v_rows: int, d: int, labels_np, windows: int, card: str, dtype, 
     the kernels' and the windowed plain version's times and the bounds (a
     product rated at the numerics of the kernel that runs it: f32 x three
     tf32 products, bf16 x one bf16 product), and for f32 x the merged
-    backward's dx atomics measured against a copy of its source built
-    without them (``kMrgDxReduce = false``)."""
+    backward's dx reduce-adds measured against a copy of its source built
+    without them (``kCeBwdDxReduce = false``)."""
     from bert4clickpath_torch.constants import LABEL_PAD, NUM_RESERVED_TOKENS
     from bert4clickpath_torch.ops.fused_ce import _labels_model
     from bert4clickpath_torch.ops.kernels import fused_ce as k
@@ -3330,17 +3376,17 @@ def large_ce_at(v_rows: int, d: int, labels_np, windows: int, card: str, dtype, 
 
 
 def ce_atomics_share(bwd, ms_bwd: float, tag: str, card: str) -> None:
-    """The merged backward's dx atomics: the kernel timed in turns with a
-    copy of its source built without them (``kMrgDxReduce = false``: the
-    dx product kept, its atomic adds dropped; a tune variant, whose dx is
-    not the sum), through ``examples/long_context/tune_blockwise_bwd.py``'s
-    ``build_variants``."""
+    """The merged backward's dx reduction across units: the kernel timed in
+    turns with a copy of its source built without it (``kCeBwdDxReduce =
+    false``: the dx product kept, its TMA reduce-adds dropped; a tune
+    variant, whose dx is not the sum), through
+    ``examples/long_context/tune_blockwise_bwd.py``'s ``build_variants``."""
     from bert4clickpath_torch.ops.kernels import _build
 
     tune = _tune_module()
     entry = ["b4cp_ce_bwd"]
     real = _build.library()
-    variant = tune._Swapped(real, tune.build_variants({"no_dx_atomics": {"kMrgDxReduce": "false"}}, ["fused_ce.cu"],
+    variant = tune._Swapped(real, tune.build_variants({"no_dx_atomics": {"kCeBwdDxReduce": "false"}}, ["fused_ce.cu"],
                                                       entry)["no_dx_atomics"], entry)
     times = {"shipped": [ms_bwd], "no_dx_atomics": []}
     try:
@@ -3483,7 +3529,7 @@ def main() -> None:
         ("fused_mha_fwd", "attention.cu", "attention.py:54", "attention", train),
         ("fused_mha_bwd", "attention.cu", "attention.py:76", "attention_bwd", train),
         ("fused_ce_fwd", "fused_ce.cu", "fused_ce.py:134", "ce_fwd", train),
-        ("fused_ce_bwd", "fused_ce_mma.cuh", "fused_ce.py:761", "ce_bwd", train),
+        ("fused_ce_bwd", "fused_ce.cu", "fused_ce.py:761", "ce_bwd", train),
         ("fused_ce_bwd_dx", "fused_ce_two_pass.cu", "fused_ce.py:293", "ce_bwd_dx", wide_train),
         ("fused_ce_bwd_dw", "fused_ce_mma.cuh", "fused_ce.py:321", "ce_bwd_dw", wide_train),
         ("blockwise_mha_fwd", "attention_blockwise.cu", "attention.py:198", "blockwise_fwd", long_train),
@@ -3494,7 +3540,7 @@ def main() -> None:
         # sharded-ce phase, launched on the vocab-sharded tier's main path
         # (rank 0's timed steps; the pair on the wide model)
         ("fused_ce_fwd_sharded", "fused_ce.cu", "fused_ce.py:134", "ce_fwd_sharded", {"counts": tiers["spmd"]}),
-        ("fused_ce_bwd_sharded", "fused_ce_mma.cuh", "fused_ce.py:761", "ce_bwd_sharded", {"counts": tiers["spmd"]}),
+        ("fused_ce_bwd_sharded", "fused_ce.cu", "fused_ce.py:761", "ce_bwd_sharded", {"counts": tiers["spmd"]}),
         ("fused_ce_bwd_dx_sharded", "fused_ce_two_pass.cu", "fused_ce.py:293", "ce_bwd_dx_sharded",
          {"counts": tiers["spmd wide"]}),
         ("fused_ce_bwd_dw_sharded", "fused_ce_mma.cuh", "fused_ce.py:321", "ce_bwd_dw_sharded",
@@ -3502,7 +3548,7 @@ def main() -> None:
         # the large-catalog path (stress_torch.py, 10,000,384 rows, D = 128,
         # bf16 x): its timed steps' launches per step
         ("fused_ce_fwd_large", "fused_ce.cu", "fused_ce.py:134", "ce_fwd_large", {"counts": stress_counts}),
-        ("fused_ce_bwd_large", "fused_ce_mma.cuh", "fused_ce.py:761", "ce_bwd_large", {"counts": stress_counts}),
+        ("fused_ce_bwd_large", "fused_ce.cu", "fused_ce.py:761", "ce_bwd_large", {"counts": stress_counts}),
         ("fused_mha_fwd_dh32", "attention.cu", "attention.py:54", "attention_dh32", {"counts": stress_counts}),
         ("fused_mha_bwd_dh32", "attention.cu", "attention.py:76", "attention_bwd_dh32", {"counts": stress_counts}),
     ]

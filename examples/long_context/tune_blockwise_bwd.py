@@ -14,7 +14,7 @@ other tile constants than the ones ``csrc/attention_blockwise.cu``,
     python3 examples/long_context/tune_blockwise_bwd.py --kernel ce_dw \\
         --variant shipped: --variant flush4:kDwFlush=4 --variant stream:kDwResident=false
     python3 examples/long_context/tune_blockwise_bwd.py --kernel ce_bwd \\
-        --variant shipped: --variant no_reduce:kMrgDxReduce=false
+        --variant shipped: --variant no_reduce:kCeBwdDxReduce=false
 
 ``--kernel`` (repeatable; default ``dq`` and ``dkv``) names what is timed:
 the blockwise forward (``fwd``), dq, dk/dv, the whole-row forward
@@ -39,9 +39,12 @@ producer + 256 x consumer <= 65,536);
 (its setmaxnreg split, 128 x producer + 256 x consumer <= 65,536);
 ``kDxNumerics`` (``kDxTf32``,
 ``kDxTf32x3``, ``kDxBf16x3``), ``kDxStages``, ``kDxFlush``, ``kDxColWarps``;
-``kDwStages``, ``kDwFlush``, ``kDwResident``, ``kMrgDxReduce`` (false: the
-merged backward's dx product kept but its atomic adds dropped, which prices
-the reduction across blocks; dx is then wrong). All copies are compiled
+``kDwStages``, ``kDwFlush``, ``kDwResident``; the merged backward's
+``kCeBwdTv`` and ``kCeBwdStages`` (table rows a unit and stages of x in
+its ring, both instances at once), ``kCeBwdProducerRegs`` and
+``kCeBwdConsumerRegs`` (its setmaxnreg split), ``kCeBwdDxReduce`` (false:
+its dx product kept but the TMA reduce-adds dropped, which prices the
+reduction across units; dx is then wrong). All copies are compiled
 together (one nvcc each) into ``build/tune/``, loaded beside the port's own
 library, held against the plain version at the kernel's main-path shape,
 bf16 ((B, L, D, H) = (16, 1024, 256, 4) for the blockwise kernels, (256, 53,
@@ -121,10 +124,11 @@ def build_variants(variants: dict[str, dict[str, str]], sources: list[str], entr
         for line in log.splitlines():
             if "Compiling entry" in line:
                 entry = re.search(r"mha_\w+?_kernelILi\d+E|mha_\w+?_kernelI\w+?Li\d+E"
-                                  r"|(?:d[xw]|fwd)_mma_kernelILi\dE(?:Lb\dE)+|(?:fwd|dq|dkv)_wgmma_kernelILi\d+E", line)
+                                  r"|(?:d[xw]|fwd)_mma_kernelILi\dE(?:Lb\dE)+|(?:fwd|dq|dkv|merged)_wgmma_kernelILi\d+E", line)
                 entry = entry.group(0) if entry else ""
-            elif ("_mma_kernelILi64E" in entry or "wgmma_kernelILi64E" in entry or entry.startswith("fwd_")
-                  or "dx_mma_kernel" in entry or "dw_mma_kernel" in entry) and ("registers" in line or "spill" in line):
+            elif (("_mma_kernelILi64E" in entry or "wgmma_kernelILi64E" in entry or entry.startswith("fwd_")
+                  or "dx_mma_kernel" in entry or "dw_mma_kernel" in entry or entry.startswith("merged_"))
+                  and ("registers" in line or "spill" in line)):
                 print(f"[{name}] {entry}: {line.strip()}", flush=True)
         lib = ctypes.CDLL(os.path.join(out_dir, name, "lib.so"))
         for fn in entries:

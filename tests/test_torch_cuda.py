@@ -773,6 +773,32 @@ def test_ce_merged_backward_walks_only_live_rows(cuda, dtype):
     _check_merged((x, table, bias, lab, wm + torch.log(wl), one, off, nv), dtype, cuda)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "n,pattern", [(1023, "random"), (1024, "random"), (1025, "random"), (2560, "random"), (3000, "all"),
+                  (3000, "ends")])
+def test_ce_merged_backward_packs_exactly_the_live_rows(cuda, n, pattern, dtype):
+    """The C entry lists the rows whose dnll is nonzero (ce_live_rows_kernel,
+    in turns of 1,024 rows), packs them and scatters dx back: N rows across
+    those turns, the others LABEL_PAD with dnll 0 (a fifth of them at
+    random, none, or all but rows 0, 1 and N - 1); the LABEL_PAD rows' dx
+    is exactly 0 and the rest matches the plain version, as dW and db do
+    (see _check_merged)."""
+    x, table, bias, lab, dnll, off, nv = _ce_case(n, 300, 128, dtype, True, seed=n + 5, oov=True)
+    rng = np.random.default_rng(n)
+    keep = {"random": rng.random(n) >= 0.2, "all": np.ones(n, bool),
+            "ends": np.isin(np.arange(n), (0, 1, n - 1))}[pattern]
+    keep[1] = True  # the OOV label's row, which _check_merged reads
+    keep = torch.from_numpy(keep).cuda()
+    lab = torch.where(keep, lab.clamp(min=off), torch.full_like(lab, LABEL_PAD))
+    dnll = torch.where(keep, dnll + 1.0 / n, torch.zeros_like(dnll))
+    wm, wl = ce_stats_reference(x, table, bias, off, nv)
+    args = (x, table, bias, lab, wm + torch.log(wl), dnll, off, nv)
+    _check_merged(args, dtype, cuda)
+    dx = ce_kernels.ce_backward_merged(*args)[0]
+    assert not dx[~keep].any() and bool(dx[keep].abs().amax(dim=1).gt(0).all())
+
+
 def test_ce_merged_backward_at_wide_logits(cuda):
     """f32 x at D = 256 over a table of N(0, 1): logits of ~16, the spread
     at which three bf16 products missed 1e-4 at D = 1,024 (PERF.md, the dx
