@@ -47,7 +47,7 @@
 //     64-byte swizzled rows;
 //   two consumer warpgroups, 64 rows of x each: wait for the stage, read
 //     their A fragments of x from it (f32: split in registers into tf32
-//     hi and lo terms rounded to nearest, as kDxNumerics splits them: the
+//     hi and lo terms rounded to nearest, as every CE kernel splits them: the
 //     dropped lo . lo term stays ~2^-22 of a product; truncating x too was
 //     faster still but doubled the error at the widest logits, PERF.md),
 //     run the chunk's products on wgmma m64n128 with A in registers and B
@@ -147,12 +147,12 @@
 // use_fused_backward budget) were VMEM limits and are gone: any N and V
 // work, with the ragged edges masked. Wider rows than D = 256 take the
 // two-pass backward of fused_ce_two_pass.cu, which, like the forward,
-// takes any D; its kernels still run on mma.sync.
+// takes any D on the same pieces (its pieces shared with this file are in
+// fused_ce_common.cuh).
 
 #include <climits>
 
-#include "fused_ce_mma.cuh"
-#include "hopper.cuh"
+#include "fused_ce_common.cuh"
 
 namespace {
 
@@ -460,9 +460,8 @@ cudaError_t launch_fwd(const void* x, const void* w, const void* bias, void* m_p
   auto kernel = ce_fwd_wgmma_kernel<MODE>;
   err = allow_smem(kernel, S::kSmem);
   if (err != cudaSuccess) return err;
-  int device = 0, sms = 0;
-  err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  int sms = 0;
+  err = sm_count(&sms);
   if (err != cudaSuccess) return err;
   const int row_tiles = (n + kCeFwdRows - 1) / kCeFwdRows;
   const long long units = static_cast<long long>(row_tiles) * splits;
@@ -538,98 +537,6 @@ struct CeBwdLayout {
   static_assert(!kBf16 || kTv == kCeBwdRows, "bf16 x stages dx^T in the raw table tile");
   static_assert(kSmem <= kMaxSmem, "the layout fits one block's shared memory");
 };
-
-// byte offset of (row, column) in a run of 128-byte boxes of `rows` rows
-// of elements of type T
-template <int ROWS, typename T>
-__device__ __forceinline__ int boxed(int row, int col) {
-  constexpr int kCols = 128 / static_cast<int>(sizeof(T));
-  return (col / kCols) * ROWS * 128 +
-         hopper::swizzled<hopper::kSwizzle128>(row, static_cast<int>(sizeof(T)) * (col % kCols));
-}
-
-// The warpgroup's A fragments of one box (4 k-steps) of an operand stored
-// transposed: its element (m, k) at row k, column m of a run of 128-byte
-// boxes of ROWS rows of X at `tile` (x^T from a stage of x, W^T from the
-// table tile), rows m0 and m0 + 8 of the fragment (the caller's m0 holds
-// 16 warp + g), k from k0 (a multiple of 32). f32: k-steps of 8, each
-// value split rounded to nearest into tf32 hi and lo terms, as
-// wgmma_tf32_m64n128k8 lays them out; bf16: k-steps of 16, pairs of k, as
-// wgmma_bf16_m64n128k16 lays them out (lo unused). A k-step moves 8 (16)
-// rows, which leaves the swizzle's row bits alone: one address a register,
-// the k-steps immediate offsets from it.
-template <int ROWS, typename X>
-__device__ __forceinline__ void box_frags_t(uint32_t (&hi)[4][4], uint32_t (&lo)[4][4], const unsigned char* tile,
-                                            int m0, int k0, int t) {
-  constexpr int kElem = static_cast<int>(sizeof(X));
-  constexpr int kCols = 128 / kElem;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int m = m0 + 8 * (q & 1);
-    const int byte = kElem * (m % kCols);
-    const unsigned char* col = tile + (m / kCols) * ROWS * 128 + (byte & 15);
-    // row k0 + r (r: the row within the first k-step's rows)
-    auto at = [&](int r) { return col + (k0 + r) * 128 + ((((byte >> 4) ^ r) & 7) << 4); };
-    if constexpr (kElem == 2) {
-      // rows k0 + 16 kb + 8 (q >> 1) + 2t and the next
-      const unsigned char* p0 = at(8 * (q >> 1) + 2 * t);
-      const unsigned char* p1 = at(8 * (q >> 1) + 2 * t + 1);
-#pragma unroll
-      for (int kb = 0; kb < 4; ++kb)
-        hi[kb][q] = static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(p0 + kb * 16 * 128)) |
-                    static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(p1 + kb * 16 * 128)) << 16;
-    } else {
-      // row k0 + 8 kb + t + 4 (q >> 1)
-      const unsigned char* p = at(t + 4 * (q >> 1));
-#pragma unroll
-      for (int kb = 0; kb < 4; ++kb)
-        tc::split_tf32(*reinterpret_cast<const uint32_t*>(p + kb * 8 * 128), hi[kb][q], lo[kb][q]);
-    }
-  }
-}
-
-// The same for a K-major operand in a 128-byte-swizzled box (rows of 128
-// bytes from a 1,024-byte boundary, at shared address `box`): the
-// warpgroup's rows 16 warp .. + 15, one ldmatrix.x4 a k-step (its four 8 x
-// 16-byte matrices are the fragment's four registers: rows 0-7 and 8-15 of
-// the k-step's first 16 bytes, then of its second).
-template <bool BF16>
-__device__ __forceinline__ void box_frags_ldsm(uint32_t (&hi)[4][4], uint32_t (&lo)[4][4], uint32_t box, int warp,
-                                               int lane) {
-  const int row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int kb = 0; kb < 4; ++kb) {
-    const int chunk = 2 * kb + (lane >> 4);
-    tc::ldmatrix_x4(hi[kb], box + row * 128 + (((chunk ^ row) & 7) << 4));
-    if constexpr (!BF16) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) tc::split_tf32(hi[kb][q], hi[kb][q], lo[kb][q]);
-    }
-  }
-}
-
-// acc (64 x N) (+)= A . B^T over one box's 4 k-steps: A's fragments in
-// registers, B's plane at b_addr (the box, K-major, 128-byte rows). f32:
-// three tf32 products a k-step (lo . hi, hi . lo, hi . hi), B's lo term
-// `lo_bytes` further; bf16: one product. FIRST: the first k-step writes acc
-// without reading it (a group's fresh sums). Issued only: the caller fences
-// before the group's first box and commits after its last.
-template <int N, bool BF16>
-__device__ __forceinline__ void box_product(float (&acc)[N / 2], const uint32_t (&hi)[4][4],
-                                            const uint32_t (&lo)[4][4], uint32_t b_addr, int lo_bytes, bool first) {
-#pragma unroll
-  for (int kb = 0; kb < 4; ++kb) {
-    const uint64_t desc_hi = hopper::make_desc(b_addr + kb * 32, hopper::kSwizzle128, 8 * 128);
-    if constexpr (BF16) {
-      hopper::wgmma_rs<N, true>(acc, hi[kb], desc_hi, kb > 0 || !first);
-    } else {
-      const uint64_t desc_lo = hopper::make_desc(b_addr + kb * 32 + lo_bytes, hopper::kSwizzle128, 8 * 128);
-      hopper::wgmma_rs<N, false>(acc, lo[kb], desc_hi, kb > 0 || !first);
-      hopper::wgmma_rs<N, false>(acc, hi[kb], desc_lo, 1);
-      hopper::wgmma_rs<N, false>(acc, hi[kb], desc_hi, 1);
-    }
-  }
-}
 
 // Group q of a stage's gradient products, one box (4 k-steps) of K each:
 // dW^T (dw) or dx^T, its m-tile of D and its box. f32 x takes every dW^T
@@ -1016,71 +923,6 @@ __global__ void __launch_bounds__(kCeBwdThreads, 1)
   }
 }
 
-// The rows with a nonzero dnll: live[0] = how many, live[1 ..] = those rows
-// in order, and pos[i] = row i's place among them or -1. A row whose dnll
-// is 0 (a LABEL_PAD row) has A = 0: it adds nothing to dW or db, and its
-// dx row is 0. One block, the rows in turns of kLiveThreads: a ballot and
-// the warps' counts place each row.
-constexpr int kLiveThreads = 1024;
-__global__ void __launch_bounds__(kLiveThreads)
-    ce_live_rows_kernel(const float* __restrict__ dnll, int n, int32_t* __restrict__ live, int32_t* __restrict__ pos) {
-  __shared__ int counts[kLiveThreads / 32];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  int base = 0;
-  for (int i0 = 0; i0 < n; i0 += kLiveThreads) {
-    const int i = i0 + threadIdx.x;
-    const bool keep = i < n && dnll[i] != 0.f;
-    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-    if (lane == 0) counts[warp] = __popc(ballot);
-    __syncthreads();
-    int before = base, total = base;
-    for (int w = 0; w < kLiveThreads / 32; ++w) {
-      before += w < warp ? counts[w] : 0;
-      total += counts[w];
-    }
-    const int at = before + __popc(ballot & ((1u << lane) - 1u));
-    if (keep) live[1 + at] = i;
-    if (i < n) pos[i] = keep ? at : -1;
-    base = total;
-    __syncthreads();  // counts is rewritten by the next turn
-  }
-  if (threadIdx.x == 0) live[0] = base;
-}
-
-// The listed rows of x (n, d) packed into xp (n, d), 16-byte chunks: packed
-// row k < live[0] is row live[1 + k], the rest zero; info[k] = (logz, dnll,
-// label bits, 0) of the same row ((0, 0, -1, 0) past the count); dxp (n,
-// d) f32 zeroed. Rows of x and xp are a multiple of 16 bytes, every pointer
-// 16-byte aligned.
-template <typename X>
-__global__ void ce_pack_rows_kernel(const X* __restrict__ x, const float* __restrict__ logz,
-                                    const float* __restrict__ dnll, const int32_t* __restrict__ lab,
-                                    const int32_t* __restrict__ live, X* __restrict__ xp, float* __restrict__ dxp,
-                                    float4* __restrict__ info, int n, int d) {
-  const int n_live = live[0];
-  const int chunks = d * static_cast<int>(sizeof(X)) / 16;  // of a row of x
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  for (long long idx = first; idx < static_cast<long long>(n) * chunks; idx += stride) {
-    const int k = static_cast<int>(idx / chunks);
-    const int c = static_cast<int>(idx - static_cast<long long>(k) * chunks);
-    reinterpret_cast<uint4*>(xp)[idx] =
-        k < n_live ? reinterpret_cast<const uint4*>(x + static_cast<long long>(live[1 + k]) * d)[c]
-                   : make_uint4(0u, 0u, 0u, 0u);
-  }
-  for (long long idx = first; idx < static_cast<long long>(n) * (d / 4); idx += stride)
-    reinterpret_cast<float4*>(dxp)[idx] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (long long k = first; k < n; k += stride) {
-    float4 row = make_float4(0.f, 0.f, __int_as_float(-1), 0.f);
-    if (k < n_live) {
-      const int src = live[1 + k];
-      row = make_float4(logz[src], dnll[src], __int_as_float(lab[src]), 0.f);
-    }
-    info[k] = row;
-  }
-}
-
 // dx (n, d) f32: row i is packed row pos[i] of dxp, or zero
 __global__ void ce_unpack_dx_kernel(const float* __restrict__ dxp, const int32_t* __restrict__ pos,
                                     float* __restrict__ dx, int n, int d) {
@@ -1094,16 +936,6 @@ __global__ void ce_unpack_dx_kernel(const float* __restrict__ dxp, const int32_t
     reinterpret_cast<float4*>(dx)[idx] =
         p >= 0 ? reinterpret_cast<const float4*>(dxp + static_cast<long long>(p) * d)[c] : make_float4(0.f, 0.f, 0.f, 0.f);
   }
-}
-
-// blocks of 256 for an elementwise pass over `items` items: a few waves
-cudaError_t elementwise_grid(long long items, int* grid) {
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  *grid = static_cast<int>(max(1LL, min((items + 255) / 256, 8LL * sms)));
-  return cudaSuccess;
 }
 
 // the packed rows' tensor maps and the merged backward over them: xp (rows
@@ -1128,9 +960,8 @@ cudaError_t launch_bwd_merged(const X* xp, float* dxp, const float4* info, const
   if (err != cudaSuccess) return err;
   auto kernel = ce_bwd_merged_wgmma_kernel<DP, X>;
   err = allow_smem(kernel, L::kSmem);
-  int device = 0, sms = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  int sms = 0;
+  if (err == cudaSuccess) err = sm_count(&sms);
   if (err != cudaSuccess) return err;
   const int units = (v + L::kTv - 1) / L::kTv;
   kernel<<<min(units, sms), kCeBwdThreads, L::kSmem, stream>>>(
@@ -1153,24 +984,17 @@ cudaError_t bwd_merged(const X* x, const void* w, const void* bias, const int32_
       reinterpret_cast<uintptr_t>(dx) % 16 != 0)
     return cudaErrorInvalidValue;
   const int rows = max(n, 1);
-  X* xp = reinterpret_cast<X*>(work);
-  float* dxp = work + static_cast<long long>(rows) * d;
-  float4* info = reinterpret_cast<float4*>(work + 2LL * rows * d);
-  int32_t* pos = live + 1 + n;
-  ce_live_rows_kernel<<<1, kLiveThreads, 0, stream>>>(dnll, n, live, pos);
-  cudaError_t err = cudaGetLastError();
+  PackedRows<X> p;
+  cudaError_t err = pack_live_rows(x, lab, logz, dnll, live, work, n, d, true, &p, stream);
   int grid = 1;
   if (err == cudaSuccess) err = elementwise_grid(static_cast<long long>(n) * (d / 4), &grid);
   if (err != cudaSuccess) return err;
-  ce_pack_rows_kernel<X><<<grid, 256, 0, stream>>>(x, logz, dnll, lab, live, xp, dxp, info, n, d);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  err = d <= 128 ? launch_bwd_merged<128, X>(xp, dxp, info, live, w, bias, dw, db, rows, v, d, row_offset,
+  err = d <= 128 ? launch_bwd_merged<128, X>(p.xp, p.dxp, p.info, live, w, bias, dw, db, rows, v, d, row_offset,
                                              num_valid, stream)
-                 : launch_bwd_merged<256, X>(xp, dxp, info, live, w, bias, dw, db, rows, v, d, row_offset,
+                 : launch_bwd_merged<256, X>(p.xp, p.dxp, p.info, live, w, bias, dw, db, rows, v, d, row_offset,
                                              num_valid, stream);
   if (err != cudaSuccess) return err;
-  ce_unpack_dx_kernel<<<grid, 256, 0, stream>>>(dxp, pos, dx, n, d);
+  ce_unpack_dx_kernel<<<grid, 256, 0, stream>>>(p.dxp, live + 1 + n, dx, n, d);
   return cudaGetLastError();
 }
 
@@ -1199,7 +1023,7 @@ extern "C" int b4cp_ce_fwd(const void* x, const void* w, const void* bias,
     return launch(x, w, bias, m_part, l_part, m, l, n, v, d, row_offset - row_start, num_valid,
                   splits, tiles_per_split, s);
   };
-  // f32 x: tf32 x3, the forward's one f32 numerics (kDxNumerics' value)
+  // f32 x: tf32 x3, the numerics of every CE kernel
   const cudaError_t err = is_bf16 ? args(launch_fwd<kDxBf16>) : args(launch_fwd<kDxTf32x3>);
   return static_cast<int>(err);
 }

@@ -24,8 +24,9 @@
 // K^T, dP = dO V^T, and transposed in dk/dv, at N = 128 or 64) from shared
 // memory, and the products that take P or dS (O += P V, dQ += dS K, dV +=
 // P^T dO, dK += dS^T Q) with them in registers and their B read MN-major,
-// transposed by the product itself). The two-pass CE backward is meant to
-// take the same pieces (ROADMAP.md, Queue 2).
+// transposed by the product itself) and the two-pass CE backward
+// (fused_ce_two_pass.cu: 2-D maps, tf32 products at N = 32 with A in
+// registers, bf16 scores with both operands in shared memory).
 
 #pragma once
 
@@ -381,6 +382,21 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   if constexpr (!BF16 && N == 64) wgmma_tf32_m64n64k8(d, a, desc_b, scale_d);
   if constexpr (BF16 && N == 32) wgmma_bf16_m64n32k16(d, a, desc_b, scale_d);
   if constexpr (BF16 && N == 64) wgmma_bf16_m64n64k16(d, a, desc_b, scale_d);
+}
+
+// d (64 x 32, f32) = d * (scale_d != 0) + A . B^T with both operands bf16
+// and K-major in shared memory (desc_a: 64 rows; desc_b: 32 rows), as
+// make_desc describes them
+__device__ __forceinline__ void wgmma_bf16_m64n32k16_ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                                        int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " B4CP_D16 ", %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : B4CP_ACC16
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 template <int N>

@@ -58,15 +58,13 @@ SIGNATURES = {
     # row_offset, num_valid, row_start, device, stream
     "b4cp_ce_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _I, _I, _I, _I, _P]),
-    # x, w, bias|NULL, labels (local rows), logz, dnll, part (splits, N, D) f32, dx,
-    # is_bf16, N, V, D, row_offset, num_valid, row_start, splits,
-    # tiles_per_split, device, stream
-    "b4cp_ce_bwd_dx": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _I, _I, _P]),
-    # x, w, bias|NULL, labels (local rows), logz, dnll, dw, db|NULL, is_bf16,
-    # N, V, D, row_offset, num_valid, row_start, device, stream
-    "b4cp_ce_bwd_dw": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _P]),
+    # x, w, bias|NULL, labels (local rows), logz, dnll, live (2N + 1 int32 scratch),
+    # work (f32 scratch of the packed rows), aux ((V, D) scratch of x's type),
+    # part ((splits, rows, D) f32 scratch), dx, dw, db|NULL, is_bf16, N, V, D,
+    # row_offset, num_valid, row_start, splits, tiles_per_split, which (1 dx,
+    # 2 dW, 3 both), device, stream
+    "b4cp_ce_bwd_two_pass": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _I, _P]),
     # q, k, v, bias, out, lse, is_bf16, B, L, D, H,
     # q/k/v batch and row strides (elements), head stride (elements), scale,
     # vec, device, stream

@@ -22,19 +22,20 @@ All compute in x's dtype as the JAX kernels do (``w.astype(x.dtype)``, and
 A rounded to it before the products): for f32 x every product (the
 forward's scores, the merged kernel, the dx and dW passes) on the tensor
 cores with each f32 operand as two tf32 terms, hi + lo, in three products
-with f32 sums (``kDxNumerics`` in ``csrc/fused_ce_mma.cuh``: measured
-against a dense f64 oracle beside f32 FMA, one TF32 product and three bf16
-ones, PERF.md "the dx numerics decision"; within the f32 tolerances of the
-plain version); for bf16 x exact bf16 products with f32 sums. dx sums in
-f32 over the whole vocabulary and rounds to x's dtype once; the JAX dx
-kernel rounds its bf16 output once per vocab tile, so bf16 dx agrees with it
-to a few bf16 ulps (f32 is unaffected). The CUDA kernels are
+with f32 sums (tf32 x3: measured against a dense f64 oracle beside f32
+FMA, one TF32 product and three bf16 ones, PERF.md §6; within the f32
+tolerances of the plain version); for bf16 x
+exact bf16 products with f32 sums. dx sums in f32 over the whole
+vocabulary and rounds to x's dtype once; the JAX dx kernel rounds its bf16
+output once per vocab tile, so bf16 dx agrees with it to a few bf16 ulps
+(f32 is unaffected). The CUDA kernels are
 ``bert4clickpath_torch/csrc/fused_ce.cu`` (the forward and the merged
-backward, on Hopper's TMA loads and ``wgmma`` products through
-``hopper.cuh``: the merged backward walks the live rows packed into
-scratch on the device, and adds dx across its units with TMA reduce-adds),
-``fused_ce_two_pass.cu`` and ``fused_ce_mma.cuh`` (the two-pass kernels,
-on ``mma.sync``); the
+backward) and ``fused_ce_two_pass.cu`` (the dx and dW passes), all on
+Hopper's TMA loads and ``wgmma`` products through ``hopper.cuh`` (their
+shared pieces in ``fused_ce_common.cuh``); the backward kernels walk only
+the rows whose dnll is nonzero, listed and packed into scratch on the
+device (no host read of their count), the merged kernel adding dx across
+its units with TMA reduce-adds, the pair writing every sum once. The
 ``*_reference`` functions are their plain PyTorch versions (dense (N, V)
 f32 logits). CPU tensors take the plain versions, CUDA tensors launch the
 kernels.
@@ -42,22 +43,16 @@ kernels.
 Which backward runs is a function of the shape alone, like
 ``ops.kernels.attention.attention_family``: the merged kernel keeps its
 table rows' dW in registers (f32 x: 64 rows a unit at D <= 128, 32 up to
-256; bf16 x: 64), so it takes D <= ``MAX_D`` (256); wider rows
-take the two-pass pair, whose blocks own 384 output columns at a time and
-stream the other operand through shared memory. No kernel refuses a row
-width: where a backward block's own operand (x's rows, or the table's) does
-not fit its shared memory whole, the kernels stream it in chunks too, a
-route each C entry takes by D alone; the forward loads x's chunk beside the
-table's at every D (one route), after padding D to a multiple of 16 bytes
-where it is not one (:func:`_tma_operands`). No flag or environment
-variable changes a route, and a launch that fails raises.
-
-Where the streamed routes fall off: above D = 384 the dx pass streams x's
-chunks and the dW pass its table rows (f32 x), and at D = 1,024 (no main
-path) they take 54.4 / 56.2 ms against their plain versions' 14.0 / 14.8
-(N = 2,560, V = 55,296, f32, NVIDIA H100 80GB HBM3 at 700 W; PERF.md). The
-route past that cliff is the forward's TMA + ``wgmma`` mainloop (ROADMAP.md,
-Queue 2).
+256; bf16 x: 64), so it takes D <= ``MAX_D`` (256); wider rows take the
+two-pass pair. No kernel refuses a row width: every D takes one mainloop
+in each kernel, the operands streamed through shared memory in 128-byte
+boxes of columns, after padding D to a multiple of 16 bytes where it is not
+one (:func:`_tma_operands`). The pair holds a slice of up to
+``TWO_PASS_SLICE`` (512) output columns in registers: at D = 384 one slice,
+at D = 1,024 two, each recomputing the scores (the cliff above D = 384 that
+the ``mma.sync`` pair had, which streamed x's chunks and the table's rows
+there, is gone; PERF.md has both passes' times at D = 1,024). No flag or
+environment variable changes a route, and a launch that fails raises.
 
 ``labels_model`` is the row id of each label in the table (-1 for a padded
 row, whose one-hot never fires): ``ops/fused_ce.py`` builds it. Row ids are
@@ -92,7 +87,7 @@ import torch
 from bert4clickpath_torch.ops.kernels import _build
 
 NEG_BIG = -1e30
-TILE = 64  # csrc/fused_ce_mma.cuh kTile: rows of x and of the table per backward tile
+TILE = 64  # csrc/fused_ce_two_pass.cu kTpRows: rows of x and of the table per two-pass tile
 # the forward's tiles (csrc/fused_ce.cu kCeFwdRows, kCeFwdVocab): 128 rows of
 # x a block (two wgmma warpgroups of 64), 128 table rows a vocab tile
 FWD_ROWS = 128
@@ -107,12 +102,15 @@ FWD_VOCAB = 128
 FWD_TARGET_UNITS = 16896
 FWD_MIN_TILES = 1
 MAX_D = 256  # the merged backward holds its table rows' dW in registers
-TWO_PASS_OUT_COLS = 384  # kOutCols: output columns one two-pass block owns
-# dx grid: one block is resident per SM (its shared memory), so the grid runs
-# in waves of 132 and the last, partly empty wave costs less the shorter a
-# block's vocab walk is. Timed at N=2,560, V=55,296, D=384 on an H100 (700 W)
-# by chip_smoke.py's DX_TARGETS sweep (PERF.md)
-DX_TARGET_BLOCKS = 1056
+# the two-pass kernels hold a slice of up to this many output columns in
+# registers (csrc/fused_ce_two_pass.cu kTpWideTiles m-tiles of 64); wider
+# rows take several slices, each recomputing the scores
+TWO_PASS_SLICE = 512
+# the dx pass's units are (tile of 64 rows of x, vocab split, slice), walked
+# by one persistent block an SM: the vocabulary is split until the units
+# reach this count (8 a block on 132 SMs), so that the blocks end together
+# within a unit
+DX_TARGET_UNITS = 1056
 _X_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -357,10 +355,66 @@ def ce_backward_merged(
     return dx32.to(x.dtype), dw, db
 
 
+def two_pass_slices(d: int) -> int:
+    """Slices of D the two-pass kernels take for a row of width ``d``
+    (csrc/fused_ce_two_pass.cu: each slice's sums in registers)."""
+    return max(1, -(-d // TWO_PASS_SLICE))
+
+
 def ce_dx_splits(n: int, v: int, d: int) -> tuple[int, int]:
-    """(splits, vocab tiles per split) of the dx grid: row tiles x D splits
-    x vocab splits aimed at ``DX_TARGET_BLOCKS``."""
-    return _vocab_splits(max(1, -(-n // TILE)) * max(1, -(-d // TWO_PASS_OUT_COLS)), v, DX_TARGET_BLOCKS)
+    """(splits, vocab tiles per split) of the dx pass's units: tiles of
+    ``TILE`` rows of x (at most: the kernel walks only the rows with a
+    label) x slices x vocab splits aimed at ``DX_TARGET_UNITS``."""
+    return _vocab_splits(max(1, -(-n // TILE)) * two_pass_slices(d), v, DX_TARGET_UNITS)
+
+
+def _two_pass(x, table, bias, labels_model, logz, dnll, row_offset, num_valid, row_start, which):
+    """The two-pass kernels on the card from one C entry: ``which`` 1 the
+    dx pass, 2 the dW pass, 3 both (the live rows listed and packed once).
+    Returns (dx or None, dW or None, db or None)."""
+    n, d = x.shape
+    v = table.shape[0]
+    # the live rows are packed for the tensor maps, which need 16-byte rows
+    x, table = _tma_operands(x.contiguous(), table.contiguous())
+    width = x.shape[1]
+    bias = None if bias is None else bias.contiguous()
+    lab = _local_labels(labels_model, row_start)
+    logz = logz.float().contiguous()
+    dnll = dnll.float().contiguous()
+    # the rows the kernels walk (count, rows, each row's place among them),
+    # the packed rows (x, and (logz, dnll, label) a row), the table's other
+    # plane (f32 x its tf32 lo term, bf16 x the table rounded) and dx's
+    # partials, one per vocab split
+    live = torch.empty(2 * n + 1, dtype=torch.int32, device=x.device)
+    rows = max(n, 1)
+    work = torch.empty(rows * (width + 4), dtype=torch.float32, device=x.device)
+    aux = torch.empty((v, width), dtype=x.dtype, device=x.device)
+    splits, per_split = ce_dx_splits(n, v, width)
+    dx = part = dw = db = None
+    if which & 1:
+        part = torch.empty((splits, rows, width), dtype=torch.float32, device=x.device)
+        dx = torch.empty((n, width), dtype=x.dtype, device=x.device)
+    if which & 2:
+        dw = torch.empty((v, width), dtype=torch.float32, device=x.device)
+        db = None if bias is None else torch.empty(v, dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.b4cp_ce_bwd_two_pass(
+            x.data_ptr(), table.data_ptr(), _ptr(bias), lab.data_ptr(), logz.data_ptr(),
+            dnll.data_ptr(), live.data_ptr(), work.data_ptr(), aux.data_ptr(), _ptr(part), _ptr(dx), _ptr(dw),
+            _ptr(db), int(x.dtype == torch.bfloat16), n, v, width, row_offset, num_valid,
+            row_start, splits, per_split, which, x.device.index, stream,
+        )
+    _build.check(code, "fused CE backward, two-pass " + {1: "dx pass", 2: "dW pass", 3: "pair"}[which])
+    if which & 1:
+        _build.count("ce_bwd_dx")
+    if which & 2:
+        _build.count("ce_bwd_dw")
+    if width != d:
+        dx = None if dx is None else dx[:, :d].contiguous()
+        dw = None if dw is None else dw[:, :d].contiguous()
+    return dx, dw, db
 
 
 def ce_backward_dx(
@@ -382,28 +436,7 @@ def ce_backward_dx(
         return ce_backward_dx_reference(
             x, table, bias, labels_model, logz, dnll, row_offset, num_valid, row_start
         )
-    n, d = x.shape
-    v = table.shape[0]
-    x, table = x.contiguous(), table.contiguous()
-    bias = None if bias is None else bias.contiguous()
-    lab = _local_labels(labels_model, row_start)
-    logz = logz.float().contiguous()
-    dnll = dnll.float().contiguous()
-    splits, per_split = ce_dx_splits(n, v, d)
-    part = torch.empty((splits, n, d), dtype=torch.float32, device=x.device)
-    dx = torch.empty((n, d), dtype=x.dtype, device=x.device)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.b4cp_ce_bwd_dx(
-            x.data_ptr(), table.data_ptr(), _ptr(bias), lab.data_ptr(),
-            logz.data_ptr(), dnll.data_ptr(), part.data_ptr(), dx.data_ptr(),
-            int(x.dtype == torch.bfloat16), n, v, d, row_offset, num_valid,
-            row_start, splits, per_split, x.device.index, stream,
-        )
-    _build.check(code, "fused CE backward, dx pass")
-    _build.count("ce_bwd_dx")
-    return dx
+    return _two_pass(x, table, bias, labels_model, logz, dnll, row_offset, num_valid, row_start, 1)[0]
 
 
 def ce_backward_dw(
@@ -418,34 +451,15 @@ def ce_backward_dw(
     row_start: int = 0,  # global row id of table[0]
 ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(dW (V, D) f32, db (V,) f32 or None): the second pass of the
-    two-pass backward."""
+    two-pass backward. Written once per row (no atomics): the same bits
+    every run."""
     _check(x, table, bias)
     _check_rows(x, labels_model, logz, dnll)
     if x.device.type == "cpu":
         return ce_backward_dw_reference(
             x, table, bias, labels_model, logz, dnll, row_offset, num_valid, row_start
         )
-    n, d = x.shape
-    v = table.shape[0]
-    x, table = x.contiguous(), table.contiguous()
-    bias = None if bias is None else bias.contiguous()
-    lab = _local_labels(labels_model, row_start)
-    logz = logz.float().contiguous()
-    dnll = dnll.float().contiguous()
-    dw = torch.empty((v, d), dtype=torch.float32, device=x.device)
-    db = None if bias is None else torch.empty(v, dtype=torch.float32, device=x.device)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.b4cp_ce_bwd_dw(
-            x.data_ptr(), table.data_ptr(), _ptr(bias), lab.data_ptr(),
-            logz.data_ptr(), dnll.data_ptr(), dw.data_ptr(), _ptr(db),
-            int(x.dtype == torch.bfloat16), n, v, d, row_offset, num_valid,
-            row_start, x.device.index, stream,
-        )
-    _build.check(code, "fused CE backward, dW pass")
-    _build.count("ce_bwd_dw")
-    return dw, db
+    return _two_pass(x, table, bias, labels_model, logz, dnll, row_offset, num_valid, row_start, 2)[1:]
 
 
 def ce_backward_two_pass(
@@ -453,11 +467,16 @@ def ce_backward_two_pass(
     row_start: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """(dx, dW, db) from the dx pass and the dW pass (two recomputes of the
-    scores): the counterpart of the JAX package's ``_bwd``."""
+    scores): the counterpart of the JAX package's ``_bwd``. On the card one
+    C entry lists and packs the live rows once and launches both passes."""
     args = (x, table, bias, labels_model, logz, dnll, row_offset, num_valid, row_start)
-    dx = ce_backward_dx(*args)
-    dw, db = ce_backward_dw(*args)
-    return dx, dw, db
+    _check(x, table, bias)
+    _check_rows(x, labels_model, logz, dnll)
+    if x.device.type == "cpu":
+        dx = ce_backward_dx_reference(*args)
+        dw, db = ce_backward_dw_reference(*args)
+        return dx, dw, db
+    return _two_pass(*args, 3)
 
 
 def ce_backward_route(d: int) -> str:

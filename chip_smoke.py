@@ -46,14 +46,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    the long-session phases and over the whole run), the fused dropout at
    (16384, 256) (bit-equal to its plain Philox version), the gather and
    the fused CE once more at the long-session path's shapes, and the
-   two-pass CE backward (dx and dW kernels) with the forward at N=2,560,
-   V=55,296, D=384 in f32 and bf16, with and without a bias (two runs of
-   each pass bit-equal), then at D=256 timed beside the merged backward; the dx pass's numerics table (the
-   shipped three TF32 products, and copies of its source built with one
-   TF32 product and with three bf16 ones, beside the plain version's f32
-   FMA, each against a dense f64 oracle at D=384 and 256, and on the card
-   tests' wider logits, with its time); the CE forward, dx and dW kernels and the ``fused_softmax_ce``
-   op with gradients at D=1,024, a width no kernel refuses. Beside each kernel
+   two-pass CE backward (the dx and dW passes of one TMA + wgmma kernel)
+   with the forward at N=2,560, V=55,296, D=384 in f32 and bf16, with and
+   without a bias (two runs of each pass bit-equal, the second from one
+   call of the pair), then at D=256 timed beside the merged backward; the
+   CE forward, dx and dW passes and the ``fused_softmax_ce`` op with
+   gradients at D=1,024, a width no kernel refuses. Beside each kernel
    it computes the least time the card could take for the same work (bytes
    over 3.35 TB/s, operations over the published peak of their type) and,
    as a measurement only, times the one PyTorch call that computes the same
@@ -99,7 +97,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    backward; per eval batch 1 gather and 4 attention), a falling train loss,
    finite eval metrics in [0, 1], ``history.jsonl``, one committed
    checkpoint and the export; then one step and one eval batch alone, a
-   timed and a profiled window, ``--resume`` for one more epoch (the step
+   timed and a profiled window (in which the CE pair's C entry launches,
+   once a step, its row list, its packing, the table's other plane, the two
+   passes and dx's combine), ``--resume`` for one more epoch (the step
    count continues), the trained export served by ``ServingModel`` on the
    card, and one train step and one eval batch at B=32, dropout 0, card vs
    CPU in f32 and bf16.
@@ -275,7 +275,6 @@ FWD_SHORT_L = 100  # the bf16 blockwise forward below one 128-key stage
 WIDE_D, WIDE_HEADS, WIDE_LAYERS = 384, 6, 4
 WIDE_STEPS, WIDE_EPOCHS, WIDE_EVAL_BATCHES, WIDE_SESSIONS = 40, 2, 8, 20_000
 WIDE_TIMED = 20  # train steps in the timed window after the run
-DX_TARGETS = (132, 264, 528, 1056, 2112)  # dx grid sizes timed at the wide shapes (1 to 16 waves of blocks)
 # the CE forward's schedule, timed at the flagship's and long-session shapes:
 # the units (row tile, vocab split) it aims at, and the fewest vocab tiles a
 # split walks
@@ -349,9 +348,9 @@ STRESS_WINDOWS = 32  # 312,512 rows a window: 3.2 GB of f32 logits
 # row 8,388,608
 BIG_V, BIG_D, BIG_WINDOWS = 9_000_000, 256, 64
 MULTIHOST_PROCS = 2  # examples/multihost/demo_torch.py: hosts of 4 ranks each
-# the numerics of the CE kernels' f32 products (csrc/fused_ce_mma.cuh
-# kDxNumerics, tf32 x3): the operand type their products run at and how many
-# products each product of the function takes
+# the numerics of the CE kernels' f32 products (tf32 x3, csrc/fused_ce_common.cuh):
+# the operand type their products run at and how many products each
+# product of the function takes
 DX_RATING = ("tf32", 3)
 
 
@@ -532,7 +531,8 @@ def forward_sass(_build) -> None:
     built on them: the CE forward (``ce_fwd_wgmma_kernel``, f32 and bf16 x),
     the merged CE backward (``ce_bwd_merged_wgmma_kernel``, D <= 128 and D
     <= 256, f32 and bf16 x; it adds with TMA reduce-adds, UTMAREDG, counted
-    beside) and the
+    beside), the two-pass CE backward (``ce_bwd_two_pass_kernel``: the dx
+    and dW passes, slices of 6 and 8 m-tiles, f32 and bf16 x) and the
     bf16 blockwise attention forward, dq and dk/dv
     (``bmha_fwd_wgmma_kernel``, ``bmha_dq_wgmma_kernel``,
     ``bmha_dkv_wgmma_kernel``, one instance per head-width tile each);
@@ -544,25 +544,26 @@ def forward_sass(_build) -> None:
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
             if any(k in fn for k in ("ce_fwd_wgmma_kernel", "bmha_fwd_wgmma_kernel", "bmha_dq_wgmma_kernel",
-                                     "bmha_dkv_wgmma_kernel", "ce_bwd_merged_wgmma_kernel")):
+                                     "bmha_dkv_wgmma_kernel", "ce_bwd_merged_wgmma_kernel", "ce_bwd_two_pass_kernel")):
                 counts[fn] = {"HGMMA": 0, "UTMALDG": 0, **({"UTMAREDG": 0} if "ce_bwd_merged" in fn else {})}
         elif fn in counts:
             for op in counts[fn]:
                 counts[fn][op] += op in line
 
-    kinds = {"ce_fwd": "CE forward", "ce_bwd_merged": "CE merged backward", "bmha_fwd": "blockwise forward",
-             "bmha_dq": "blockwise dq", "bmha_dkv": "blockwise dk/dv"}
+    kinds = {"ce_fwd_wgmma": "CE forward", "ce_bwd_merged_wgmma": "CE merged backward",
+             "ce_bwd_two_pass": "CE two-pass backward", "bmha_fwd_wgmma": "blockwise forward",
+             "bmha_dq_wgmma": "blockwise dq", "bmha_dkv_wgmma": "blockwise dk/dv"}
 
     def name(fn):
         args = re.search(r"kernelI(\w+?)EEv", fn)
-        kind = next(v for k, v in kinds.items() if f"{k}_wgmma" in fn)
+        kind = next(v for k, v in kinds.items() if f"{k}_kernel" in fn)
         return f"{kind} <{args.group(1) if args else fn[-40:]}>"
 
     log("[build] SASS (cuobjdump -sass): " + "; ".join(
         f"{name(fn)}: " + ", ".join(f"{op} {n}" for op, n in c.items()) for fn, c in sorted(counts.items())))
-    per_kind = {k: sum(f"{k}_wgmma" in fn for fn in counts) for k in kinds}
-    if per_kind != {"ce_fwd": 2, "ce_bwd_merged": 4, "bmha_fwd": 4, "bmha_dq": 4, "bmha_dkv": 4} or any(
-            min(c.values()) == 0 for c in counts.values()):
+    per_kind = {k: sum(f"{k}_kernel" in fn for fn in counts) for k in kinds}
+    if per_kind != {"ce_fwd_wgmma": 2, "ce_bwd_merged_wgmma": 4, "ce_bwd_two_pass": 8, "bmha_fwd_wgmma": 4,
+                    "bmha_dq_wgmma": 4, "bmha_dkv_wgmma": 4} or any(min(c.values()) == 0 for c in counts.values()):
         raise AssertionError(f"the CE forward and backward and the blockwise kernels are not built on wgmma and "
                              f"TMA: {counts}")
 
@@ -768,14 +769,14 @@ def training_kernels(rng, card: str) -> dict:
     ce_kernels_at(rng, B_TRAIN * 10, 55_296, N_ITEMS, 128, card=card, sweep=False)
     # the wide model's shapes: its gather and whole-row attention (the
     # summary rows stay on the flagship's), then the two-pass backward and
-    # the forward at its D = 384, the dx grid's vocab split at three targets
+    # the forward at its D = 384
     wide_rows = gather_kernel_at(rng, 55_296, seq, WIDE_D, ((B_TRAIN, torch.bfloat16),))
     wide_fwd = attention_forward_at(rng, b, seq, WIDE_D, WIDE_HEADS)
     wide_bwd = attention_backward_at(rng, b, seq, WIDE_D, WIDE_HEADS, card)
     log(f"[kernels] wide shapes (B={b} L={seq} D={WIDE_D} H={WIDE_HEADS}, bf16): gather {wide_rows['ms']:.4f} ms "
         f"(plain {wide_rows['plain_ms']:.4f}), attention {wide_fwd[1][0]:.4f} ms (plain {wide_fwd[1][1]:.4f}), "
         f"attention backward {wide_bwd[1][0]:.4f} ms (plain {wide_bwd[1][1]:.4f}) [{card}]")
-    wide = ce_two_pass_at(rng, B_TRAIN * 10, 55_296, N_ITEMS, WIDE_D, card, dx_targets=DX_TARGETS)
+    wide = ce_two_pass_at(rng, B_TRAIN * 10, 55_296, N_ITEMS, WIDE_D, card)
     # at the flagship's D = 256 only the timing beside the merged kernel
     flag = ce_two_pass_at(rng, B_TRAIN * 10, 55_296, N_ITEMS, d, card,
                           dtypes=(torch.float32,), biases=(False,))["times"][torch.float32]
@@ -783,45 +784,8 @@ def training_kernels(rng, card: str) -> dict:
         f"backward's {flag['merged']:.3f} ms ({(flag['dx'] + flag['dw']) / flag['merged']:.2f}x) [{card}]")
     wide.pop("times")
     out.update(wide)
-    dx_numerics_table(rng, card)
     ce_wide_row_at(rng, card)
     return out
-
-
-def _ce_inputs(rng, n: int, v_rows: int, nv: int, d: int, w_scale: float, off: int = 10):
-    """f32 x (n, d), a (v_rows, d) table of N(0, 1) * w_scale whose window is
-    rows off .. off + nv, labels with a fifth LABEL_PAD, dnll the masked
-    mean's, and logz from the plain forward: the dx pass's arguments."""
-    from bert4clickpath_torch.constants import LABEL_PAD
-    from bert4clickpath_torch.ops.fused_ce import _labels_model
-    from bert4clickpath_torch.ops.kernels import fused_ce as k
-
-    x = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).cuda()
-    table = torch.from_numpy(rng.standard_normal((v_rows, d), dtype=np.float32) * w_scale).cuda()
-    labels_np = rng.integers(0, nv, size=n).astype(np.int32)
-    labels_np[rng.random(n) < 0.2] = LABEL_PAD
-    labels = torch.from_numpy(labels_np).cuda()
-    mask = (labels != LABEL_PAD).float()
-    m, l = k.ce_stats_reference(x, table, None, off, nv)
-    return (x, table, None, _labels_model(labels, off), m + torch.log(l), mask / mask.sum(), off, nv)
-
-
-def _dx_f64(x, table, bias, lab, logz, dnll, off, nv) -> torch.Tensor:
-    """dx of the same inputs in f64 (logz and dnll as given), 256 rows at a
-    time: the oracle of the numerics decision."""
-    w64 = table.double()
-    rows = torch.arange(table.shape[0], device=x.device)
-    inside = (rows >= off) & (rows < off + nv)
-    out = []
-    for r0 in range(0, x.shape[0], 256):
-        s = x[r0 : r0 + 256].double() @ w64.T
-        if bias is not None:
-            s = s + bias.double()
-        s = torch.where(inside, s, torch.full_like(s, -1e30))
-        p = torch.exp(s - logz[r0 : r0 + 256].double()[:, None])
-        onehot = (rows[None, :] == lab[r0 : r0 + 256].long()[:, None]).double()
-        out.append((dnll[r0 : r0 + 256].double()[:, None] * (p - onehot)) @ w64)
-    return torch.cat(out)
 
 
 def _tune_module():
@@ -835,70 +799,6 @@ def _tune_module():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
-
-
-def dx_numerics_table(rng, card: str) -> dict:
-    """The dx numerics decision: the shipped dx pass (tf32 x3) and the
-    candidates measured beside it, each a copy of ``fused_ce_two_pass.cu``
-    built with another ``kDxNumerics`` (one TF32 product; hi + lo bf16 in
-    three products), against a dense f64 oracle of the same f32 inputs: rms
-    error, largest error over the largest |dx|, and the largest error
-    against the plain version over its largest |dx| (what CE_GRAD_REL = 1e-4
-    holds), with the plain version's own (cuBLAS f32 FMA) f64 errors beside.
-    At the main path's inputs (N=2,560, V=55,296, table N(0, 0.02^2): logits
-    of a few tenths) at D=384 and 256, timed in turns; and at the card
-    tests' wider logits (table N(0, 0.5^2): logits of ~10 at D=384, ~13 at
-    D=713, ~16 at D=1,024), errors only. Raises if the shipped numerics
-    misses 1e-4 anywhere."""
-    from bert4clickpath_torch.ops.kernels import _build
-    from bert4clickpath_torch.ops.kernels import fused_ce as k
-
-    tune = _tune_module()
-    entry = ["b4cp_ce_bwd_dx"]
-    t0 = time.perf_counter()
-    real = _build.library()
-    built = tune.build_variants({"tf32": {"kDxNumerics": "kDxTf32"}, "bf16x3": {"kDxNumerics": "kDxBf16x3"}},
-                                ["fused_ce_two_pass.cu"], entry)
-    log(f"[kernels] dx numerics candidates built in {time.perf_counter() - t0:.1f} s")
-    libs = {"tf32x3": real, **{name: tune._Swapped(real, lib, entry) for name, lib in built.items()}}
-    cases = [("main", 384, 0.02, B_TRAIN * 10, 55_296, N_ITEMS), ("main", 256, 0.02, B_TRAIN * 10, 55_296, N_ITEMS),
-             ("wide logits", 384, 0.5, B_TRAIN * 10, 55_296, N_ITEMS), ("wide logits", 713, 0.5, 130, 700, 683),
-             ("wide logits", 1024, 0.5, 130, 700, 683)]
-    table_rows = {}
-    try:
-        for kind, d, w_scale, n, v_rows, nv in cases:
-            args = _ce_inputs(rng, n, v_rows, nv, d, w_scale)
-            oracle = _dx_f64(*args)
-            scale = oracle.abs().max().item()
-            plain = k.ce_backward_dx_reference(*args)
-            results = {"plain": plain}
-            for name, lib in libs.items():
-                _build._lib = lib
-                results[name] = k.ce_backward_dx(*args)
-            times = {}
-            if kind == "main":
-                for _ in range(2):  # in turns
-                    for name, lib in libs.items():
-                        _build._lib = lib
-                        ms = device_time_ms(lambda: k.ce_backward_dx(*args), reps=10)
-                        times[name] = min(ms, times.get(name, ms))
-            _build._lib = real
-            for name, got in results.items():
-                err = got.double() - oracle
-                row = dict(rms=err.square().mean().sqrt().item(), max_rel=err.abs().max().item() / scale,
-                           vs_plain=(got - plain).abs().max().item() / plain.abs().max().item(), ms=times.get(name))
-                table_rows[kind, d, name] = row
-                log(f"[kernels] dx numerics {kind} N={n} V={v_rows} D={d} {name}: rms error {row['rms']:.4e}, "
-                    f"max error / max|dx| {row['max_rel']:.3e} (f64 oracle), against the plain version "
-                    f"{row['vs_plain']:.3e} (held to {CE_GRAD_REL:.0e})"
-                    + (f", {row['ms']:.4f} ms" if row["ms"] is not None else "") + f" [{card}]")
-    finally:
-        _build._lib = real
-    missed = {key: row["vs_plain"] for key, row in table_rows.items() if key[2] == "tf32x3" and row["vs_plain"] > CE_GRAD_REL}
-    log(f"[kernels] dx numerics shipped: tf32x3; it misses {CE_GRAD_REL:.0e} at {missed or 'no case'}")
-    if missed:
-        raise AssertionError(f"the shipped dx numerics tf32x3 misses the f32 tolerance: {missed}")
-    return table_rows
 
 
 def ce_wide_row_at(rng, card: str, d: int = 1024) -> None:
@@ -1131,26 +1031,18 @@ def _held(tag: str, got, want, rel_scale: float, rel_elem: float = 0.0) -> float
     return err
 
 
-def _dx_splits_at(k, target: int, n: int, v_rows: int, d: int) -> int:
-    shipped, k.DX_TARGET_BLOCKS = k.DX_TARGET_BLOCKS, target
-    try:
-        return k.ce_dx_splits(n, v_rows, d)[0]
-    finally:
-        k.DX_TARGET_BLOCKS = shipped
-
-
 def ce_two_pass_at(rng, n: int, v_rows: int, nv: int, d: int, card: str, off: int = 10,
-                   dtypes=(torch.float32, torch.bfloat16), biases=(False, True), dx_targets=()) -> dict:
+                   dtypes=(torch.float32, torch.bfloat16), biases=(False, True)) -> dict:
     """The two-pass CE backward kernels (and the forward) against their plain
     versions at n rows of x over a (v_rows, d) f32 table whose valid window
     is rows off .. off + nv, for x of each of ``dtypes``, without and with
     a bias as ``biases`` says, a fifth of the labels LABEL_PAD; times and
     bounds of the f32 case without a bias (the train step's CE input is
-    f32), the bf16 times logged. Where the merged kernel takes d, it is
-    timed beside the pair in turns. ``dx_targets``: the dx pass of the f32
-    case is also held and timed with its grid's vocab split aimed at each
-    of these block counts (the wrapper's constant set for the call and put
-    back).
+    f32), the bf16 times logged. Two runs of each pass are bit-equal (the
+    pair writes every sum once), and the pair from one call
+    (``ce_backward_two_pass``, the live rows packed once) equals the two
+    passes called apart. Where the merged kernel takes d, it is timed beside
+    the pair in turns.
 
     Tolerances. f32: sums in another order, 1e-4 of the largest magnitude
     (as the merged kernel). bf16: A rounds to bf16 before the products and
@@ -1194,8 +1086,7 @@ def ce_two_pass_at(rng, n: int, v_rows: int, nv: int, d: int, card: str, off: in
             args = (x, table, bias, lab, want_logz, dnll, off, nv)
             dx = k.ce_backward_dx(*args)
             dw, db = k.ce_backward_dw(*args)
-            again = k.ce_backward_dx(*args)
-            dw2, db2 = k.ce_backward_dw(*args)
+            again, dw2, db2 = k.ce_backward_two_pass(*args)  # the pair from one call: a second run of each
             want_dx = k.ce_backward_dx_reference(*args)
             want_dw, want_db = k.ce_backward_dw_reference(*args)
             torch.cuda.synchronize()
@@ -1207,16 +1098,19 @@ def ce_two_pass_at(rng, n: int, v_rows: int, nv: int, d: int, card: str, off: in
                 raise AssertionError(f"CE dx pass {tag}: two runs differ (it sums in a fixed order)")
             if not torch.equal(dw, dw2) or (with_bias and not torch.equal(db, db2)):
                 raise AssertionError(f"CE dW pass {tag}: two runs differ (it sums in a fixed order)")
+            log(f"[kernels] CE two-pass {tag}: dx, dW{' and db' if with_bias else ''} bit-equal over two runs "
+                f"(the passes apart, then the pair from one call)")
             if not bool((dw[blinded] == 0).all()):
                 raise AssertionError(f"CE dW pass {tag}: a blinded table row got a gradient")
             if dtype == torch.float32:
                 errs["dx"], errs["dw"] = max(errs["dx"], e_dx), max(errs["dw"], e_dw)
             if with_bias:
                 continue
-            t = {"dx": [], "dw": [], "merged": []}
+            t = {"dx": [], "dw": [], "pair": [], "merged": []}
             for _ in range(2):  # in turns
                 t["dx"].append(device_time_ms(lambda: k.ce_backward_dx(*args), reps=10))
                 t["dw"].append(device_time_ms(lambda: k.ce_backward_dw(*args), reps=10))
+                t["pair"].append(device_time_ms(lambda: k.ce_backward_two_pass(*args), reps=10))
                 if d <= k.MAX_D:
                     t["merged"].append(device_time_ms(lambda: k.ce_backward_merged(*args), reps=10))
             t = {name: min(v) for name, v in t.items() if v}
@@ -1225,26 +1119,11 @@ def ce_two_pass_at(rng, n: int, v_rows: int, nv: int, d: int, card: str, off: in
             t["fwd"] = device_time_ms(lambda: k.ce_stats(x, table, None, off, nv), reps=10)
             t["fwd_plain"] = device_time_ms(lambda: k.ce_stats_reference(x, table, None, off, nv), reps=5)
             times[dtype] = t
-            if dtype == torch.float32 and dx_targets:
-                shipped, sweep = k.DX_TARGET_BLOCKS, {}
-                for _ in range(2):  # in turns
-                    for target in dx_targets:
-                        k.DX_TARGET_BLOCKS = target
-                        try:
-                            _held(f"CE dx pass {tag} target {target}", k.ce_backward_dx(*args), want_dx, rel, elem)
-                            ms = device_time_ms(lambda: k.ce_backward_dx(*args), reps=10)
-                        finally:
-                            k.DX_TARGET_BLOCKS = shipped
-                        sweep[target] = min(ms, sweep.get(target, ms))
-                log(f"[kernels] CE dx pass {tag}, vocab split by target blocks (splits, ms): "
-                    + ", ".join(f"{target}: ({_dx_splits_at(k, target, n, v_rows, d)}, {ms:.3f})"
-                                for target, ms in sweep.items())
-                    + f"; shipped {shipped} (best of two windows of median device time) [{card}]")
             log_ce_fwd(f"N={n} V={v_rows} D={d} {dtype}", n, nv, d, dtype, t["fwd"], t["fwd_plain"], card)
             unit = 2.0 * n * v_rows * d / 1e9  # GFLOP of one product over the whole table
             log(f"[kernels] CE two-pass {tag}: dx {t['dx']:.3f} ms ({2 * unit / t['dx']:.1f} TFLOP/s), "
                 f"dW {t['dw']:.3f} ms ({2 * unit / t['dw']:.1f} TFLOP/s), plain dx {t['dx_plain']:.3f} ms, "
-                f"plain dW {t['dw_plain']:.3f} ms"
+                f"plain dW {t['dw_plain']:.3f} ms, the pair from one call {t['pair']:.3f} ms"
                 + f", forward {t['fwd']:.3f} ms ({unit / t['fwd']:.1f} TFLOP/s), plain forward {t['fwd_plain']:.3f} ms"
                 + (f"; merged backward {t['merged']:.3f} ms against dx + dW {t['dx'] + t['dw']:.3f} ms"
                    if "merged" in t else "") + f" (best of two windows of median device time) [{card}]")
@@ -1732,7 +1611,8 @@ def _device_profile(fn, steps: int, tag: str, card: str) -> dict:
     for e in top:
         log(f"[{tag}]   {e.self_device_time_total / steps / 1e3:8.3f} ms/step "
             f"({e.self_device_time_total / device_us:5.1%}) x{e.count / steps:5.1f}  {e.key[:90]}")
-    return dict(kernels_per_step=launches, busy_share=share, device_ms_per_step=device_us / steps / 1e3)
+    return dict(kernels_per_step=launches, busy_share=share, device_ms_per_step=device_us / steps / 1e3,
+                per_step={e.key: e.count / steps for e in kernels})
 
 
 def train_stages(model, tx, state, host_iter, num_valid: int, rng, card: str, reps: int = 5) -> dict:
@@ -2238,6 +2118,15 @@ def phase_wide_train(card: str) -> dict:
         prof = _device_profile(profiled, 10, "wide-train", card)
         log(f"[wide-train] device time {prof['device_ms_per_step']:.3f} ms/step (profiled kernels) against {ms_step:.3f} "
             f"ms/step unprofiled: busy share {prof['device_ms_per_step'] / ms_step:.3f} [{card}]")
+        # the CE pair's one C entry a step: the live rows listed and packed
+        # once, the table's other plane written once, both passes and dx's
+        # combine (the wrappers' counters count the passes)
+        pair = {"ce_live_rows_kernel": 1, "ce_pack_rows_kernel": 1, "ce_table_aux_kernel": 1,
+                "ce_bwd_two_pass_kernel": 2, "ce_dx_combine_kernel": 1}
+        seen = {name: sum(n for key, n in prof["per_step"].items() if name in key) for name in pair}
+        log(f"[wide-train] the CE pair's kernels per step {seen} (expected {pair})")
+        if seen != pair:
+            raise AssertionError(f"the CE pair's kernels per step {seen} != {pair}")
 
         # resume for one more epoch: the step count continues from the saved one
         del run, state, trainer, holder, batches, evals
@@ -3531,7 +3420,7 @@ def main() -> None:
         ("fused_ce_fwd", "fused_ce.cu", "fused_ce.py:134", "ce_fwd", train),
         ("fused_ce_bwd", "fused_ce.cu", "fused_ce.py:761", "ce_bwd", train),
         ("fused_ce_bwd_dx", "fused_ce_two_pass.cu", "fused_ce.py:293", "ce_bwd_dx", wide_train),
-        ("fused_ce_bwd_dw", "fused_ce_mma.cuh", "fused_ce.py:321", "ce_bwd_dw", wide_train),
+        ("fused_ce_bwd_dw", "fused_ce_two_pass.cu", "fused_ce.py:321", "ce_bwd_dw", wide_train),
         ("blockwise_mha_fwd", "attention_blockwise.cu", "attention.py:198", "blockwise_fwd", long_train),
         ("blockwise_mha_dq", "attention_blockwise.cu", "attention.py:245", "blockwise_dq", long_train),
         ("blockwise_mha_dkv", "attention_blockwise.cu", "attention.py:283", "blockwise_dkv", long_train),
@@ -3543,7 +3432,7 @@ def main() -> None:
         ("fused_ce_bwd_sharded", "fused_ce.cu", "fused_ce.py:761", "ce_bwd_sharded", {"counts": tiers["spmd"]}),
         ("fused_ce_bwd_dx_sharded", "fused_ce_two_pass.cu", "fused_ce.py:293", "ce_bwd_dx_sharded",
          {"counts": tiers["spmd wide"]}),
-        ("fused_ce_bwd_dw_sharded", "fused_ce_mma.cuh", "fused_ce.py:321", "ce_bwd_dw_sharded",
+        ("fused_ce_bwd_dw_sharded", "fused_ce_two_pass.cu", "fused_ce.py:321", "ce_bwd_dw_sharded",
          {"counts": tiers["spmd wide"]}),
         # the large-catalog path (stress_torch.py, 10,000,384 rows, D = 128,
         # bf16 x): its timed steps' launches per step

@@ -1,7 +1,18 @@
-"""Check and time the merged CE backward (``ce_backward_merged``) on the card.
+"""Check and time the merged CE backward (``ce_backward_merged``), or the
+two-pass pair, on the card.
 
     python3 examples/long_context/ce_bwd_probe.py            # oracle + times
     python3 examples/long_context/ce_bwd_probe.py --parts    # + parts removed
+    python3 examples/long_context/ce_bwd_probe.py --pair     # the two-pass pair
+
+``--pair`` does the same for ``ce_backward_two_pass`` (the dx and dW passes
+of ``ce_bwd_two_pass_kernel``, ``csrc/fused_ce_two_pass.cu``): the oracle
+check at 13 shapes (D = 8 to 1,024: both of the kernel's slice widths, one
+and two slices, ragged widths), f32 and bf16 x, with and without a bias,
+each output within its tolerance of the f64 oracle and two calls bit-equal
+(the pair writes every sum once); then each pass timed at N = 2,560, V =
+55,296 and D = 384, 1,024 and 256, f32 and bf16 x, and ptxas' report of
+the kernel's instances.
 
 The oracle check comes first: at small shapes the kernel (the TMA +
 ``wgmma`` kernel ``ce_bwd_merged_wgmma_kernel`` of ``csrc/fused_ce.cu``,
@@ -251,15 +262,72 @@ def parts(shapes: list, rounds: int = 2) -> None:
                   + ", ".join(f"{x:.4f}" for x in v) + f") [{card}]", flush=True)
 
 
+PAIR_SHAPES = [(100, 300, 8, 0.02), (130, 1000, 72, 0.02), (200, 777, 128, 0.02), (64, 64, 256, 0.02),
+               (300, 2000, 384, 0.02), (257, 513, 384, 0.05), (5, 100, 32, 0.02), (1, 40, 128, 0.02),
+               (700, 3001, 384, 0.3), (129, 95, 520, 0.02), (130, 700, 713, 0.1), (200, 900, 1024, 0.05),
+               (77, 700, 264, 0.02)]
+
+
+def pair_checks(rng) -> bool:
+    """The pair against the f64 oracle and itself, at PAIR_SHAPES."""
+    ok = True
+    for n, v, d, scale in PAIR_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for with_bias in (False, True):
+                args = _inputs(rng, n, v, d, scale, dtype, with_bias)
+                got = k.ce_backward_two_pass(*args)
+                again = k.ce_backward_two_pass(*args)
+                want = _oracle(*args[:6], args[7])
+                rel = CE_GRAD_REL if dtype == torch.float32 else BF16_REL
+                used = [float((g.double() - w).abs().max()) / (rel * max(float(w.abs().max()), 1e-30))
+                        for g, w in zip(got, want) if g is not None]
+                bits = all(torch.equal(g, h) for g, h in zip(got, again) if g is not None)
+                fine = max(used) <= 1.0 and bits and all(torch.isfinite(g).all() for g in got if g is not None)
+                ok &= fine
+                print(f"pair oracle N={n} V={v} D={d} scale={scale} {str(dtype)[6:]} bias={with_bias}: dx / dW"
+                      f"{' / db' if with_bias else ''} use " + " / ".join(f"{u:.3f}" for u in used)
+                      + f" of {rel:.0e}; two calls bit-equal {bits}" + ("" if fine else "  <-- FAILED"), flush=True)
+    return ok
+
+
+def pair_times(reps: int = 10) -> None:
+    card = torch.cuda.get_device_name(0)
+    for d in (384, 1024, 256):
+        for dtype in (torch.float32, torch.bfloat16):
+            args, live = _timed_args(2560, 55_296, d)
+            args = (args[0].to(dtype), *args[1:])
+            dx = median_ms(lambda: k.ce_backward_dx(*args), reps)
+            dw = median_ms(lambda: k.ce_backward_dw(*args), reps)
+            bound = 3 * 4.0 * live * args[7] * d / TF32_PEAK * 1e3 if dtype == torch.float32 else None
+            print(f"pair time N=2560 V=55,296 D={d} {str(dtype)[6:]}: dx {dx:.4f} ms, dW {dw:.4f} ms"
+                  + (f"; bound {bound:.4f} ms each at tf32 x3 ({live} labelled rows; shares {bound / dx:.3f} / "
+                     f"{bound / dw:.3f})" if bound else "") + f" [{card}]", flush=True)
+            del args
+            torch.cuda.empty_cache()
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--parts", action="store_true", help="time copies with one part removed")
     p.add_argument("--large", action="store_true", help="also time the large catalog's shape")
     p.add_argument("--no-oracle", action="store_true", help="skip the oracle checks")
+    p.add_argument("--pair", action="store_true", help="the two-pass pair instead of the merged backward")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("a CUDA card is required")
     _build.library()
+    if args.pair:
+        printing = False
+        for line in _build.build_log.splitlines():  # ptxas' report of the pair's instances
+            if "Compiling entry function" in line:
+                printing = "ce_bwd_two_pass_kernel" in line
+            if printing and ("registers" in line or "spill" in line or "Compiling" in line):
+                print(f"ptxas: {line.strip()}", flush=True)
+        ok = True if args.no_oracle else pair_checks(np.random.default_rng(0))
+        pair_times()
+        if not ok:
+            raise SystemExit("the two-pass pair misses its oracle")
+        return
     for line in _build.build_log.splitlines():
         if "C7513" in line or "warning" in line:
             print(f"build: {line.strip()}", flush=True)

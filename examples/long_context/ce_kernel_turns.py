@@ -71,6 +71,27 @@ plain version in every run (2e-3 of the largest gradient, floored at
 own largest magnitude), and across checkouts (sums in other orders) within
 that bound taken about run 1's output. The script exits non-zero
 otherwise. A card is required.
+
+``--pair`` times the two-pass CE backward instead (the wide model's route,
+``ce_backward_dx`` and ``ce_backward_dw``) and nothing else: each pass at
+N = 2,560, V = 55,296, D = 384 with f32 and with bf16 x, and at D = 1,024
+with f32 x (median of 10 warm calls, CUDA events), then the wide model's
+train step from the checkout (``examples/bert4rec/train_torch.py --preset
+tpu --d_model 384 --heads 6 --layers 4 --qkv_fused``, B = 256, built by the
+checkout's ``main`` for one short epoch): wall ms/step over 20 steps on
+batches already on the card and the device's busy ms/step under the
+profiler over 10 (``pair_wide_wall_ms``, ``pair_wide_busy_ms``). Its
+outputs (dx, dW and db with and without a bias) are held bit-equal within a
+checkout and, with ``--pair-redesigned`` (checkouts whose pairs sum in
+other orders), within 1e-4 of the largest magnitude across checkouts (2e-2
+for bf16 x; bit-equal otherwise). ``--parts`` (with ``--pair``) builds
+copies of the last checkout's ``fused_ce_two_pass.cu`` with one part of the
+kernel removed (the score products, the gradient products, the loads of the
+score stages or of the gradient stages, the exponentials) and times each
+pass in turns with the source as it is at the wide shape, f32: what each
+part costs (those copies compute wrong results; they are timed only). Every
+run prints ptxas' registers and spills of each CE kernel instance and the
+attention kernels' from its build.
 """
 
 from __future__ import annotations
@@ -136,7 +157,8 @@ def _ce_registers(build_log: str) -> list:
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-            entry = next((k for k in ("ce_fwd_wgmma", "ce_fwd_mma", "ce_bwd_dx_mma", "ce_bwd_dw_mma", "bmha_fwd_wgmma",
+            entry = next((k for k in ("ce_fwd_wgmma", "ce_fwd_mma", "ce_bwd_dx_mma", "ce_bwd_dw_mma",
+                                      "ce_bwd_merged_wgmma", "ce_bwd_two_pass", "bmha_fwd_wgmma",
                                       "bmha_fwd_mma", "bmha_dq_wgmma", "bmha_dkv_wgmma", "bmha_dq_mma",
                                       "bmha_dkv_mma") if k in name), None)
             entry = entry and f"{entry}:{name[-40:]}"
@@ -327,6 +349,231 @@ def _time_in(checkout: str, out_dir: str) -> dict:
     return out
 
 
+# the pair's entries at (name, D, x's type); the wide train step's argv
+PAIR = {"dx_384": (384, "float32"), "dw_384": (384, "float32"), "dx_384_bf16": (384, "bfloat16"),
+        "dw_384_bf16": (384, "bfloat16"), "dx_1024": (1024, "float32"), "dw_1024": (1024, "float32")}
+PAIR_TIMED = [*PAIR, "pair_wide_wall_ms", "pair_wide_busy_ms"]
+WIDE_ARGV = ["--preset", "tpu", "--d_model", "384", "--heads", "6", "--layers", "4", "--qkv_fused", "--simulated",
+             "--n_items", "54542", "--n_sessions", "4000", "--batch", "256", "--steps_per_epoch", "2",
+             "--eval_batches", "1", "--eval_batch", "256", "--ckpt_keep", "1", "--mu_dtype", "bfloat16", "--epochs", "1"]
+
+
+def _pair_inputs(rng, d: int, dtype):
+    import numpy as np
+    import torch
+
+    from bert4clickpath_torch.ops.kernels import fused_ce as k
+
+    x = torch.from_numpy(rng.standard_normal((N, d), dtype=np.float32)).cuda()
+    table = torch.from_numpy(rng.standard_normal((V, d), dtype=np.float32) * 0.02).cuda()
+    labels = rng.integers(0, NUM_VALID, size=N).astype(np.int32) + OFF
+    labels[rng.random(N) < 0.2] = -1
+    lab = torch.from_numpy(labels).cuda()
+    dnll = (lab >= 0).float() / (lab >= 0).float().sum()
+    m, l = k.ce_stats_reference(x, table, None, OFF, NUM_VALID)
+    return (x.to(getattr(torch, dtype)), table, None, lab, m + torch.log(l), dnll, OFF, NUM_VALID)
+
+
+def _wide_step(checkout: str) -> dict:
+    """The wide model's train step from the checkout's training script: wall
+    ms/step of 20 steps on batches already on the card, device busy ms/step
+    under the profiler over 10."""
+    import time
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bert4clickpath_torch.data.pipeline import to_device
+
+    sys.path.insert(0, os.path.join(os.path.abspath(checkout), "examples", "bert4rec"))
+    import train_torch
+
+    work = tempfile.mkdtemp(prefix="ce_turns_wide_")
+    try:
+        run = train_torch.main(WIDE_ARGV + ["--model_dir", work])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    state, trainer, ds = run.state, run.trainer, run.dataset
+    it = ds.train_batches(256, seed=7)
+    gen = torch.Generator("cuda").manual_seed(7)
+    batches = [to_device(next(it), "cuda") for _ in range(4)]
+    for i in range(3):
+        state, loss = trainer.train_step(state, batches[i % 4], gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(20):
+        state, loss = trainer.train_step(state, batches[i % 4], gen)
+    loss.item()
+    wall = (time.perf_counter() - t0) / 20 * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(10):
+            state, loss = trainer.train_step(state, batches[i % 4], gen)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 10 / 1e3
+    return {"pair_wide_wall_ms": wall, "pair_wide_busy_ms": busy,
+            "pair_wide_kernels": sum(e.count for e in kernels) / 10}
+
+
+def _time_pair(checkout: str, out_dir: str) -> dict:
+    sys.path.insert(0, os.path.abspath(checkout))
+    import numpy as np
+    import torch
+
+    from bert4clickpath_torch.ops.kernels import _build
+    from bert4clickpath_torch.ops.kernels import fused_ce as k
+
+    if not os.path.abspath(k.__file__).startswith(os.path.abspath(checkout)):
+        raise RuntimeError(f"imported {k.__file__}, not the checkout {checkout}")
+    if not torch.cuda.is_available():
+        raise SystemExit("a CUDA card is required")
+    _build.library()
+    out = {"build_seconds": _build.build_seconds, "ptxas": _ce_registers(_build.build_log)}
+    outputs = {}
+    rng = np.random.default_rng(0)
+    for name, (d, dtype) in PAIR.items():
+        if name.startswith("dw"):
+            continue  # with its dx
+        args = _pair_inputs(rng, d, dtype)
+        for pass_name in (name, name.replace("dx", "dw")):
+            fn = k.ce_backward_dx if pass_name.startswith("dx") else k.ce_backward_dw
+            for _ in range(3):
+                fn(*args)
+            torch.cuda.synchronize()
+            pairs = []
+            for _ in range(10):
+                s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                s.record()
+                fn(*args)
+                e.record()
+                pairs.append((s, e))
+            torch.cuda.synchronize()
+            out[pass_name] = statistics.median(a.elapsed_time(b) for a, b in pairs)
+        for tag, bias in (("", None), ("+bias", torch.from_numpy(rng.standard_normal(V, dtype=np.float32)).cuda())):
+            a = (*args[:2], bias, *args[3:])
+            got = (k.ce_backward_dx(a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7]), *k.ce_backward_dw(*a))
+            for i, t in enumerate(got):
+                if t is not None:
+                    outputs[f"pair_{name}{tag}.{i}"] = t.float().cpu().numpy()
+        del args
+        torch.cuda.empty_cache()
+    out.update(_wide_step(checkout))
+    np.savez(os.path.join(out_dir, "outputs.npz"), **outputs)
+    out["card"] = torch.cuda.get_device_name(0)
+    return out
+
+
+# parts of the two-pass kernel removed in copies of fused_ce_two_pass.cu: [(text, its replacement)]
+PAIR_PARTS = {
+    "no_score_products": [("box_product<32, false>(ks, hi, lo, slot + L::kSW",
+                           "if (false) box_product<32, false>(ks, hi, lo, slot + L::kSW")],
+    "no_grad_products": [("box_product<32, kBf16>(gk,", "if (false) box_product<32, kBf16>(gk,")],
+    "no_score_loads": [("      if (c.step < nk) {  // x's box and the table's\n",
+                        "      if (c.step < nk) {  // x's box and the table's\n"
+                        "        if (true) { hopper::mbar_arrive_expect_tx(full + st, 0); continue; }\n")],
+    "no_grad_loads": [("        const int col = c.unit.d0 + (c.step - nk) * 64;\n",
+                       "        if (true) { hopper::mbar_arrive_expect_tx(full + st, 0); continue; }\n"
+                       "        const int col = c.unit.d0 + (c.step - nk) * 64;\n")],
+    "no_exp": [("(expf(sv - ri[h].x) -", "((sv - ri[h].x) -")],
+}
+
+
+def _parts(checkout: str) -> None:
+    """Copies of the checkout's fused_ce_two_pass.cu with one part cut, each
+    pass timed in turns with the source as it is (f32 x, the wide shape)."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.abspath(checkout))
+    from bert4clickpath_torch.ops.kernels import _build
+    from bert4clickpath_torch.ops.kernels import fused_ce as k
+
+    src = (_build.CSRC / "fused_ce_two_pass.cu").read_text()
+    work = tempfile.mkdtemp(prefix="ce_turns_parts_")
+    procs = {}
+    for name, cuts in PAIR_PARTS.items():
+        text = src
+        for old, new in cuts:
+            if text.count(old) != 1:
+                raise SystemExit(f"{name}: {old!r} is not in the source once")
+            text = text.replace(old, new)
+        d = os.path.join(work, name)
+        shutil.copytree(_build.CSRC, d)
+        with open(os.path.join(d, "fused_ce_two_pass.cu"), "w") as f:
+            f.write(text)
+        procs[name] = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", os.path.join(d, "lib.so"),
+                                        os.path.join(d, "fused_ce_two_pass.cu")], stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+    real = _build.library()
+    entry = "b4cp_ce_bwd_two_pass"
+
+    class Swapped:
+        def __init__(self, lib):
+            self.lib = lib
+
+        def __getattr__(self, attr):
+            return getattr(self.lib if attr == entry else real, attr)
+
+    libs = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise SystemExit(f"{name}: nvcc failed\n{log[-3000:]}")
+        lib = ctypes.CDLL(os.path.join(work, name, "lib.so"))
+        getattr(lib, entry).restype, getattr(lib, entry).argtypes = _build.SIGNATURES[entry]
+        libs[name] = Swapped(lib)
+    args = _pair_inputs(np.random.default_rng(0), 384, "float32")
+    card = torch.cuda.get_device_name(0)
+    times = {name: {"dx": [], "dw": []} for name in ["as_it_is", *libs]}
+    try:
+        for _ in range(2):
+            for name in times:
+                _build._lib = real if name == "as_it_is" else libs[name]
+                for pass_name, fn in (("dx", k.ce_backward_dx), ("dw", k.ce_backward_dw)):
+                    for _ in range(2):
+                        fn(*args)
+                    torch.cuda.synchronize()
+                    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    s.record()
+                    for _ in range(5):
+                        fn(*args)
+                    e.record()
+                    torch.cuda.synchronize()
+                    times[name][pass_name].append(s.elapsed_time(e) / 5)
+    finally:
+        _build._lib = real
+        shutil.rmtree(work, ignore_errors=True)
+    for name, t in times.items():
+        print(f"parts {name} at N={N} V={V:,} D=384 f32: dx {min(t['dx']):.4f} ms, dW {min(t['dw']):.4f} ms "
+              f"(runs dx {', '.join(f'{v:.4f}' for v in t['dx'])}; dW {', '.join(f'{v:.4f}' for v in t['dw'])}) "
+              f"[{card}]", flush=True)
+
+
+def _compare_pair(dirs: list, runs: list, redesigned: bool) -> bool:
+    """The pair's outputs: bit-equal between runs of one checkout; across
+    checkouts bit-equal, or with ``redesigned`` within 1e-4 (bf16 x: 2e-2)
+    of the largest magnitude."""
+    import numpy as np
+
+    loaded = [np.load(os.path.join(d, "outputs.npz")) for d in dirs]
+    ok = True
+    pairs = [(i, j) for i in range(len(runs)) for j in range(i + 1, len(runs))]
+    for key in loaded[0].files:
+        arrays = [f[key] for f in loaded]
+        within = all(np.array_equal(arrays[i], arrays[j]) for i, j in pairs if runs[i][0] == runs[j][0])
+        scale = max(float(np.abs(arrays[0]).max()), 1e-30)
+        across = max((float(np.abs(arrays[i].astype(np.float64) - arrays[j]).max()) / scale
+                      for i, j in pairs if runs[i][0] != runs[j][0]), default=0.0)
+        limit = (2e-2 if "bf16" in key else GRAD_REL) if redesigned else 0.0
+        print(f"output {key}: bit-equal between runs of one checkout: {within}; across checkouts apart by "
+              f"{across:.3e} of the largest |value| (held to {limit:.0e})", flush=True)
+        ok &= within and across <= limit
+    return ok
+
+
 def _compare_outputs(dirs: list, runs: list, merged_redesigned: bool = False) -> bool:
     """Every run's outputs against the first run's: bit-equal, except the
     merged backward's dx (atomic adds), whose gap is held to its repeat
@@ -414,13 +661,23 @@ def main(argv=None) -> None:
     p.add_argument("--order", default="0,1,1,0", help="indices into --checkouts, run in this order")
     p.add_argument("--time", help="(internal) time the checkout at this root and print JSON")
     p.add_argument("--out", help="(internal) the directory the --time run writes its outputs to")
+    p.add_argument("--pair", action="store_true",
+                   help="time the two-pass CE backward and the wide train step only, and hold the pair's outputs")
+    p.add_argument("--pair-redesigned", action="store_true",
+                   help="the checkouts' pairs sum in other orders: hold their outputs across checkouts to 1e-4 "
+                        "(bf16 x: 2e-2) of the largest instead of bit-equal")
+    p.add_argument("--parts", action="store_true",
+                   help="with --pair: time copies of the last checkout's two-pass kernel with one part removed")
     p.add_argument("--merged-redesigned", action="store_true",
                    help="the checkouts' merged backwards sum in other orders: hold their outputs across "
                         "checkouts to GRAD_REL of the largest instead of bit-equal (dx: DX_REPEAT)")
     args = p.parse_args(argv)
     if args.time:
-        print(json.dumps(_time_in(args.time, args.out)), flush=True)
+        timed = _time_pair(args.time, args.out) if args.pair else _time_in(args.time, args.out)
+        print(json.dumps(timed), flush=True)
         return
+    if args.parts and not args.pair:
+        raise SystemExit("--parts times the two-pass kernel: give --pair too")
     roots = args.checkouts.split(",")
     runs, dirs = [], []
     scratch = tempfile.mkdtemp(prefix="ce_turns_")
@@ -428,14 +685,17 @@ def main(argv=None) -> None:
         for i in (int(j) for j in args.order.split(",")):
             dirs.append(os.path.join(scratch, str(len(dirs))))
             os.makedirs(dirs[-1])
-            res = subprocess.run([sys.executable, os.path.abspath(__file__), "--time", roots[i], "--out", dirs[-1]],
-                                 capture_output=True, text=True, timeout=900)
+            res = subprocess.run([sys.executable, os.path.abspath(__file__), "--time", roots[i], "--out", dirs[-1],
+                                  *(["--pair"] if args.pair else [])], capture_output=True, text=True, timeout=900)
             if res.returncode != 0:
                 raise SystemExit(f"checkout {roots[i]} failed:\n{res.stderr[-3000:]}")
             runs.append((i, json.loads(res.stdout.strip().splitlines()[-1])))
-            _print_run(len(runs), i, roots[i], runs[-1][1])
-        same = _compare_outputs(dirs, runs, args.merged_redesigned)
-        for n, (i, row) in enumerate(runs, 1):
+            _print_run(len(runs), i, roots[i], runs[-1][1], PAIR_TIMED if args.pair else TIMED)
+        if args.pair:
+            same = _compare_pair(dirs, runs, args.pair_redesigned)
+        else:
+            same = _compare_outputs(dirs, runs, args.merged_redesigned)
+        for n, (i, row) in enumerate([] if args.pair else runs, 1):
             for name in ATTN:
                 fine = row[f"{name}_used"] <= 1.0 and row[f"{name}_lse"] <= LSE_REL
                 print(f"run {n} checkout {i}: {name} against its plain version: {row[f'{name}_used']:.3f} of the "
@@ -448,7 +708,7 @@ def main(argv=None) -> None:
                 same &= max(used) <= 1.0
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
-    for name in TIMED:
+    for name in PAIR_TIMED if args.pair else TIMED:
         per = {i: [row[name] for j, row in runs if j == i] for i in range(len(roots))}
         spread = {i: (max(v) - min(v)) / min(v) for i, v in per.items() if len(v) > 1}
         means = {i: statistics.mean(v) for i, v in per.items()}
@@ -456,13 +716,18 @@ def main(argv=None) -> None:
         print(f"{name}: " + ", ".join(f"checkout {i} {means[i]:.4f} {unit} (spread {spread.get(i, 0):.2%})"
                                       for i in means)
               + "".join(f"; checkout {i} / checkout 0 = {means[i] / means[0]:.4f}" for i in means if i), flush=True)
+    if args.parts:
+        res = subprocess.run([sys.executable, "-c", f"import sys; sys.path.insert(0, {os.path.dirname(os.path.abspath(__file__))!r}); "
+                              f"import ce_kernel_turns as t; t._parts({roots[-1]!r})"], text=True, timeout=900)
+        if res.returncode != 0:
+            raise SystemExit("the parts run failed")
     print(json.dumps({"runs": runs, "outputs_equal": same}), flush=True)
     if not same:
         raise SystemExit("the checkouts' outputs differ, or a forward misses its plain version's bound")
 
 
-def _print_run(n: int, i: int, root: str, row: dict) -> None:
-    print(f"run {n} checkout {i} ({root}): " + ", ".join(f"{name} {row[name]:.4f}" for name in TIMED)
+def _print_run(n: int, i: int, root: str, row: dict, timed: list) -> None:
+    print(f"run {n} checkout {i} ({root}): " + ", ".join(f"{name} {row[name]:.4f}" for name in timed)
           + f" ms; build {row['build_seconds']} s", flush=True)
     for line in row["ptxas"]:
         print(f"  ptxas checkout {i}: {line}", flush=True)

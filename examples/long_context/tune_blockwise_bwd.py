@@ -1,7 +1,7 @@
 """Time the bf16 tensor-core attention kernels (and the CE kernels) under
 other tile constants than the ones ``csrc/attention_blockwise.cu``,
-``csrc/attention.cu``, ``csrc/fused_ce.cu``, ``csrc/fused_ce_two_pass.cu`` and
-``csrc/fused_ce_mma.cuh`` ship with.
+``csrc/attention.cu``, ``csrc/fused_ce.cu`` and ``csrc/fused_ce_two_pass.cu``
+ship with.
 
     python3 examples/long_context/tune_blockwise_bwd.py --kernel fwd \\
         --variant shipped: --variant stages2:kFwdStages=2
@@ -12,7 +12,7 @@ other tile constants than the ones ``csrc/attention_blockwise.cu``,
     python3 examples/long_context/tune_blockwise_bwd.py --kernel ce_fwd \\
         --shape 2560,55296,384 --variant shipped: --variant stages3:kCeFwdStages=3
     python3 examples/long_context/tune_blockwise_bwd.py --kernel ce_dw \\
-        --variant shipped: --variant flush4:kDwFlush=4 --variant stream:kDwResident=false
+        --variant shipped: --variant stages6:kTpStages=6
     python3 examples/long_context/tune_blockwise_bwd.py --kernel ce_bwd \\
         --variant shipped: --variant no_reduce:kCeBwdDxReduce=false
 
@@ -20,7 +20,7 @@ other tile constants than the ones ``csrc/attention_blockwise.cu``,
 the blockwise forward (``fwd``), dq, dk/dv, the whole-row forward
 (``mha_fwd``) or backward (``mha_bwd``), or the fused CE forward
 (``ce_fwd``), dx pass (``ce_dx``), dW pass (``ce_dw``) or merged backward
-(``ce_bwd``), the last three in the numerics ``kDxNumerics`` names, f32 x. Each ``--variant name:CONST=value,...`` is a
+(``ce_bwd``), the last three in tf32 x3 (f32 x). Each ``--variant name:CONST=value,...`` is a
 copy of the sources with the named ``constexpr`` constants set to the
 given expressions:
 the bf16 backward's ``kDqStages`` and ``kDqQBuffers`` (dq's TMA ring of K
@@ -37,9 +37,9 @@ producer + 256 x consumer <= 65,536);
 ``kMhaFwdPass``; ``kCeFwdStages`` (the TMA ring of the CE forward: four
 48 KB stages for f32 x), ``kCeFwdProducerRegs`` and ``kCeFwdConsumerRegs``
 (its setmaxnreg split, 128 x producer + 256 x consumer <= 65,536);
-``kDxNumerics`` (``kDxTf32``,
-``kDxTf32x3``, ``kDxBf16x3``), ``kDxStages``, ``kDxFlush``, ``kDxColWarps``;
-``kDwStages``, ``kDwFlush``, ``kDwResident``; the merged backward's
+the two-pass kernel's ``kTpStages`` (its TMA ring, both passes) and
+``DX_TARGET_UNITS`` is not a constant of the source (set it on the
+wrapper); the merged backward's
 ``kCeBwdTv`` and ``kCeBwdStages`` (table rows a unit and stages of x in
 its ring, both instances at once), ``kCeBwdProducerRegs`` and
 ``kCeBwdConsumerRegs`` (its setmaxnreg split), ``kCeBwdDxReduce`` (false:
@@ -85,11 +85,11 @@ KERNELS = {
     "mha_fwd": ("attention.cu", "b4cp_mha_fwd", "256,53,256,4"),
     "mha_bwd": ("attention.cu", "b4cp_mha_bwd", "256,53,256,4"),
     "ce_fwd": ("fused_ce.cu", "b4cp_ce_fwd", "2560,55296,384"),
-    "ce_dx": ("fused_ce_two_pass.cu", "b4cp_ce_bwd_dx", "2560,55296,384"),
-    "ce_dw": ("fused_ce_two_pass.cu", "b4cp_ce_bwd_dw", "2560,55296,384"),
+    "ce_dx": ("fused_ce_two_pass.cu", "b4cp_ce_bwd_two_pass", "2560,55296,384"),
+    "ce_dw": ("fused_ce_two_pass.cu", "b4cp_ce_bwd_two_pass", "2560,55296,384"),
     "ce_bwd": ("fused_ce.cu", "b4cp_ce_bwd", "2560,55296,256"),
 }
-TUNED = ("attention_blockwise.cu", "attention.cu", "fused_ce.cu", "fused_ce_two_pass.cu", "fused_ce_mma.cuh")
+TUNED = ("attention_blockwise.cu", "attention.cu", "fused_ce.cu", "fused_ce_two_pass.cu")
 
 
 def build_variants(variants: dict[str, dict[str, str]], sources: list[str], entries: list[str]) -> dict:
@@ -123,11 +123,11 @@ def build_variants(variants: dict[str, dict[str, str]], sources: list[str], entr
         entry = ""
         for line in log.splitlines():
             if "Compiling entry" in line:
-                entry = re.search(r"mha_\w+?_kernelILi\d+E|mha_\w+?_kernelI\w+?Li\d+E"
-                                  r"|(?:d[xw]|fwd)_mma_kernelILi\dE(?:Lb\dE)+|(?:fwd|dq|dkv|merged)_wgmma_kernelILi\d+E", line)
+                entry = re.search(r"mha_\w+?_kernelILi\d+E|mha_\w+?_kernelI\w+?Li\d+E|two_pass_kernelILi\dELi\dE\w+?E"
+                                  r"|fwd_mma_kernelILi\dE(?:Lb\dE)+|(?:fwd|dq|dkv|merged)_wgmma_kernelILi\d+E", line)
                 entry = entry.group(0) if entry else ""
             elif (("_mma_kernelILi64E" in entry or "wgmma_kernelILi64E" in entry or entry.startswith("fwd_")
-                  or "dx_mma_kernel" in entry or "dw_mma_kernel" in entry or entry.startswith("merged_"))
+                  or entry.startswith("two_pass") or entry.startswith("merged_"))
                   and ("registers" in line or "spill" in line)):
                 print(f"[{name}] {entry}: {line.strip()}", flush=True)
         lib = ctypes.CDLL(os.path.join(out_dir, name, "lib.so"))

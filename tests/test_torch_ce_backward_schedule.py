@@ -319,13 +319,16 @@ def test_the_constants_fit_the_card():
 def test_the_merged_route_takes_the_new_kernel_only():
     """f32 and bf16 x take ce_bwd_merged_wgmma_kernel through the packed
     rows (the C entry's width check is the route's: D <= MAX_D); nothing of
-    the mma.sync merged backward it replaced is left, while the dW pass
-    keeps its kernel."""
+    the mma.sync merged backward it replaced is left, and the two-pass pair
+    above MAX_D is the TMA + wgmma kernel of fused_ce_two_pass.cu, which
+    shares the row packing (fused_ce_common.cuh)."""
     text = _text()
     assert "ce_bwd_merged_wgmma_kernel" in text and "bwd_merged(" in text and "launch_dw_mma" not in text
-    mma = (SOURCE.parent / "fused_ce_mma.cuh").read_text()
-    for gone in ("mrg_dx_product", "add_dx", "kMrgOutChunks", "kMrgDxReduce", "copy_row", "bool DX",
-                 "ce_live_rows_kernel"):
-        assert gone not in mma, gone
-    assert "ce_bwd_dw_mma_kernel" in mma and "launch_dw_mma<MODE, true>" in (SOURCE.parent / "fused_ce_two_pass.cu").read_text()
+    assert not (SOURCE.parent / "fused_ce_mma.cuh").exists()
+    common = (SOURCE.parent / "fused_ce_common.cuh").read_text()
+    for gone in ("mrg_dx_product", "add_dx", "kMrgOutChunks", "kMrgDxReduce", "copy_row", "bool DX"):
+        assert gone not in text and gone not in common, gone
+    assert "ce_live_rows_kernel" in common and "pack_live_rows(" in text
+    two_pass = (SOURCE.parent / "fused_ce_two_pass.cu").read_text()
+    assert "ce_bwd_two_pass_kernel" in two_pass and "pack_live_rows(" in two_pass and "ce_bwd_dw_mma_kernel" not in two_pass
     assert k.MAX_D == 256 and k.ce_backward_route(256) == "merged" and k.ce_backward_route(257) == "two_pass"

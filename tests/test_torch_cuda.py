@@ -21,10 +21,12 @@ the tensor cores (f32 x as hi + lo tf32 terms, three products) and writes dW
 and db once, so two runs of those give the same bits.
 The two-pass CE backward: the same, but its dx sums in a fixed order, so two
 runs give the same bits, and a bf16 dx may besides round its f32 sum the
-other way (one bf16 ulp, 2^-7 of the value). Its dx and dW passes run on
-the tensor cores (f32 x as hi + lo tf32 terms, three products) and are held
-to the same f32 tolerance; the dW pass writes each dW row once (no
-atomics), so two runs give the same bits; no CE kernel refuses a row width.
+other way (one bf16 ulp, 2^-7 of the value). Its dx and dW passes (one
+TMA + wgmma kernel, f32 x as hi + lo tf32 terms in three products) walk only
+the rows with a nonzero dnll, packed once for both, and are held to the same
+f32 tolerance; the dW pass writes each dW row once (no atomics), so two runs
+give the same bits, and the pair from one call equals the passes called
+apart; no CE kernel refuses a row width.
 The CE entries take a row_start (a shard's first global row): on row
 shards they are held against their plain versions given the same
 row_start (which the plain versions apply to the row ids, the wrappers as
@@ -845,7 +847,7 @@ def _shard_case(d, dtype, with_bias, shards=4, v=4096, n=300, seed=31):
 
 @pytest.mark.parametrize("with_bias", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("entry", ["fwd", "merged", "dx", "dw"])
+@pytest.mark.parametrize("entry", ["fwd", "merged", "dx", "dw", "pair"])
 def test_ce_entries_with_row_start_match_plain(cuda, entry, dtype, with_bias):
     """Each CE entry on each of 4 row shards with its row_start (the
     vocab-sharded tier's call) against its plain version given the same
@@ -868,13 +870,16 @@ def test_ce_entries_with_row_start_match_plain(cuda, entry, dtype, with_bias):
             got, want = ce_kernels.ce_backward_merged(*args), ce_backward_reference(*args)
         elif entry == "dx":
             got, want = (ce_kernels.ce_backward_dx(*args),), (ce_kernels.ce_backward_dx_reference(*args),)
+        elif entry == "pair":
+            got = ce_kernels.ce_backward_two_pass(*args)
+            want = (ce_kernels.ce_backward_dx_reference(*args), *ce_kernels.ce_backward_dw_reference(*args))
         else:
             got, want = ce_kernels.ce_backward_dw(*args), ce_kernels.ce_backward_dw_reference(*args)
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             if w is None:
                 assert g is None
-            elif entry == "dx" and dtype == torch.bfloat16:
+            elif entry in ("dx", "pair") and g.dtype == torch.bfloat16:
                 diff = (g.float() - w.float()).abs()
                 assert bool((diff <= rel * w.float().abs().max() + 2.0**-7 * w.float().abs()).all())
             else:
@@ -887,9 +892,9 @@ DX_WIDTHS = [6, 32, 256, 384, 450, 713, 714, 1024]
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", DX_WIDTHS)
 def test_ce_dx_pass_at_any_width(cuda, d, dtype):
-    """The tensor-core dx pass at widths around every chunk and tile edge
-    (x resident in shared memory up to D = 384 in f32, streamed above; D
-    split over the grid above 384), with and without a bias, an OOV label:
+    """The dx pass at widths around every box and m-tile edge (one slice of
+    D up to 512 columns, two above, each recomputing the scores; D not a
+    multiple of 16 bytes padded), with and without a bias, an OOV label:
     f32 within 1e-4 of the largest |dx|, bf16 within 2e-2 of it plus one
     bf16 ulp of each value, two runs bit-equal."""
     for with_bias in (False, True):
@@ -941,11 +946,10 @@ def _check_dw(args, dtype, cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", DX_WIDTHS)
 def test_ce_dw_pass_at_any_width(cuda, d, dtype):
-    """The tensor-core dW pass at widths around every chunk and tile edge
-    (the table rows resident in shared memory up to D = 384 in f32, streamed
-    above; D split over the grid above 384), N = 130 rows (off the 64-row
-    tile) over a ragged V = 700, with and without a bias, an OOV label:
-    see _check_dw."""
+    """The dW pass at widths around every box and m-tile edge (one slice of
+    D up to 512 columns, two above), N = 130 rows (off the 64-row tile)
+    over a ragged V = 700, with and without a bias, an OOV label: see
+    _check_dw."""
     for with_bias in (False, True):
         x, table, bias, lab, dnll, off, nv = _ce_case(130, 700, d, dtype, with_bias, seed=d + 2, oov=True)
         wm, wl = ce_stats_reference(x, table, bias, off, nv)
@@ -955,8 +959,9 @@ def test_ce_dw_pass_at_any_width(cuda, d, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ce_dw_pass_skips_a_zero_row_tile(cuda, dtype):
     """A tile of 64 rows of x whose dnll is all zero, between two live
-    ones, makes A^T zero there and the kernel skips that tile's product:
-    N = 200 over a ragged V = 1,000, D = 384, with a bias; see _check_dw."""
+    ones: those rows are not packed, so the pass walks two tiles of live
+    rows: N = 200 over a ragged V = 1,000, D = 384, with a bias; see
+    _check_dw."""
     x, table, bias, lab, dnll, off, nv = _ce_case(200, 1000, 384, dtype, True, seed=5, oov=True)
     dnll[64:128] = 0.0
     wm, wl = ce_stats_reference(x, table, bias, off, nv)
@@ -965,9 +970,9 @@ def test_ce_dw_pass_skips_a_zero_row_tile(cuda, dtype):
 
 @pytest.mark.parametrize("d", [454, 714, 1024])
 def test_ce_forward_and_dw_at_wide_rows(cuda, d):
-    """The forward and the dW pass past the widths their whole tiles held
-    (the dW pass streams its table rows above D = 384 in f32; the forward
-    streams every D): logz abs 1e-4 plus 4e-6 of |logz| (logits reach ~60 at D =
+    """The forward and the dW pass at wide rows (both stream every D in
+    boxes; the dW pass takes two slices of D above 512 columns): logz abs
+    1e-4 plus 4e-6 of |logz| (logits reach ~60 at D =
     1,024, where f32 sums in another order move logz by a few tens of its
     ulps: 1.1e-4 measured on an H100), dW and db 1e-4 of the largest
     magnitude (f32 x) or 2e-2 (bf16 x)."""
@@ -988,6 +993,80 @@ def test_ce_forward_and_dw_at_wide_rows(cuda, d):
         blinded[off : off + nv] = False
         blinded[lab[1].long()] = False
         assert (dw[blinded] == 0).all()
+
+
+def _check_pair(args, dtype, cuda):
+    """The pair from one call against the passes called apart (bit-equal:
+    every sum is written once, in a fixed order) and against the plain
+    versions (see _check_dw; dx as test_ce_dx_pass_at_any_width holds it);
+    one launch of each counter a call."""
+    _build.reset_launch_counts()
+    dx, dw, db = ce_kernels.ce_backward_two_pass(*args)
+    torch.cuda.synchronize()
+    assert _nonzero_counts() == {"ce_bwd_dx": 1, "ce_bwd_dw": 1}
+    assert torch.equal(dx, ce_kernels.ce_backward_dx(*args))
+    dw2, db2 = ce_kernels.ce_backward_dw(*args)
+    assert torch.equal(dw, dw2) and (db is None or torch.equal(db, db2))
+    want = ce_kernels.ce_backward_dx_reference(*args)
+    diff = (dx.float() - want.float()).abs()
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
+    elem = 0.0 if dtype == torch.float32 else 2.0**-7
+    assert bool((diff <= rel * want.float().abs().max() + elem * want.float().abs()).all())
+    _check_dw(args, dtype, cuda)
+    return dx
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "n,pattern", [(1023, "random"), (1024, "random"), (1025, "random"), (2560, "random"), (3000, "all"),
+                  (3000, "ends")])
+def test_ce_two_pass_packs_exactly_the_live_rows(cuda, n, pattern, dtype):
+    """The pair's C entry lists the rows whose dnll is nonzero (in turns of
+    1,024 rows), packs them once for both passes and scatters dx back: N
+    rows across those turns, the others LABEL_PAD with dnll 0 (a fifth of
+    them at random, none, or all but rows 0, 1 and N - 1), D = 384; the
+    LABEL_PAD rows' dx is exactly 0 and the rest, dW and db match the plain
+    versions (see _check_pair)."""
+    x, table, bias, lab, dnll, off, nv = _ce_case(n, 300, 384, dtype, True, seed=n + 6, oov=True)
+    rng = np.random.default_rng(n + 1)
+    keep = {"random": rng.random(n) >= 0.2, "all": np.ones(n, bool),
+            "ends": np.isin(np.arange(n), (0, 1, n - 1))}[pattern]
+    keep[1] = True  # the OOV label's row, which _check_dw reads
+    keep = torch.from_numpy(keep).cuda()
+    lab = torch.where(keep, lab.clamp(min=off), torch.full_like(lab, LABEL_PAD))
+    dnll = torch.where(keep, dnll + 1.0 / n, torch.zeros_like(dnll))
+    wm, wl = ce_stats_reference(x, table, bias, off, nv)
+    dx = _check_pair((x, table, bias, lab, wm + torch.log(wl), dnll, off, nv), dtype, cuda)
+    assert not dx[~keep].any() and bool(dx[keep].abs().amax(dim=1).gt(0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ce_two_pass_walks_no_row_without_a_label(cuda, dtype):
+    """With every dnll 0 the pair walks no row: dx, dW and db exactly 0;
+    with one live row among 130 it matches the plain versions (see
+    _check_pair)."""
+    x, table, bias, lab, dnll, off, nv = _ce_case(130, 700, 384, dtype, True, seed=14, oov=True)
+    wm, wl = ce_stats_reference(x, table, bias, off, nv)
+    zero = torch.zeros_like(dnll)
+    dx, dw, db = ce_kernels.ce_backward_two_pass(x, table, bias, lab, wm + torch.log(wl), zero, off, nv)
+    torch.cuda.synchronize()
+    assert not dx.any() and not dw.any() and not db.any()
+    one = zero.clone()
+    one[1] = 0.5  # the OOV label's row
+    _check_pair((x, table, bias, lab, wm + torch.log(wl), one, off, nv), dtype, cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [384, 1024])
+def test_ce_two_pass_repeats_bit_for_bit_at_the_wide_shape(cuda, d, dtype):
+    """At the wide model's CE shape (N = 2,560, V = 55,296) and at D =
+    1,024 (two slices of D), with a bias: the pair from one call, then each
+    pass apart, give the same bits (see _check_pair), within the
+    tolerances of the plain versions."""
+    x, table, bias, lab, dnll, off, nv = _ce_case(2560, 55_296, d, dtype, True, seed=d + 9)
+    table = table * 0.04  # the main path's logits of a few tenths
+    wm, wl = ce_stats_reference(x, table, bias, off, nv)
+    _check_pair((x, table, bias, lab, wm + torch.log(wl), dnll, off, nv), dtype, cuda)
 
 
 def test_fused_ce_op_at_a_wide_row_on_card(cuda):

@@ -212,9 +212,11 @@ def test_forward_split_rule_covers_every_tile_once():
 def test_backward_route_is_a_function_of_d_alone():
     assert [k.ce_backward_route(d) for d in (1, 64, 256, 257, 384, 512)] == [
         "merged", "merged", "merged", "two_pass", "two_pass", "two_pass"]
-    assert k.MAX_D == 256 and k.TWO_PASS_OUT_COLS == 384
+    assert k.MAX_D == 256 and k.TWO_PASS_SLICE == 512
     assert not hasattr(k, "MAX_D_FWD") and not hasattr(k, "MAX_D_TWO_PASS")  # no kernel refuses a width
-    # the dx grid: the vocabulary split covers every tile, for any shape
+    # the pair's slices of D: one up to 512 columns (the wide path's 384), two at 1,024
+    assert [k.two_pass_slices(d) for d in (1, 384, 512, 513, 1024, 1025)] == [1, 1, 1, 2, 2, 3]
+    # the dx units' vocab split covers every tile, for any shape
     for n, v, d in ((2560, 55296, 384), (160, 20480, 256), (1, 1, 1), (70000, 64, 700), (5, 100000, 384)):
         splits, per = k.ce_dx_splits(n, v, d)
         tiles = -(-v // k.TILE)
