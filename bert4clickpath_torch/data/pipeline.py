@@ -2,7 +2,9 @@
 
 (Copied from ``bert4clickpath_tpu/data/pipeline.py``, which is numpy only;
 keep the two in step. The port adds :func:`to_device`, which moves a
-``ClozeBatch`` into the dict of tensors the train step takes.)
+``ClozeBatch`` into the dict of tensors the train step takes, and the
+spans ``b4cp.feed.batch`` (making one train batch) and ``b4cp.feed.copy``
+(``to_device``) of ``utils/profiling.py``.)
 
 Replaces the reference's tf.data graph (create_cloze_dataset,
 input_pipeline.py:136-231: shuffle(20000) -> repeat -> map(mask) ->
@@ -29,6 +31,7 @@ from bert4clickpath_torch.data.cloze import (
     make_train_batch,
     pad_batch,
 )
+from bert4clickpath_torch.utils import profiling
 from bert4clickpath_torch.vocab import Vocabulary
 
 
@@ -113,28 +116,30 @@ class ClozeDataset:
             order = rng.permutation(n)
             for start in range(0, n - per_host_batch + 1, per_host_batch):
                 idx = order[start : start + per_host_batch]
-                if use_native:
-                    tokens, positions, labels = native_train_batch(
-                        values,
-                        offsets,
-                        np.ascontiguousarray(idx, np.int64),
-                        self.max_items,
-                        self.max_masked,
-                        self.masked_percentage,
-                        seed,
-                        counter,
-                    )
-                    counter += 1
-                    yield ClozeBatch({self.feature_name: tokens}, positions, labels)
-                else:
-                    yield make_train_batch(
-                        [self.sequences[i] for i in idx],
-                        rng,
-                        self.max_items,
-                        self.max_masked,
-                        masked_percentage=self.masked_percentage,
-                        feature_name=self.feature_name,
-                    )
+                with profiling.span("b4cp.feed.batch"):
+                    if use_native:
+                        tokens, positions, labels = native_train_batch(
+                            values,
+                            offsets,
+                            np.ascontiguousarray(idx, np.int64),
+                            self.max_items,
+                            self.max_masked,
+                            self.masked_percentage,
+                            seed,
+                            counter,
+                        )
+                        counter += 1
+                        batch = ClozeBatch({self.feature_name: tokens}, positions, labels)
+                    else:
+                        batch = make_train_batch(
+                            [self.sequences[i] for i in idx],
+                            rng,
+                            self.max_items,
+                            self.max_masked,
+                            masked_percentage=self.masked_percentage,
+                            feature_name=self.feature_name,
+                        )
+                yield batch
 
     def eval_batches(
         self, per_host_batch: int, limit_batches: Optional[int] = None
@@ -193,6 +198,7 @@ def prefetch_to_device(iterator, to_device, depth: int = 2):
         yield queue.popleft()
 
 
+@profiling.span("b4cp.feed.copy")
 def to_device(batch, device) -> dict:
     """A host batch as the train step's dict of int32 tensors:
     ``{"features": {...}, "head_positions", "labels"}``. The batch is a

@@ -45,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 
 from bert4clickpath_torch.ops.kernels.attention import mha
 from bert4clickpath_torch.ops.kernels.dropout import fused_dropout
+from bert4clickpath_torch.utils import profiling
 
 DROPOUT_IMPLS = ("mask", "fused")
 
@@ -218,13 +219,20 @@ class Encoder(nn.Module):
     def forward(
         self, x: torch.Tensor, bias: torch.Tensor, generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        x = apply_dropout(x, self.dropout_rate, generator, self.dropout_impl)
+        """The input dropout, each layer and pre-LN's final LayerNorm, each
+        in the span ``b4cp.encoder``, its backward too."""
+        with profiling.block("b4cp.encoder") as blk:
+            x = blk.output(apply_dropout(blk.input(x), self.dropout_rate, generator, self.dropout_impl))
         for i in range(self.num_layers):
             layer = getattr(self, f"layer_{i}")
-            if self.remat and torch.is_grad_enabled():
-                x = _remat_layer(layer, x, bias, generator)
-            else:
-                x = layer(x, bias, generator)
+            with profiling.block("b4cp.encoder") as blk:
+                x = blk.input(x)
+                if self.remat and torch.is_grad_enabled():
+                    x = _remat_layer(layer, x, bias, generator)
+                else:
+                    x = layer(x, bias, generator)
+                x = blk.output(x)
         if self.ln_final is not None:
-            x = self.ln_final(x)
+            with profiling.block("b4cp.encoder") as blk:
+                x = blk.output(self.ln_final(blk.input(x)))
         return x

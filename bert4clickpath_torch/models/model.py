@@ -43,6 +43,7 @@ from bert4clickpath_torch.models.positional import LearnedPositions, sinusoidal_
 from bert4clickpath_torch.ops.fused_ce import padded_rows
 from bert4clickpath_torch.ops.kernels.gather import gather_scale_pos
 from bert4clickpath_torch.ops.masking import padding_bias, segment_ids
+from bert4clickpath_torch.utils import profiling
 
 
 def _embedding(rows: int, dim: int, device) -> nn.Embedding:
@@ -125,38 +126,40 @@ class ClickstreamModel(nn.Module):
         cfg = self.config
         names = list(cfg.features)
         first = features[names[0]]
-        bias = padding_bias(first)
-        seq_len = first.shape[1]
-        if cfg.positional == "learned":
-            pos = self.positions(seq_len)
-        else:
-            pos = self.sinusoid[:seq_len]
-        if len(names) == 1 and self.input_proj is None and item_lookup is None:
-            # fused gather+scale+pos-add kernel: one write of the activation
-            embedded = gather_scale_pos(
-                getattr(self, f"embed_{names[0]}").weight, first, pos,
-                math.sqrt(cfg.d_model), self.dtype,
-            )
-        else:
-            # per-feature embed, concat on the embedding axis
-            embedded = torch.cat(
-                [
-                    item_lookup(features[n]) if item_lookup is not None and n == cfg.item_feature
-                    else getattr(self, f"embed_{n}")(features[n]).to(self.dtype)
-                    for n in names
-                ],
-                dim=-1,
-            )
-            # x sqrt(embedding width) in the compute dtype, BEFORE any
-            # factorized up-projection (see the JAX model's note)
-            width = embedded.shape[-1]
-            scale = torch.tensor(float(width), dtype=self.dtype).sqrt().item()
-            embedded = self.apply_input_proj(embedded * scale)
-            embedded = embedded + pos.to(self.dtype)[None]
-        if self.segment_embed is not None:
-            # cumulative-SEP markers: [CLS][SEP] s1 [SEP] s2 -> 0 1.. 2..
-            seg = segment_ids(first, SEP_ID).clamp(0, cfg.max_segments - 1)
-            embedded = embedded + self.segment_embed(seg).to(self.dtype)
+        with profiling.block("b4cp.embed") as blk:
+            bias = padding_bias(first)
+            seq_len = first.shape[1]
+            if cfg.positional == "learned":
+                pos = blk.after(self.positions(seq_len))
+            else:
+                pos = self.sinusoid[:seq_len]
+            if len(names) == 1 and self.input_proj is None and item_lookup is None:
+                # fused gather+scale+pos-add kernel: one write of the activation
+                embedded = blk.after(gather_scale_pos(
+                    getattr(self, f"embed_{names[0]}").weight, first, pos,
+                    math.sqrt(cfg.d_model), self.dtype,
+                ))
+            else:
+                # per-feature embed, concat on the embedding axis
+                embedded = torch.cat(
+                    [
+                        blk.after(item_lookup(features[n])) if item_lookup is not None and n == cfg.item_feature
+                        else blk.after(getattr(self, f"embed_{n}")(features[n])).to(self.dtype)
+                        for n in names
+                    ],
+                    dim=-1,
+                )
+                # x sqrt(embedding width) in the compute dtype, BEFORE any
+                # factorized up-projection (see the JAX model's note)
+                width = embedded.shape[-1]
+                scale = torch.tensor(float(width), dtype=self.dtype).sqrt().item()
+                embedded = self.apply_input_proj(embedded * scale)
+                embedded = embedded + pos.to(self.dtype)[None]
+            if self.segment_embed is not None:
+                # cumulative-SEP markers: [CLS][SEP] s1 [SEP] s2 -> 0 1.. 2..
+                seg = segment_ids(first, SEP_ID).clamp(0, cfg.max_segments - 1)
+                embedded = embedded + blk.after(self.segment_embed(seg)).to(self.dtype)
+            embedded = blk.output(embedded)
         return self.encoder(embedded, bias, generator)
 
     def apply_input_proj(self, x: torch.Tensor) -> torch.Tensor:
@@ -203,7 +206,8 @@ class ClickstreamModel(nn.Module):
         (B, P, d_head) f32, the fused CE's input. ``item_lookup``: as
         :meth:`encode`."""
         h = self.encode(features, generator, item_lookup)
-        return self.apply_tied_transform(self._route(h, head_positions)).float()
+        with profiling.block("b4cp.head") as blk:
+            return blk.output(self.apply_tied_transform(self._route(blk.input(h), head_positions)).float())
 
     def head_trunk_outputs(
         self, features: dict[str, torch.Tensor], head_positions: Optional[torch.Tensor] = None,
@@ -216,7 +220,8 @@ class ClickstreamModel(nn.Module):
         if self.config.head.kind != "softmax":
             raise ValueError("head_trunk_outputs requires head kind 'softmax'")
         h = self.encode(features, generator, item_lookup)
-        return self.head.trunk(self._route(h, head_positions)).float()
+        with profiling.block("b4cp.head") as blk:
+            return blk.output(self.head.trunk(self._route(blk.input(h), head_positions)).float())
 
     def forward(
         self, features: dict[str, torch.Tensor], head_positions: Optional[torch.Tensor] = None,

@@ -10,7 +10,10 @@ hash of the sources (so a stale build is never loaded), and loaded with
 Every C entry returns ``cudaGetLastError()`` after its launch; :func:`check`
 raises on a non-zero code. Each wrapper adds one to its launch counter where
 it launches its kernel and nowhere else, so a run can show that a path went
-through the kernels.
+through the kernels. The counters live in the port's one registry
+(``utils/profiling.py:counters``, as ``kernels.<kernel>`` and
+``copies.<counter>``); :func:`launch_counts` and :func:`copy_counts` read it, and
+:func:`reset_launch_counts` empties it of all but the copy counters.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+
+from bert4clickpath_torch.utils import profiling
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -87,18 +92,17 @@ build_seconds = None  # wall time of the build in this process (None: not built 
 build_log = ""  # nvcc's output (ptxas register/shared-memory report)
 
 # launch counters, one per kernel (see launch_counts / reset_launch_counts)
-_launches = {
-    "gather": 0, "attention": 0, "attention_bwd": 0, "ce_fwd": 0, "ce_bwd": 0,
-    "ce_bwd_dx": 0, "ce_bwd_dw": 0,
-    "blockwise_fwd": 0, "blockwise_dq": 0, "blockwise_dkv": 0, "dropout": 0,
-}
-
-
+KERNELS = (
+    "gather", "attention", "attention_bwd", "ce_fwd", "ce_bwd", "ce_bwd_dx", "ce_bwd_dw",
+    "blockwise_fwd", "blockwise_dq", "blockwise_dkv", "dropout",
+)
 # copies a wrapper made of an input its kernel cannot read as it lies (the
 # bf16 blockwise forward's and backward's tensor maps:
 # ops/kernels/attention.py _tma_operands); not reset with the launch
 # counters, so a run can show that it made none anywhere
-_copies = {"blockwise_fwd": 0, "blockwise_bwd": 0}
+COPIES = ("blockwise_fwd", "blockwise_bwd")
+_KERNEL_KEYS = {name: "kernels." + name for name in KERNELS}
+_COPY_KEYS = {name: "copies." + name for name in COPIES}
 
 
 def sources() -> list[Path]:
@@ -178,21 +182,25 @@ def check(code: int, what: str) -> None:
 
 
 def count(name: str) -> None:
-    _launches[name] += 1
+    profiling.add(_KERNEL_KEYS[name])
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(_launches)
+    now = profiling.counters()
+    return {name: now.get(key, (0, 0.0))[0] for name, key in _KERNEL_KEYS.items()}
 
 
 def count_copy(name: str) -> None:
-    _copies[name] += 1
+    profiling.add(_COPY_KEYS[name])
 
 
 def copy_counts() -> dict[str, int]:
-    return dict(_copies)
+    now = profiling.counters()
+    return {name: now.get(key, (0, 0.0))[0] for name, key in _COPY_KEYS.items()}
 
 
 def reset_launch_counts() -> None:
-    for name in _launches:
-        _launches[name] = 0
+    """Empty the registry (the launch counters and every span's) but for the
+    copy counters, which a run keeps whole to show that it made none
+    anywhere."""
+    profiling.reset(keep=tuple(_COPY_KEYS.values()))

@@ -69,6 +69,7 @@ from __future__ import annotations
 import torch
 
 from bert4clickpath_torch.ops.kernels import _build
+from bert4clickpath_torch.utils import profiling
 
 _DTYPES = (torch.bfloat16, torch.float32)
 _WARPS = 8  # csrc/attention.cu kWarps
@@ -228,6 +229,7 @@ def mha_backward(q, k, v, bias, do, num_heads):
 
 class _MHA(torch.autograd.Function):
     @staticmethod
+    @profiling.span("b4cp.attention")
     def forward(ctx, q, k, v, bias, num_heads):
         ctx.save_for_backward(q, k, v, bias)
         ctx.num_heads = num_heads
@@ -236,6 +238,7 @@ class _MHA(torch.autograd.Function):
         return _launch_fwd(q, k, v, bias, num_heads)
 
     @staticmethod
+    @profiling.span("b4cp.attention")
     def backward(ctx, do):
         q, k, v, bias = ctx.saved_tensors
         dq, dk, dv = mha_backward(q, k, v, bias, do, ctx.num_heads)
@@ -529,6 +532,7 @@ def blockwise_mha_backward(q, k, v, bias, out, lse, do, num_heads):
 
 class _BlockwiseMHA(torch.autograd.Function):
     @staticmethod
+    @profiling.span("b4cp.attention")
     def forward(ctx, q, k, v, bias, num_heads):
         out, lse = blockwise_mha_forward(q, k, v, bias, num_heads)
         ctx.save_for_backward(q, k, v, bias, out, lse)
@@ -536,6 +540,7 @@ class _BlockwiseMHA(torch.autograd.Function):
         return out
 
     @staticmethod
+    @profiling.span("b4cp.attention")
     def backward(ctx, do):
         q, k, v, bias, out, lse = ctx.saved_tensors
         dq, dk, dv = blockwise_mha_backward(q, k, v, bias, out, lse, do, ctx.num_heads)

@@ -85,6 +85,7 @@ from typing import Optional
 import torch
 
 from bert4clickpath_torch.ops.kernels import _build
+from bert4clickpath_torch.utils import profiling
 
 NEG_BIG = -1e30
 TILE = 64  # csrc/fused_ce_two_pass.cu kTpRows: rows of x and of the table per two-pass tile
@@ -258,6 +259,7 @@ def _tma_operands(x: torch.Tensor, table: torch.Tensor) -> tuple[torch.Tensor, t
     return x, table
 
 
+@profiling.span("b4cp.ce_fwd")
 def ce_stats(
     x: torch.Tensor,  # (N, D) f32 or bf16
     table: torch.Tensor,  # (V, D) f32
@@ -486,6 +488,7 @@ def ce_backward_route(d: int) -> str:
     return "merged" if d <= MAX_D else "two_pass"
 
 
+@profiling.span("b4cp.ce_bwd")
 def ce_backward(
     x, table, bias, labels_model, logz, dnll, row_offset: int, num_valid: int,
     row_start: int = 0,

@@ -78,6 +78,7 @@ from bert4clickpath_torch.training.train_state import (
     looped,
     make_eval_step,
 )
+from bert4clickpath_torch.utils import profiling
 
 
 def round_up(x: int, m: int) -> int:
@@ -530,6 +531,7 @@ def make_spmd_train_step(
     check_tier(model, _tier, embed_impl="xla")
     cfg = model.config
 
+    @profiling.span("b4cp.step")
     def step(state: TrainState, batch: dict, generator: Optional[torch.Generator] = None):
         names = list(state.params)
         gathered, table_shard = _forward_gathered(

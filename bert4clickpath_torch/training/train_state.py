@@ -56,6 +56,7 @@ from bert4clickpath_torch.ops.losses import (
     sample_negatives,
     sampled_softmax_ce,
 )
+from bert4clickpath_torch.utils import profiling
 
 Params = dict[str, torch.Tensor]
 
@@ -305,6 +306,7 @@ def make_train_step(
             negatives_generator = torch.Generator(device).manual_seed(0)
     compute_loss = make_loss_fn(model, loss_fn, fused_ce_num_valid)
 
+    @profiling.span("b4cp.step")
     def step(
         state: TrainState, batch: dict, generator: Optional[torch.Generator] = None,
         negatives: Optional[torch.Tensor] = None,
@@ -324,17 +326,19 @@ def apply_gradients(
 ) -> TrainState:
     """One optimizer update in place: Adam, the LR ``schedule(step) *
     lr_scale``, the EMA; returns the state one step on (shared by the
-    single-device step and the parallel tiers)."""
-    updates, opt_state = tx.update(grads, state.opt_state, state.params)
-    with torch.no_grad():
-        lr = schedule(state.step) * state.lr_scale
-        for name, p in state.params.items():
-            p.add_(updates[name] * lr)
-        if ema_decay > 0.0:
-            if state.ema_params is None:
-                raise ValueError("ema_decay > 0 requires TrainState.create(..., ema=True)")
-            ema_update(state.ema_params, state.params, state.step, ema_decay)
-    return state.replace(step=state.step + 1, opt_state=opt_state)
+    single-device step and the parallel tiers), in the span
+    ``b4cp.optimizer``."""
+    with profiling.span("b4cp.optimizer"):
+        updates, opt_state = tx.update(grads, state.opt_state, state.params)
+        with torch.no_grad():
+            lr = schedule(state.step) * state.lr_scale
+            for name, p in state.params.items():
+                p.add_(updates[name] * lr)
+            if ema_decay > 0.0:
+                if state.ema_params is None:
+                    raise ValueError("ema_decay > 0 requires TrainState.create(..., ema=True)")
+                ema_update(state.ema_params, state.params, state.step, ema_decay)
+        return state.replace(step=state.step + 1, opt_state=opt_state)
 
 
 def dropout_generator(device, seed: int, step: int = 0) -> torch.Generator:

@@ -1,155 +1,227 @@
-"""Performance accounting: FLOP/byte roofline estimates + profiler hooks
-(counterpart of ``bert4clickpath_tpu/utils/profiling.py``).
+"""The port's observability: spans, one counter registry, the Chrome-trace
+exporter, and the card's peaks.
 
-* :func:`step_cost` — analytic FLOPs + device-memory bytes for a train step
-  of a given ModelConfig/batch (encoder, head/CE, optimizer); its arithmetic
-  is the JAX module's, which is hardware-independent;
-* :func:`speed_of_light` — measured step time -> MFU / bandwidth
-  utilization against the card's peaks;
-* :func:`trace` — context manager around ``torch.profiler`` writing a
-  Chrome trace (the counterpart of the XProf trace).
+**Spans.** :class:`span` names a region of the program. While a
+``torch.profiler`` records, it enters ``record_function(name)``, so the
+region is a user range in the same timeline as the card's operations;
+otherwise it adds one call and the region's host seconds to the registry
+under its name, and does nothing else. So a profiled step's host cost is
+never counted as the program's, and an unprofiled one pays two
+``perf_counter`` calls a span. :class:`block` is a span whose backward also
+lies in a range of its name: an identity autograd function on the block's
+input (``block.input``) or a hook on the node of a parameter's read
+(``block.after``) closes a range that an identity function on its output
+(``block.output``) opens. The engine runs a block's backward on the thread
+that runs the backward (on the card the autograd engine's device thread,
+not the caller's), so its launches lie inside that range there. Markers are
+put in only while the profiler records, under grad mode, on tensors that
+require a gradient; they launch nothing and leave every gradient bit-equal.
+A block's range is closed by the backward of its inputs; where a backward
+does not reach one of them (a gradient of some parameters only, a frozen
+input), the range is closed when that backward ends.
 
-Peaks default to one NVIDIA H100 SXM (NVIDIA's data sheet, dense rates at
-700 W), the ones ``chip_smoke.py`` rates its kernels against. The JAX
-module's third port, the TPU's vector unit, becomes the CUDA cores' f32
-rate: the exp-bearing softmax streams (``vpu_ops``, named as in the JAX
-module) run there, outside the tensor cores.
+The spans of the program, one name each (readers and ``PERF.md`` use
+them):
+
+============================ ============================================= ========= ========
+span                         where                                         forward   backward
+============================ ============================================= ========= ========
+``b4cp.feed.batch``          ``data/pipeline.py``: one Cloze batch made    host      -
+``b4cp.feed.copy``           ``data/pipeline.py:to_device``                host+copy -
+``b4cp.step``                the single-device and the vocab-sharded step  yes       -
+``b4cp.embed``               item lookup, positions, padding bias          block     block
+                             (``models/model.py:encode``)
+``b4cp.encoder``             the encoder's input dropout, each layer (a    block     block
+                             remat recompute too), pre-LN's final LayerNorm
+``b4cp.attention``           the attention kernels' autograd functions     launch    launch
+``b4cp.head``                routing gather, tied transform, float cast    block     block
+``b4cp.ce_fwd``              ``ops/kernels/fused_ce.py:ce_stats``          launch    -
+``b4cp.ce_bwd``              ``ops/kernels/fused_ce.py:ce_backward``       -         launch
+``b4cp.optimizer``           ``training/train_state.py:apply_gradients``   yes       -
+============================ ============================================= ========= ========
+
+**Counters.** :func:`counters` is the one registry: ``{name: (calls,
+seconds)}`` of every span run off the profiler, beside the kernel counters
+of ``ops/kernels/_build.py`` (``kernels.<kernel>``: launches;
+``copies.<counter>``: copies a wrapper made; seconds 0). :func:`reset`
+empties it (``_build.reset_launch_counts`` keeps the copy counters, so a
+run can show that it made no copy anywhere).
+
+**Export.** :func:`trace` wraps a block in ``torch.profiler`` and writes a
+Chrome trace.
+
+``H100_PEAKS`` are one NVIDIA H100 SXM's dense rates at 700 W (NVIDIA's
+data sheet), the ones ``chip_smoke.py`` rates its kernels against.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
-from dataclasses import dataclass
 
-from bert4clickpath_torch.config import ModelConfig
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
-H100_HBM_BYTES_PER_S = 3.35e12
-H100_BF16_FLOPS = 989e12  # tensor cores, dense
-H100_TF32_FLOPS = 495e12  # tensor cores, dense
-H100_F32_FLOPS = 67e12  # CUDA cores, outside the tensor cores (also integer work)
-# the same peaks by operand type, as chip_smoke.py's bounds take them
-H100_PEAKS = {"bytes": H100_HBM_BYTES_PER_S, "bf16": H100_BF16_FLOPS, "tf32": H100_TF32_FLOPS,
-              "f32": H100_F32_FLOPS}
+# device memory bytes/s; bf16 and TF32 tensor-core FLOP/s (dense); f32 on
+# the CUDA cores (also integer work)
+H100_PEAKS = {"bytes": 3.35e12, "bf16": 989e12, "tf32": 495e12, "f32": 67e12}
 
-# Weighted VPU ops per element of each exp-bearing stream (exp counts ~2):
-_CE_FWD_OPS = 5  # max-reduce, sub, exp, sum-reduce
-_CE_BWD_OPS = 8  # sub, exp, onehot cmp+select, sub, dnll mul, bf16 cvt
-_ATTN_SOFTMAX_OPS = 11  # fwd max/sub/exp/sum/div + bwd mul/reduce/sub/mul
+_registry: dict[str, list] = {}  # name -> [calls, seconds]
+_lock = threading.Lock()  # a backward's spans count on the autograd engine's thread
 
 
-@dataclass
-class StepCost:
-    encoder_flops: float
-    head_flops: float
-    total_flops: float  # fwd + bwd
-    hbm_bytes: float  # params + activations traffic estimate
-    params: int
-    # weighted elementwise ops on the exp-bearing VPU streams (fused-CE
-    # online softmax fwd+bwd, attention softmax). Deliberately UNDER-counts
-    # (no LN/dropout/residual streams), so vpu_bound_ms stays a valid lower
-    # bound on the step.
-    vpu_ops: float = 0.0
-
-    def summary(self) -> dict:
-        return {
-            "encoder_gflops": round(self.encoder_flops / 1e9, 1),
-            "head_gflops": round(self.head_flops / 1e9, 1),
-            "total_gflops": round(self.total_flops / 1e9, 1),
-            "hbm_mb": round(self.hbm_bytes / 1e6, 1),
-            "params_m": round(self.params / 1e6, 2),
-            "vpu_gops": round(self.vpu_ops / 1e9, 1),
-        }
+def add(name: str, seconds: float = 0.0, calls: int = 1) -> None:
+    """Add ``calls`` and ``seconds`` to the counter ``name``."""
+    with _lock:
+        entry = _registry.get(name)
+        if entry is None:
+            _registry[name] = [calls, seconds]
+        else:
+            entry[0] += calls
+            entry[1] += seconds
 
 
-def encoder_param_count(cfg: ModelConfig) -> int:
-    d, f = cfg.d_model, cfg.ffn_dim
-    per_layer = 4 * d * d + 4 * d + 2 * d * f + d + f + 4 * d  # qkv/o + ffn + 2 LN
-    emb = sum(fc.vocab_rows * fc.embedding_dim for fc in cfg.features.values())
-    embed_sum = sum(fc.embedding_dim for fc in cfg.features.values())
-    proj = embed_sum * d + d if cfg.encoder_dim and cfg.encoder_dim != embed_sum else 0
-    pos = cfg.max_len * d if cfg.positional == "learned" else 0
-    return cfg.num_layers * per_layer + emb + pos + proj
+def counters() -> dict[str, tuple[int, float]]:
+    """A snapshot of the registry: ``{name: (calls, seconds)}``."""
+    with _lock:
+        return {name: (calls, seconds) for name, (calls, seconds) in _registry.items()}
 
 
-def step_cost(
-    cfg: ModelConfig,
-    batch: int,
-    label_vocab: int,
-    bytes_per_param: int = 4,
-    fused_ce: bool = True,
-) -> StepCost:
-    """Analytic cost of one training step (fwd + bwd + Adam)."""
-    b, l, d, f, p = batch, cfg.max_len, cfg.d_model, cfg.ffn_dim, cfg.head_width
-    # encoder fwd matmul FLOPs per layer: qkv/o (4*B*L*D^2), scores+av
-    # (2*B*H*L^2*Dh = 2*B*L^2*D), ffn (2*B*L*D*F); x2 MACs->FLOPs
-    per_layer = 2 * (4 * b * l * d * d + 2 * b * l * l * d + 2 * b * l * d * f)
-    enc_fwd = cfg.num_layers * per_layer
-    if cfg.head.kind in ("tied_softmax",):
-        head_fwd = 2 * b * p * d * label_vocab
-    elif cfg.head.kind == "softmax":
-        dims = [d, *cfg.head.dense_dims, label_vocab]
-        head_fwd = sum(2 * b * p * i * o for i, o in zip(dims[:-1], dims[1:]))
-    else:
-        dims = [d, *cfg.head.dense_dims, max(1, cfg.head.output_size)]
-        head_fwd = sum(2 * b * p * i * o for i, o in zip(dims[:-1], dims[1:]))
-    # bwd = 2x fwd; fused CE recomputes logits in bwd (+2 head_fwd passes)
-    enc_total = 3 * enc_fwd
-    head_total = 5 * head_fwd if fused_ce else 3 * head_fwd
-    n_params = encoder_param_count(cfg)
-    # HBM: params read fwd+bwd, grads written, adam mu/nu read+write (x5),
-    # plus logits traffic only in the non-fused path
-    hbm = n_params * bytes_per_param * 7.0
-    if not fused_ce and cfg.head.kind in ("softmax", "tied_softmax"):
-        hbm += 3.0 * b * p * label_vocab * 4  # materialized f32 logits fwd+bwd
-    vpu = 0.0
-    if cfg.head.kind in ("softmax", "tied_softmax"):
-        # every (masked-position, catalog-row) score element passes through
-        # the online-softmax stream once fwd and once in the bwd recompute
-        vpu += b * p * label_vocab * (_CE_FWD_OPS + _CE_BWD_OPS)
-    vpu += cfg.num_layers * cfg.num_heads * b * l * l * _ATTN_SOFTMAX_OPS
-    return StepCost(
-        encoder_flops=enc_total,
-        head_flops=head_total,
-        total_flops=enc_total + head_total,
-        hbm_bytes=hbm,
-        params=n_params,
-        vpu_ops=vpu,
-    )
+def reset(keep: tuple[str, ...] = ()) -> None:
+    """Empty the registry, but for the counters named in ``keep``."""
+    with _lock:
+        for name in [name for name in _registry if name not in keep]:
+            del _registry[name]
 
 
-def speed_of_light(
-    cost: StepCost,
-    measured_step_seconds: float,
-    peak_flops: float = H100_BF16_FLOPS,
-    peak_hbm: float = H100_HBM_BYTES_PER_S,
-    peak_vpu: float = H100_F32_FLOPS,
-) -> dict:
-    """Three-port roofline report for a measured step time (the JAX
-    module's keys: ``vpu`` is the elementwise port, here the CUDA cores).
+def recording() -> bool:
+    """Whether a ``torch.profiler`` records (a process-wide flag)."""
+    return _autograd_profiler._is_profiler_enabled
 
-    MFU alone under-states the floor for softmax-heavy steps: the fused-CE
-    kernels stream one exp-bearing elementwise pass per (position,
-    catalog-row) element fwd AND bwd, a cost tensor-core FLOP counting
-    never sees. That port's time is reported alongside; each port's time is
-    a valid lower bound, so ``speed_of_light_ms`` (their max) is too.
-    """
-    flop_time = cost.total_flops / peak_flops
-    hbm_time = cost.hbm_bytes / peak_hbm
-    vpu_time = cost.vpu_ops / peak_vpu
-    times = {"flops": flop_time, "hbm": hbm_time, "vpu": vpu_time}
-    bound = max(times, key=times.get)
-    return {
-        "measured_ms": round(measured_step_seconds * 1e3, 3),
-        "flop_bound_ms": round(flop_time * 1e3, 3),
-        "hbm_bound_ms": round(hbm_time * 1e3, 3),
-        "vpu_bound_ms": round(vpu_time * 1e3, 3),
-        "speed_of_light_ms": round(times[bound] * 1e3, 3),
-        "mfu": round(cost.total_flops / (measured_step_seconds * peak_flops), 4),
-        "sol_fraction": round(times[bound] / measured_step_seconds, 4),
-        "bound": bound,
-    }
+
+class span(contextlib.ContextDecorator):
+    """A named region, as a context manager or a decorator: a user range
+    under the profiler, else one call and its host seconds in the
+    registry."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._range = None
+        self._start = 0.0
+
+    def _recreate_cm(self):
+        return type(self)(self.name)  # a decorated function may recurse or run on two threads
+
+    def __enter__(self):
+        if recording():
+            self._range = _autograd_profiler.record_function(self.name)
+            self._range.__enter__()
+        else:
+            self._start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+        else:
+            add(self.name, time.perf_counter() - self._start)
+        return False
+
+
+def _open_range(name: str):
+    return torch.ops.profiler._record_function_enter_new(name, None)
+
+
+def _close_range(handle) -> None:
+    torch.ops.profiler._record_function_exit._RecordFunction(handle)
+
+
+class _Marks:
+    """The backward range of one block: opened once by its output's marker,
+    closed when the last of its inputs' markers has run."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.inputs = 0  # input markers and read hooks put in
+        self.left = 0  # of them, not yet run in this backward
+        self.handle = None
+
+    def open(self) -> None:
+        self.close()  # a backward run again over a kept graph
+        self.left = self.inputs
+        self.handle = _open_range(self.name)
+        # closed here at the latest if this backward skips one of the inputs
+        torch.autograd.Variable._execution_engine.queue_callback(self.close)
+
+    def input_done(self) -> None:
+        self.left -= 1
+        if self.left == 0:
+            self.close()
+
+    def close(self) -> None:
+        if self.handle is not None:
+            _close_range(self.handle)
+            self.handle = None
+
+
+class _InputMark(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, marks):
+        ctx.marks = marks
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.marks.input_done()
+        return g, None
+
+
+class _OutputMark(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, marks):
+        ctx.marks = marks
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.marks.open()
+        return g, None
+
+
+class block(span):
+    """A :class:`span` whose backward, too, lies in a range of its name:
+    pass the block's inputs through :meth:`input` (activations) or
+    :meth:`after` (a parameter's read: the range closes after the node that
+    made ``t`` has run its backward), and its output through
+    :meth:`output`. Without the profiler, or under ``no_grad``, these
+    return their tensor as it is."""
+
+    def __enter__(self):
+        super().__enter__()
+        self._marks = _Marks(self.name) if self._range is not None and torch.is_grad_enabled() else None
+        return self
+
+    def input(self, t: torch.Tensor) -> torch.Tensor:
+        if self._marks is None or not t.requires_grad:
+            return t
+        self._marks.inputs += 1
+        return _InputMark.apply(t, self._marks)
+
+    def after(self, t: torch.Tensor) -> torch.Tensor:
+        if self._marks is None or t.grad_fn is None:
+            return t
+        self._marks.inputs += 1
+        marks = self._marks
+        t.grad_fn.register_hook(lambda grad_inputs, grad_outputs: marks.input_done())
+        return t
+
+    def output(self, t: torch.Tensor) -> torch.Tensor:
+        if self._marks is None or not self._marks.inputs or not t.requires_grad:
+            return t
+        return _OutputMark.apply(t, self._marks)
 
 
 @contextlib.contextmanager
@@ -158,7 +230,6 @@ def trace(logdir: str):
     CUDA activity); yields the profiler (``key_averages()``) and writes a
     Chrome trace, ``trace_<pid>_<time>.json``, under ``logdir`` (view in
     chrome://tracing or Perfetto)."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])

@@ -1,9 +1,8 @@
 """The port's utility modules and ``remat`` against the JAX package's, on
 the CPU.
 
-* ``utils/profiling.py``: ``step_cost`` field for field equal to JAX's
-  (the arithmetic is the same; exact), ``speed_of_light`` at the H100's
-  peaks;
+* ``utils/profiling.py``: ``trace`` writes a Chrome trace (its spans and
+  counters: ``test_torch_tracing.py``);
 * ``utils/debug.py``: ``checked``, ``assert_all_finite`` and
   ``finite_guard_step`` on a NaN and on a clean step;
 * ``utils/cli.py``: ``parse_spec_args``, ``tests/test_cli_spec.py``'s cases
@@ -21,12 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from bert4clickpath_tpu.config import FeatureConfig as JFeature
-from bert4clickpath_tpu.config import HeadConfig as JHead
-from bert4clickpath_tpu.config import ModelConfig as JModelConfig
 from bert4clickpath_tpu.models.model import ClickstreamModel as JModel
 from bert4clickpath_tpu.utils import cli as jcli
-from bert4clickpath_tpu.utils import profiling as jprofiling
 from bert4clickpath_torch.config import ModelConfig, TrainConfig
 from bert4clickpath_torch.convert import flax_from_state_dict
 from bert4clickpath_torch.data.pipeline import to_device
@@ -42,47 +37,6 @@ torch.set_num_threads(1)
 
 
 # -- profiling ----------------------------------------------------------------
-
-
-def _cost_configs():
-    flagship = dict(features={"items": JFeature(55296, 256)}, num_layers=4, num_heads=4, ffn_dim=1024, max_len=53,
-                    head=JHead("tied_softmax", output_size=54542))
-    wide = dict(flagship, features={"items": JFeature(55296, 384)}, num_heads=6, ffn_dim=1536, qkv_fused=True)
-    return {
-        "flagship": JModelConfig(**flagship),
-        "wide": JModelConfig(**wide),
-        "mlp head": JModelConfig(**dict(flagship, head=JHead("softmax", (1024, 512, 256, 128), 54542))),
-        "factorized learned": JModelConfig(**dict(flagship, encoder_dim=512, positional="learned")),
-        "multilabel": JModelConfig(**dict(flagship, head=JHead("multilabel", (64,), 12))),
-    }
-
-
-@pytest.mark.parametrize("name", list(_cost_configs()))
-@pytest.mark.parametrize("fused", [True, False])
-def test_step_cost_equals_jax(name, fused):
-    """Every StepCost field and its summary, and encoder_param_count, equal
-    to the JAX module's (exact: the same integer and float arithmetic)."""
-    jcfg = _cost_configs()[name]
-    cfg = ModelConfig.from_json(jcfg.to_json())
-    assert profiling.encoder_param_count(cfg) == jprofiling.encoder_param_count(jcfg)
-    got = profiling.step_cost(cfg, batch=256, label_vocab=54542, fused_ce=fused)
-    want = jprofiling.step_cost(jcfg, batch=256, label_vocab=54542, fused_ce=fused)
-    assert vars(got) == vars(want)
-    assert got.summary() == want.summary()
-
-
-def test_speed_of_light_at_h100_peaks():
-    """The H100's peaks (chip_smoke.py's) by default; the report's
-    arithmetic is JAX's at the same peaks."""
-    assert profiling.H100_PEAKS == {"bytes": 3.35e12, "bf16": 989e12, "tf32": 495e12, "f32": 67e12}
-    cfg = ModelConfig.from_json(_cost_configs()["flagship"].to_json())
-    cost = profiling.step_cost(cfg, batch=256, label_vocab=54542)
-    rep = profiling.speed_of_light(cost, measured_step_seconds=14e-3)
-    want = jprofiling.speed_of_light(cost, 14e-3, peak_flops=989e12, peak_hbm=3.35e12, peak_vpu=67e12)
-    assert rep == want
-    assert rep["flop_bound_ms"] == round(cost.total_flops / 989e12 * 1e3, 3)
-    assert rep["vpu_bound_ms"] == round(cost.vpu_ops / 67e12 * 1e3, 3)
-    assert 0 < rep["mfu"] < 1 and rep["speed_of_light_ms"] <= rep["measured_ms"]
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
