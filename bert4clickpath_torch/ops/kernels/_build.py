@@ -84,6 +84,10 @@ SIGNATURES = {
     # x, seed (int32 on the device), out, is_bf16, n, threshold, inv_keep,
     # aligned, device, stream
     "b4cp_dropout": (_I, [_P, _P, _P, _I, _LL, ctypes.c_uint, _F, _I, _I, _P]),
+    # rows (count x 6 int64: p, g, mu, nu, numel, decay), count, mu_is_bf16,
+    # c1, b1, c2, b2, inv_bc1, inv_bc2, eps, wd, lr, lr_scale, device, stream
+    "b4cp_adam": (_I, [_P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P, _I, _P]),
+    "b4cp_adam_capacity": (_I, []),
     "b4cp_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -94,7 +98,7 @@ build_log = ""  # nvcc's output (ptxas register/shared-memory report)
 # launch counters, one per kernel (see launch_counts / reset_launch_counts)
 KERNELS = (
     "gather", "attention", "attention_bwd", "ce_fwd", "ce_bwd", "ce_bwd_dx", "ce_bwd_dw",
-    "blockwise_fwd", "blockwise_dq", "blockwise_dkv", "dropout",
+    "blockwise_fwd", "blockwise_dq", "blockwise_dkv", "dropout", "adam",
 )
 # copies a wrapper made of an input its kernel cannot read as it lies (the
 # bf16 blockwise forward's and backward's tensor maps:

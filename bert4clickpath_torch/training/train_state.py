@@ -49,6 +49,7 @@ from bert4clickpath_torch.models.model import head_catalog
 from bert4clickpath_torch.ops import metrics as metrics_lib
 from bert4clickpath_torch.ops.chunked_eval import chunked_eval_stats, pick_chunk
 from bert4clickpath_torch.ops.fused_ce import fused_masked_ce_sums
+from bert4clickpath_torch.ops.kernels import adam as adam_kernels
 from bert4clickpath_torch.ops.losses import (
     masked_binary_cross_entropy,
     masked_multilabel_cross_entropy,
@@ -118,14 +119,17 @@ class Adam:
             nu={k: torch.zeros_like(p) for k, p in params.items()},
         )
 
+    def corrections(self, count: int) -> tuple[float, float]:
+        """optax's bias corrections 1 - b1**count and 1 - b2**count, in f32."""
+        f32 = np.float32
+        return float(f32(1) - f32(self.b1) ** f32(count)), float(f32(1) - f32(self.b2) ** f32(count))
+
     @torch.no_grad()
     def update(self, grads: Params, state: AdamState, params: Params) -> tuple[Params, AdamState]:
         """(updates, new state); the moments are updated in place."""
         count = state.count + 1
-        f32 = np.float32
-        # optax: 1 - decay**count in f32, then the division in the moment's dtype
-        bc1 = float(f32(1) - f32(self.b1) ** f32(count))
-        bc2 = float(f32(1) - f32(self.b2) ** f32(count))
+        # the division by each correction in the moment's dtype
+        bc1, bc2 = self.corrections(count)
         updates = {}
         for name, g in grads.items():
             prev = state.mu[name]
@@ -138,6 +142,35 @@ class Adam:
             state.mu[name].copy_(mu)  # rounds to mu_dtype after the update
             state.nu[name].copy_(nu)
         return updates, AdamState(count, state.mu, state.nu)
+
+    @torch.no_grad()
+    def apply(
+        self, grads: Params, state: AdamState, params: Params, lr: float, lr_scale: torch.Tensor,
+    ) -> AdamState:
+        """The update added to ``params`` in place at the learning rate ``lr
+        * lr_scale`` (a host float, a () f32 tensor); returns the new state,
+        whose moments are updated in place.
+
+        Tensors on the CPU take :meth:`update`, then ``p.add_(u * (lr *
+        lr_scale))``; tensors on a CUDA device take one pass of the kernel
+        (``ops/kernels/adam.py``), which gives the same bits and raises on a
+        tensor it does not take."""
+        if all(p.device.type == "cpu" for p in params.values()):
+            updates, new_state = self.update(grads, state, params)
+            lr = lr * lr_scale
+            for name, p in params.items():
+                p.add_(updates[name] * lr)
+            return new_state
+        count = state.count + 1
+        bc1, bc2 = self.corrections(count)
+        names = list(params)
+        adam_kernels.adam_step(
+            [params[n] for n in names], [grads[n] for n in names], [state.mu[n] for n in names],
+            [state.nu[n] for n in names], [self.decays(n, params[n]) for n in names],
+            b1=self.b1, b1_mu=_weak(self.b1, state.mu[names[0]].dtype), b2=self.b2, eps=self.eps,
+            bc1=bc1, bc2=bc2, weight_decay=self.weight_decay, lr=lr, lr_scale=lr_scale,
+        )
+        return AdamState(count, state.mu, state.nu)
 
 
 def make_optimizer(
@@ -324,20 +357,16 @@ def make_train_step(
 def apply_gradients(
     state: TrainState, grads: Params, tx: Adam, schedule: Callable[[int], float], ema_decay: float = 0.0,
 ) -> TrainState:
-    """One optimizer update in place: Adam, the LR ``schedule(step) *
-    lr_scale``, the EMA; returns the state one step on (shared by the
-    single-device step and the parallel tiers), in the span
-    ``b4cp.optimizer``."""
+    """One optimizer update in place: Adam at the LR ``schedule(step) *
+    lr_scale`` (:meth:`Adam.apply`: one kernel on the card), the EMA;
+    returns the state one step on (shared by the single-device step and the
+    parallel tiers), in the span ``b4cp.optimizer``."""
     with profiling.span("b4cp.optimizer"):
-        updates, opt_state = tx.update(grads, state.opt_state, state.params)
-        with torch.no_grad():
-            lr = schedule(state.step) * state.lr_scale
-            for name, p in state.params.items():
-                p.add_(updates[name] * lr)
-            if ema_decay > 0.0:
-                if state.ema_params is None:
-                    raise ValueError("ema_decay > 0 requires TrainState.create(..., ema=True)")
-                ema_update(state.ema_params, state.params, state.step, ema_decay)
+        opt_state = tx.apply(grads, state.opt_state, state.params, schedule(state.step), state.lr_scale)
+        if ema_decay > 0.0:
+            if state.ema_params is None:
+                raise ValueError("ema_decay > 0 requires TrainState.create(..., ema=True)")
+            ema_update(state.ema_params, state.params, state.step, ema_decay)
         return state.replace(step=state.step + 1, opt_state=opt_state)
 
 

@@ -43,7 +43,9 @@ span                         where                                         forwa
 **Counters.** :func:`counters` is the one registry: ``{name: (calls,
 seconds)}`` of every span run off the profiler, beside the kernel counters
 of ``ops/kernels/_build.py`` (``kernels.<kernel>``: launches;
-``copies.<counter>``: copies a wrapper made; seconds 0). :func:`reset`
+``copies.<counter>``: copies a wrapper made; seconds 0) and
+``kernels.adam.tensors``, the tensors the Adam kernel updated
+(``ops/kernels/adam.py``). :func:`reset`
 empties it (``_build.reset_launch_counts`` keeps the copy counters, so a
 run can show that it made no copy anywhere).
 

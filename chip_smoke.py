@@ -20,7 +20,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    (D <= 128 and 256, f32 and bf16 x; with its TMA reduce-adds, UTMAREDG)
    and the bf16 blockwise attention forward's, dq's and dk/dv's four each
    (head-width tiles 16, 32, 64 and 128); raises unless each has them.
-3. kernels — holds each of the eleven kernels against its plain PyTorch version
+3. kernels — holds each of the twelve kernels against its plain PyTorch version
    on the card at the shapes its main path gives it, with the tolerance
    stated, and times both (CUDA events; median device time of warm calls):
    the gather and whole-row attention at the flagship's shapes (the bf16
@@ -51,7 +51,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    without a bias (two runs of each pass bit-equal, the second from one
    call of the pair), then at D=256 timed beside the merged backward; the
    CE forward, dx and dW passes and the ``fused_softmax_ce`` op with
-   gradients at D=1,024, a width no kernel refuses. Beside each kernel
+   gradients at D=1,024, a width no kernel refuses; the optimizer's one-pass
+   Adam at the flagship's (bf16 mu) and the large catalog's (f32 mu)
+   parameter sets, three steps bit-equal to ``Adam.update`` + ``p.add_(u *
+   lr)`` in p, mu and nu, one launch a step. Beside each kernel
    it computes the least time the card could take for the same work (bytes
    over 3.35 TB/s, operations over the published peak of their type) and,
    as a measurement only, times the one PyTorch call that computes the same
@@ -742,6 +745,7 @@ def phase_kernels(card: str) -> dict:
     # the library call's forward was timed on the backward's inputs (same shape)
     out["attention"]["library_ms"] = out["attention_bwd"].pop("library_fwd_ms")
     out.update(long_context_kernels(rng, card))
+    out.update(optimizer_kernels(card))
     for name, row in out.items():
         log(f"[kernels] {name}: kernel {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
             f"(share {row['bound_ms'] / row['ms']:.3f}), plain {row['plain_ms']:.4f} ms, "
@@ -785,6 +789,90 @@ def training_kernels(rng, card: str) -> dict:
     wide.pop("times")
     out.update(wide)
     ce_wide_row_at(rng, card)
+    return out
+
+
+def adam_kernel_at(tag: str, model_cfg, mu_dtype, card: str, reps: int) -> dict:
+    """The optimizer's kernel (``ops/kernels/adam.py``) beside its plain
+    version (``Adam.update``, then ``p.add_(u * lr)``) over the parameter set
+    of ``model_cfg``: three steps of each from the same parameters and
+    gradients (lr_scale 0.5), p, mu and nu bit-equal after each; its
+    launches and tensors in one step; both timed (median of ``reps`` calls)
+    against the bytes bound: read p, g, mu, nu, write p, mu, nu."""
+    from bert4clickpath_torch.models.model import ClickstreamModel
+    from bert4clickpath_torch.ops.kernels import _build
+    from bert4clickpath_torch.ops.kernels import adam as adam_kernels
+    from bert4clickpath_torch.training import schedules
+    from bert4clickpath_torch.training.train_state import Adam, TrainState, apply_gradients
+    from bert4clickpath_torch.utils import profiling
+
+    shapes = {k: p.shape for k, p in ClickstreamModel(model_cfg, device="meta").named_parameters()}
+    gen = torch.Generator("cuda").manual_seed(SEED + 20)
+    params = {k: torch.randn(s, device="cuda", generator=gen).mul_(0.02) for k, s in shapes.items()}
+    grads = {k: torch.randn(s, device="cuda", generator=gen).mul_(1e-3) for k, s in shapes.items()}
+    numel = sum(p.numel() for p in params.values())
+    tx = Adam(0.9, 0.999, 1e-9, mu_dtype=mu_dtype)
+    schedule = schedules.warmup_constant(1e-3, 10)
+    states = []
+    for ps in (params, {k: p.clone() for k, p in params.items()}):
+        states.append(TrainState.create(ps, tx))
+        states[-1].lr_scale.fill_(0.5)
+    kernel, plain = states
+    for i in range(3):
+        kernel = apply_gradients(kernel, grads, tx, schedule)
+        updates, opt_state = tx.update(grads, plain.opt_state, plain.params)
+        with torch.no_grad():
+            lr = schedule(plain.step) * plain.lr_scale
+            for name, p in plain.params.items():
+                p.add_(updates[name] * lr)
+        plain = plain.replace(step=plain.step + 1, opt_state=opt_state)
+        del updates
+        torch.cuda.synchronize()
+        apart = [f"{name}.{what}" for name in shapes
+                 for what, a, b in (("p", kernel.params[name], plain.params[name]),
+                                    ("mu", kernel.opt_state.mu[name], plain.opt_state.mu[name]),
+                                    ("nu", kernel.opt_state.nu[name], plain.opt_state.nu[name]))
+                 if not torch.equal(a, b)]
+        if apart:
+            raise AssertionError(f"[kernels] adam {tag}: step {i + 1} apart from the plain path in {apart}")
+    del plain, opt_state
+    torch.cuda.empty_cache()
+    _build.reset_launch_counts()
+    kernel = apply_gradients(kernel, grads, tx, schedule)
+    launches = _build.launch_counts()["adam"]
+    tensors = profiling.counters()[adam_kernels.TENSORS_COUNTER][0]
+    if launches != -(-len(shapes) // adam_kernels.capacity()) or tensors != len(shapes):
+        raise AssertionError(f"[kernels] adam {tag}: {launches} launches over {tensors} tensors")
+    ms = device_time_ms(lambda: tx.apply(grads, kernel.opt_state, kernel.params, 1e-3, kernel.lr_scale),
+                        reps=reps, warm=2)
+
+    def plain_step():
+        updates, _ = tx.update(grads, kernel.opt_state, kernel.params)
+        with torch.no_grad():
+            lr = 1e-3 * kernel.lr_scale
+            for name, p in kernel.params.items():
+                p.add_(updates[name] * lr)
+
+    plain_ms = device_time_ms(plain_step, reps=reps, warm=2)
+    mu_bytes = torch.finfo(mu_dtype).bits // 8
+    row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+               **bound(numel * (5 * 4 + 2 * mu_bytes), {}))
+    log(f"[kernels] adam {tag}: {len(shapes)} tensors, {numel:,} parameters, mu {mu_dtype}: three steps bit-equal "
+        f"to the plain path (p, mu, nu); {launches} launch(es) a step; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+        f"({plain_ms / ms:.2f}x), bound {row['bound_ms']:.4f} ms (share {row['bound_ms'] / ms:.3f}) [{card}]")
+    return row
+
+
+def optimizer_kernels(card: str) -> dict:
+    """The optimizer's kernel at the parameter sets of the benchmark's two
+    cells: the flagship (bf16 mu) and the 10M-item catalog (f32 mu)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "large_catalog"))
+    import stress_torch
+
+    out = {"adam": adam_kernel_at("flagship", flagship_config()[0], torch.bfloat16, card, reps=50)}
+    large = stress_torch.stress_config(10_000_000, 128, 50, 1, "bfloat16")
+    out["adam_large"] = adam_kernel_at("large catalog", large, torch.float32, card, reps=5)
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1651,10 +1739,7 @@ def train_stages(model, tx, state, host_iter, num_valid: int, rng, card: str, re
         grads = dict(zip(names, torch.autograd.grad(gathered, params, dx)))
         grads[table_name] = grads[table_name] + dtable
         mark()
-        updates, state.opt_state = tx.update(grads, state.opt_state, state.params)
-        with torch.no_grad():
-            for name, p in state.params.items():
-                p.add_(updates[name] * (1e-3 * state.lr_scale))
+        state.opt_state = tx.apply(grads, state.opt_state, state.params, 1e-3, state.lr_scale)
         mark()
         for name, (a, b) in zip(stages, zip(marks, marks[1:])):
             stages[name].append((b - a) * 1e3)
@@ -1720,7 +1805,8 @@ def phase_train(card: str) -> dict:
     counts = _build.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     n_steps = 2 * K_TRAIN
-    per_step = {"gather": 1, "attention": cfg.num_layers, "attention_bwd": cfg.num_layers, "ce_fwd": 1, "ce_bwd": 1}
+    per_step = {"gather": 1, "attention": cfg.num_layers, "attention_bwd": cfg.num_layers, "ce_fwd": 1, "ce_bwd": 1,
+                "adam": 1}
     expected = {**dict.fromkeys(counts, 0), **{k: v * n_steps for k, v in per_step.items()}}
     log(f"[train] launches during {n_steps} timed steps: {counts} (expected {expected})")
     if counts != expected:
@@ -1883,7 +1969,7 @@ def phase_long_train(card: str) -> dict:
 
     per_step = {"gather": 1, "blockwise_fwd": cfg.num_layers, "blockwise_dq": cfg.num_layers,
                 "blockwise_dkv": cfg.num_layers, "dropout": 2 * (1 + 2 * cfg.num_layers), "ce_fwd": 1, "ce_bwd": 1,
-                "attention": 0, "attention_bwd": 0}  # dropout: 9 sites, forward and backward
+                "attention": 0, "attention_bwd": 0, "adam": 1}  # dropout: 9 sites, forward and backward
     expected = {**dict.fromkeys(_build.launch_counts(), 0), **{k: v * LONG_TIMED for k, v in per_step.items()}}
     copies = _build.copy_counts()  # the blockwise kernels' input copies: none on this path
 
@@ -2046,7 +2132,7 @@ def phase_wide_train(card: str) -> dict:
         cfg = run.model.config
         n_train, n_eval = WIDE_EPOCHS * WIDE_STEPS, WIDE_EPOCHS * WIDE_EVAL_BATCHES
         per_step = {"gather": 1, "attention": cfg.num_layers, "attention_bwd": cfg.num_layers, "ce_fwd": 1,
-                    "ce_bwd_dx": 1, "ce_bwd_dw": 1, "ce_bwd": 0}
+                    "ce_bwd_dx": 1, "ce_bwd_dw": 1, "ce_bwd": 0, "adam": 1}
         per_eval = {"gather": 1, "attention": cfg.num_layers}  # no CE kernel: the chunked scan is plain PyTorch
         expected = {k: per_step.get(k, 0) * n_train + per_eval.get(k, 0) * n_eval for k in counts}
         log(f"[wide-train] {WIDE_EPOCHS} epochs of {WIDE_STEPS} steps at B={B_TRAIN}, {WIDE_EVAL_BATCHES} eval batches "
@@ -2261,7 +2347,7 @@ def _heads_model(tag: str, cfg, host: list, evals: list, per_step: dict, card: s
     ms_step = (time.perf_counter() - t0) / HEADS_STEPS * 1e3
     peak = torch.cuda.max_memory_allocated()
     counts = {k: n for k, n in _build.launch_counts().items() if n}
-    expected = {k: n * HEADS_STEPS for k, n in per_step.items() if n}
+    expected = {k: n * HEADS_STEPS for k, n in {**per_step, "adam": 1}.items() if n}
     first, last = float(losses[:5].mean()), float(losses[-5:].mean())
     log(f"[heads] {tag}: {HEADS_STEPS} train steps at B={B_TRAIN}, dropout {cfg.dropout_rate}: {ms_step:.3f} ms/step, "
         f"{B_TRAIN / ms_step * 1e3:.1f} examples/s; peak device memory {peak / 2**20:.1f} MiB; mean loss of the "
@@ -2900,9 +2986,10 @@ def phase_tiers(card: str) -> dict:
     refs = {name: _one_process(cfg_, sd_, host[:steps], ev, num_valid, TIER_LR)
             for name, cfg_, sd_, steps in (("dp f32", f32, sd, TIER_STEPS), ("spmd f32", f32_bias, sd_bias, TIER_STEPS),
                                            ("dp f32 step 1", f32, sd, 1), ("spmd f32 step 1", f32_bias, sd_bias, 1))}
-    per_step = {"dp": {"gather": 1, "attention": 4, "attention_bwd": 4, "ce_fwd": 1, "ce_bwd": 1},
-                "spmd": {"attention": 4, "attention_bwd": 4, "ce_fwd": 1, "ce_bwd": 1},
-                "spmd wide": {"attention": 4, "attention_bwd": 4, "ce_fwd": 1, "ce_bwd_dx": 1, "ce_bwd_dw": 1}}
+    per_step = {"dp": {"gather": 1, "attention": 4, "attention_bwd": 4, "ce_fwd": 1, "ce_bwd": 1, "adam": 1},
+                "spmd": {"attention": 4, "attention_bwd": 4, "ce_fwd": 1, "ce_bwd": 1, "adam": 1},
+                "spmd wide": {"attention": 4, "attention_bwd": 4, "ce_fwd": 1, "ce_bwd_dx": 1, "ce_bwd_dw": 1,
+                              "adam": 1}}
     per_eval = {"dp": {"gather": 1, "attention": 4}, "spmd": {"attention": 4}}
     _check_tier_runs("tiers", results, jobs, per_step, per_eval, card,
                      kind_of=lambda name: "spmd wide" if "wide" in name else name.split()[0],
@@ -3027,7 +3114,7 @@ def phase_tp_tiers(card: str) -> dict:
         if steps:
             refs[name] = _one_process(c, weights_of(c), host[:steps], ev if with_eval else None, num_valid, TIER_LR,
                                       dense=tier == "tp", negatives=jobs[name].get("negatives"))
-    attention = {"attention": 4, "attention_bwd": 4}
+    attention = {"attention": 4, "attention_bwd": 4, "adam": 1}
     per_step = {"tp": {"gather": 1, **attention}, "tp_spmd": {**attention, "ce_fwd": 1, "ce_bwd": 1},
                 "tp_spmd fused": {**attention, "ce_fwd": 1, "ce_bwd": 1, "dropout": 18}, "sampled_spmd": attention}
     per_eval = {"tp": {"gather": 1, "attention": 4}, "tp_spmd": {"attention": 4}}
@@ -3136,7 +3223,7 @@ def phase_sampled(card: str) -> None:
     loss = loss.item()
     ms = (time.perf_counter() - t0) * 1e3
     counts = {c: v for c, v in _build.launch_counts().items() if v}
-    want = {"gather": 1, "attention": 4, "attention_bwd": 4}
+    want = {"gather": 1, "attention": 4, "attention_bwd": 4, "adam": 1}
     log(f"[sampled] flagship B={B_TRAIN} bf16 dropout {cfg.dropout_rate} step on the card: loss {loss:.4f}, "
         f"{ms:.1f} ms (host clock, one step), launches {counts} [{card}]")
     if counts != want or not np.isfinite(loss):
@@ -3313,7 +3400,7 @@ def phase_large_catalog(card: str) -> tuple[dict, dict]:
     t0 = time.perf_counter()
     run = stress_torch.main(["--steps", str(STRESS_STEPS)],
                             profile=lambda steps, fn: _device_profile(fn, steps, "large-catalog", card))
-    want = {"ce_fwd": 1, "ce_bwd": 1, "attention": 2, "attention_bwd": 2}
+    want = {"ce_fwd": 1, "ce_bwd": 1, "attention": 2, "attention_bwd": 2, "adam": 1}
     log(f"[large-catalog] stress {run['rows']:,} rows: first loss {run['first_loss']:.4f} (ln 10^7 = "
         f"{math.log(1e7):.4f}), last {run['loss']:.4f}; {run['ms_per_step']:.1f} ms/step, "
         f"{run['examples_per_s']:.1f} examples/s (host clock); launches per step {run['launches']}; peak "
@@ -3325,7 +3412,7 @@ def phase_large_catalog(card: str) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     sampled = stress_torch.main(["--sampled", str(STRESS_SAMPLED), "--steps", str(STRESS_SAMPLED_STEPS)])
-    want = {"attention": 2, "attention_bwd": 2}
+    want = {"attention": 2, "attention_bwd": 2, "adam": 1}
     log(f"[large-catalog] stress --sampled {STRESS_SAMPLED}: first loss {sampled['first_loss']:.4f}, last "
         f"{sampled['loss']:.4f}; {sampled['ms_per_step']:.1f} ms/step (host clock); launches per step "
         f"{sampled['launches']}; peak {sampled['peak_bytes'] / 2**30:.2f} GiB; {time.perf_counter() - t0:.2f} s "
@@ -3440,13 +3527,17 @@ def main() -> None:
         ("fused_ce_bwd_large", "fused_ce.cu", "fused_ce.py:761", "ce_bwd_large", {"counts": stress_counts}),
         ("fused_mha_fwd_dh32", "attention.cu", "attention.py:54", "attention_dh32", {"counts": stress_counts}),
         ("fused_mha_bwd_dh32", "attention.cu", "attention.py:76", "attention_bwd_dh32", {"counts": stress_counts}),
+        # the optimizer's kernel (no TPU kernel: optax's chain under XLA's
+        # fusion) at the flagship's and the large catalog's parameter sets
+        ("adam", "adam.cu", None, "adam", train),
+        ("adam_large", "adam.cu", None, "adam_large", {"counts": stress_counts}),
     ]
     summary = {"kernels": [
         {
             "name": name,
             "route": "cuda",
             "source": f"bert4clickpath_torch/csrc/{src}",
-            "replaces": pallas + tpu,
+            "replaces": None if tpu is None else pallas + tpu,
             "launches": path["counts"][re.sub(r"_(sharded|large|dh32)$", "", counter)],
             **{k: kernels[counter][k] for k in
                ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},

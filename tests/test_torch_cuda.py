@@ -1116,8 +1116,10 @@ def test_fused_ce_op_on_card_matches_dense(cuda):
 
 def test_cuda_tensors_never_take_a_plain_version(cuda, monkeypatch):
     """A train step of a small model on the card with every plain version
-    made to fail: it runs, and every kernel launched."""
+    made to fail (Adam's plain update too): it runs, and every kernel
+    launched."""
     from bert4clickpath_torch.ops.kernels import gather as gather_kernels
+    from bert4clickpath_torch.training.train_state import Adam
 
     def refuse(*args, **kwargs):
         raise AssertionError("a CUDA tensor took a plain version")
@@ -1130,6 +1132,7 @@ def test_cuda_tensors_never_take_a_plain_version(cuda, monkeypatch):
         (attn_kernels, "blockwise_mha_reference"), (attn_kernels, "blockwise_dq_reference"),
         (attn_kernels, "blockwise_dkv_reference"),
         (dropout_kernels, "fused_dropout_reference"), (dropout_kernels, "dropout_bits"),
+        (Adam, "update"),
     ]:
         monkeypatch.setattr(mod, name, refuse)
     model, state, step, batch = _small_train(cuda, dropout=0.1)
@@ -1137,7 +1140,8 @@ def test_cuda_tensors_never_take_a_plain_version(cuda, monkeypatch):
     state, loss = step(state, batch, torch.Generator(cuda).manual_seed(0))
     torch.cuda.synchronize()
     assert torch.isfinite(loss)
-    assert _nonzero_counts() == {"gather": 1, "attention": 2, "attention_bwd": 2, "ce_fwd": 1, "ce_bwd": 1}
+    assert _nonzero_counts() == {"gather": 1, "attention": 2, "attention_bwd": 2, "ce_fwd": 1, "ce_bwd": 1,
+                                 "adam": 1}
     # a model wider than the merged CE backward holds: the two-pass pair
     model, state, step, batch = _small_train(cuda, dropout=0.1, d_model=320, heads=5)
     _build.reset_launch_counts()
@@ -1145,7 +1149,7 @@ def test_cuda_tensors_never_take_a_plain_version(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert torch.isfinite(loss)
     assert _nonzero_counts() == {"gather": 1, "attention": 2, "attention_bwd": 2, "ce_fwd": 1,
-                                 "ce_bwd_dx": 1, "ce_bwd_dw": 1}
+                                 "ce_bwd_dx": 1, "ce_bwd_dw": 1, "adam": 1}
     # the long-session families: blockwise attention and the dropout kernel
     # at its five sites (encoder input, 2 per layer), forward and backward
     monkeypatch.setattr(attn_kernels, "attention_family", lambda *a: "blockwise")
@@ -1156,7 +1160,7 @@ def test_cuda_tensors_never_take_a_plain_version(cuda, monkeypatch):
     assert torch.isfinite(loss)
     assert _nonzero_counts() == {
         "gather": 1, "blockwise_fwd": 2, "blockwise_dq": 2, "blockwise_dkv": 2,
-        "dropout": 10, "ce_fwd": 1, "ce_bwd": 1,
+        "dropout": 10, "ce_fwd": 1, "ce_bwd": 1, "adam": 1,
     }
 
 
@@ -1324,8 +1328,8 @@ def test_tp_and_sampled_tiers_on_card_match_cpu(cuda, tier, tmp_path):
     relative, every gradient (Adam's first moment after one step, gathered
     back) within 1e-3 of its norm (the key bias, whose gradient is rounding
     noise, left out); exact kernel launches per rank (attention forward and
-    backward once a layer, on each rank's two heads of four; the gather on
-    tp; the CE forward and merged backward with their row_start on tp_spmd;
+    backward once a layer, on each rank's two heads of four; Adam once; the
+    gather on tp; the CE forward and merged backward with their row_start on tp_spmd;
     no CE kernel on sampled_spmd, whose card and CPU runs take the same
     negatives, and whose ranks draw one set of them when left to draw: a
     CUDA generator's draws are not a CPU one's)."""
@@ -1353,9 +1357,9 @@ def test_tp_and_sampled_tiers_on_card_match_cpu(cuda, tier, tmp_path):
         negatives = [rng.integers(0, num_valid, size=64)]
         jobs = [{**j, "negatives": negatives} for j in jobs] + [{**job, "device": "cuda"}]
     ranks = spawn(drive.run_jobs, 2, str(tmp_path / "store"), (jobs,))
-    per_step = {"tp": {"gather": 1, "attention": 2, "attention_bwd": 2},
-                "tp_spmd": {"attention": 2, "attention_bwd": 2, "ce_fwd": 1, "ce_bwd": 1},
-                "sampled_spmd": {"attention": 2, "attention_bwd": 2}}[tier]
+    per_step = {"tp": {"gather": 1, "attention": 2, "attention_bwd": 2, "adam": 1},
+                "tp_spmd": {"attention": 2, "attention_bwd": 2, "ce_fwd": 1, "ce_bwd": 1, "adam": 1},
+                "sampled_spmd": {"attention": 2, "attention_bwd": 2, "adam": 1}}[tier]
     for card, cpu, *_ in ranks:
         assert {k: v for k, v in card["train_launches"].items() if v} == per_step
         np.testing.assert_allclose(card["losses"], cpu["losses"], rtol=1e-4)
