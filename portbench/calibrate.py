@@ -14,7 +14,10 @@ In one process, on the card at the cell's own size:
   batch left out, the mean taken over the rest), ``frozen`` (a step that
   leaves the state unchanged) and ``label_shift`` (every label altered
   where the batch is made: the next item of the catalog): the faults a
-  training cell on one card can have (it has no exchange between chips).
+  training cell on one card can have (it has no exchange between chips);
+  where the batches carry a sampled softmax's negatives, also
+  ``negatives_shift`` (other negatives scored than the ones passed: the
+  next item of each, as a program that draws its own would).
 
 Prints one JSON line per reading and writes them all to ``--out``.
 """
@@ -35,20 +38,32 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from portbench.harness import check, manifest  # noqa: E402
-from portbench.reference import model as ref  # noqa: E402
+from portbench.reference import common  # noqa: E402
 from portbench.runners import train  # noqa: E402
 
 FAULTS = ("fp8", "half_batch", "frozen", "label_shift")
+NEGATIVE_FAULTS = ("negatives_shift",)  # where the batches carry negatives
+SESSION_KEYS = ("tokens", "positions", "labels")  # a batch's arrays of one row a session
 FIRST_SEED = 7_000_000_000
 
 
 def half_batch(batches: list) -> list:
-    return [{k: v[: v.shape[0] // 2] for k, v in b.items()} for b in batches]
+    """Half of each batch's sessions; batch-shared arrays (negatives) whole."""
+    return [{k: v[: v.shape[0] // 2] if k in SESSION_KEYS else v for k, v in b.items()} for b in batches]
 
 
 def label_shift(batches: list, n_items: int) -> list:
-    return [dict(b, labels=np.where(b["labels"] == ref.LABEL_PAD, b["labels"], (b["labels"] + 1) % n_items))
+    return [dict(b, labels=np.where(b["labels"] == common.LABEL_PAD, b["labels"], (b["labels"] + 1) % n_items))
             for b in batches]
+
+
+def negatives_shift(batches: list, n_items: int) -> list:
+    return [dict(b, negatives=(b["negatives"] + 1) % n_items) for b in batches]
+
+
+def faults_of(batches: list) -> tuple:
+    """The faults read on these batches."""
+    return FAULTS + (NEGATIVE_FAULTS if "negatives" in batches[0] else ())
 
 
 def program_readings(cell, seed: int, device):
@@ -58,7 +73,7 @@ def program_readings(cell, seed: int, device):
     cfg = cell.config
     batches = check.reference_batches(traffic, cfg, seeds)
     rows = check.kept_rows(cfg, seed, lambda: batches)
-    ours = check.program_steps(session, cfg, seed, rows)
+    ours = check.program_steps(session, cfg, seed, rows, cell.root)
     session.close()
     del session
     gc.collect()
@@ -71,20 +86,23 @@ def calibrate(cell, seeds: list, faults: int, device, emit) -> None:
     for i, seed in enumerate(seeds):
         t0 = time.perf_counter()
         ours, batches, rows, run_seeds = program_readings(cell, seed, device)
-        theirs, rms = check.reference_steps(cfg, batches, seed, run_seeds, device, rows)
+        theirs, rms = check.reference_steps(cfg, batches, seed, run_seeds, device, rows, root=cell.root)
         numbers, where = check.compare(ours, theirs, rms)
         emit({"cell": cell.name, "seed": seed, "side": "program", "numbers": numbers, "where": where,
               "losses": ours.losses, "reference_losses": theirs.losses, "seconds": time.perf_counter() - t0})
         if i >= faults:
             continue
         variants = {
-            "fp8": dict(batches=batches, numerics="fp8"),
-            "half_batch": dict(batches=half_batch(batches)),
-            "frozen": dict(batches=batches, frozen=True),
-            "label_shift": dict(batches=label_shift(batches, cfg["n_items"])),
+            "fp8": lambda: dict(batches=batches, numerics="fp8"),
+            "half_batch": lambda: dict(batches=half_batch(batches)),
+            "frozen": lambda: dict(batches=batches, frozen=True),
+            "label_shift": lambda: dict(batches=label_shift(batches, cfg["n_items"])),
+            "negatives_shift": lambda: dict(batches=negatives_shift(batches, cfg["n_items"])),
         }
-        for name, kw in variants.items():
-            faulty, _ = check.reference_steps(cfg, kw.pop("batches"), seed, run_seeds, device, rows, **kw)
+        for name in faults_of(batches):
+            kw = variants[name]()
+            faulty, _ = check.reference_steps(cfg, kw.pop("batches"), seed, run_seeds, device, rows, root=cell.root,
+                                              **kw)
             numbers, where = check.compare(faulty, theirs, rms)
             emit({"cell": cell.name, "seed": seed, "side": name, "numbers": numbers, "where": where})
 

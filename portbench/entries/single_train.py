@@ -17,8 +17,8 @@ from bert4clickpath_torch.training import schedules
 from bert4clickpath_torch.training.train_state import Adam, TrainState, make_train_step
 from bert4clickpath_torch.vocab import Vocabulary
 
+from portbench.harness import manifest
 from portbench.harness import traffic as traffic_lib
-from portbench.reference.model import param_specs
 from portbench.entries.program_config import layout, model_config
 from portbench.harness.session import Session, views
 
@@ -38,7 +38,7 @@ def build(cfg: dict, traffic: traffic_lib.Traffic, fill_weights, seeds: dict, de
     opt = cfg["optimizer"]
     tx = Adam(opt["b1"], opt["b2"], opt["eps"], mu_dtype=getattr(torch, opt["mu_dtype"]))
     params = dict(model.named_parameters())
-    lay = layout(cfg, [n for n, _, _ in param_specs(cfg)])
+    lay = layout(cfg, [n for n, _, _ in manifest.reference(cfg).param_specs(cfg)])
     fill_weights(views(params, lay))
     state = TrainState.create(params, tx)
     step_fn = make_train_step(model, tx, schedules.constant(opt["lr"]), fused_ce_num_valid=cfg["n_items"])

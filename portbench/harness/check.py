@@ -9,14 +9,16 @@ with the window's own call and feed, and reads from it, before the window:
   the second moment ((1 - b2) g^2, kept in float32), and the gradient itself
   from the first moment ((1 - b1) g), whole for every leaf and for an item
   table of up to ``FULL_TABLE_ROWS`` rows; of a larger table the rows of
-  :func:`kept_rows` are kept: ``SAMPLE_ROWS`` drawn from the seed and every
+  :func:`kept_rows` are kept: ``SAMPLE_ROWS`` drawn from the seed, every
   row a label of the checked batches falls on, where the label term of the
-  softmax's gradient lies;
+  softmax's gradient lies, and every row of their negatives, where a
+  sampled softmax puts the rest of it;
 * the norm of each leaf's change after the checked steps, against the run's
   initial weights drawn again from the seed.
 
-After the window the reference (``portbench/reference/``) runs the same
-steps from the same seed: the weights and inputs the benchmark made, the
+After the window the configuration's plain reference
+(``portbench/reference/<r>.py``, found by ``manifest.reference``) runs the
+same steps from the same seed: the weights and inputs the benchmark made, the
 Cloze batches and dropout masks worked out again. Four numbers compare
 the two, each against the cell's limit; a leaf's gap is taken over the
 larger of the reference's norm of that leaf and of the median leaf:
@@ -42,14 +44,16 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from portbench.harness import manifest
 from portbench.harness import weights as weights_lib
 from portbench.reference import cloze as ref_cloze
-from portbench.reference import model as ref
+from portbench.reference import common
 
 CHECKED_STEPS = 3
 EXCLUDE_BELOW = 1e-3  # of the median leaf's reference gradient (rms)
@@ -71,16 +75,19 @@ class Readings:
 def kept_rows(cfg: dict, seed: int, batches_of: Callable[[], list]) -> Optional[torch.Tensor]:
     """The item table's rows whose first gradient is compared: None (all
     of them) for a table of up to ``FULL_TABLE_ROWS`` rows; else
-    ``SAMPLE_ROWS`` rows drawn from the seed and the row of every label of
-    the checked batches (``batches_of()``, as the reference works them out),
-    so that a gradient written to the wrong label row shows."""
+    ``SAMPLE_ROWS`` rows drawn from the seed and the row of every label and
+    every negative of the checked batches (``batches_of()``, as the
+    reference works them out), so that a gradient written to the wrong
+    row shows."""
     table_rows = cfg["table_rows"]
     if table_rows <= FULL_TABLE_ROWS:
         return None
     rng = np.random.default_rng(weights_lib.mix(seed, weights_lib.SAMPLE))
     sample = rng.choice(table_rows, size=min(SAMPLE_ROWS, table_rows), replace=False)
-    labels = np.concatenate([b["labels"][b["labels"] != ref.LABEL_PAD] for b in batches_of()])
-    return torch.from_numpy(np.union1d(sample, labels.astype(np.int64) + ref.NUM_RESERVED))
+    none = np.empty(0, np.int32)
+    ids = np.concatenate([a for b in batches_of()
+                          for a in (b["labels"][b["labels"] != common.LABEL_PAD], b.get("negatives", none))])
+    return torch.from_numpy(np.union1d(sample, ids.astype(np.int64) + common.NUM_RESERVED))
 
 
 def kept_gradient(grads: dict, rows: Optional[torch.Tensor], scale: float = 1.0) -> dict:
@@ -98,9 +105,11 @@ def sum_f64(t: torch.Tensor, chunk: int = 1 << 26) -> float:
     return float(sum(flat[i : i + chunk].double().sum() for i in range(0, flat.numel(), chunk)))
 
 
-def program_steps(session, cfg: dict, seed: int, rows: Optional[torch.Tensor]) -> Readings:
+def program_steps(session, cfg: dict, seed: int, rows: Optional[torch.Tensor],
+                  root: Path = manifest.ROOT) -> Readings:
     """Run the program's checked steps through the session and read them
-    (of the table's first gradient, ``rows``)."""
+    (of the table's first gradient, ``rows``); ``root``: the checkout whose
+    reference lists the parameters."""
     opt = cfg["optimizer"]
     losses, grad_norms, first = [], {}, {}
     for k in range(CHECKED_STEPS):
@@ -110,7 +119,8 @@ def program_steps(session, cfg: dict, seed: int, rows: Optional[torch.Tensor]) -
             nu = session.second_moments()
             grad_norms = {n: math.sqrt(max(sum_f64(nu[n]), 0.0) / (1.0 - opt["b2"])) for n in nu}
             first = kept_gradient(session.first_moments(), rows, 1.0 / (1.0 - opt["b1"]))
-    change = weights_lib.change_norms(session.params, ref.param_specs(cfg), seed, cfg["init"]["table_std"])
+    specs = manifest.reference(cfg, root).param_specs(cfg)
+    change = weights_lib.change_norms(session.params, specs, seed, cfg["init"]["table_std"])
     return Readings(losses, grad_norms, first, change)
 
 
@@ -126,10 +136,13 @@ def reference_batches(traffic, cfg: dict, seeds: dict) -> list:
 
 
 def reference_steps(cfg: dict, batches: list, seed: int, seeds: dict, device, rows: Optional[torch.Tensor],
-                    numerics: str = "float32", frozen: bool = False) -> tuple[Readings, dict]:
+                    numerics: str = "float32", frozen: bool = False,
+                    root: Path = manifest.ROOT) -> tuple[Readings, dict]:
     """The reference's checked steps: (readings, gradient rms of each leaf
     at the first step). ``numerics="fp8"`` is the lower-precision control;
-    ``frozen`` leaves the state unchanged (a fault's reading)."""
+    ``frozen`` leaves the state unchanged (a fault's reading); ``root``:
+    the checkout whose ``reference/`` holds the configuration's."""
+    ref = manifest.reference(cfg, root)
     ref.check_supported(cfg)
     prev_tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -140,9 +153,9 @@ def reference_steps(cfg: dict, batches: list, seed: int, seeds: dict, device, ro
         params = weights_lib.draw(specs, seed, std, device)
         for p in params.values():
             p.requires_grad_(True)
-        adam = ref.Adam(params, cfg["optimizer"])
+        adam = common.Adam(params, cfg["optimizer"])
         generator = torch.Generator(device).manual_seed(seeds["dropout"])
-        num = ref.Numerics(numerics)
+        num = common.Numerics(numerics)
         losses, grad_norms, first = [], {}, {}
         for k, b in enumerate(batches):
             on_device = {k2: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k2, v in b.items()}
@@ -150,7 +163,7 @@ def reference_steps(cfg: dict, batches: list, seed: int, seeds: dict, device, ro
             grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
             losses.append(float(loss.detach()))
             if k == 0:
-                grad_norms = ref.leaf_norms(grads)
+                grad_norms = common.leaf_norms(grads)
                 first = kept_gradient(grads, rows)
             if not frozen:
                 adam.update(params, grads)
@@ -159,19 +172,19 @@ def reference_steps(cfg: dict, batches: list, seed: int, seeds: dict, device, ro
         with torch.no_grad():
             change = weights_lib.change_norms(params, specs, seed, std)
         del params, adam
-        return Readings(losses, grad_norms, first, change), ref.gradient_rms(grad_norms, sizes)
+        return Readings(losses, grad_norms, first, change), common.gradient_rms(grad_norms, sizes)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev_tf32
 
 
 def leaf_gaps(ours: dict, theirs: dict, names) -> dict:
-    floor = ref.median(theirs[n] for n in names)
+    floor = common.median(theirs[n] for n in names)
     return {n: abs(ours[n] - theirs[n]) / max(theirs[n], floor) for n in names}
 
 
 def difference_gaps(ours: dict, theirs: dict, names) -> dict:
     norms = {n: float(torch.linalg.vector_norm(theirs[n])) for n in theirs}
-    floor = ref.median(norms.values())
+    floor = common.median(norms.values())
     return {n: float(torch.linalg.vector_norm(ours[n] - theirs[n])) / max(norms[n], floor) for n in names}
 
 
@@ -180,7 +193,7 @@ def compare(ours: Readings, theirs: Readings, rms: dict) -> tuple[dict, dict]:
     every step's and leaf's gap)."""
     loss_gaps = [abs(a - b) / abs(b) for a, b in zip(ours.losses, theirs.losses)]
     grads = leaf_gaps(ours.grad_norms, theirs.grad_norms, list(theirs.grad_norms))
-    floor = ref.median(rms.values())
+    floor = common.median(rms.values())
     kept = [n for n in theirs.change_norms if rms[n] >= EXCLUDE_BELOW * floor]
     diffs = difference_gaps(ours.first_grads, theirs.first_grads, kept)
     changes = leaf_gaps(ours.change_norms, theirs.change_norms, kept)

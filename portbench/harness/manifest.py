@@ -4,9 +4,11 @@ A cell ``<cell>`` of ``workloads`` reads ``portbench/workloads/<cell>.json``
 (its runner, entry, steps and the limits of its check), its configuration
 ``portbench/configs/<config>.json`` and its traffic mix
 ``portbench/traffic/<traffic>.json``. A metric ``<name>`` is read by
-``portbench/metrics/<name>.py``; an entry by ``portbench/entries/<entry>.py``
-and a runner by ``portbench/runners/<runner>.py``. Adding a cell, a
-configuration, a mix or a metric adds files and edits none.
+``portbench/metrics/<name>.py``; an entry by ``portbench/entries/<entry>.py``,
+a runner by ``portbench/runners/<runner>.py``, and a configuration's plain
+reference by ``portbench/reference/<r>.py``, ``<r>`` its key ``reference``.
+Adding a cell, a configuration, a mix, a reference or a metric adds files
+and edits none.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ class Cell:
     spec: dict  # the cell file
     end_to_end: list  # metric entries of BENCHMARK.json that this cell reports
     per_layer: list
+    root: Path = ROOT  # the checkout the cell's files were read from
 
 
 def load_json(path: Path) -> dict:
@@ -68,6 +71,7 @@ def cell(name: str, root: Path = ROOT) -> Cell:
         spec=load_json(here / "workloads" / f"{name}.json"),
         end_to_end=[m for m in bench["end_to_end"] if reports(m, name)],
         per_layer=[m for m in bench["per_layer"] if reports(m, name)],
+        root=root,
     )
 
 
@@ -81,3 +85,10 @@ def entry(name: str, root: Path = ROOT):
 
 def runner(name: str, root: Path = ROOT):
     return load_module(root / "portbench" / "runners" / f"{name}.py")
+
+
+def reference(cfg: dict, root: Path = ROOT):
+    """The plain reference of a configuration: ``check_supported``,
+    ``param_specs``, ``loss_fn`` and ``model_flops`` (``reference/common.py``
+    says what each takes). Without a ``reference`` key, BERT4Rec's."""
+    return load_module(root / "portbench" / "reference" / f"{cfg.get('reference', 'model')}.py")

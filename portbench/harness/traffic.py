@@ -21,6 +21,11 @@ catalog size comes from the cell's configuration (``n_items``).
 Both take their session lengths from the mix's ``lengths``
 (:func:`session_lengths`): a fixed set, the same for every seed, which the
 seed only shuffles, so every seed asks for the same amount of work.
+
+A synthetic mix may set ``negatives: S``: each pool batch then carries
+``negatives``, S label ids uniform over the catalog drawn from a stream of
+their own (``mix(seed, NEGATIVES)``), the batch-shared negatives of a
+sampled softmax, which the program and the reference both read.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from portbench.harness.weights import TRAFFIC, mix
+from portbench.harness.weights import NEGATIVES, TRAFFIC, mix
 
 CLS_ID, SEP_ID, MASK_ID, PAD_ID, LABEL_PAD = 3, 4, 1, 0, -1
 NUM_RESERVED = 10
@@ -112,7 +117,14 @@ def make(params: dict, n_items: int, seed: int) -> Traffic:
     rng = np.random.default_rng(mix(seed, TRAFFIC))
     kind = params["generator"]
     if kind == "synthetic":
-        return Traffic(kind, params, pool=synthetic_pool(rng, params, n_items))
+        pool = synthetic_pool(rng, params, n_items)
+        if "negatives" in params:
+            draw = np.random.default_rng(mix(seed, NEGATIVES))
+            for batch in pool:
+                batch["negatives"] = draw.integers(0, n_items, size=params["negatives"]).astype(np.int32)
+        return Traffic(kind, params, pool=pool)
+    if "negatives" in params:
+        raise ValueError(f"a {kind!r} mix carries no negatives (only 'synthetic' does)")
     if kind == "clickstream":
         return Traffic(kind, params, sessions=clickstream_sessions(rng, params, n_items))
     raise ValueError(f"unknown traffic generator {kind!r}")
@@ -120,13 +132,17 @@ def make(params: dict, n_items: int, seed: int) -> Traffic:
 
 def batch_stats(batch: dict) -> dict:
     """What a batch asks of the model, counted from its arrays: labelled
-    rows, real (non-pad) tokens, and the sum over sessions of real tokens
-    squared (attention's query-key pairs)."""
+    rows, real (non-pad) tokens, the sum over sessions of real tokens
+    squared (attention's query-key pairs), and its negatives where it
+    carries them."""
     real = (batch["tokens"] != PAD_ID).sum(axis=1).astype(np.int64)
-    return {
+    stats = {
         "labelled": int((batch["labels"] != LABEL_PAD).sum()),
         "tokens": int(real.sum()),
         "tokens_sq": int((real * real).sum()),
         "batch": int(batch["tokens"].shape[0]),
         "length": int(batch["tokens"].shape[1]),
     }
+    if "negatives" in batch:
+        stats["negatives"] = int(batch["negatives"].shape[0])
+    return stats

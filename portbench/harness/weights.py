@@ -4,9 +4,10 @@ Every stream of a run (weights, traffic, dropout, batch order) comes from
 :func:`mix` of the seed and a stream number, so the same seed gives the same
 run and any seed up to 64 bits is taken whole.
 
-The weights follow the reference's list of parameters
-(``reference/model.py:param_specs``): tables N(0, ``table_std``^2), dense
-weights N(0, 1 / fan_in), biases 0, LayerNorm scales 1. All dense weights
+The weights follow the list of parameters of the configuration's
+reference (its ``param_specs``): tables N(0, ``table_std``^2), dense
+weights N(0, 1 / fan_in) with the fan-in their last axis (a stacked
+(experts, out, in) weight too), biases 0, LayerNorm scales 1. All dense weights
 come from one draw of a ``torch.Generator`` on the device, and each table in
 blocks of ``TABLE_BLOCK_ROWS`` rows with a generator of its own, so a block
 can be drawn again alone (the change of the table after the checked steps
@@ -23,7 +24,7 @@ TABLE_BLOCK_ROWS = 1 << 21
 _M63 = (1 << 63) - 1
 
 # stream numbers of :func:`mix`
-WEIGHTS, DROPOUT, TRAFFIC, BATCHES, SAMPLE = 1, 2, 3, 4, 5
+WEIGHTS, DROPOUT, TRAFFIC, BATCHES, SAMPLE, NEGATIVES = 1, 2, 3, 4, 5, 6
 
 
 def mix(seed: int, stream: int) -> int:
@@ -39,14 +40,14 @@ def _generator(device, seed: int) -> torch.Generator:
 
 
 def dense_weights(specs, seed: int, device) -> dict:
-    """Every ``dense`` leaf, from one draw."""
+    """Every ``dense`` leaf, from one draw, scaled by its last axis."""
     dense = [(n, s) for n, s, kind in specs if kind == "dense"]
     total = sum(math.prod(s) for _, s in dense)
     flat = torch.randn(total, generator=_generator(device, mix(seed, WEIGHTS)), device=device)
     out, at = {}, 0
     for name, shape in dense:
         size = math.prod(shape)
-        out[name] = flat[at : at + size].view(shape).mul_(1.0 / math.sqrt(shape[1]))
+        out[name] = flat[at : at + size].view(shape).mul_(1.0 / math.sqrt(shape[-1]))
         at += size
     return out
 

@@ -1,4 +1,6 @@
-"""The yardstick: the card's peaks and the operations and bytes of a step.
+"""The yardstick: the card's peaks and the operations and bytes of the
+kernels. A model's FLOPs a step are its reference's ``model_flops``
+(``reference/<r>.py``, found by ``manifest.reference``).
 
 Peaks are NVIDIA's data sheet for one H100 SXM at 700 W (dense, no
 sparsity). Every roofline share is rated against the bf16 tensor-core rate,
@@ -9,11 +11,11 @@ implementation.
 The counts are copied from the program's and corrected:
 
 * ``bert4clickpath_torch/utils/profiling.py:step_cost`` counted the fused CE
-  as five times its forward and every (B, P) head position. Here the model's
-  FLOPs leave out the backward's recomputed scores (3 x 2 N V D for the
-  head) and count only labelled rows N and valid catalog rows V; the
-  encoder's dense layers count real (non-pad) tokens, and attention the
-  real query-key pairs.
+  as five times its forward and every (B, P) head position. The BERT4Rec
+  reference's ``model_flops`` leaves out the backward's recomputed scores
+  (3 x 2 N V D for the head) and counts only labelled rows N and valid
+  catalog rows V; the encoder's dense layers count real (non-pad) tokens,
+  and attention the real query-key pairs.
 * ``chip_smoke.py:bound`` rated the CE products as three TF32 products; here
   the CE forward is 2 N V D operations and its backward 6 N V D (from x, W,
   logz and the labels the backward needs the scores again, then dx and dW),
@@ -71,19 +73,3 @@ def attention_backward(b: int, length: int, d: int, act_bytes: int) -> tuple[flo
 def adam_bytes(numel: int, mu_bytes: int) -> float:
     """Read p, g, mu, nu; write p, mu, nu (f32 but mu)."""
     return numel * (F32 * 5 + 2 * mu_bytes)
-
-
-def encoder_forward_flops(cfg: dict, tokens: int, tokens_sq: int) -> float:
-    """Dense layers over the real tokens, attention over the real
-    query-key pairs, for every layer."""
-    d, f = cfg["d_model"], cfg["ffn_dim"]
-    dense = 2.0 * tokens * (4 * d * d + 2 * d * f)
-    attention = 4.0 * tokens_sq * d
-    return cfg["num_layers"] * (dense + attention)
-
-
-def model_flops(cfg: dict, stats: dict) -> float:
-    """Forward and backward (3x the forward) of the encoder and the tied
-    head for one batch, without recomputed work."""
-    head = 2.0 * stats["labelled"] * cfg["n_items"] * cfg["d_model"]
-    return 3.0 * (encoder_forward_flops(cfg, stats["tokens"], stats["tokens_sq"]) + head)

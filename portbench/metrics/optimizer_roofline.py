@@ -7,8 +7,7 @@ metric is left out."""
 
 import math
 
-from portbench.harness import layers, work
-from portbench.reference.model import param_specs
+from portbench.harness import layers, manifest, work
 
 FRAMES = ("training/train_state.py", ("apply_gradients",))
 
@@ -18,7 +17,8 @@ def read(ctx):
     if t is None:
         return None
     cfg = ctx.config
-    numel = sum(math.prod(shape) for _, shape, _ in param_specs(cfg))
+    specs = manifest.reference(cfg, ctx.cell.root).param_specs(cfg)
+    numel = sum(math.prod(shape) for _, shape, _ in specs)
     mu = work.dtype_bytes(cfg["optimizer"]["mu_dtype"])
     bound = t.steps * work.adam_bytes(numel, mu) / work.PEAK_BYTES
     return layers.share(bound, layers.select(t, *FRAMES))

@@ -9,12 +9,17 @@ softmax tied to the item table over the catalog's rows, whose mean negative
 log-likelihood over the labelled rows is the loss. Adam (no weight decay)
 at a constant learning rate updates every parameter.
 
+Where a batch carries ``negatives`` (S label ids shared by the batch),
+the softmax is sampled instead (:func:`sampled_ce`): each labelled row
+against its label's row and the S shared rows, the negatives' logits raised
+by log(V / S) (the log-Q correction of a uniform sampler), a negative equal
+to the row's own label blinded.
+
 Written in plain PyTorch from that description; it imports nothing of the
-program. Every product goes through a :class:`Numerics`, which is exact
-float32 for the reference (the caller turns TF32 off) and rounds the
-operands to fp8 for the lower-precision control. The softmax
-over a catalog of millions of rows is taken in blocks of rows
-(:class:`BlockedTiedCE`), so no (rows, catalog) logits exist at once.
+program. Every product goes through a ``Numerics`` of ``common.py`` (what
+every reference shares). The full softmax over a catalog of millions of
+rows is taken in blocks of rows (``common.BlockedTiedCE``), so no (rows,
+catalog) logits exist at once; the sampled one gathers S + N rows.
 
 Dropout draws its keep masks from a ``torch.Generator`` with
 ``torch.rand(shape) < 1 - rate``, one draw of the activation's shape per
@@ -28,65 +33,19 @@ from __future__ import annotations
 import math
 from typing import Optional
 
-import numpy as np
 import torch
 
-NUM_RESERVED = 10  # reserved rows ahead of the items in the table
-PAD_ID = 0
-LABEL_PAD = -1
+from portbench.reference.common import (
+    LABEL_PAD,
+    NUM_RESERVED,
+    PAD_ID,
+    BlockedTiedCE,
+    Numerics,
+    dropout,
+)
+
 LN_EPS = 1e-6
 NEG_INF = -1e9  # additive bias of a padded key
-
-
-class Numerics:
-    """Products in float32 (``"float32"``), or with each operand rounded to
-    fp8 first (``"fp8"``: e4m3 for activations and weights, e5m2 for the
-    gradients of the backward, one scale per tensor, float32 sums)."""
-
-    def __init__(self, name: str = "float32"):
-        if name not in ("float32", "fp8"):
-            raise ValueError(f"unknown numerics {name!r}")
-        self.name = name
-
-    def fwd(self, t: torch.Tensor) -> torch.Tensor:
-        return t if self.name == "float32" else _round_scaled(t, torch.float8_e4m3fn, 448.0)
-
-    def bwd(self, t: torch.Tensor) -> torch.Tensor:
-        return t if self.name == "float32" else _round_scaled(t, torch.float8_e5m2, 57344.0)
-
-    def mm(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        """``a @ b`` (batched), differentiable."""
-        if self.name == "float32":
-            return a @ b
-        return _RoundedMatmul.apply(a, b, self)
-
-
-def _round_scaled(t: torch.Tensor, dtype: torch.dtype, top: float) -> torch.Tensor:
-    amax = t.detach().abs().amax().float()
-    scale = torch.where(amax > 0, top / amax, torch.ones_like(amax))
-    return (t * scale).to(dtype).to(t.dtype) / scale
-
-
-class _RoundedMatmul(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, a, b, numerics):
-        qa, qb = numerics.fwd(a), numerics.fwd(b)
-        ctx.save_for_backward(qa, qb)
-        ctx.numerics = numerics
-        return qa @ qb
-
-    @staticmethod
-    def backward(ctx, g):
-        qa, qb = ctx.saved_tensors
-        qg = ctx.numerics.bwd(g)
-        da = qg @ qb.transpose(-1, -2)
-        db = qa.transpose(-1, -2) @ qg
-        # undo broadcasting over leading batch dimensions
-        while da.dim() > qa.dim():
-            da = da.sum(0)
-        while db.dim() > qb.dim():
-            db = db.sum(0)
-        return da, db, None
 
 
 def sinusoid(length: int, d: int, device) -> torch.Tensor:
@@ -100,7 +59,7 @@ def sinusoid(length: int, d: int, device) -> torch.Tensor:
 
 def param_specs(cfg: dict) -> list[tuple[str, tuple[int, ...], str]]:
     """(name, shape, kind) of every parameter; kind is ``table``,
-    ``dense`` (a weight whose second axis is its fan-in), ``zeros`` or
+    ``dense`` (a weight whose last axis is its fan-in), ``zeros`` or
     ``ones``. Names follow the model's usual parameter tree, with the
     query, key and value projections apart (a program may keep them in one
     tensor; the benchmark reads it by rows)."""
@@ -138,14 +97,6 @@ def _layer_norm(x, params, name):
     )
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
-    if generator is None or rate == 0.0:
-        return x
-    keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
-    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
-
-
 def _attention(x, bias, params, prefix, cfg, num: Numerics):
     b, l, d = x.shape
     h = cfg["num_heads"]
@@ -175,99 +126,52 @@ def head_inputs(params: dict, cfg: dict, tokens: torch.Tensor, positions: torch.
     return torch.gather(x, 1, positions.long()[..., None].expand(-1, -1, d))
 
 
-class BlockedTiedCE(torch.autograd.Function):
-    """Mean NLL of ``labels`` (label-space ids) under softmax(x @ W^T) over
-    the table rows ``[NUM_RESERVED, NUM_RESERVED + n_items)``, taken over
-    blocks of ``block`` rows; the backward computes each block's scores
-    again."""
-
-    @staticmethod
-    def forward(ctx, x, table, labels, n_items, block, num):
-        n = x.shape[0]
-        m = torch.full((n,), -math.inf, device=x.device)
-        s = torch.zeros(n, device=x.device)
-        picked = torch.zeros(n, device=x.device)
-        qx = num.fwd(x)
-        rows = torch.arange(n, device=x.device)
-        for start in range(0, n_items, block):
-            stop = min(n_items, start + block)
-            z = qx @ num.fwd(table[NUM_RESERVED + start : NUM_RESERVED + stop]).t()
-            top = torch.maximum(m, z.amax(dim=1))
-            s = s * torch.exp(m - top) + torch.exp(z - top[:, None]).sum(dim=1)
-            m = top
-            inside = (labels >= start) & (labels < stop)
-            picked = torch.where(inside, z[rows, (labels - start).clamp(0, stop - start - 1)], picked)
-        logz = m + torch.log(s)
-        ctx.save_for_backward(x, table, labels, logz)
-        ctx.shape = (n_items, block, num)
-        return (logz - picked).mean()
-
-    @staticmethod
-    def backward(ctx, g):
-        x, table, labels, logz = ctx.saved_tensors
-        n_items, block, num = ctx.shape
-        n = x.shape[0]
-        coef = g / n
-        qx = num.fwd(x)
-        rows = torch.arange(n, device=x.device)
-        dx = torch.zeros_like(x)
-        dtable = torch.zeros_like(table)
-        for start in range(0, n_items, block):
-            stop = min(n_items, start + block)
-            w = num.fwd(table[NUM_RESERVED + start : NUM_RESERVED + stop])
-            p = torch.exp(qx @ w.t() - logz[:, None]) * coef
-            inside = (labels >= start) & (labels < stop)
-            p[rows[inside], labels[inside] - start] -= coef
-            dz = num.bwd(p)
-            dx += dz @ w
-            dtable[NUM_RESERVED + start : NUM_RESERVED + stop] = dz.t() @ qx
-        return dx, dtable, None, None, None, None
+def sampled_ce(x: torch.Tensor, table: torch.Tensor, labels: torch.Tensor, negatives: torch.Tensor,
+               n_items: int, num: Numerics) -> torch.Tensor:
+    """Mean NLL of each of the N rows of ``x`` under a softmax over its
+    label's table row and the S rows of ``negatives`` (label-space ids
+    shared by every row): float32 products, log(n_items / S) added to the
+    negatives' logits, a negative equal to the row's own label blinded.
+    Gathers the N + S rows; no (N, n_items) logits."""
+    s = negatives.shape[0]
+    w_label = table[labels + NUM_RESERVED]  # (N, D)
+    w_neg = table[negatives + NUM_RESERVED]  # (S, D)
+    pos = num.mm(x[:, None, :], w_label[:, :, None]).reshape(-1)
+    neg = num.mm(x, w_neg.t()) + math.log(n_items / s)
+    neg = neg.masked_fill(negatives[None, :] == labels[:, None], -math.inf)
+    logz = torch.logsumexp(torch.cat([pos[:, None], neg], dim=1), dim=1)
+    return (logz - pos).mean()
 
 
 def loss_fn(params: dict, cfg: dict, batch: dict, generator: Optional[torch.Generator],
             num: Numerics, block: int) -> torch.Tensor:
     """The step's loss on one batch of numpy arrays already on the device:
-    ``tokens`` (B, L), ``positions`` (B, P), ``labels`` (B, P)."""
+    ``tokens`` (B, L), ``positions`` (B, P), ``labels`` (B, P), and where
+    the traffic samples the softmax ``negatives`` (S,)."""
     x = head_inputs(params, cfg, batch["tokens"], batch["positions"], generator, num)
     labels = batch["labels"].reshape(-1).long()
     live = labels != LABEL_PAD
     xs = x.reshape(-1, x.shape[-1])[live]
-    return BlockedTiedCE.apply(xs, params["embed_items.weight"], labels[live], cfg["n_items"], block, num)
+    table = params["embed_items.weight"]
+    if "negatives" in batch:
+        return sampled_ce(xs, table, labels[live], batch["negatives"].long(), cfg["n_items"], num)
+    return BlockedTiedCE.apply(xs, table, labels[live], cfg["n_items"], block, num)
 
 
-class Adam:
-    """Adam without weight decay: mu = b1 mu + (1 - b1) g, nu = b2 nu +
-    (1 - b2) g^2, p -= lr (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps);
-    mu is kept in the configuration's first-moment type."""
-
-    def __init__(self, params: dict, opt: dict):
-        self.b1, self.b2, self.eps, self.lr = opt["b1"], opt["b2"], opt["eps"], opt["lr"]
-        self.mu_dtype = getattr(torch, opt["mu_dtype"])
-        self.mu = {k: torch.zeros_like(p, dtype=self.mu_dtype) for k, p in params.items()}
-        self.nu = {k: torch.zeros_like(p) for k, p in params.items()}
-        self.count = 0
-
-    @torch.no_grad()
-    def update(self, params: dict, grads: dict) -> None:
-        self.count += 1
-        bc1 = 1.0 - self.b1 ** self.count
-        bc2 = 1.0 - self.b2 ** self.count
-        for k, p in params.items():
-            g = grads[k]
-            mu = self.mu[k].float().mul_(self.b1).add_(g, alpha=1.0 - self.b1)
-            self.nu[k].mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
-            denom = (self.nu[k] / bc2).sqrt_().add_(self.eps)
-            p.addcdiv_(mu, denom, value=-self.lr / bc1)
-            self.mu[k].copy_(mu)
+def encoder_forward_flops(cfg: dict, tokens: int, tokens_sq: int) -> float:
+    """Dense layers over the real tokens, attention over the real
+    query-key pairs, for every layer."""
+    d, f = cfg["d_model"], cfg["ffn_dim"]
+    dense = 2.0 * tokens * (4 * d * d + 2 * d * f)
+    attention = 4.0 * tokens_sq * d
+    return cfg["num_layers"] * (dense + attention)
 
 
-def leaf_norms(tensors: dict) -> dict:
-    return {k: float(torch.linalg.vector_norm(t.float())) for k, t in tensors.items()}
-
-
-def gradient_rms(norms: dict, sizes: dict) -> dict:
-    return {k: norms[k] / math.sqrt(sizes[k]) for k in norms}
-
-
-def median(values) -> float:
-    return float(np.median(np.asarray(list(values), dtype=np.float64)))
+def model_flops(cfg: dict, stats: dict) -> float:
+    """Forward and backward (3x the forward) of the encoder and the tied
+    head for one batch (``harness/traffic.py:batch_stats``), without
+    recomputed work: the head scores each labelled row against the catalog,
+    or against its label and the batch's S negatives where it samples."""
+    rows = stats["negatives"] + 1 if "negatives" in stats else cfg["n_items"]
+    head = 2.0 * stats["labelled"] * rows * cfg["d_model"]
+    return 3.0 * (encoder_forward_flops(cfg, stats["tokens"], stats["tokens_sq"]) + head)

@@ -31,7 +31,6 @@ from portbench.harness import check, manifest, isolation
 from portbench.harness import trace as trace_lib
 from portbench.harness import traffic as traffic_lib
 from portbench.harness import weights as weights_lib
-from portbench.reference import model as ref
 
 
 @dataclass
@@ -99,9 +98,9 @@ def build_session(cell: manifest.Cell, seed: int, device):
     cfg = cell.config
     traffic = traffic_lib.make(cell.traffic, cfg["n_items"], seed)
     seeds = seeds_of(seed)
-    specs = ref.param_specs(cfg)
+    specs = manifest.reference(cfg, cell.root).param_specs(cfg)
     std = cfg["init"]["table_std"]
-    session = manifest.entry(cell.spec["entry"]).build(
+    session = manifest.entry(cell.spec["entry"], cell.root).build(
         cfg, traffic, lambda params: weights_lib.fill(params, specs, seed, std), seeds, device,
     )
     return session, traffic, seeds
@@ -115,7 +114,7 @@ def run(cell: manifest.Cell, seed: int, seconds: float, trace: bool, device, sta
 
     batches = functools.cache(lambda: check.reference_batches(traffic, cfg, seeds))
     rows = check.kept_rows(cfg, seed, batches)
-    ours = check.program_steps(session, cfg, seed, rows)
+    ours = check.program_steps(session, cfg, seed, rows, cell.root)
     for _ in range(spec["warm_steps"] - check.CHECKED_STEPS):
         session.step(session.next())
     _build.reset_launch_counts()
@@ -135,7 +134,7 @@ def run(cell: manifest.Cell, seed: int, seconds: float, trace: bool, device, sta
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
-    theirs, rms = check.reference_steps(cfg, batches(), seed, seeds, device, rows)
+    theirs, rms = check.reference_steps(cfg, batches(), seed, seeds, device, rows, root=cell.root)
     numbers, where = check.compare(ours, theirs, rms)
     limits = spec["limits"]
     correct = check.judge(numbers, limits)
@@ -145,7 +144,7 @@ def run(cell: manifest.Cell, seed: int, seconds: float, trace: bool, device, sta
     metrics = cell.per_layer if trace else cell.end_to_end
     values = {}
     for m in metrics:
-        value = manifest.metric_reader(m["name"])(ctx)
+        value = manifest.metric_reader(m["name"], cell.root)(ctx)
         if value is not None:
             values[m["name"]] = {"value": value, "unit": m["unit"]}
     found = isolation.forbidden_modules()

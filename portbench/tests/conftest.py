@@ -13,7 +13,7 @@ ROOT = Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-CELLS = ("large_catalog.full_ce", "flagship.train_b8192")
+CELLS = ("large_catalog.full_ce", "flagship.train_b8192", "large_catalog.sampled")
 
 
 def tiny_cell(name: str, dtype: str = "bfloat16"):
@@ -24,6 +24,8 @@ def tiny_cell(name: str, dtype: str = "bfloat16"):
     if cfg["n_items"] > 100_000:
         cfg.update(n_items=5000, table_rows=5120)
         cell.traffic = dict(cell.traffic, batch=8, pool=4)
+        if "negatives" in cell.traffic:
+            cell.traffic["negatives"] = 64
     else:
         cfg.update(n_items=300, table_rows=384, num_layers=2)
         cell.traffic = dict(cell.traffic, sessions=200, batch=16)

@@ -21,8 +21,9 @@ def test_control_and_faults_fail_the_check_and_the_program_passes(cell, cuda_dev
     records = []
     calibrate.calibrate(c, [calibrate.FIRST_SEED + 1], 1, cuda_device, records.append)
     by_side = {r["side"]: r["numbers"] for r in records}
-    assert set(by_side) == {"program", *calibrate.FAULTS}
+    faults = calibrate.FAULTS + (calibrate.NEGATIVE_FAULTS if "negatives" in c.traffic else ())
+    assert set(by_side) == {"program", *faults}
     limits = c.spec["limits"]
     assert check.judge(by_side["program"], limits), by_side["program"]
-    for fault in calibrate.FAULTS:
+    for fault in faults:
         assert not check.judge(by_side[fault], limits), (fault, by_side[fault])

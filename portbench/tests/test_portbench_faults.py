@@ -31,11 +31,13 @@ class Broken:
         if self.fault == "label_shift":  # every label altered where the batch is made
             labels = batch["labels"]
             batch = dict(batch, labels=torch.where(labels == -1, labels, (labels + 1) % self.n_items))
+        if self.fault == "negatives_shift":  # other negatives scored than the ones passed
+            batch = dict(batch, negatives=(batch["negatives"] + 1) % self.n_items)
         if self.fault == "half_batch":
             half = batch["labels"].shape[0] // 2
             cut = lambda t: t[:half]  # noqa: E731
-            batch = {"features": {k: cut(v) for k, v in batch["features"].items()},
-                     "head_positions": cut(batch["head_positions"]), "labels": cut(batch["labels"])}
+            batch = dict(batch, features={k: cut(v) for k, v in batch["features"].items()},
+                         head_positions=cut(batch["head_positions"]), labels=cut(batch["labels"]))
         return batch
 
     def step(self, batch):
@@ -89,3 +91,8 @@ def test_labels_shifted_fail_the_gradient_where_the_table_is_sampled(cell, capsy
     assert run_line(c, capsys, monkeypatch)["correct"] is True
     line = run_line(c, capsys, monkeypatch, "label_shift")
     assert line["checks"]["grad_diff"]["value"] > 3 * c.spec["limits"]["grad_diff"], line["checks"]
+
+
+def test_negatives_shifted_make_the_sampled_run_incorrect(capsys, monkeypatch):
+    line = run_line(tiny_cell("large_catalog.sampled", dtype="float32"), capsys, monkeypatch, "negatives_shift")
+    assert line["correct"] is False, line["checks"]

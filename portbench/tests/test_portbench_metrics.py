@@ -38,7 +38,7 @@ def test_step_mfu_counts_no_recompute():
     encoder = 2 * (2 * 300 * (4 * 128**2 + 2 * 128 * 512) + 4 * 9000 * 128)
     head = 2 * 40 * 1000 * 128
     per_step = 3 * (encoder + head)
-    assert work.model_flops(CFG, STATS) == per_step
+    assert manifest.reference(CFG, ROOT).model_flops(CFG, STATS) == per_step
     assert read("step_mfu", ctx_of()) == pytest.approx(100 * 10 * per_step / (2.0 * work.PEAK_FLOPS))
 
 

@@ -47,7 +47,9 @@ def test_kept_rows_hold_every_label_row_of_a_large_table(cell, monkeypatch):
     monkeypatch.setattr(check, "SAMPLE_ROWS", 16)
     rows = check.kept_rows(c.config, 5, lambda: batches).numpy()
     labels = {int(x) + 10 for b in batches for x in b["labels"].ravel() if x != -1}
-    assert labels <= set(rows.tolist()) and len(rows) <= len(labels) + 16
+    # a sampled softmax's gradient falls on its negatives' rows as well
+    negatives = {int(x) + 10 for b in batches for x in b.get("negatives", [])}
+    assert labels | negatives <= set(rows.tolist()) and len(rows) <= len(labels | negatives) + 16
     assert (np.diff(rows) > 0).all() and rows.max() < c.config["table_rows"]
 
 
