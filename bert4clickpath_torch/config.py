@@ -1,8 +1,10 @@
 """Dataclass configuration for models, training, and the device mesh.
 
-(Copied whole from ``bert4clickpath_tpu/config.py``, which imports no jax,
-so that the port never imports the JAX package. Keep the two in step:
-both packages read the same artifacts.)
+(Copied from ``bert4clickpath_tpu/config.py``, which imports no jax, so
+that the port never imports the JAX package. Keep the two in step: both
+packages read the same artifacts. The port adds one field of its own,
+``ModelConfig.block`` (:data:`PORT_ONLY_FIELDS`): a DeepSeek-V2 block in
+place of BERT4Rec's, which the JAX package does not have.)
 
 Replaces the reference's three loose ctor dicts
 (``sequential_input_config`` / ``feature_vocabs`` / ``embedding_dims``,
@@ -69,6 +71,58 @@ class HeadConfig:
 
 
 @dataclass(frozen=True)
+class DeepSeekV2Config:
+    """The DeepSeek-V2 block (https://arxiv.org/abs/2405.04434; keys and
+    defaults of DeepSeek-V2-Lite's ``config.json``) in place of BERT4Rec's:
+    pre-RMSNorm layers of multi-head latent attention (MLA: no query
+    compression, a ``kv_lora_rank`` latent for keys and values, a decoupled
+    RoPE key of ``qk_rope_head_dim`` shared by the heads, YaRN-scaled) and a
+    SwiGLU feed-forward, dense (``ModelConfig.ffn_dim`` wide) in the first
+    ``first_k_dense_replace`` layers and a mixture of experts after them:
+    ``n_routed_experts`` SwiGLU experts of ``moe_intermediate_size``, a
+    softmax router with greedy top-``num_experts_per_tok`` (weights not
+    renormalised), no token dropped, plus ``n_shared_experts`` experts as
+    one SwiGLU of ``n_shared_experts * moe_intermediate_size``. The
+    sequence-wise balance loss, ``aux_loss_alpha`` times sum_i f_i P_i per
+    session, is added to the training loss. ``ModelConfig.num_heads`` is the
+    number of heads, ``d_model`` the hidden size."""
+
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    first_k_dense_replace: int = 1
+    n_routed_experts: int = 64
+    num_experts_per_tok: int = 6
+    n_shared_experts: int = 2
+    moe_intermediate_size: int = 1408
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 10000.0
+    # YaRN (rope_scaling of type "yarn")
+    rope_factor: float = 40.0
+    rope_original_max_position: int = 4096
+    rope_beta_fast: float = 32.0
+    rope_beta_slow: float = 1.0
+    rope_mscale: float = 0.707
+    rope_mscale_all_dim: float = 0.707
+    aux_loss_alpha: float = 0.001
+
+    def __post_init__(self):
+        if self.qk_rope_head_dim % 2:
+            raise ValueError("qk_rope_head_dim must be even (RoPE rotates pairs)")
+        if not 0 < self.num_experts_per_tok <= self.n_routed_experts:
+            raise ValueError("num_experts_per_tok must lie in [1, n_routed_experts]")
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+
+# ModelConfig's fields that the JAX package's ModelConfig lacks
+PORT_ONLY_FIELDS = ("block",)
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     """Encoder + head + routing.
 
@@ -120,14 +174,22 @@ class ModelConfig:
     # it is an architecture field, not an impl switch. Not supported by the
     # tensor-parallel tier (its column-split specs are per-projection).
     qkv_fused: bool = False
+    # The port's own: a DeepSeek-V2 block in place of BERT4Rec's (None:
+    # BERT4Rec's). It takes positional="rope" and norm_style="pre"; the
+    # model then adds no absolute positions.
+    block: Optional[DeepSeekV2Config] = None
 
     def __post_init__(self):
         if self.routing not in ("mask", "segment"):
             raise ValueError(f"unknown routing {self.routing!r}")
         if self.routing == "segment" and self.segment_bounds is None:
             raise ValueError("routing='segment' requires segment_bounds")
-        if self.positional not in ("sinusoidal", "learned"):
+        if self.positional not in ("sinusoidal", "learned", "rope"):
             raise ValueError(f"unknown positional {self.positional!r}")
+        if (self.positional == "rope") != (self.block is not None):
+            raise ValueError("positional='rope' goes with a DeepSeek-V2 block, and only with one")
+        if self.block is not None and (self.norm_style != "pre" or self.qkv_fused or self.encoder_dim):
+            raise ValueError("the DeepSeek-V2 block is pre-norm, without qkv_fused or encoder_dim")
         if self.norm_style not in ("post", "pre"):
             raise ValueError(f"unknown norm_style {self.norm_style!r}")
 
@@ -155,6 +217,11 @@ class ModelConfig:
             return o
 
         d = dataclasses.asdict(self)
+        # the port's own fields only where set: a BERT4Rec model's artifact
+        # stays byte for byte the JAX package's
+        for name in PORT_ONLY_FIELDS:
+            if d[name] is None:
+                del d[name]
         return json.dumps(d, indent=2)
 
     @classmethod
@@ -168,6 +235,8 @@ class ModelConfig:
         )
         if d.get("segment_bounds") is not None:
             d["segment_bounds"] = tuple(d["segment_bounds"])
+        if d.get("block") is not None:
+            d["block"] = DeepSeekV2Config(**d["block"])
         return cls(**d)
 
 

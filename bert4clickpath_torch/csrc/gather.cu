@@ -6,7 +6,8 @@
 //     out[b, l, :] = round_to_out(float(table[ids[b, l], :]) * scale + pos[l, :])
 //
 // with table f32 (V, D), ids int32 (B, L), pos f32 (L, D) and out bf16 or
-// f32 (B, L, D). The product and the sum are taken in f32 without
+// f32 (B, L, D); a null pos adds nothing (the DeepSeek-V2 block takes its
+// positions as RoPE inside attention). The product and the sum are taken in f32 without
 // contraction into an FMA, and rounded once to the output type, as the
 // plain version (gather_scale_pos_reference) does.
 //
@@ -26,6 +27,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -48,7 +51,7 @@ __device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 v) {
   *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(pair);
 }
 
-template <typename OutT>
+template <typename OutT, bool POS>
 __global__ void gather_scale_pos_kernel(const float* __restrict__ table,
                                         const int32_t* __restrict__ ids,
                                         const float* __restrict__ pos,
@@ -64,17 +67,21 @@ __global__ void gather_scale_pos_kernel(const float* __restrict__ table,
     __trap();
   }
   const float* row = table + static_cast<size_t>(id) * d;
-  const float* prow = pos + static_cast<size_t>(token % seq_len) * d;
+  const float* prow = POS ? pos + static_cast<size_t>(token % seq_len) * d : nullptr;
   OutT* orow = out + static_cast<size_t>(token) * d;
   // d % 4 == 0 and 16-byte aligned rows are checked by the wrapper
   for (int c = lane * 4; c < d; c += 32 * 4) {
     const float4 t = __ldg(reinterpret_cast<const float4*>(row + c));
-    const float4 p = __ldg(reinterpret_cast<const float4*>(prow + c));
     float4 r;
-    r.x = fused(t.x, scale, p.x);
-    r.y = fused(t.y, scale, p.y);
-    r.z = fused(t.z, scale, p.z);
-    r.w = fused(t.w, scale, p.w);
+    if constexpr (POS) {
+      const float4 p = __ldg(reinterpret_cast<const float4*>(prow + c));
+      r.x = fused(t.x, scale, p.x);
+      r.y = fused(t.y, scale, p.y);
+      r.z = fused(t.z, scale, p.z);
+      r.w = fused(t.w, scale, p.w);
+    } else {
+      r = make_float4(__fmul_rn(t.x, scale), __fmul_rn(t.y, scale), __fmul_rn(t.z, scale), __fmul_rn(t.w, scale));
+    }
     store4(orow + c, r);
   }
 }
@@ -93,16 +100,22 @@ extern "C" int b4cp_gather_scale_pos(const void* table, const void* ids,
   const dim3 grid((n_tokens + kWarpsPerBlock - 1) / kWarpsPerBlock);
   const dim3 block(32 * kWarpsPerBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto run = [&](auto* typed_out, auto with_pos) {
+    using OutT = std::remove_pointer_t<decltype(typed_out)>;
+    gather_scale_pos_kernel<OutT, decltype(with_pos)::value><<<grid, block, 0, s>>>(
+        static_cast<const float*>(table), static_cast<const int32_t*>(ids),
+        static_cast<const float*>(pos), typed_out, n_tokens, seq_len, d, v, scale);
+  };
   if (out_is_bf16) {
-    gather_scale_pos_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
-        static_cast<const float*>(table), static_cast<const int32_t*>(ids),
-        static_cast<const float*>(pos), static_cast<__nv_bfloat16*>(out),
-        n_tokens, seq_len, d, v, scale);
+    if (pos) {
+      run(static_cast<__nv_bfloat16*>(out), std::true_type{});
+    } else {
+      run(static_cast<__nv_bfloat16*>(out), std::false_type{});
+    }
+  } else if (pos) {
+    run(static_cast<float*>(out), std::true_type{});
   } else {
-    gather_scale_pos_kernel<float><<<grid, block, 0, s>>>(
-        static_cast<const float*>(table), static_cast<const int32_t*>(ids),
-        static_cast<const float*>(pos), static_cast<float*>(out), n_tokens,
-        seq_len, d, v, scale);
+    run(static_cast<float*>(out), std::false_type{});
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,8 +30,12 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _failed = False
 
-# the C kernel uses a fixed 64-slot index scratch per row
-MAX_ITEMS_NATIVE = 64
+# the C kernel uses a fixed 1,024-slot index scratch per row
+MAX_ITEMS_NATIVE = 1024
+# ClozeDataset's backend "auto" takes the native batcher up to here, as the
+# JAX package's does (its kernel's scratch holds 64), so that both packages
+# make the same batches; "native" takes it up to MAX_ITEMS_NATIVE
+AUTO_MAX_ITEMS = 64
 
 
 def _target() -> Path:

@@ -105,7 +105,7 @@ void build_train_batch(const int32_t* values, const int64_t* offsets,
     // partial Fisher-Yates over [0, n) for unique positions
     SplitMix64 rng(seed * 0x9e3779b97f4a7c15ULL + batch_counter * 0x85ebca77ULL +
                    (uint64_t)row + 1);
-    int32_t idx[64];  // max_items <= 61 for token_len ... enforced by caller
+    int32_t idx[1024];  // max_items <= 1024, enforced by the caller (MAX_ITEMS_NATIVE)
     for (int64_t t = 0; t < n; ++t) idx[t] = (int32_t)t;
     for (int m = 0; m < n_masked; ++m) {
       int j = m + (int)rng.bounded((uint32_t)(n - m));

@@ -72,7 +72,7 @@ class ClozeDataset:
 
             backend = (
                 "native"
-                if max_items <= native.MAX_ITEMS_NATIVE and native.available()
+                if max_items <= native.AUTO_MAX_ITEMS and native.available()
                 else "numpy"
             )
         self.backend = backend

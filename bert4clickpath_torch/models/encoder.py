@@ -29,6 +29,10 @@ compute dtype follows flax's ``dtype=`` convention: :class:`Dense` casts its
 input, weight and bias to it, and :class:`LayerNorm` normalizes in f32 and
 rounds once to it. Module and parameter names mirror the flax tree.
 
+With a ``block`` (``config.DeepSeekV2Config``) the layers are
+``models/deepseek_v2.py:DeepSeekV2Layer`` instead, pre-RMSNorm with a final
+RMSNorm.
+
 ``remat`` (the JAX ``Encoder.remat``, ``nn.remat(EncoderLayer)``) wraps
 each layer in ``torch.utils.checkpoint``: the layer's activations are
 recomputed in the backward instead of kept, with the same dropout masks.
@@ -43,6 +47,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from bert4clickpath_torch.config import DeepSeekV2Config
+from bert4clickpath_torch.models.deepseek_v2 import DeepSeekV2Layer, RMSNorm
 from bert4clickpath_torch.ops.kernels.attention import mha
 from bert4clickpath_torch.ops.kernels.dropout import fused_dropout
 from bert4clickpath_torch.utils import profiling
@@ -192,9 +198,12 @@ class Encoder(nn.Module):
     def __init__(
         self, num_layers: int, d_model: int, num_heads: int, ffn_dim: int,
         dropout_rate: float, dtype: torch.dtype, qkv_fused: bool = False,
-        norm_style: str = "post", dropout_impl: str = "mask", remat: bool = False, *, device,
+        norm_style: str = "post", dropout_impl: str = "mask", remat: bool = False,
+        block: Optional[DeepSeekV2Config] = None, *, device,
     ):
         super().__init__()
+        if block is not None and dropout_rate:
+            raise ValueError("the DeepSeek-V2 block takes no dropout (dropout_rate 0)")
         if dropout_impl not in DROPOUT_IMPLS:
             raise ValueError(f"dropout_impl must be one of {DROPOUT_IMPLS}, got {dropout_impl!r}")
         self.num_layers = num_layers
@@ -203,18 +212,22 @@ class Encoder(nn.Module):
         # recompute each layer's activations in the backward (JAX: nn.remat)
         self.remat = remat
         for i in range(num_layers):
-            self.add_module(
-                f"layer_{i}",
-                EncoderLayer(
+            if block is not None:
+                dense = ffn_dim if i < block.first_k_dense_replace else None
+                layer = DeepSeekV2Layer(d_model, num_heads, block, dense, dtype, device=device)
+            else:
+                layer = EncoderLayer(
                     d_model, num_heads, ffn_dim, dropout_rate, dtype, qkv_fused,
                     norm_style, dropout_impl, device=device,
-                ),
-            )
+                )
+            self.add_module(f"layer_{i}", layer)
         # pre-LN leaves the residual stream un-normalized; one final LN feeds
         # the head the same normalized scale post-LN produces
-        self.ln_final: Optional[LayerNorm] = (
-            LayerNorm(d_model, dtype, device=device) if norm_style == "pre" else None
-        )
+        self.ln_final: Optional[nn.Module] = None
+        if block is not None:
+            self.ln_final = RMSNorm(d_model, dtype, block.rms_norm_eps, device=device)
+        elif norm_style == "pre":
+            self.ln_final = LayerNorm(d_model, dtype, device=device)
 
     def forward(
         self, x: torch.Tensor, bias: torch.Tensor, generator: Optional[torch.Generator] = None,

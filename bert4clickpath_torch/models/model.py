@@ -58,6 +58,10 @@ class ClickstreamModel(nn.Module):
         self.config = cfg
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         dtype = self.dtype
+        # the fused CE's input: f32, as the JAX package hands it over; the
+        # DeepSeek-V2 block keeps its compute dtype to the head (bf16
+        # products with f32 sums in the CE kernels, as the encoder's)
+        self.head_dtype = dtype if cfg.block is not None else torch.float32
         for name, fc in cfg.features.items():
             self.add_module(f"embed_{name}", _embedding(fc.vocab_rows, fc.embedding_dim, device))
         embed_sum = sum(fc.embedding_dim for fc in cfg.features.values())
@@ -67,7 +71,7 @@ class ClickstreamModel(nn.Module):
             self.input_proj = Dense(embed_sum, cfg.d_model, dtype, device=device)
         if cfg.positional == "learned":
             self.positions = LearnedPositions(cfg.max_len, cfg.d_model, device=device)
-        else:
+        elif cfg.positional != "rope":  # RoPE: positions enter the block's attention, the lookup adds none
             self.register_buffer(
                 "sinusoid",
                 torch.from_numpy(sinusoidal_positions(cfg.max_len, cfg.d_model)).to(device),
@@ -79,7 +83,7 @@ class ClickstreamModel(nn.Module):
         )
         self.encoder = Encoder(
             cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.ffn_dim,
-            cfg.dropout_rate, dtype, cfg.qkv_fused, cfg.norm_style, dropout_impl, remat,
+            cfg.dropout_rate, dtype, cfg.qkv_fused, cfg.norm_style, dropout_impl, remat, cfg.block,
             device=device,
         )
         head = cfg.head
@@ -131,6 +135,8 @@ class ClickstreamModel(nn.Module):
             seq_len = first.shape[1]
             if cfg.positional == "learned":
                 pos = blk.after(self.positions(seq_len))
+            elif cfg.positional == "rope":
+                pos = None
             else:
                 pos = self.sinusoid[:seq_len]
             if len(names) == 1 and self.input_proj is None and item_lookup is None:
@@ -154,7 +160,8 @@ class ClickstreamModel(nn.Module):
                 width = embedded.shape[-1]
                 scale = torch.tensor(float(width), dtype=self.dtype).sqrt().item()
                 embedded = self.apply_input_proj(embedded * scale)
-                embedded = embedded + pos.to(self.dtype)[None]
+                if pos is not None:
+                    embedded = embedded + pos.to(self.dtype)[None]
             if self.segment_embed is not None:
                 # cumulative-SEP markers: [CLS][SEP] s1 [SEP] s2 -> 0 1.. 2..
                 seg = segment_ids(first, SEP_ID).clamp(0, cfg.max_segments - 1)
@@ -203,11 +210,12 @@ class ClickstreamModel(nn.Module):
     ) -> torch.Tensor:
         """Encode, gather the routed positions, and (for tied heads) apply the
         pre-projection transform: everything except the catalog projection.
-        (B, P, d_head) f32, the fused CE's input. ``item_lookup``: as
+        (B, P, d_head) in ``head_dtype`` (f32; the DeepSeek-V2 block's
+        compute dtype), the fused CE's input. ``item_lookup``: as
         :meth:`encode`."""
         h = self.encode(features, generator, item_lookup)
         with profiling.block("b4cp.head") as blk:
-            return blk.output(self.apply_tied_transform(self._route(blk.input(h), head_positions)).float())
+            return blk.output(self.apply_tied_transform(self._route(blk.input(h), head_positions)).to(self.head_dtype))
 
     def head_trunk_outputs(
         self, features: dict[str, torch.Tensor], head_positions: Optional[torch.Tensor] = None,

@@ -88,6 +88,16 @@ SIGNATURES = {
     # c1, b1, c2, b2, inv_bc1, inv_bc2, eps, wd, lr, lr_scale, device, stream
     "b4cp_adam": (_I, [_P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P, _I, _P]),
     "b4cp_adam_capacity": (_I, []),
+    # a, b, out, offsets (E + 1 int32), mode (0 rows, 1 dw, 2 rows_w), M, N, K, E, device, stream
+    "b4cp_grouped_gemm": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    # rows, idx (T, k int64), w (T, k f32) | g (T, D), out, T, k, D, rows' count, device, stream
+    "b4cp_moe_gather_sum": (_I, [_P, _P, _P, _P, _I, _I, _I, _LL, _I, _P]),
+    "b4cp_moe_gather_dot": (_I, [_P, _P, _P, _P, _I, _I, _I, _LL, _I, _P]),
+    # q, k, v, bias, out, lse, B, L, H, q/k head width, v head width, scale, device, stream
+    "b4cp_umha_fwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
+    # q, k, v, bias, lse, dout, delta, dq, dk, dv, B, L, H, q/k head width,
+    # v head width, scale, device, stream
+    "b4cp_umha_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
     "b4cp_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -98,7 +108,8 @@ build_log = ""  # nvcc's output (ptxas register/shared-memory report)
 # launch counters, one per kernel (see launch_counts / reset_launch_counts)
 KERNELS = (
     "gather", "attention", "attention_bwd", "ce_fwd", "ce_bwd", "ce_bwd_dx", "ce_bwd_dw",
-    "blockwise_fwd", "blockwise_dq", "blockwise_dkv", "dropout", "adam",
+    "blockwise_fwd", "blockwise_dq", "blockwise_dkv", "dropout", "adam", "grouped_gemm",
+    "moe_gather_sum", "moe_gather_dot", "uneven_fwd", "uneven_bwd",
 )
 # copies a wrapper made of an input its kernel cannot read as it lies (the
 # bf16 blockwise forward's and backward's tensor maps:

@@ -48,7 +48,13 @@ there): the whole-row kernels where their shared memory fits one block
 (:func:`mha_smem_bytes`, and :func:`mha_bwd_smem_bytes` when a gradient is
 needed; L <= 417 and L <= 116 at Dh = 64), the blockwise kernels otherwise.
 No sequence length is refused; the blockwise kernels take a head width up
-to 128 (their tiles are instantiated for 16, 32, 64 and 128).
+to 128 (their tiles are instantiated for 16, 32, 64 and 128). Heads whose
+v is narrower than q and k, or another softmax scale (the DeepSeek-V2
+block's latent attention, 192 and 128), take :func:`uneven_mha`: the
+blockwise family's roundings, and on the card the kernels of
+``csrc/attention_uneven.cu`` (a forward, a dq and a dk/dv kernel on the
+tensor cores, the other side of each product resident in shared memory,
+so L <= 256 there).
 
 The CUDA kernels are ``bert4clickpath_torch/csrc/attention.cu`` (whole-row)
 and ``csrc/attention_blockwise.cu`` (tiles and shared-memory use in its
@@ -269,14 +275,16 @@ BLOCKWISE_MAX_HEAD_DIM = 128  # csrc/attention_blockwise.cu launch_dh
 
 def blockwise_mha_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
-    num_heads: int,
+    num_heads: int, scale: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the blockwise forward, dense in f32:
-    (out (B, L, D) in the input dtype, lse (B, L, H) f32). With one key
+    (out (B, L, H * Dv) in the input dtype, lse (B, L, H) f32). With one key
     tile the running maximum is the row maximum, so the un-normalised
-    p = exp(s - max) is what rounds to v's dtype; l sums the unrounded p."""
+    p = exp(s - max) is what rounds to v's dtype; l sums the unrounded p.
+    ``scale`` (default 1 / sqrt(head width)) and a v narrower than q and k
+    are the uneven kernels' (:func:`uneven_mha`)."""
     b, l, d = q.shape
-    scale = 1.0 / ((d // num_heads) ** 0.5)
+    scale = 1.0 / ((d // num_heads) ** 0.5) if scale is None else scale
     s = torch.einsum("bqhd,bkhd->bhqk", _split_heads(q, num_heads), _split_heads(k, num_heads))
     s = s * scale + bias.float()
     m = s.amax(dim=-1, keepdim=True)
@@ -285,7 +293,7 @@ def blockwise_mha_reference(
     o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), _split_heads(v, num_heads))
     o = o / lsum.squeeze(-1).transpose(1, 2).unsqueeze(-1)
     lse = (m + torch.log(lsum)).squeeze(-1).transpose(1, 2).contiguous()
-    return o.reshape(b, l, d).to(q.dtype), lse
+    return o.reshape(b, l, -1).to(q.dtype), lse
 
 
 def attention_delta(do: torch.Tensor, out: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -294,11 +302,11 @@ def attention_delta(do: torch.Tensor, out: torch.Tensor, num_heads: int) -> torc
     return (_split_heads(do, num_heads) * _split_heads(out, num_heads)).sum(-1)
 
 
-def _recompute_p_ds(q, k, v, bias, lse, do, delta, num_heads):
+def _recompute_p_ds(q, k, v, bias, lse, do, delta, num_heads, scale=None):
     """(p f32, ds rounded to the input dtype from that f32 p, q, k, do split
     by head in f32), what both backward kernels recompute from lse and
     delta."""
-    scale = 1.0 / ((q.shape[-1] // num_heads) ** 0.5)
+    scale = 1.0 / ((q.shape[-1] // num_heads) ** 0.5) if scale is None else scale
     qf, kf, vf, dof = (_split_heads(t, num_heads) for t in (q, k, v, do))
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale + bias.float()
     p = torch.exp(s - lse.transpose(1, 2).unsqueeze(-1))
@@ -307,22 +315,22 @@ def _recompute_p_ds(q, k, v, bias, lse, do, delta, num_heads):
     return p, ds, qf, kf, dof
 
 
-def blockwise_dq_reference(q, k, v, bias, lse, do, delta, num_heads) -> torch.Tensor:
+def blockwise_dq_reference(q, k, v, bias, lse, do, delta, num_heads, scale=None) -> torch.Tensor:
     """Plain PyTorch version of the dq kernel: dq = ds . k, summed in f32
     and rounded once to the input dtype."""
-    _, ds, _, kf, _ = _recompute_p_ds(q, k, v, bias, lse, do, delta, num_heads)
+    _, ds, _, kf, _ = _recompute_p_ds(q, k, v, bias, lse, do, delta, num_heads, scale)
     return torch.einsum("bhqk,bkhd->bqhd", ds, kf).reshape(q.shape).to(q.dtype)
 
 
-def blockwise_dkv_reference(q, k, v, bias, lse, do, delta, num_heads) -> tuple[torch.Tensor, torch.Tensor]:
+def blockwise_dkv_reference(q, k, v, bias, lse, do, delta, num_heads, scale=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the dk/dv kernel: dk = ds^T . q and
     dv = p^T . do with p rounded to the input dtype first (as the forward
     rounds it before its PV product; the identity for f32 inputs), each
     summed in f32 and rounded once to the input dtype."""
-    p, ds, qf, _, dof = _recompute_p_ds(q, k, v, bias, lse, do, delta, num_heads)
+    p, ds, qf, _, dof = _recompute_p_ds(q, k, v, bias, lse, do, delta, num_heads, scale)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), dof)
-    return dk.reshape(q.shape).to(q.dtype), dv.reshape(q.shape).to(q.dtype)
+    return dk.reshape(k.shape).to(q.dtype), dv.reshape(v.shape).to(q.dtype)
 
 
 def blockwise_mha_backward_reference(
@@ -575,16 +583,165 @@ def attention_family(seq_len: int, head_dim: int, needs_grad: bool) -> str:
     return "whole_row" if fits else "blockwise"
 
 
+# -- heads whose v is narrower than q and k, or another scale ----------------
+
+UNEVEN_HEADS = ((192, 128),)  # (q/k, v) head widths of csrc/attention_uneven.cu's instance
+_UNEVEN_TILE = 64  # rows of a block's own tile; resident rows are L rounded up to this
+
+
+def uneven_smem_bytes(seq_len: int, dqk: int, dv: int) -> int:
+    """Shared memory the largest of the uneven kernels (dk/dv) needs: its
+    own 64 rows of k and v, all of q and do (L rounded up to 64), bf16 rows
+    with 8 elements of skew, and the lse and delta rows in f32 (L <= 256 at
+    (192, 128))."""
+    rows = -(-seq_len // _UNEVEN_TILE) * _UNEVEN_TILE
+    return 2 * (_UNEVEN_TILE + rows) * (dqk + dv + 16) + 4 * 2 * rows
+
+
+def _check_uneven(q, k, v, bias, num_heads):
+    if q.dim() != 3 or q.shape != k.shape or v.dim() != 3 or v.shape[:2] != q.shape[:2]:
+        raise ValueError(f"q, k must share one (B, L, H * Dqk) shape and v its (B, L), got "
+                         f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
+    if q.shape[2] % num_heads or v.shape[2] % num_heads:
+        raise ValueError(f"q ({q.shape[2]}) and v ({v.shape[2]}) widths must divide into {num_heads} heads")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v must all be bfloat16 or all float32, got {q.dtype} {k.dtype} {v.dtype}")
+    b, l, _ = q.shape
+    if bias.dtype != torch.float32 or tuple(bias.shape) != (b, 1, 1, l):
+        raise ValueError(f"bias must be ({b}, 1, 1, {l}) float32, got {tuple(bias.shape)} {bias.dtype}")
+    if not (q.device == k.device == v.device == bias.device):
+        raise ValueError("q, k, v and bias must be on one device")
+    if q.device.type == "cuda":
+        heads = (q.shape[2] // num_heads, v.shape[2] // num_heads)
+        if q.dtype != torch.bfloat16 or heads not in UNEVEN_HEADS:
+            raise ValueError(f"the uneven kernels take bfloat16 heads of (q/k, v) widths {UNEVEN_HEADS}, "
+                             f"got {q.dtype} {heads}")
+        if uneven_smem_bytes(l, *heads) > MAX_SHARED_BYTES:
+            raise ValueError(f"the uneven kernels at L={l} need {uneven_smem_bytes(l, *heads)} bytes of "
+                             f"shared memory, more than one block holds ({MAX_SHARED_BYTES})")
+    elif q.device.type != "cpu":
+        raise ValueError(f"unsupported device {q.device}")
+
+
+def _kernel_operands(*tensors):
+    """Each tensor contiguous with a 16-byte aligned base, as the uneven
+    kernels' 16-byte copies read it; the main path's are already."""
+    out = [t.contiguous() for t in tensors]
+    if any(t.data_ptr() % TMA_ALIGN for t in out):
+        raise ValueError("the uneven kernels need 16-byte aligned inputs")
+    return out
+
+
+def _launch_uneven_fwd(q, k, v, bias, num_heads, scale):
+    b, l, _ = q.shape
+    q, k, v, bias = _kernel_operands(q, k, v, bias)
+    out = torch.empty((b, l, v.shape[2]), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, l, num_heads), dtype=torch.float32, device=q.device)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        code = lib.b4cp_umha_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            b, l, num_heads, q.shape[2] // num_heads, v.shape[2] // num_heads, float(scale),
+            q.device.index, torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(code, "uneven mha")
+    _build.count("uneven_fwd")
+    return out, lse
+
+
+def _launch_uneven_bwd(q, k, v, bias, lse, do, delta, num_heads, scale):
+    b, l, _ = q.shape
+    q, k, v, bias, lse, do, delta = _kernel_operands(q, k, v, bias, lse, do.to(q.dtype), delta)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        code = lib.b4cp_umha_bwd(
+            *(t.data_ptr() for t in (q, k, v, bias, lse, do, delta, dq, dk, dv)),
+            b, l, num_heads, q.shape[2] // num_heads, v.shape[2] // num_heads, float(scale),
+            q.device.index, torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(code, "uneven mha backward")
+    _build.count("uneven_bwd")
+    return dq, dk, dv
+
+
+def uneven_mha_forward(q, k, v, bias, num_heads, scale):
+    """(out (B, L, H * Dv), lse (B, L, H) f32) of the uneven forward, no
+    autograd. CPU tensors take the plain version
+    (:func:`blockwise_mha_reference` with ``scale``); CUDA tensors launch
+    the kernel."""
+    _check_uneven(q, k, v, bias, num_heads)
+    if q.device.type == "cpu":
+        return blockwise_mha_reference(q, k, v, bias, num_heads, scale)
+    return _launch_uneven_fwd(q, k, v, bias, num_heads, scale)
+
+
+def uneven_mha_backward(q, k, v, bias, out, lse, do, num_heads, scale):
+    """(dq, dk, dv) for the output gradient ``do`` from the forward's
+    ``out`` and ``lse``: delta in plain PyTorch, then the dq and the dk/dv
+    kernels from one C call (on CPU tensors :func:`blockwise_dq_reference`
+    and :func:`blockwise_dkv_reference` with ``scale``)."""
+    _check_uneven(q, k, v, bias, num_heads)
+    if do.shape != out.shape or do.device != q.device:
+        raise ValueError(f"do must be {tuple(out.shape)} on {q.device}, got {tuple(do.shape)} on {do.device}")
+    args = (q, k, v, bias, lse, do, attention_delta(do, out, num_heads), num_heads, scale)
+    if q.device.type == "cpu":
+        return (blockwise_dq_reference(*args), *blockwise_dkv_reference(*args))
+    return _launch_uneven_bwd(*args)
+
+
+class _UnevenMHA(torch.autograd.Function):
+    @staticmethod
+    @profiling.span("b4cp.attention")
+    def forward(ctx, q, k, v, bias, num_heads, scale):
+        out, lse = uneven_mha_forward(q, k, v, bias, num_heads, scale)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return out
+
+    @staticmethod
+    @profiling.span("b4cp.attention")
+    def backward(ctx, do):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        dq, dk, dv = uneven_mha_backward(q, k, v, bias, out, lse, do, ctx.num_heads, ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
+def uneven_mha(
+    q: torch.Tensor,  # (B, L, H * Dqk)
+    k: torch.Tensor,  # (B, L, H * Dqk)
+    v: torch.Tensor,  # (B, L, H * Dv)
+    bias: torch.Tensor,  # (B, 1, 1, L) f32
+    num_heads: int,
+    scale: float,
+) -> torch.Tensor:
+    """(B, L, H * Dv) masked MHA with heads whose v is narrower than q and k
+    (the DeepSeek-V2 block's 192 and 128) at the softmax scale ``scale``,
+    differentiable in q, k and v, with the blockwise family's roundings (the
+    log-sum-exp is kept for the backward). CUDA tensors launch
+    ``csrc/attention_uneven.cu`` (bf16, the heads of :data:`UNEVEN_HEADS`,
+    L <= 256 there; anything else raises), CPU tensors take the plain
+    versions."""
+    _check_uneven(q, k, v, bias, num_heads)
+    return _UnevenMHA.apply(q, k, v, bias, num_heads, scale)
+
+
 def mha(
     q: torch.Tensor,  # (B, L, D)
     k: torch.Tensor,
     v: torch.Tensor,
     bias: torch.Tensor,  # (B, 1, 1, L) f32
     num_heads: int,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """(B, L, D) masked MHA at any L, differentiable in q, k and v: the
     family :func:`attention_family` names. CPU tensors take the plain
-    versions; CUDA tensors launch the kernels."""
+    versions; CUDA tensors launch the kernels. Heads whose v is narrower
+    than q and k, or a ``scale`` other than the kernels' 1 / sqrt(head
+    width), take :func:`uneven_mha` ((B, L, H * Dv) out)."""
+    if scale is not None or v.shape != q.shape:
+        head = q.shape[-1] // num_heads
+        return uneven_mha(q, k, v, bias, num_heads, head ** -0.5 if scale is None else scale)
     _check(q, k, v, bias, num_heads)
     family = attention_family(q.shape[1], q.shape[2] // num_heads, _needs_grad(q, k, v))
     return (fused_mha if family == "whole_row" else blockwise_mha)(q, k, v, bias, num_heads)

@@ -121,6 +121,7 @@ def _features_flags(model) -> dict:
         dropout_impl="pallas" if model.encoder.dropout_impl == "fused" else "xla",
         embed_impl="pallas" if single_gather else "xla",
         qkv_fused=cfg.qkv_fused,
+        block="bert4rec" if cfg.block is None else "deepseek_v2",
     )
 
 

@@ -42,6 +42,19 @@ PORT_ACCEPTS: dict[str, dict[str, str]] = {
     "sampled_spmd": {"attn:pallas": _P_RANK_PROGRAMS, "dropout:pallas": _P_RANK_PROGRAMS},
 }
 
+# Blocks of the port's own (``ModelConfig.block``) that a tier refuses by
+# name; the matrix above has no row for them (the JAX package has no
+# such block). Only the single-device step runs the DeepSeek-V2 block: the
+# data-parallel tiers reduce the CE's sums without its balance loss, and the
+# tensor-parallel and vocab-sharded tiers build BERT4Rec's layers.
+_R_DEEPSEEK = (
+    "the DeepSeek-V2 block (MLA and the expert layer) runs on the single-device "
+    "step only: this tier neither shards the experts nor adds their balance loss"
+)
+PORT_BLOCKS: dict[str, dict[str, str]] = {
+    tier: {"deepseek_v2": _R_DEEPSEEK} for tier in ("dp", "spmd", "tp", "tp_spmd", "sampled_spmd")
+}
+
 # Why-strings double as error messages and matrix footnotes.
 _R_SPMD_HEAD = (
     "the vocab-sharded SPMD tier requires the tied head (the projection "
@@ -126,12 +139,18 @@ def validate_tier(
     embed_impl: str = "xla",
     qkv_fused: bool = False,
     sampled: int = 0,
+    block: str = "bert4rec",
 ) -> None:
     """Raise ValueError with the matrix reason if the combination is
     unsupported; silent when it composes. Tier constructors and the training
-    driver both call this BEFORE building a step."""
+    driver both call this BEFORE building a step. ``block``: the encoder's
+    block, ``"bert4rec"`` or one of the port's own (``PORT_BLOCKS``)."""
     if tier not in TIERS:
         raise ValueError(f"unknown tier {tier!r}; expected one of {TIERS}")
+    if block != "bert4rec":
+        reason = PORT_BLOCKS.get(tier, {}).get(block)
+        if reason is not None:
+            raise ValueError(f"tier {tier!r} rejects block {block!r}: {reason}")
     if head_kind not in HEAD_KINDS:
         raise ValueError(
             f"unknown head kind {head_kind!r}; expected one of {HEAD_KINDS}"

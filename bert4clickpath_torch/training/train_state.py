@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from bert4clickpath_torch.constants import LABEL_PAD
+from bert4clickpath_torch.models.deepseek_v2 import MoE
 from bert4clickpath_torch.models.model import head_catalog
 from bert4clickpath_torch.ops import metrics as metrics_lib
 from bert4clickpath_torch.ops.chunked_eval import chunked_eval_stats, pick_chunk
@@ -278,15 +279,14 @@ def make_loss_fn(
     step: the fused CE (``fused_ce_num_valid`` = the raw label vocabulary
     size V, softmax-family heads), sampled softmax over ``negatives`` when
     they are given (with ``fused_ce_num_valid``), or dense logits through
-    ``loss_fn``."""
+    ``loss_fn``; plus each MoE layer's balance loss of that forward
+    (``MoE.aux``) where the model has such layers."""
     head_kind = model.config.head.kind
     loss_fn = loss_fn or loss_for_head(head_kind)
     use_fused = fused_ce_num_valid is not None and head_kind in ("tied_softmax", "softmax")
+    moe_layers = [m for m in model.modules() if isinstance(m, MoE)]
 
-    def compute_loss(
-        batch: dict, generator: Optional[torch.Generator] = None,
-        negatives: Optional[torch.Tensor] = None,
-    ) -> torch.Tensor:
+    def head_loss(batch: dict, generator: Optional[torch.Generator], negatives: Optional[torch.Tensor]):
         if use_fused and negatives is not None:
             total, count = sampled_head_ce_sums(model, batch, generator, fused_ce_num_valid, negatives)
             return total / count.clamp(min=1.0)
@@ -295,6 +295,13 @@ def make_loss_fn(
             return total / count.clamp(min=1.0)
         logits = model(batch["features"], batch.get("head_positions"), generator)
         return loss_fn(logits, batch["labels"])
+
+    def compute_loss(
+        batch: dict, generator: Optional[torch.Generator] = None,
+        negatives: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        loss = head_loss(batch, generator, negatives)
+        return loss + sum(m.aux for m in moe_layers) if moe_layers else loss
 
     return compute_loss
 

@@ -34,6 +34,13 @@ span                         where                                         forwa
 ``b4cp.encoder``             the encoder's input dropout, each layer (a    block     block
                              remat recompute too), pre-LN's final LayerNorm
 ``b4cp.attention``           the attention kernels' autograd functions     launch    launch
+                             (``uneven_mha`` too)
+``b4cp.mla``                 the DeepSeek-V2 block's latent attention but  block     block
+                             its core (``models/deepseek_v2.py``)
+``b4cp.moe.route``           router, top-k, balance loss, the sort by      block     block
+                             expert, the gathers to and from the rows
+``b4cp.moe.experts``         the grouped expert products and SwiGLU        block     block
+``b4cp.moe.shared``          the shared experts                            block     block
 ``b4cp.head``                routing gather, tied transform, float cast    block     block
 ``b4cp.ce_fwd``              ``ops/kernels/fused_ce.py:ce_stats``          launch    -
 ``b4cp.ce_bwd``              ``ops/kernels/fused_ce.py:ce_backward``       -         launch
@@ -42,7 +49,8 @@ span                         where                                         forwa
 
 **Counters.** :func:`counters` is the one registry: ``{name: (calls,
 seconds)}`` of every span run off the profiler, beside the kernel counters
-of ``ops/kernels/_build.py`` (``kernels.<kernel>``: launches;
+of ``ops/kernels/_build.py`` (``kernels.<kernel>``: launches, e.g.
+``kernels.grouped_gemm`` and ``kernels.moe_gather_sum``;
 ``copies.<counter>``: copies a wrapper made; seconds 0) and
 ``kernels.adam.tensors``, the tensors the Adam kernel updated
 (``ops/kernels/adam.py``). :func:`reset`

@@ -1,6 +1,6 @@
 """Drive the PyTorch port's serving path, its flagship train step, its
-long-session path and a whole training run of the wide model once on one
-CUDA card.
+long-session path, a whole training run of the wide model and the
+DeepSeek-V2 cell's step once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -189,6 +189,22 @@ Phases, in order; any failure raises and the script exits non-zero:
 16. multihost — ``examples/multihost/demo_torch.py --procs 2``: 2 hosts of
    4 ranks sharing the card over gloo, every rank started with torchrun's
    environment; all ranks' losses agree and fall.
+17. deepseek — the DeepSeek-V2 cell (``dsv2_lite.train_l200``): the grouped
+   expert GEMM's six products at its shapes (64 experts, D 2,048, F 1,408,
+   ~91k routed rows, uneven, one expert empty) against their plain
+   versions (2^-8 of the largest |value| in bf16, 1e-4 for the f32 weight
+   gradients against the plain version in f64), two runs bit-equal, timed beside the plain loop, their bound
+   and ``torch._grouped_mm`` where this PyTorch has it; the expert layer's
+   two gathers at 25,984 tokens of 6 rows; the uneven attention forward and
+   backward at (128, 203), 16 heads of q/k 192 and v 128, against their
+   plain versions (the blockwise tolerances, lse 1e-4), two runs
+   bit-equal, timed beside the plain versions, their bound and SDPA; the
+   gather without positions bit-equal to its plain version; then the
+   cell's own train step (its benchmark session, published widths, B 128):
+   exact launches of one step (gather 1, uneven forward and backward 5
+   each, grouped GEMM 24, gather-sums 16, gather-dots 4, CE forward, dx and
+   dW 1 each, Adam by its capacity, nothing else), five steps timed, every
+   loss finite, peak memory printed.
 
 The line before the last is the card's name and power limit; the line
 before that is the kernels' JSON summary; the last line is the device JSON.
@@ -3467,6 +3483,301 @@ def phase_multihost(card: str) -> None:
         raise AssertionError(f"multihost demo failed ({out.returncode}): {out.stderr[-3000:]}")
 
 
+# the deepseek phase: the DeepSeek-V2 cell's kernels at its shapes and its
+# train step (portbench's dsv2_lite.train_l200 session, the published widths)
+DSV2_WORKLOAD = "dsv2_lite.train_l200"
+DSV2_SEED = 2718281828
+DSV2_E, DSV2_D, DSV2_F = 64, 2048, 1408
+DSV2_ROUTED_ROWS = 91_000  # ~15.1k real tokens x 6 experts
+DSV2_TOKENS = 25_984  # the cell's 128 x 203 slots
+# tolerances (the card tests' in tests/test_torch_deepseek_v2_cuda.py):
+# grouped products' bf16 outputs within 2^-8 of the largest |value| of the
+# plain version (one rounding of an f32 sum to bf16 is at most 2^-9 of the
+# value), the f32 weight gradient within 1e-4 of the largest of the plain
+# version in f64 (the tensor cores' f32 sums over up to ~8,000 rows of an
+# expert: 1.4e-5 measured, above the card test's 1e-5 of each expert's own
+# largest, which its smaller experts meet); the gathers' weighted sum within 2^-8,
+# the dots within 1e-5 of the largest; the uneven attention as the blockwise
+# kernels (ATTN_TOL, ATTN_BWD_TOL), lse within 1e-4
+DSV2_GROUPED_TOL = {torch.bfloat16: 2.0**-8, torch.float32: 1e-5}
+DSV2_DW_TOL = 1e-4
+DSV2_LSE_TOL = 1e-4
+
+
+def _dsv2_offsets(rows_total: int, seed: int):
+    """Uneven per-expert counts of ``rows_total`` rows over the 64 experts,
+    expert 5 empty, each padded to GROUP_ROWS as the expert layer pads it:
+    (offsets int32 on the card, counts, buffer rows)."""
+    from bert4clickpath_torch.ops.kernels import grouped_gemm as gg
+
+    rng = np.random.default_rng(seed)
+    share = rng.gamma(0.7, size=DSV2_E)
+    share[5] = 0
+    counts = np.floor(share / share.sum() * rows_total).astype(np.int64)
+    padded = -(-counts // gg.GROUP_ROWS) * gg.GROUP_ROWS
+    off = np.concatenate([[0], np.cumsum(padded)])
+    return torch.tensor(off, dtype=torch.int32, device="cuda"), counts, int(off[-1]) + 3 * gg.GROUP_ROWS
+
+
+def _dsv2_rows(off, counts, rows: int, width: int, seed: int) -> torch.Tensor:
+    gen = torch.Generator("cuda").manual_seed(seed)
+    x = torch.zeros(rows, width, dtype=torch.bfloat16, device="cuda")
+    o = off.tolist()
+    for e in range(DSV2_E):
+        if counts[e]:
+            x[o[e] : o[e] + counts[e]] = torch.randn(int(counts[e]), width, generator=gen, device="cuda").bfloat16()
+    return x
+
+
+def _held_rel(tag: str, got, want, tol: float) -> float:
+    """Largest |got - want| over the largest |want|; raises past ``tol``."""
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    if err > tol * scale:
+        raise AssertionError(f"[deepseek] {tag}: error {err:.3e} past {tol:.1e} of the largest |value| {scale:.3e}")
+    return err
+
+
+def _library_grouped_ms(x, w, off, as_lies: bool):
+    """``torch._grouped_mm`` on the same operands where this PyTorch has it
+    (a yardstick only; its signature varies by version): ms or None."""
+    grouped = getattr(torch, "_grouped_mm", None)
+    if grouped is None:
+        return None
+    wt = w if as_lies else w.transpose(1, 2)
+    try:
+        return device_time_ms(lambda: grouped(x, wt, off[1:]), reps=10, warm=2)
+    except Exception as exc:  # noqa: BLE001 - a private call
+        log(f"[deepseek] torch._grouped_mm refused the operands: {repr(exc)[:160]}")
+        return None
+
+
+def dsv2_grouped_kernels(card: str) -> dict:
+    """The grouped expert GEMM's three products at the cell's shapes (64
+    experts, D 2,048, F 1,408, ~91k routed rows, uneven, one expert empty)
+    against their plain versions (a per-expert loop of ``torch.mm``), timed
+    beside them, their bound and ``torch._grouped_mm``."""
+    from bert4clickpath_torch.ops.kernels import grouped_gemm as gg
+
+    off, counts, rows = _dsv2_offsets(DSV2_ROUTED_ROWS, seed=0)
+    real = int(counts.sum())
+    out = {}
+    cases = (("gate_up", 2 * DSV2_F, DSV2_D, False), ("down", DSV2_D, DSV2_F, False),
+             ("dx_gate_up", DSV2_D, 2 * DSV2_F, True), ("dx_down", DSV2_F, DSV2_D, True))
+    for i, (name, n, k, as_lies) in enumerate(cases):
+        x = _dsv2_rows(off, counts, rows, k, seed=10 + i)
+        w = (torch.randn(DSV2_E, *((k, n) if as_lies else (n, k)), device="cuda") / k**0.5).bfloat16()
+        product = gg.grouped_mm_w if as_lies else gg.grouped_mm
+        plain = gg.grouped_mm_w_reference if as_lies else gg.grouped_mm_reference
+        got, want = product(x, w, off), plain(x, w, off)
+        err = _held_rel(f"grouped {name}", got, want, DSV2_GROUPED_TOL[torch.bfloat16])
+        if not torch.equal(got, product(x, w, off)):
+            raise AssertionError(f"[deepseek] grouped {name}: two runs differ")
+        row = dict(max_abs_err=err, ms=device_time_ms(lambda: product(x, w, off), reps=10, warm=2),
+                   plain_ms=device_time_ms(lambda: plain(x, w, off), reps=3, warm=1),
+                   library_ms=_library_grouped_ms(x, w, off, as_lies),
+                   **bound(2.0 * (DSV2_E * n * k + rows * (n + k)), {"bf16": 2.0 * real * n * k}))
+        out[name] = row
+        del x, w, got, want
+    for i, (name, n, k) in enumerate((("dw_gate_up", 2 * DSV2_F, DSV2_D), ("dw_down", DSV2_D, DSV2_F))):
+        dy = _dsv2_rows(off, counts, rows, n, seed=20 + i)
+        x = _dsv2_rows(off, counts, rows, k, seed=30 + i)
+        # held against the plain version on the same bf16 values in f64 (its
+        # bf16 products would round the f32 output to bf16); the bf16 one timed
+        plain = lambda: gg.grouped_mm_dw_reference(dy, x, off)  # noqa: E731
+        got, want = gg.grouped_mm_dw(dy, x, off), gg.grouped_mm_dw_reference(dy.double(), x.double(), off)
+        if got[5].any():
+            raise AssertionError("[deepseek] grouped dW: the empty expert's gradient is not 0")
+        err = _held_rel(f"grouped {name}", got, want, DSV2_DW_TOL)
+        out[name] = dict(max_abs_err=err, ms=device_time_ms(lambda: gg.grouped_mm_dw(dy, x, off), reps=10, warm=2),
+                         plain_ms=device_time_ms(plain, reps=3, warm=1),
+                         library_ms=None,
+                         **bound(2.0 * rows * (n + k) + 4.0 * DSV2_E * n * k, {"bf16": 2.0 * real * n * k}))
+        del dy, x, got, want
+    for name, row in out.items():
+        log(f"[deepseek] grouped {name}: err {row['max_abs_err']:.3e}; kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, library {row['library_ms']}, bound {row['bound_ms']:.4f} ms by "
+            f"{row['bound_by']} (share {row['bound_ms'] / row['ms']:.3f}) [{card}]")
+    # the summary's row: one step's products at these shapes, summed
+    total = {key: sum(row[key] for row in out.values()) for key in ("max_abs_err", "ms", "plain_ms", "bound_ms")}
+    total["max_abs_err"] = max(row["max_abs_err"] for row in out.values())
+    libs = [row["library_ms"] for row in out.values()]
+    total["library_ms"] = None if None in libs else sum(libs)
+    total["bound_by"] = "operations"
+    torch.cuda.empty_cache()
+    return total
+
+
+def dsv2_gather_kernels(card: str) -> dict:
+    """The expert layer's gathers at the cell's shapes (25,984 tokens, 6
+    rows each, D 2,048; some indices name no row) against their plain
+    versions, bit-equal on a repeat, timed beside their bytes bound."""
+    from bert4clickpath_torch.ops.kernels import moe_gather
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 40)
+    t, k, r = DSV2_TOKENS, 6, 164_096
+    rows = torch.randn(r, DSV2_D, generator=gen, device="cuda").bfloat16()
+    idx = torch.randint(0, r + 2000, (t, k), generator=gen, device="cuda")
+    w = torch.rand(t, k, generator=gen, device="cuda")
+    grad = torch.randn(t, DSV2_D, generator=gen, device="cuda").bfloat16()
+    out = {}
+    for name, fn, plain, tol in (
+        ("moe_gather_sum", lambda: moe_gather.gather_sum(rows, idx, w),
+         lambda: moe_gather.gather_sum_reference(rows, idx, w), DSV2_GROUPED_TOL[torch.bfloat16]),
+        ("moe_gather_dot", lambda: moe_gather.gather_dot(rows, idx, grad),
+         lambda: moe_gather.gather_dot_reference(rows, idx, grad), DSV2_GROUPED_TOL[torch.float32]),
+    ):
+        got = fn()
+        err = _held_rel(name, got, plain(), tol)
+        if not torch.equal(got, fn()):
+            raise AssertionError(f"[deepseek] {name}: two runs differ")
+        out[name] = dict(max_abs_err=err, ms=device_time_ms(fn, reps=20), plain_ms=device_time_ms(plain, reps=5),
+                         library_ms=None, **bound(2.0 * (t * k * DSV2_D + t * DSV2_D) + 12.0 * t * k, {}))
+        log(f"[deepseek] {name}: err {err:.3e}; kernel {out[name]['ms']:.4f} ms, plain {out[name]['plain_ms']:.4f} ms, "
+            f"bound {out[name]['bound_ms']:.4f} ms (share {out[name]['bound_ms'] / out[name]['ms']:.3f}) [{card}]")
+    return out
+
+
+def dsv2_attention_kernels(card: str) -> dict:
+    """The uneven attention kernels at the cell's shapes (B 128, L 203, 16
+    heads of q/k 192 and v 128, the block's YaRN scale, sessions 20..203
+    long) against their plain versions (the blockwise family's roundings),
+    two runs bit-equal, timed beside the plain versions, their bounds and
+    ``F.scaled_dot_product_attention`` (a yardstick only)."""
+    import torch.nn.functional as F
+
+    from bert4clickpath_torch.config import DeepSeekV2Config
+    from bert4clickpath_torch.models.deepseek_v2 import yarn_scale
+    from bert4clickpath_torch.ops.kernels import attention as att
+
+    b, l, h, dqk, dv = 128, 203, 16, 192, 128
+    scale = yarn_scale(DeepSeekV2Config())
+    gen = torch.Generator("cuda").manual_seed(SEED + 41)
+    q, k = (torch.randn(b, l, h * dqk, generator=gen, device="cuda").bfloat16() for _ in range(2))
+    v, do = (torch.randn(b, l, h * dv, generator=gen, device="cuda").bfloat16() for _ in range(2))
+    lengths = torch.randint(20, l + 1, (b,), generator=gen, device="cuda")
+    bias = torch.where(torch.arange(l, device="cuda")[None, :] < lengths[:, None], 0.0, -1e9)
+    bias = bias[:, None, None, :].float().contiguous()
+    out, lse = att.uneven_mha_forward(q, k, v, bias, h, scale)
+    want_out, want_lse = att.blockwise_mha_reference(q, k, v, bias, h, scale)
+    err_fwd = (out.float() - want_out.float()).abs().max().item()
+    err_lse = (lse - want_lse).abs().max().item()
+    if err_fwd > ATTN_TOL[torch.bfloat16] or err_lse > DSV2_LSE_TOL:
+        raise AssertionError(f"[deepseek] uneven forward: out {err_fwd:.3e}, lse {err_lse:.3e}")
+    grads = att.uneven_mha_backward(q, k, v, bias, out, lse, do, h, scale)
+    args = (q, k, v, bias, lse, do, att.attention_delta(do, out, h), h, scale)
+    want = (att.blockwise_dq_reference(*args), *att.blockwise_dkv_reference(*args))
+    atol, rtol = ATTN_BWD_TOL[torch.bfloat16]
+    err_bwd = 0.0
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, want):
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol, msg=f"[deepseek] uneven {name}")
+        err_bwd = max(err_bwd, (got.float() - ref.float()).abs().max().item())
+    again = att.uneven_mha_forward(q, k, v, bias, h, scale)
+    if not (torch.equal(again[0], out) and torch.equal(again[1], lse)) or not all(
+            torch.equal(a, g) for a, g in zip(att.uneven_mha_backward(q, k, v, bias, out, lse, do, h, scale), grads)):
+        raise AssertionError("[deepseek] uneven attention: two runs differ")
+    del want, again
+    heads = lambda t: t.unflatten(-1, (h, -1)).transpose(1, 2)  # noqa: E731
+    qh, kh, vh = (heads(t).detach().requires_grad_() for t in (q, k, v))
+    mask = bias.to(q.dtype)
+    with torch.enable_grad():
+        lib_out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, scale=scale)
+    # work: the forward's two products and the backward's five, over all
+    # B L^2 pairs (what the kernels compute; padded keys too)
+    pairs = float(b) * l * l * h
+    x_qk, x_v, rows_f32 = b * l * h * dqk * 2, b * l * h * dv * 2, b * l * h * 4
+    fwd_bound = bound(2 * x_qk + 2 * x_v + b * l * 4 + rows_f32, {"bf16": 2.0 * pairs * (dqk + dv)})
+    bwd_bound = bound(4 * x_qk + 3 * x_v + b * l * 4 + 2 * rows_f32, {"bf16": 2.0 * pairs * (3 * dqk + 2 * dv)})
+    fwd = dict(max_abs_err=err_fwd, ms=device_time_ms(lambda: att.uneven_mha_forward(q, k, v, bias, h, scale), reps=20),
+               plain_ms=device_time_ms(lambda: att.blockwise_mha_reference(q, k, v, bias, h, scale), reps=3, warm=1),
+               library_ms=device_time_ms(lambda: F.scaled_dot_product_attention(
+                   qh.detach(), kh.detach(), vh.detach(), attn_mask=mask, scale=scale), reps=20),
+               **fwd_bound)
+    bwd = dict(max_abs_err=err_bwd,
+               ms=device_time_ms(lambda: att.uneven_mha_backward(q, k, v, bias, out, lse, do, h, scale), reps=20),
+               plain_ms=device_time_ms(lambda: (att.blockwise_dq_reference(*args), att.blockwise_dkv_reference(*args)),
+                                       reps=3, warm=1),
+               library_ms=device_time_ms(lambda: torch.autograd.grad(lib_out, (qh, kh, vh), heads(do), retain_graph=True),
+                                         reps=20),
+               **bwd_bound)
+    for name, row in (("forward", fwd), ("backward", bwd)):
+        log(f"[deepseek] uneven attention {name} at ({b}, {l}), {h} heads of ({dqk}, {dv}): err "
+            f"{row['max_abs_err']:.3e}; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, SDPA "
+            f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']} (share "
+            f"{row['bound_ms'] / row['ms']:.3f}) [{card}]")
+    del lib_out, qh, kh, vh
+    torch.cuda.empty_cache()
+    return {"uneven_fwd": fwd, "uneven_bwd": bwd}
+
+
+def dsv2_step_launches(card: str) -> dict:
+    """The cell's train step (its session: published widths, 5 layers, B
+    128, the native batcher's feed): warm-up steps, then one step after a
+    reset with exact launches, then a few timed; every loss finite."""
+    from bert4clickpath_torch.ops.kernels import _build
+    from bert4clickpath_torch.ops.kernels import adam as adam_kernels
+    from portbench.harness import manifest
+    from portbench.runners import train as bench_train
+
+    cell = manifest.cell(DSV2_WORKLOAD)
+    cfg = cell.config
+    session, _, _ = bench_train.build_session(cell, DSV2_SEED, torch.device("cuda", 0))
+    losses = [session.step(session.next()) for _ in range(3)]
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    losses.append(session.step(session.next()))
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    layers = cfg["num_hidden_layers"]
+    moe = layers - cfg["first_k_dense_replace"]
+    tensors = len(session.state.params)
+    want = {name: 0 for name in _build.KERNELS}
+    want.update(gather=1, uneven_fwd=layers, uneven_bwd=layers, grouped_gemm=6 * moe, moe_gather_sum=4 * moe,
+                moe_gather_dot=moe, ce_fwd=1, ce_bwd_dx=1, ce_bwd_dw=1,
+                adam=-(-tensors // adam_kernels.capacity()))
+    if counts != want:
+        raise AssertionError(f"[deepseek] launches of one step {counts}, want {want}")
+    t0 = time.perf_counter()
+    for _ in range(5):
+        losses.append(session.step(session.next()))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 5 * 1e3
+    values = [float(x) for x in losses]
+    if not all(np.isfinite(values)):
+        raise AssertionError(f"[deepseek] a loss is not finite: {values}")
+    log(f"[deepseek] {DSV2_WORKLOAD} step: launches {json.dumps({k: v for k, v in counts.items() if v})}; "
+        f"{ms:.2f} ms a step over 5; losses {values[0]:.4f} .. {values[-1]:.4f}; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
+    session.close()
+    del session
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_deepseek(card: str) -> tuple[dict, dict]:
+    """The DeepSeek-V2 cell's kernels at its shapes, each against its plain
+    version with the tolerance stated and timed (the grouped GEMM's six
+    products, the expert layer's two gathers, the uneven attention forward
+    and backward, the gather without positions), then its train step with
+    exact launches: (kernel rows, the step's launch counts)."""
+    from bert4clickpath_torch.ops.kernels.gather import gather_scale_pos, gather_scale_pos_reference
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = dsv2_attention_kernels(card)
+    kernels["grouped_gemm"] = dsv2_grouped_kernels(card)
+    kernels.update(dsv2_gather_kernels(card))
+    gen = torch.Generator("cuda").manual_seed(SEED + 42)
+    table = torch.randn(102_400, DSV2_D, generator=gen, device="cuda")
+    ids = torch.randint(0, 102_400, (128, 203), generator=gen, device="cuda", dtype=torch.int32)
+    if not torch.equal(gather_scale_pos(table, ids, None, DSV2_D**0.5, torch.bfloat16),
+                       gather_scale_pos_reference(table, ids, None, DSV2_D**0.5, torch.bfloat16)):
+        raise AssertionError("[deepseek] the gather without positions differs from its plain version")
+    log("[deepseek] gather without positions at (128, 203), D 2,048: bit-equal to the plain version")
+    del table, ids
+    return kernels, dsv2_step_launches(card)
+
+
 def main() -> None:
     walls = {}
 
@@ -3496,6 +3807,8 @@ def main() -> None:
     large, stress_counts = timed("large-catalog", phase_large_catalog, card)
     kernels.update(large)
     timed("multihost", phase_multihost, card)
+    dsv2_kernels, dsv2_counts = timed("deepseek", phase_deepseek, card)
+    kernels.update(dsv2_kernels)
     # name, source, TPU kernel, counter (= key in `kernels`), the main path
     # whose launches are reported: the flagship train step's timed window,
     # the long-session train step's, or one step of the wide training run
@@ -3531,6 +3844,13 @@ def main() -> None:
         # fusion) at the flagship's and the large catalog's parameter sets
         ("adam", "adam.cu", None, "adam", train),
         ("adam_large", "adam.cu", None, "adam_large", {"counts": stress_counts}),
+        # the DeepSeek-V2 cell's step (no TPU kernel for the expert layer;
+        # the uneven heads are the whole-row attention kernels' work there)
+        ("grouped_gemm", "grouped_gemm.cu", None, "grouped_gemm", {"counts": dsv2_counts}),
+        ("moe_gather_sum", "moe_gather.cu", None, "moe_gather_sum", {"counts": dsv2_counts}),
+        ("moe_gather_dot", "moe_gather.cu", None, "moe_gather_dot", {"counts": dsv2_counts}),
+        ("uneven_mha_fwd", "attention_uneven.cu", "attention.py:54", "uneven_fwd", {"counts": dsv2_counts}),
+        ("uneven_mha_bwd", "attention_uneven.cu", "attention.py:76", "uneven_bwd", {"counts": dsv2_counts}),
     ]
     summary = {"kernels": [
         {

@@ -210,6 +210,32 @@ def test_support_rules_equal_jax(tier, monkeypatch):
     assert changed == {(t, labels[f]) for t, fs in DEPARTURES.items() for f in fs}
 
 
+@pytest.mark.parametrize("tier", jsupport.TIERS)
+def test_tiers_refuse_the_deepseek_block_by_name(tier):
+    """Every tier but the single-device step refuses the DeepSeek-V2 block
+    by name, through validate_tier and through check_tier on such a model
+    (none of them shards the experts or adds the balance loss); BERT4Rec's
+    block is left to the matrix."""
+    from bert4clickpath_torch.config import DeepSeekV2Config, FeatureConfig, HeadConfig
+    from bert4clickpath_torch.parallel import spmd
+
+    cfg = ModelConfig(features={"items": FeatureConfig(128, 64)}, num_layers=2, num_heads=2, ffn_dim=64,
+                      dropout_rate=0.0, positional="rope", norm_style="pre",
+                      head=HeadConfig("tied_softmax", output_size=100),
+                      block=DeepSeekV2Config(kv_lora_rank=16, qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
+                                             n_routed_experts=4, num_experts_per_tok=2, moe_intermediate_size=8))
+    model = ClickstreamModel(cfg, device="meta")
+    if tier == "single":
+        support.validate_tier(tier, "tied_softmax", block="deepseek_v2")
+        spmd.check_tier(model, tier)
+        return
+    with pytest.raises(ValueError, match=f"tier {tier!r} rejects block 'deepseek_v2'"):
+        support.validate_tier(tier, "tied_softmax", block="deepseek_v2")
+    with pytest.raises(ValueError, match="rejects block 'deepseek_v2'"):
+        spmd.check_tier(model, tier)
+    support.validate_tier("single", "tied_softmax", block="bert4rec")
+
+
 # -- the plain CE versions with row_start ------------------------------------
 
 

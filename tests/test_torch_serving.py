@@ -263,11 +263,15 @@ def test_cuda_server_refuses_to_fall_back(tied):
 
 
 def test_dataclasses_match_jax_fields():
-    """The copied config keeps the JAX package's fields and defaults."""
+    """The copied config keeps the JAX package's fields and defaults; the
+    port's own fields (``PORT_ONLY_FIELDS``) follow them, defaulting to
+    None (BERT4Rec's block, as the JAX package builds it)."""
     from bert4clickpath_torch import config as tc
     from bert4clickpath_tpu import config as jc
 
     for name in ("FeatureConfig", "HeadConfig", "ModelConfig", "TrainConfig", "MeshConfig"):
         jf = [(f.name, f.default) for f in dataclasses.fields(getattr(jc, name))]
         tf = [(f.name, f.default) for f in dataclasses.fields(getattr(tc, name))]
-        assert jf == tf, name
+        extra = tc.PORT_ONLY_FIELDS if name == "ModelConfig" else ()
+        assert jf == tf[: len(tf) - len(extra)], name
+        assert tf[len(jf):] == [(f, None) for f in extra], name

@@ -407,3 +407,59 @@ def test_counters_lose_no_update_across_threads():
         sys.setswitchinterval(interval)
     assert profiling.counters()["test.shared"] == (threads * per, 0.5 * threads * per)
     profiling.reset()
+
+
+# the forward's blocks of each span in a step of 1 dense + 2 MoE layers
+DEEPSEEK_SPANS = {"b4cp.mla": 2 * 3, "b4cp.moe.route": 2 * 2, "b4cp.moe.experts": 2, "b4cp.moe.shared": 2}
+
+
+def test_deepseek_block_spans_nest_in_the_encoder(tmp_path, monkeypatch):
+    """A train step of the DeepSeek-V2 block under the profiler: the four
+    new spans are user ranges, forward and backward, each forward range
+    inside a ``b4cp.encoder`` range of its thread; the forward of each MoE
+    layer calls the grouped products twice (the fused gate-up and the down
+    product: two launches of ``kernels.grouped_gemm`` on the card, which
+    ``test_torch_deepseek_v2_cuda.py`` counts there), the backward each
+    one's input and weight gradient; the loss and every gradient
+    bit-equal to the same step off the profiler."""
+    from bert4clickpath_torch.config import DeepSeekV2Config
+    from bert4clickpath_torch.ops.kernels import grouped_gemm as gg
+
+    block = DeepSeekV2Config(kv_lora_rank=16, qk_nope_head_dim=8, qk_rope_head_dim=8, v_head_dim=8,
+                             n_routed_experts=4, num_experts_per_tok=2, moe_intermediate_size=8)
+    cfg = ModelConfig(features={"items": FeatureConfig(160, D)}, num_layers=3, num_heads=2, ffn_dim=32,
+                      dropout_rate=0.0, max_len=MAX_ITEMS + 3, positional="rope", norm_style="pre",
+                      head=HeadConfig("tied_softmax", output_size=N_ITEMS), max_masked=P, dtype="float32",
+                      block=block)
+    calls = []
+    for name in ("grouped_mm", "grouped_mm_w", "grouped_mm_dw"):
+        real = getattr(gg, name)
+        monkeypatch.setattr(gg, name, lambda *a, real=real, name=name: calls.append(name) or real(*a))
+
+    def step():
+        model = ClickstreamModel(cfg, device="cpu")
+        g = torch.Generator().manual_seed(0)
+        with torch.no_grad():
+            for _, p in model.named_parameters():
+                p.copy_(torch.ones_like(p) if p.dim() == 1 else torch.randn(p.shape, generator=g) / p.shape[-1] ** 0.5)
+        batch = to_device(next(_dataset().train_batches(B, seed=0)), "cpu")
+        loss = tts.make_loss_fn(model, fused_ce_num_valid=N_ITEMS)(batch)
+        forward = len(calls)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        return loss, grads, forward
+
+    loss_off, grads_off, forward = step()
+    assert calls[:forward] == ["grouped_mm"] * 2 * 2  # 2 MoE layers
+    assert sorted(calls[forward:]) == ["grouped_mm_dw"] * 2 * 2 + ["grouped_mm_w"] * 2 * 2
+    calls.clear()
+    with profiling.trace(str(tmp_path)) as _:
+        loss_on, grads_on, _ = step()
+    assert torch.equal(loss_off, loss_on) and all(torch.equal(a, b) for a, b in zip(grads_off, grads_on))
+    (name,) = os.listdir(tmp_path)
+    with open(tmp_path / name) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    encoder = _ranges(events, "b4cp.encoder")
+    for span, blocks in DEEPSEEK_SPANS.items():
+        ranges = _ranges(events, span)
+        assert len(ranges) >= 2 * blocks, span  # forward and backward
+        assert all(_inside(r, encoder) for r in ranges), span
